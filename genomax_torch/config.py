@@ -1,0 +1,42 @@
+"""Engine configuration of the port.
+
+``genomax.config.EngineConfig`` resolves its backend through jax, so the
+port keeps its own config holding only the knobs its path reads. There is
+no backend resolver: the engine takes an explicit ``torch.device``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+# The SW kernel runs one thread per x row of a pair, and a CUDA block holds
+# at most 1024 threads (csrc/sw_tile.cu).
+MAX_KERNEL_ROWS = 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    # Pairs with len(sx) + 2 > max_device_len, or len(sx) + len(sy) + 1 >
+    # max_device_diags, leave the device kernel for the native model
+    # (the same predicate as genomax.engine.executor._sw_offload_mask).
+    max_device_len: int = 1024
+    max_device_diags: int = 1 << 20
+    # Routers of the JAX engine whose kernels are not ported yet. The port
+    # runs the JAX engine's sw_strips=False, sw_rotor=False configuration,
+    # in which every SW bucket takes the resident lane-tile kernel.
+    sw_strips: bool = False
+    sw_rotor: bool = False
+
+    def __post_init__(self):
+        if self.sw_strips:
+            raise NotImplementedError(
+                "sw_strips: the strip-mined SW kernel is not ported yet "
+                "(ROADMAP queue 2 item 1)")
+        if self.sw_rotor:
+            raise NotImplementedError(
+                "sw_rotor: the short-pair rotor SW kernel is not ported yet "
+                "(ROADMAP queue 2 item 3)")
+        if not 8 <= self.max_device_len <= MAX_KERNEL_ROWS:
+            raise ValueError(
+                f"max_device_len={self.max_device_len}: the SW kernel takes "
+                f"8 to {MAX_KERNEL_ROWS} x rows per pair")
