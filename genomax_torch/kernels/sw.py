@@ -42,7 +42,7 @@ def sw_forward(sx: torch.Tensor, sy: torch.Tensor, ndiag_tile: torch.Tensor,
 
 def _launch(sx, sy, ndiag_tile, cfg: SWConfig) -> torch.Tensor:
     global launches
-    lib = _build.load("sw_tile", "sw_tile_launch", _ARGTYPES)
+    launch = _build.load("sw_tile", "sw_tile_launch", _ARGTYPES)
     nt, nxs, lanes = sx.shape
     if not (sx.is_cuda and sy.device == sx.device
             and ndiag_tile.device == sx.device):
@@ -68,7 +68,7 @@ def _launch(sx, sy, ndiag_tile, cfg: SWConfig) -> torch.Tensor:
         return out
     with torch.cuda.device(sx.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.sw_tile_launch(
+        err = launch(
             sx.data_ptr(), sy.data_ptr(), ndiag_tile.data_ptr(),
             out.data_ptr(), nt, nxs, sy.shape[1], cfg.match, cfg.mismatch,
             cfg.gap_open, cfg.gap_extend, stream)
