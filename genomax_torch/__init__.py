@@ -2,17 +2,19 @@
 
 The port of the JAX package ``genomax`` to one NVIDIA H100. The jax-free
 host layer of ``genomax`` (input formats, packing, layout constants,
-``SWConfig``, the native golden model and the numpy oracle) is imported,
-not copied; this package adds what runs on the card:
+``SWConfig``, ``PairHMMConfig``, the native golden model and the numpy
+oracle) is imported, not copied; this package adds what runs on the card:
 
-    config.py           engine knobs of the ported path (explicit device)
+    config.py           engine knobs of the ported paths (explicit device)
     pack.py             packed buckets -> tensors on a device
-    kernels/wavefront   plain PyTorch Smith-Waterman wavefront (reference)
-    kernels/sw          wrapper of the hand-written CUDA kernel
+    kernels/wavefront   plain PyTorch SW and PairHMM wavefronts (references)
+    kernels/expand      PairHMM quality expansion and factored gather
+    kernels/sw          wrapper of the hand-written CUDA SW kernel
+    kernels/pairhmm     wrapper of the hand-written CUDA PairHMM kernel
     kernels/_build      nvcc build of csrc/ at first use, loaded with ctypes
     csrc/               CUDA C++ sources for sm_90a
-    engine/executor     Engine: offload, pack, launch, unpack
-    cli/                ``python -m genomax_torch sw``
+    engine/executor     Engine: offload, pack, launch, unpack, fp64 fallback
+    cli/                ``python -m genomax_torch sw|pairhmm``
 
 Importing the package imports neither jax nor torch and compiles nothing.
 """
@@ -30,4 +32,8 @@ def __getattr__(name):
         from genomax.config import SWConfig
 
         return SWConfig
+    if name == "PairHMMConfig":
+        from genomax.config import PairHMMConfig
+
+        return PairHMMConfig
     raise AttributeError(name)

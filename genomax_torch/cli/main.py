@@ -1,9 +1,12 @@
-"""Command line of the port: ``python -m genomax_torch sw <input>``.
+"""Command line of the port: ``python -m genomax_torch sw <input>`` and
+``python -m genomax_torch pairhmm <input> <output>``.
 
-The same flags and output as ``genomax sw``: one "Score: %d" line per pair
-(appended to --output when given), then "elapsed %f"; --stats prints the
-run's RunStats as JSON on stderr. --device picks the torch device, and
-there is no fallback from one to the other.
+The same flags and output as ``genomax sw`` and ``genomax pairhmm``: sw
+prints one "Score: %d" line per pair (appended to --output when given);
+pairhmm writes one "%f" log10 likelihood per line to <output>,
+overwriting it; both then print "elapsed %f". --stats prints the run's
+RunStats as JSON on stderr. --device picks the torch device, and there is
+no fallback from one to the other.
 """
 
 from __future__ import annotations
@@ -40,6 +43,25 @@ def cmd_sw(args) -> int:
     return 0
 
 
+def cmd_pairhmm(args) -> int:
+    from genomax.config import PairHMMConfig
+    from genomax.io.formats import parse_pairhmm_file, write_pairhmm_output
+
+    from genomax_torch.engine.executor import Engine
+
+    eng = Engine(phmm_cfg=PairHMMConfig(gatk_emission=args.gatk_emission),
+                 device=args.device)
+    batches = parse_pairhmm_file(args.input)
+    t0 = time.time()
+    values = eng.pairhmm(batches)
+    elapsed = time.time() - t0
+    write_pairhmm_output(args.output, values)
+    print("elapsed %f" % elapsed)
+    if args.stats:
+        print(json.dumps(eng.last_stats.as_dict()), file=sys.stderr)
+    return 0
+
+
 def main(argv=None) -> int:
     import genomax_torch
 
@@ -61,6 +83,17 @@ def main(argv=None) -> int:
     p.add_argument("--stats", action="store_true",
                    help="print JSON run stats to stderr")
     p.set_defaults(fn=cmd_sw)
+    p = sub.add_parser("pairhmm", help="PairHMM forward log10 likelihoods "
+                                       "for a reads x haplotypes file")
+    p.add_argument("input")
+    p.add_argument("output", help="one '%%f' value per line (overwritten)")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    p.add_argument("--gatk-emission", action="store_true",
+                   help="GATK mismatch emission Qr/3 instead of the "
+                        "reference's plain Qr")
+    p.add_argument("--stats", action="store_true",
+                   help="print JSON run stats to stderr")
+    p.set_defaults(fn=cmd_pairhmm)
     args = ap.parse_args(argv)
     try:
         return args.fn(args)

@@ -12,6 +12,12 @@ import dataclasses
 # The SW kernel runs one thread per x row of a pair, and a CUDA block holds
 # at most 1024 threads (csrc/sw_tile.cu).
 MAX_KERNEL_ROWS = 1024
+# The PairHMM kernel runs one thread per read row; the engine sends it reads
+# under max_device_len // 2 (csrc/pairhmm_tile.cu).
+MAX_PHMM_ROWS = MAX_KERNEL_ROWS // 2
+# Rescale periods the packs reserve stream slack for (genomax.layout
+# MAX_UNROLL = 32 rows past every pair's last diagonal).
+RESCALE_PERIODS = (1, 2, 4, 8, 16, 32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -26,6 +32,15 @@ class EngineConfig:
     # in which every SW bucket takes the resident lane-tile kernel.
     sw_strips: bool = False
     sw_rotor: bool = False
+    # PairHMM knobs of genomax.config.EngineConfig, with its defaults: the
+    # fp32 exponent-rescale period in diagonals; the log10 threshold below
+    # which (or when non-finite) a result is recomputed by the native fp64
+    # model, None disabling it; and the factored host-to-device pack (each
+    # unique read and haplotype shipped once, the job tiles gathered on the
+    # device).
+    rescale_period: int = 32
+    phmm_fallback_threshold: float | None = -45.0
+    factored_transfer: bool = True
 
     def __post_init__(self):
         if self.sw_strips:
@@ -40,3 +55,8 @@ class EngineConfig:
             raise ValueError(
                 f"max_device_len={self.max_device_len}: the SW kernel takes "
                 f"8 to {MAX_KERNEL_ROWS} x rows per pair")
+        if self.rescale_period not in RESCALE_PERIODS:
+            raise ValueError(
+                f"rescale_period={self.rescale_period}: want one of "
+                f"{RESCALE_PERIODS} (the packs reserve 32 rows of stream "
+                "slack past each pair)")

@@ -1,11 +1,12 @@
-"""Plain PyTorch Smith-Waterman wavefront: the torch twin of the SW half of
-``genomax/kernels/wavefront.py``.
+"""Plain PyTorch wavefronts: the torch twin of ``genomax/kernels/wavefront.py``
+(Smith-Waterman and the PairHMM forward).
 
-It is the plain reference of the CUDA kernel in ``csrc/sw_tile.cu``: the
-CPU path of ``kernels.sw.sw_forward`` runs it, the tests hold it against
-the JAX package, and ``chip_smoke.py`` holds the kernel against it on the
-card. It keeps the JAX formulation as it is, so the two can be read side
-by side:
+They are the plain references of the CUDA kernels ``csrc/sw_tile.cu`` and
+``csrc/pairhmm_tile.cu``: the CPU paths of ``kernels.sw.sw_forward`` and
+``kernels.pairhmm.pairhmm_forward`` run them, the tests hold them against
+the JAX package, and ``chip_smoke.py`` holds the kernels against them on
+the card. They keep the JAX formulation as it is, so the two can be read
+side by side:
 
   * the ``(NXs, L)`` layout: x position on axis 0, one pair per column;
   * the reversed diagonal stream, anchored at A = NDs - NXs: the window of
@@ -14,7 +15,12 @@ by side:
     so cells outside a pair's matrix decay and never feed a real cell;
   * the -KILL pins on the boundary rows, which make the circular
     ``torch.roll`` of the carried diagonals act as the first-column
-    boundary (D = 0, Q = 0 at row 0).
+    boundary (D = 0, Q = 0 at row 0);
+  * PairHMM in fp32 with the 2**120 initial constant, a per-pair 2**80
+    rescale when the live window's peak falls below 2**40, checked once
+    per block of ``rescale_period`` diagonals, and a likelihood
+    accumulator that carries its own exponent (the JAX docstrings of
+    ``phmm_step`` and ``phmm_rescale`` hold the proofs).
 """
 
 from __future__ import annotations
@@ -26,6 +32,15 @@ from genomax.config import SWConfig
 # Boundary-row kill constant, as in genomax/kernels/wavefront.py: it
 # dominates any real score chain and keeps every int32 add from wrapping.
 KILL = 1 << 28
+
+# PairHMM fp32 scaling scheme (genomax/kernels/wavefront.py:100-105).
+PHMM_INIT_LOG2 = 120  # initial constant = 2**120
+PHMM_RESCALE_TRIGGER = 2.0**40
+PHMM_RESCALE_FACTOR = 2.0**80
+PHMM_RESCALE_LOG10 = 80 * 0.30102999566398120  # log10(2**80)
+PHMM_INIT_LOG10 = 120 * 0.30102999566398120
+_N_CODE = ord("N")
+_N_BITMASK = 15  # 'N' in the pack's match-bitmask codes
 
 
 def sw_make_consts(sxb: torch.Tensor, cfg: SWConfig):
@@ -91,3 +106,176 @@ def sw_forward_tiles(sx: torch.Tensor, sy: torch.Tensor,
     flat_y = sy.permute(1, 0, 2).reshape(sy.shape[1], nt * lanes)
     scores = sw_forward_dense(flat_x, flat_y, int(ndiag_tile.max()), cfg)
     return scores.reshape(nt, lanes)
+
+
+# ---------------------------------------------------------------------------
+# PairHMM forward
+# ---------------------------------------------------------------------------
+
+
+def phmm_make_consts(rchar, qr, mmv, gapm, qi, qd, qg, rl, hl,
+                     mm_div: float = 1.0, bitmask: bool = False) -> dict:
+    """Loop-invariant (NXs, L) values (genomax wavefront.phmm_make_consts),
+    with its three folds: pm = 0 at row 0 and at rows past the read (every
+    M/X/Y product chain is then exactly zero outside the live matrix);
+    the read-'N' wildcard folded into qr; qg = 1 at row 0, so the row-0 Y
+    boundary constant persists from its initial state. rl, hl: (1, L)."""
+    nxs, lanes = qr.shape
+    ii = torch.arange(nxs, device=qr.device, dtype=torch.int32).unsqueeze(1)
+    ii = ii.expand(nxs, lanes)
+    row0 = ii == 0
+    y0 = (2.0**PHMM_INIT_LOG2) / hl.clamp_min(1).to(torch.float32)
+    dead = row0 | (ii > rl)
+    rn = rchar == (_N_BITMASK if bitmask else _N_CODE)
+    return dict(
+        rchar=rchar, bitmask=bitmask,
+        pm=torch.where(dead, 0.0, 1.0 - qr),
+        qr=torch.where(dead, 0.0,
+                       torch.where(rn, 1.0 - qr, qr * (1.0 / mm_div))),
+        mmv=mmv, gapm=gapm, qi=qi, qd=qd,
+        qg=torch.where(row0, 1.0, qg),
+        rlmask=ii == rl,
+        y0row=torch.where(row0, y0, 0.0),
+        rl=rl, hl=hl, rlhl=rl + hl, ii=ii,
+    )
+
+
+def phmm_make_state(z, y0row):
+    """(M1, Y1, M1s, X1s, Y1s, M2s, X2s, Y2s, acc, accb, cmul, acc_log)
+    (genomax wavefront.phmm_make_state): *1s are roll-by-one copies of
+    the previous diagonal, *2s of the one before it; Y1 starts at the
+    row-0 boundary constant. z: (NXs, L) f32 zeros."""
+    zc = z[0:1]
+    return (z, z + y0row, z, z, z, z, z, z, z, z, zc + 1.0, zc)
+
+
+def _roll1(x):
+    return torch.roll(x, 1, 0)
+
+
+def phmm_step(hw, d: int, state, c: dict):
+    """Anti-diagonal d of M/X/Y (genomax wavefront.phmm_step). hw: the
+    stream window of diagonal d, whose row i holds H[d-1-i] for the cell
+    (i, j = d-i). Raw (Mn+Xn) contributions of rows still inside the
+    pair's live diagonals collect in accb; only the read_len row is read
+    later, through the rlmask select."""
+    M1, Y1, M1s, X1s, Y1s, M2s, X2s, Y2s, acc, accb, cmul, acc_log = state
+    if c["bitmask"]:
+        match = (c["rchar"] & hw) != 0
+    else:
+        match = (c["rchar"] == hw) | (hw == _N_CODE)
+    p = torch.where(match, c["pm"], c["qr"])
+    Mn = p * (c["mmv"] * M2s + c["gapm"] * (X2s + Y2s))
+    Xn = M1s * c["qi"] + X1s * c["qg"]
+    Yn = M1 * c["qd"] + Y1 * c["qg"]
+    accb = accb + torch.where(d <= c["rlhl"], Mn + Xn, 0.0)
+    return (Mn, Yn, _roll1(Mn), _roll1(Xn), _roll1(Yn), M1s, X1s, Y1s,
+            acc, accb, cmul, acc_log)
+
+
+def phmm_rescale(state, d: int, c: dict):
+    """Per-pair exponent rescale after the block ending at diagonal d
+    (genomax wavefront.phmm_rescale): fold accb into acc, take the peak of
+    the live window over the last diagonals with the JAX masks v0/v1/v2
+    (written for this rolled layout), multiply every carry by 2**80 where
+    it fell below 2**40, and let the accumulator follow the scale while it
+    is small and freeze it after."""
+    M1, Y1, M1s, X1s, Y1s, M2s, X2s, Y2s, acc, accb, cmul, acc_log = state
+    acc = acc + accb * cmul
+    # Literal zeros: off-rl rows of accb may hold +inf, and inf - inf = NaN.
+    accb = torch.zeros_like(accb)
+    ii, rl, hl = c["ii"], c["rl"], c["hl"]
+    jv = d - ii
+    v0 = (ii <= rl) & (jv >= 0) & (jv <= hl)
+    jv1 = (d - 1) - (ii - 1)
+    v1 = (ii >= 1) & (ii - 1 <= rl) & (jv1 >= 0) & (jv1 <= hl)
+    jv2 = (d - 2) - (ii - 1)
+    v2 = (ii >= 1) & (ii - 1 <= rl) & (jv2 >= 0) & (jv2 <= hl)
+    live = torch.where(v0, torch.maximum(M1, Y1), 0.0)
+    live = torch.maximum(live, torch.where(
+        v1, torch.maximum(torch.maximum(M1s, X1s), Y1s), 0.0))
+    live = torch.maximum(live, torch.where(
+        v2, torch.maximum(torch.maximum(M2s, X2s), Y2s), 0.0))
+    peak = live.amax(dim=0, keepdim=True)
+    alive = d <= rl + hl + 1
+    need = alive & (peak > 0.0) & (peak < PHMM_RESCALE_TRIGGER)
+    f = torch.where(need, PHMM_RESCALE_FACTOR, 1.0)
+    # Only the rl row is the real accumulator: mask before reducing.
+    asum = torch.where(c["rlmask"], acc, 0.0).amax(dim=0, keepdim=True)
+    follow = need & (asum < PHMM_RESCALE_TRIGGER)
+    return (M1 * f, Y1 * f, M1s * f, X1s * f, Y1s * f, M2s * f, X2s * f,
+            Y2s * f,
+            acc * torch.where(follow, PHMM_RESCALE_FACTOR, 1.0),
+            accb,
+            cmul * torch.where(need & ~follow, 1.0 / PHMM_RESCALE_FACTOR, 1.0),
+            acc_log - torch.where(follow, PHMM_RESCALE_LOG10, 0.0))
+
+
+def phmm_finalize(state, c: dict):
+    """log10 of the read_len row's accumulator minus the 2**120 constant,
+    the exponent shifts folded back in; (L,) f32."""
+    acc, acc_log = state[8], state[11]
+    total = torch.where(c["rlmask"], acc, 0.0).sum(dim=0, keepdim=True)
+    return (torch.log10(total) + acc_log - PHMM_INIT_LOG10)[0]
+
+
+def phmm_forward_dense(rchar, qr, mmv, gapm, qi, qd, qg, hap_rev, rl, hl,
+                       n_diags: int, rescale_period: int = 32,
+                       mm_div: float = 1.0, bitmask: bool = False):
+    """PairHMM forward over the pairs packed in the columns (genomax
+    wavefront.phmm_forward_dense).
+
+    rchar: (NXs, L) int codes; the six quality planes: (NXs, L) f32 with
+    row i holding base i-1; hap_rev: (NDs, L) reversed diagonal stream;
+    rl, hl: (L,) true lengths; n_diags: diagonals to sweep, run in
+    ceil(n_diags / rescale_period) blocks of rescale_period steps with the
+    rescale after every block, the last included. Returns (L,) f32 log10
+    likelihoods relative to the reference constant.
+    """
+    nxs, lanes = qr.shape
+    anchor = hap_rev.shape[0] - nxs
+    n_blocks = -(-n_diags // rescale_period)
+    if n_diags < 0 or n_blocks * rescale_period > anchor + 1:
+        raise ValueError(f"n_diags={n_diags} rounded up to rescale_period="
+                         f"{rescale_period} runs past the stream window "
+                         f"(anchor {anchor})")
+    c = phmm_make_consts(rchar, qr, mmv, gapm, qi, qd, qg,
+                         rl.reshape(1, lanes), hl.reshape(1, lanes),
+                         mm_div, bitmask)
+    state = phmm_make_state(torch.zeros_like(qr), c["y0row"])
+    for blk in range(n_blocks):
+        base = blk * rescale_period
+        for d in range(base, base + rescale_period):
+            hw = hap_rev[anchor - d: anchor - d + nxs]
+            state = phmm_step(hw, d, state, c)
+        state = phmm_rescale(state, base + rescale_period - 1, c)
+    return phmm_finalize(state, c)
+
+
+def phmm_forward_tiles(rchar, qr, mmv, gapm, qi, qd, qg, hap, meta,
+                       ndiag_tile, rescale_period: int = 32,
+                       mm_div: float = 1.0,
+                       bitmask: bool = False) -> torch.Tensor:
+    """The same on a packed bucket, with the contract of
+    ``genomax.kernels.pairhmm_pallas.pairhmm_forward_pallas``: rchar
+    (NT, NXs, 128), six f32 planes (NT, NXs, 128), hap (NT, NDs, 128)
+    reversed stream, meta (NT, 8, 128) int32 (row 0 read_len, row 1
+    hap_len), ndiag_tile (NT,) -> (NT, 128) f32. All tiles sweep the
+    bucket's largest diagonal count: past its own last diagonal a pair
+    neither accumulates nor rescales, so the extra blocks change nothing."""
+    nt, nxs, lanes = rchar.shape
+    if nt == 0:
+        return torch.zeros((0, lanes), dtype=torch.float32,
+                           device=rchar.device)
+
+    def flat(x):
+        if x.dtype == torch.int8:
+            x = x.to(torch.int32)
+        return x.permute(1, 0, 2).reshape(x.shape[1], nt * lanes)
+
+    out = phmm_forward_dense(
+        flat(rchar), flat(qr), flat(mmv), flat(gapm), flat(qi), flat(qd),
+        flat(qg), flat(hap), meta[:, 0, :].reshape(-1),
+        meta[:, 1, :].reshape(-1), int(ndiag_tile.max()), rescale_period,
+        mm_div, bitmask)
+    return out.reshape(nt, lanes)

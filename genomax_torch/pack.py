@@ -1,11 +1,14 @@
-"""Packed SW buckets (``genomax.pack.bucketing.SWPacked``) as tensors on a
-device. The packing itself is the JAX package's, imported unchanged."""
+"""Packed buckets (``genomax.pack.bucketing.SWPacked`` and ``PairHMMPacked``)
+as tensors on a device. The packing itself is the JAX package's, imported
+unchanged."""
 
 from __future__ import annotations
 
 import torch
 
-from genomax.pack.bucketing import StreamBand, SWPacked
+from genomax.pack.bucketing import PairHMMPacked, StreamBand, SWPacked
+
+from genomax_torch.kernels.expand import expand_byte_quals, expand_factored
 
 
 def sw_bucket_to_torch(b: SWPacked, device: torch.device):
@@ -16,3 +19,27 @@ def sw_bucket_to_torch(b: SWPacked, device: torch.device):
     return (torch.from_numpy(b.sx).to(device),
             torch.from_numpy(sy).to(device),
             torch.from_numpy(b.ndiag_tile).to(device))
+
+
+def phmm_bucket_to_torch(b: PairHMMPacked, device: torch.device,
+                         phred_offset: float = 33.0):
+    """The ten inputs of ``kernels.pairhmm.pairhmm_forward`` on ``device``:
+    (rchar int8, qr, mmv, gapm, qi, qd, qg fp32, hap int8, meta int32,
+    ndiag_tile int32), the tiles (NT, NXs|NDs, 128), all contiguous.
+
+    A factored pack ships its unique rows and gather indices, and a
+    byte-quals pack its raw phred bytes; both expand on ``device``. An fp32
+    pack ships its six planes as they are."""
+    def dev(a):
+        return torch.from_numpy(a).to(device)
+
+    if b.rchar_u is not None:
+        tiles = expand_factored(dev(b.rchar_u), dev(b.qb_u), dev(b.hap_u),
+                                dev(b.ridx), dev(b.hidx), phred_offset)
+    else:
+        quals = (expand_byte_quals(dev(b.qb), phred_offset)
+                 if b.qb is not None else
+                 tuple(dev(a) for a in (b.qr, b.mmv, b.gapm, b.qi, b.qd,
+                                        b.qg)))
+        tiles = (dev(b.rchar),) + quals + (dev(b.hap),)
+    return tiles + (dev(b.meta), dev(b.ndiag_tile))

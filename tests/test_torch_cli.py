@@ -1,11 +1,13 @@
-"""`python -m genomax_torch sw` on the CPU: output format, --output append
-semantics and error codes, as tests/test_cli.py checks `genomax sw`."""
+"""`python -m genomax_torch sw` and `pairhmm` on the CPU: output format,
+--output append (sw) and overwrite (pairhmm) semantics, and error codes,
+as tests/test_cli.py checks `genomax sw` and `genomax pairhmm`."""
 
 import os
 import subprocess
 import sys
 
 from genomax_torch.cli.main import main
+from _torch_cpu import one_torch_thread  # noqa: F401
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -59,3 +61,30 @@ def test_cli_custom_scoring(capsys, golden_dir):
            if line.startswith("Score: ")]
     cfg = SWConfig(match=2, mismatch=-3, gap_open=-5, gap_extend=-2)
     assert got == list(native.sw_scores_native(parse_sw_file(path), cfg))
+
+
+def test_cli_pairhmm_test_in(tmp_path, golden_dir):
+    out = tmp_path / "out.txt"
+    out.write_text("stale\n")  # overwritten, as genomax pairhmm does
+    cmd = [sys.executable, "-m", "genomax_torch", "pairhmm",
+           os.path.join(golden_dir, "test.in"), str(out), "--device", "cpu",
+           "--stats"]
+    r = subprocess.run(cmd, capture_output=True, text=True, cwd=_REPO,
+                       timeout=120)
+    assert r.returncode == 0, r.stderr[-400:]
+    assert out.read_text() == "-4.485565\n"
+    assert r.stdout.startswith("elapsed ")
+    assert '"n_jobs": 1' in r.stderr
+
+
+def test_cli_pairhmm_gatk_emission(tmp_path, golden_dir):
+    from genomax import native
+    from genomax.io.formats import parse_pairhmm_file
+
+    path = os.path.join(golden_dir, "test.in")
+    out = tmp_path / "out.txt"
+    assert main(["pairhmm", path, str(out), "--device", "cpu",
+                 "--gatk-emission"]) == 0
+    want = native.pairhmm_native(parse_pairhmm_file(path), gatk_emission=True)
+    got = [float(v) for v in out.read_text().split()]
+    assert abs(got[0] - want[0]) < 1e-4 and abs(got[0] + 4.485565) > 1e-3

@@ -21,6 +21,7 @@ from genomax_torch.config import EngineConfig
 from genomax_torch.engine import executor
 from genomax_torch.engine.executor import Engine
 from genomax_torch.kernels import _build
+from _torch_cpu import one_torch_thread  # noqa: F401
 
 
 def _golden_scores(path):

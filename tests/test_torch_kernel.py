@@ -1,20 +1,23 @@
-"""The CUDA kernel csrc/sw_tile.cu against its plain PyTorch version on the
-card (int32 scores, tolerance exact). Needs a CUDA device and nvcc; skips
-without them. This file imports no jax, so on a machine without jax it
-runs as `python -m pytest --noconftest tests/test_torch_kernel.py`."""
+"""The CUDA kernels against their plain PyTorch versions on the card:
+csrc/sw_tile.cu (int32 scores, exact) and csrc/pairhmm_tile.cu (within
+1e-4 in log10: nvcc contracts a*b+c into FMAs, the plain version rounds
+each operation). Needs a CUDA device and nvcc; skips without them. This
+file imports no jax, so on a machine without jax it runs as
+`python -m pytest --noconftest tests/test_torch_kernel.py`."""
 
 import numpy as np
 import pytest
 import torch
 
 from genomax import native
-from genomax.config import SWConfig
-from genomax.io.formats import SWPair
-from genomax.pack.bucketing import pack_sw_pairs, unpack_scores
+from genomax.config import PairHMMConfig, SWConfig
+from genomax.io.formats import PairHMMBatch, PairHMMRead, SWPair
+from genomax.pack.bucketing import (pack_pairhmm_batches, pack_sw_pairs,
+                                    unpack_scores)
 
-from genomax_torch.kernels import _build, sw
-from genomax_torch.kernels.wavefront import sw_forward_tiles
-from genomax_torch.pack import sw_bucket_to_torch
+from genomax_torch.kernels import _build, pairhmm, sw
+from genomax_torch.kernels.wavefront import phmm_forward_tiles, sw_forward_tiles
+from genomax_torch.pack import phmm_bucket_to_torch, sw_bucket_to_torch
 
 pytestmark = pytest.mark.cuda
 
@@ -72,3 +75,76 @@ def test_wrapper_rejects_bad_inputs(device):
     with pytest.raises(ValueError, match="NXs"):
         sw.sw_forward(wide, torch.zeros((1, 2048, 128), dtype=torch.int8,
                                         device=device), nd)
+
+
+def _phmm_batches(seed, alphabet=b"ACGT", n_batches=6):
+    """Ragged reads 1-300bp against haplotypes 1-400bp, many reads x haps a
+    batch, with N runs, and one all-mismatch deep-decay pair."""
+    rng = np.random.default_rng(seed)
+    abc = np.frombuffer(alphabet, np.uint8)
+
+    def seq(n):
+        s = rng.choice(abc, n)
+        if rng.random() < 0.3:
+            k = int(rng.integers(0, n))
+            s[k: k + int(rng.integers(1, 20))] = ord("N")
+        return s.tobytes()
+
+    def qual(n):
+        return (rng.integers(10, 41, n) + 33).astype(np.uint8).tobytes()
+
+    out = []
+    for _ in range(n_batches):
+        reads = []
+        for _ in range(int(rng.integers(1, 12))):
+            n = int(rng.integers(1, 301))
+            reads.append(PairHMMRead(bases=seq(n), base_q=qual(n),
+                                     ins_q=qual(n), del_q=qual(n),
+                                     gcp_q=qual(n)))
+        out.append(PairHMMBatch(reads=reads, haplotypes=[
+            seq(int(rng.integers(1, 401)))
+            for _ in range(int(rng.integers(1, 9)))]))
+    q = bytes([73] * 60)
+    out.append(PairHMMBatch(
+        reads=[PairHMMRead(bases=b"A" * 60, base_q=q, ins_q=q, del_q=q,
+                           gcp_q=q)], haplotypes=[b"C" * 70]))
+    return out
+
+
+@pytest.mark.parametrize("alphabet,gatk,period", [
+    (b"ACGT", False, 32), (b"ACGT", True, 8), (b"ACGTX", False, 32),
+    (b"ACGTX", True, 1)], ids=["bitmask", "bitmask-gatk-p8", "bytes",
+                               "bytes-gatk-p1"])
+def test_pairhmm_kernel_close_to_plain_version(device, alphabet, gatk, period):
+    cfg = PairHMMConfig(gatk_emission=gatk)
+    buckets, n = pack_pairhmm_batches(_phmm_batches(5, alphabet),
+                                      byte_quals=True, factored=True,
+                                      bitmask_codes=True)
+    assert all(b.bitmask_codes == (alphabet == b"ACGT") for b in buckets)
+    before = pairhmm.launches
+    for b in buckets:
+        t = phmm_bucket_to_torch(b, device)
+        got = pairhmm.pairhmm_forward(*t, rescale_period=period,
+                                      mm_div=cfg.mm_div,
+                                      bitmask=b.bitmask_codes)
+        torch.cuda.synchronize()
+        assert got.is_cuda and got.dtype == torch.float32
+        want = phmm_forward_tiles(*t, period, cfg.mm_div, b.bitmask_codes)
+        valid = torch.from_numpy(b.rl > 0).to(device).view(-1)
+        diff = (got.view(-1) - want.view(-1))[valid].abs()
+        assert bool(torch.isfinite(got.view(-1)[valid]).all())
+        assert float(diff.max()) <= 1e-4
+    assert pairhmm.launches - before == len(buckets)
+
+
+def test_pairhmm_wrapper_rejects_bad_inputs(device):
+    (b,), _ = pack_pairhmm_batches([_phmm_batches(1, n_batches=1)[0]],
+                                   byte_quals=True)
+    t = list(phmm_bucket_to_torch(b, device))
+    with pytest.raises(TypeError):
+        pairhmm.pairhmm_forward(t[0].to(torch.int32), *t[1:])
+    with pytest.raises(ValueError, match="rescale_period"):
+        pairhmm.pairhmm_forward(*t, rescale_period=5)
+    t[1] = t[1].transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        pairhmm.pairhmm_forward(*t)

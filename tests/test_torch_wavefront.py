@@ -20,6 +20,7 @@ from genomax.pack.bucketing import pack_sw_pairs, unpack_scores
 
 from genomax_torch.kernels import sw as torch_sw
 from genomax_torch.kernels.wavefront import sw_forward_dense
+from _torch_cpu import one_torch_thread  # noqa: F401
 
 # Diagonals per traced loop body of the JAX functions: a short body keeps
 # their CPU compile (and Pallas interpret) time low; scores do not depend
