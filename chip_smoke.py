@@ -6,7 +6,9 @@ Run from the repository root on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 Phases (one line each; any failure exits non-zero):
-  1. build      nvcc-builds the SW kernel (csrc/sw_tile.cu) from the checkout
+  1. build      nvcc-builds both kernels (csrc/sw_tile.cu and
+                csrc/pairhmm_tile.cu) from the checkout, one nvcc each, in
+                parallel
   2. kernel     kernel vs its plain PyTorch version on ragged buckets under
                 three scoring configs, exact
   3. goldens    Engine(device="cuda") on the vendored SW goldens, exact
@@ -17,12 +19,26 @@ Phases (one line each; any failure exits non-zero):
                 slope (t(9) - t(1)) / 8, in turns plain, kernel, kernel,
                 plain
   6. card       the card's name and power limit from nvidia-smi
+  7. phmm kernel PairHMM kernel vs its plain version on ragged batches
+                (reads 1-500bp, haplotypes 1-700bp, N runs, a deep-decay
+                pair), bitmask and raw codes, mm_div 1 and 3, within 1e-4
+  8. phmm golden Engine(device="cuda").pairhmm_file on test.in and 10s.in
+                within 1e-4 of the fp64 goldens, and the error above -45
+                with the fallback off
+  9. phmm main   the engine on 65,536 GATK-shaped jobs (8,192 reads of
+                151bp x 8 haplotypes of 300bp, seeded), 256 sampled jobs
+                held against the native fp64 model; the kernel's launch
+                count is read around this run
+ 10. phmm time   expansion ms, then kernel vs plain ms on the expanded
+                65,536-job bucket, slope as in phase 5, in turns plain,
+                kernel, kernel, plain
 
 Then one JSON line describing each kernel, the card line, and, last,
 {"ok": true, "device": {...}}. Without a CUDA device, or outside the
 repository, it exits non-zero and prints no result. It imports no jax.
 """
 
+import concurrent.futures
 import json
 import os
 import subprocess
@@ -31,6 +47,9 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 N_PAIRS, LEN, SEED = 25000, 512, 0
+# PairHMM main path: bench.py's GATK-shaped point, 8,192 reads x 8 haps.
+PH_READS, PH_HAPS, PH_READ_LEN, PH_HAP_LEN = 8192, 8, 151, 300
+PH_TOL = 1e-4  # log10, the repo's PairHMM tolerance
 CFGS = [dict(match=1, mismatch=-1, gap_open=-3, gap_extend=-1),
         dict(match=2, mismatch=-3, gap_open=-5, gap_extend=-2),
         dict(match=3, mismatch=-1, gap_open=0, gap_extend=-2)]
@@ -67,6 +86,67 @@ def ragged_pairs(seed):
     return pairs
 
 
+def phmm_batches(seed, alphabet=b"ACGT", n_batches=12):
+    """Ragged PairHMM batches: haplotypes of 1-700bp, variants of one
+    locus, and reads of 1-500bp, most drawn from the locus with errors and
+    some unrelated; N runs in reads and haplotypes; one all-mismatch
+    deep-decay pair."""
+    import numpy as np
+
+    from genomax.io.formats import PairHMMBatch, PairHMMRead
+
+    rng = np.random.default_rng(seed)
+    abc = np.frombuffer(alphabet, np.uint8)
+
+    def noisy(s, rate):
+        s = s.copy()
+        hit = rng.random(len(s)) < rate
+        s[hit] = rng.choice(abc, int(hit.sum()))
+        if len(s) and rng.random() < 0.2:
+            k = int(rng.integers(0, len(s)))
+            s[k: k + int(rng.integers(1, 30))] = ord("N")
+        return s
+
+    def qual(n):
+        return (rng.integers(10, 41, n) + 33).astype(np.uint8).tobytes()
+
+    out = []
+    for _ in range(n_batches):
+        locus = rng.choice(abc, int(rng.integers(1, 701)))
+        haps = [noisy(locus[int(rng.integers(0, max(1, len(locus) // 4))):],
+                      0.01).tobytes()
+                for _ in range(int(rng.integers(1, 9)))]
+        reads = []
+        for _ in range(int(rng.integers(1, 40))):
+            n = int(rng.integers(1, 501))
+            if rng.random() < 0.8:
+                a = int(rng.integers(0, max(1, len(locus) - n + 1)))
+                bases = noisy(locus[a: a + n], 0.005)
+            else:
+                bases = rng.choice(abc, n)
+            m = len(bases)
+            reads.append(PairHMMRead(bases=bases.tobytes(), base_q=qual(m),
+                                     ins_q=qual(m), del_q=qual(m),
+                                     gcp_q=qual(m)))
+        out.append(PairHMMBatch(reads=reads, haplotypes=haps))
+    q = bytes([73] * 60)
+    out.append(PairHMMBatch(reads=[PairHMMRead(
+        bases=b"A" * 60, base_q=q, ins_q=q, del_q=q, gcp_q=q)],
+        haplotypes=[b"C" * 70]))
+    return out
+
+
+def log10_err(got, want, valid, torch):
+    """max |got - want| over the valid slots whose plain result is finite;
+    fails unless both are finite at the same slots (pairs too deep for
+    fp32 come out -inf in both, and the engine's fallback takes them)."""
+    got, want = got.reshape(-1)[valid], want.reshape(-1)[valid]
+    fin = torch.isfinite(want)
+    check(torch.equal(torch.isfinite(got), fin),
+          "kernel and plain disagree on which slots are finite")
+    return float((got - want)[fin].abs().max()) if bool(fin.any()) else 0.0
+
+
 def slope_ms(fn, torch):
     """Marginal ms of one more back-to-back call: (t(9) - t(1)) / 8, each
     t(k) from CUDA events around k calls."""
@@ -100,22 +180,33 @@ def main() -> int:
     from genomax.kernels import oracle
     from genomax.pack.bucketing import pack_sw_pairs, unpack_scores
 
+    from genomax.config import PairHMMConfig
+    from genomax.engine.executor import RunStats, phmm_bucket_stats
+    from genomax.io.formats import parse_pairhmm_file
+    from genomax.io.generator import generate_pairhmm_batch
+    from genomax.pack.bucketing import pack_pairhmm_batches
+
+    from genomax_torch.config import EngineConfig
     from genomax_torch.engine.executor import Engine
-    from genomax_torch.kernels import _build, sw
-    from genomax_torch.kernels.wavefront import sw_forward_tiles
-    from genomax_torch.pack import sw_bucket_to_torch
+    from genomax_torch.kernels import _build, pairhmm, sw
+    from genomax_torch.kernels.expand import expand_factored
+    from genomax_torch.kernels.wavefront import (phmm_forward_tiles,
+                                                 sw_forward_tiles)
+    from genomax_torch.pack import phmm_bucket_to_torch, sw_bucket_to_torch
 
     dev = torch.device("cuda")
     max_err = 0
 
-    # 1. build
+    # 1. build both kernels, one nvcc each, at once
     t0 = time.perf_counter()
-    path, log = _build.build("sw_tile")
-    print(f"phase 1 build: {os.path.relpath(path, REPO)} in "
-          f"{time.perf_counter() - t0:.2f} s")
-    for line in log.splitlines():
-        if "registers" in line or "bytes stack" in line:
-            print(f"  ptxas: {line.strip()}")
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        builds = list(pool.map(_build.build, ("sw_tile", "pairhmm_tile")))
+    for path, log in builds:
+        print(f"phase 1 build: {os.path.relpath(path, REPO)} in "
+              f"{time.perf_counter() - t0:.2f} s")
+        for line in log.splitlines():
+            if "registers" in line or "bytes stack" in line:
+                print(f"  ptxas: {line.strip()}")
 
     # 2. kernel vs plain version on the card
     pairs = ragged_pairs(1)
@@ -201,6 +292,118 @@ def main() -> int:
           f"(cells = sum (nx-1)(ny-1) = len(sx) * len(sy) with the '\\n', "
           f"{cells})")
 
+    # 7. PairHMM kernel vs plain version on the card
+    ph_err = 0.0
+    for alphabet, gatk, period in ((b"ACGT", False, 32), (b"ACGT", True, 32),
+                                   (b"ACGTX", False, 8), (b"ACGTX", True, 32)):
+        cfg = PairHMMConfig(gatk_emission=gatk)
+        batches = phmm_batches(7 + len(alphabet) + gatk, alphabet)
+        buckets, n = pack_pairhmm_batches(batches, byte_quals=True,
+                                          factored=True, bitmask_codes=True)
+        check(all(b.bitmask_codes == (alphabet == b"ACGT") for b in buckets),
+              "pack chose other codes than asked")
+        err, nt = 0.0, 0
+        for b in buckets:
+            t = phmm_bucket_to_torch(b, dev)
+            got = pairhmm.pairhmm_forward(*t, rescale_period=period,
+                                          mm_div=cfg.mm_div,
+                                          bitmask=b.bitmask_codes)
+            want = phmm_forward_tiles(*t, period, cfg.mm_div,
+                                      b.bitmask_codes)
+            torch.cuda.synchronize()
+            err = max(err, log10_err(got, want,
+                                     torch.from_numpy(b.rl > 0).to(dev),
+                                     torch))
+            nt = max(nt, b.meta.shape[0])
+        ph_err = max(ph_err, err)
+        check(err <= PH_TOL, f"PairHMM kernel vs plain: {err} > {PH_TOL}")
+        print(f"phase 7 phmm kernel vs plain: {n} ragged jobs, "
+              f"{len(buckets)} buckets (up to {nt} tiles), "
+              f"{'bitmask' if alphabet == b'ACGT' else 'raw'} codes, "
+              f"mm_div {cfg.mm_div:g}, period {period}, max |dlog10| "
+              f"{err:.3g}")
+
+    # 8. PairHMM engine on the vendored goldens
+    gold = os.path.join(REPO, "tests", "golden")
+    eng = Engine(device="cuda")
+    got = eng.pairhmm_file(os.path.join(gold, "test.in"))
+    with open(os.path.join(gold, "test.out")) as f:
+        err = abs(float(got[0]) - float(f.read()))
+    check(err <= PH_TOL, f"test.in off the golden by {err}")
+    print(f"phase 8 phmm golden test.in: {got[0]:.6f}, |err| {err:.3g}")
+    want = np.loadtxt(os.path.join(gold, "10s.golden.out"))
+    got = eng.pairhmm_file(os.path.join(gold, "10s.in"))
+    err = float(np.abs(got - want).max())
+    check(got.shape == want.shape and err <= PH_TOL,
+          f"10s.in off the golden by {err}")
+    fallback = eng.last_stats.fallback_jobs
+    raw = Engine(EngineConfig(phmm_fallback_threshold=None),
+                 device="cuda").pairhmm_file(os.path.join(gold, "10s.in"))
+    above = want > -45
+    raw_err = float(np.abs(raw - want)[above].max())
+    print(f"phase 8 phmm golden 10s.in: {len(got)} values, max |err| "
+          f"{err:.3g}, fallback_jobs {fallback}; fallback off: max |err| "
+          f"{raw_err:.3g} over the {int(above.sum())} golden values above "
+          f"-45")
+
+    # 9. the PairHMM main path at full width
+    batch = generate_pairhmm_batch(PH_READS, PH_HAPS, read_len=PH_READ_LEN,
+                                   hap_len=PH_HAP_LEN, seed=SEED,
+                                   from_haps=True)
+    n_jobs = PH_READS * PH_HAPS
+    pairhmm.launches = 0
+    t0 = time.perf_counter()
+    values = eng.pairhmm([batch])
+    wall = time.perf_counter() - t0
+    ph_launches = pairhmm.launches
+    stats = eng.last_stats
+    check(values.shape == (n_jobs,) and bool(np.isfinite(values).all()),
+          f"PairHMM values of shape {values.shape}, or not finite")
+    check(ph_launches >= stats.buckets >= 1,
+          f"{ph_launches} PairHMM launches for {stats.buckets} buckets")
+    sample = np.random.default_rng(SEED + 1).choice(n_jobs, 256,
+                                                    replace=False)
+    ref = np.array([native.pairhmm_native([type(batch)(
+        reads=[batch.reads[j // PH_HAPS]],
+        haplotypes=[batch.haplotypes[j % PH_HAPS]])])[0] for j in sample])
+    err = float(np.abs(values[sample] - ref).max())
+    check(err <= PH_TOL, f"engine vs native on the sample: {err}")
+    print(f"phase 9 phmm main path: {n_jobs} jobs ({PH_READS} reads of "
+          f"{PH_READ_LEN}bp x {PH_HAPS} haps of {PH_HAP_LEN}bp), engine wall "
+          f"{wall:.3f} s, {ph_launches} launches for {stats.buckets} buckets, "
+          f"256 sampled jobs vs native max |err| {err:.3g}, "
+          f"stats {json.dumps(stats.as_dict())}")
+
+    # 10. PairHMM timing on the full-width bucket
+    (b,), _ = pack_pairhmm_batches([batch], byte_quals=True, factored=True,
+                                   bitmask_codes=True)
+    packed = [torch.from_numpy(a).to(dev)
+              for a in (b.rchar_u, b.qb_u, b.hap_u, b.ridx, b.hidx)]
+    expand_ms = slope_ms(lambda: expand_factored(*packed), torch)
+    t = phmm_bucket_to_torch(b, dev)
+    period, mm_div, bm = 32, 1.0, b.bitmask_codes
+    got = pairhmm.pairhmm_forward(*t, rescale_period=period, mm_div=mm_div,
+                                  bitmask=bm)
+    want = phmm_forward_tiles(*t, period, mm_div, bm)
+    err = log10_err(got, want, torch.from_numpy(b.rl > 0).to(dev), torch)
+    ph_err = max(ph_err, err)
+    check(err <= PH_TOL, f"PairHMM kernel vs plain on the 65k bucket: {err}")
+    kernel = lambda: pairhmm.pairhmm_forward(  # noqa: E731
+        *t, rescale_period=period, mm_div=mm_div, bitmask=bm)
+    plain = lambda: phmm_forward_tiles(*t, period, mm_div, bm)  # noqa: E731
+    p1, k1, k2, p2 = (slope_ms(plain, torch), slope_ms(kernel, torch),
+                      slope_ms(kernel, torch), slope_ms(plain, torch))
+    ph_kernel_ms, ph_plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    cells_st = RunStats()
+    phmm_bucket_stats(cells_st, [b])
+    cells = cells_st.dp_cells
+    print(f"phase 10 phmm timing, bucket {tuple(t[0].shape)} stream "
+          f"{tuple(t[7].shape)}: expansion {expand_ms:.3f} ms; kernel "
+          f"{k1:.3f} / {k2:.3f} ms, plain {p1:.3f} / {p2:.3f} ms per call; "
+          f"GCUPS kernel {cells / ph_kernel_ms / 1e6:.2f}, plain "
+          f"{cells / ph_plain_ms / 1e6:.2f} (cells = sum rl*hl, {cells}); "
+          f"max |dlog10| {err:.3g}")
+
     # 6. the card
     smi = subprocess.run(["nvidia-smi", "-i", "0",
                           "--query-gpu=name,power.limit",
@@ -210,12 +413,17 @@ def main() -> int:
           f"nvidia-smi failed: {smi.stderr.strip()}")
     check("jax" not in sys.modules, "jax was imported")
 
-    print(json.dumps({"kernels": [{
-        "name": "sw_tile", "route": "cuda",
-        "source": "genomax_torch/csrc/sw_tile.cu",
-        "replaces": "genomax/kernels/sw_pallas.py:42",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": kernel_ms, "plain_ms": plain_ms}]}))
+    print(json.dumps({"kernels": [
+        {"name": "sw_tile", "route": "cuda",
+         "source": "genomax_torch/csrc/sw_tile.cu",
+         "replaces": "genomax/kernels/sw_pallas.py:42",
+         "launches": launches, "max_abs_err": max_err,
+         "ms": kernel_ms, "plain_ms": plain_ms},
+        {"name": "pairhmm_tile", "route": "cuda",
+         "source": "genomax_torch/csrc/pairhmm_tile.cu",
+         "replaces": "genomax/kernels/pairhmm_pallas.py:93",
+         "launches": ph_launches, "max_abs_err": ph_err,
+         "ms": ph_kernel_ms, "plain_ms": ph_plain_ms}]}))
     print(f"phase 6 card: {smi.stdout.strip()}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
