@@ -181,8 +181,6 @@ def main() -> int:
     from genomax.pack.bucketing import pack_sw_pairs, unpack_scores
 
     from genomax.config import PairHMMConfig
-    from genomax.engine.executor import RunStats, phmm_bucket_stats
-    from genomax.io.formats import parse_pairhmm_file
     from genomax.io.generator import generate_pairhmm_batch
     from genomax.pack.bucketing import pack_pairhmm_batches
 
@@ -394,9 +392,7 @@ def main() -> int:
     p1, k1, k2, p2 = (slope_ms(plain, torch), slope_ms(kernel, torch),
                       slope_ms(kernel, torch), slope_ms(plain, torch))
     ph_kernel_ms, ph_plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
-    cells_st = RunStats()
-    phmm_bucket_stats(cells_st, [b])
-    cells = cells_st.dp_cells
+    cells = stats.dp_cells  # phase 9's bucket: sum rl*hl
     print(f"phase 10 phmm timing, bucket {tuple(t[0].shape)} stream "
           f"{tuple(t[7].shape)}: expansion {expand_ms:.3f} ms; kernel "
           f"{k1:.3f} / {k2:.3f} ms, plain {p1:.3f} / {p2:.3f} ms per call; "

@@ -11,11 +11,12 @@ import torch
 
 from genomax import native
 from genomax.config import PairHMMConfig, SWConfig
-from genomax.io.formats import PairHMMBatch, PairHMMRead, SWPair
+from genomax.io.formats import SWPair
 from genomax.io.generator import generate_pairhmm_batch
 from genomax.pack.bucketing import (pack_pairhmm_batches, pack_sw_pairs,
                                     unpack_scores)
 
+from chip_smoke import phmm_batches
 from genomax_torch.kernels import _build, pairhmm, sw
 from genomax_torch.kernels.wavefront import phmm_forward_tiles, sw_forward_tiles
 from genomax_torch.pack import phmm_bucket_to_torch, sw_bucket_to_torch
@@ -78,60 +79,13 @@ def test_wrapper_rejects_bad_inputs(device):
                                         device=device), nd)
 
 
-def _phmm_batches(seed, alphabet=b"ACGT", n_batches=6):
-    """Ragged batches: haplotypes of 1-400bp, variants of one locus, and
-    reads of 1-300bp, most drawn from the locus with errors, some
-    unrelated; N runs in reads and haplotypes; and one all-mismatch
-    deep-decay pair."""
-    rng = np.random.default_rng(seed)
-    abc = np.frombuffer(alphabet, np.uint8)
-
-    def noisy(s, rate):
-        s = s.copy()
-        hit = rng.random(len(s)) < rate
-        s[hit] = rng.choice(abc, int(hit.sum()))
-        if len(s) and rng.random() < 0.2:
-            k = int(rng.integers(0, len(s)))
-            s[k: k + int(rng.integers(1, 20))] = ord("N")
-        return s
-
-    def qual(n):
-        return (rng.integers(10, 41, n) + 33).astype(np.uint8).tobytes()
-
-    out = []
-    for _ in range(n_batches):
-        locus = rng.choice(abc, int(rng.integers(1, 401)))
-        haps = []
-        for _ in range(int(rng.integers(1, 9))):
-            a = int(rng.integers(0, max(1, len(locus) // 4)))
-            haps.append(noisy(locus[a:], 0.01).tobytes())
-        reads = []
-        for _ in range(int(rng.integers(1, 12))):
-            n = int(rng.integers(1, 301))
-            if rng.random() < 0.8:
-                a = int(rng.integers(0, max(1, len(locus) - n + 1)))
-                bases = noisy(locus[a: a + n], 0.005)
-            else:
-                bases = rng.choice(abc, n)
-            m = len(bases)
-            reads.append(PairHMMRead(bases=bases.tobytes(), base_q=qual(m),
-                                     ins_q=qual(m), del_q=qual(m),
-                                     gcp_q=qual(m)))
-        out.append(PairHMMBatch(reads=reads, haplotypes=haps))
-    q = bytes([73] * 60)
-    out.append(PairHMMBatch(
-        reads=[PairHMMRead(bases=b"A" * 60, base_q=q, ins_q=q, del_q=q,
-                           gcp_q=q)], haplotypes=[b"C" * 70]))
-    return out
-
-
 @pytest.mark.parametrize("alphabet,gatk,period", [
     (b"ACGT", False, 32), (b"ACGT", True, 8), (b"ACGTX", False, 32),
     (b"ACGTX", True, 1)], ids=["bitmask", "bitmask-gatk-p8", "bytes",
                                "bytes-gatk-p1"])
 def test_pairhmm_kernel_close_to_plain_version(device, alphabet, gatk, period):
     cfg = PairHMMConfig(gatk_emission=gatk)
-    buckets, n = pack_pairhmm_batches(_phmm_batches(5, alphabet),
+    buckets, n = pack_pairhmm_batches(phmm_batches(5, alphabet),
                                       byte_quals=True, factored=True,
                                       bitmask_codes=True)
     assert all(b.bitmask_codes == (alphabet == b"ACGT") for b in buckets)
