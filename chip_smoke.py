@@ -6,9 +6,9 @@ Run from the repository root on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 Phases (one line each; any failure exits non-zero):
-  1. build      nvcc-builds both kernels (csrc/sw_tile.cu and
-                csrc/pairhmm_tile.cu) from the checkout, one nvcc each, in
-                parallel
+  1. build      nvcc-builds the three kernels (csrc/sw_tile.cu,
+                csrc/pairhmm_tile.cu, csrc/pairhmm_long.cu) from the
+                checkout, one nvcc each, in parallel
   2. kernel     kernel vs its plain PyTorch version on ragged buckets under
                 three scoring configs, exact
   3. goldens    Engine(device="cuda") on the vendored SW goldens, exact
@@ -21,17 +21,34 @@ Phases (one line each; any failure exits non-zero):
   6. card       the card's name and power limit from nvidia-smi
   7. phmm kernel PairHMM kernel vs its plain version on ragged batches
                 (reads 1-500bp, haplotypes 1-700bp, N runs, a deep-decay
-                pair), bitmask and raw codes, mm_div 1 and 3, within 1e-4
+                pair), bitmask and raw codes, mm_div 1 and 3, and on 151bp
+                reads against 7-10kbp haplotypes (a stream past 6,144
+                rows), within 1e-4
   8. phmm golden Engine(device="cuda").pairhmm_file on test.in and 10s.in
                 within 1e-4 of the fp64 goldens, and the error above -45
                 with the fallback off
   9. phmm main   the engine on 65,536 GATK-shaped jobs (8,192 reads of
                 151bp x 8 haplotypes of 300bp, seeded), 256 sampled jobs
                 held against the native fp64 model; the kernel's launch
-                count is read around this run
+                count is read around this run; then the same jobs stage
+                by stage (job list and offload mask, pack, copy,
+                expansion, kernel, copy back, unpack, fallback check),
+                each synchronized
  10. phmm time   expansion ms, then kernel vs plain ms on the expanded
                 65,536-job bucket, slope as in phase 5, in turns plain,
                 kernel, kernel, plain
+ 11. long kernel long-read PairHMM kernel vs its plain version on a tile
+                of 128 jobs (reads 511-1500bp, haplotypes to 2kbp, N runs,
+                a deep-decay pair), mm_div 1 and 3, within 1e-4
+ 12. long main   the engine on 2,048 jobs (512 reads of 1,000bp, the
+                reference's longest, x 4 haplotypes of 1,200bp, seeded):
+                every read is past the lane-tile kernel's 510bp and takes
+                the long-read kernel; 64 sampled jobs held against the
+                native fp64 model; its launch count is read around this
+                run
+ 13. long time   long-read kernel vs plain ms on one tile of phase 12,
+                slope (t(3) - t(1)) / 2, in turns plain, kernel, kernel,
+                plain
 
 Then one JSON line describing each kernel, the card line, and, last,
 {"ok": true, "device": {...}}. Without a CUDA device, or outside the
@@ -50,6 +67,8 @@ N_PAIRS, LEN, SEED = 25000, 512, 0
 # PairHMM main path: bench.py's GATK-shaped point, 8,192 reads x 8 haps.
 PH_READS, PH_HAPS, PH_READ_LEN, PH_HAP_LEN = 8192, 8, 151, 300
 PH_TOL = 1e-4  # log10, the repo's PairHMM tolerance
+# Long-read path: the reference's longest read (MAX_READ_LEN 1000).
+LR_READS, LR_HAPS, LR_READ_LEN, LR_HAP_LEN = 512, 4, 1000, 1200
 CFGS = [dict(match=1, mismatch=-1, gap_open=-3, gap_extend=-1),
         dict(match=2, mismatch=-3, gap_open=-5, gap_extend=-2),
         dict(match=3, mismatch=-1, gap_open=0, gap_extend=-2)]
@@ -86,56 +105,6 @@ def ragged_pairs(seed):
     return pairs
 
 
-def phmm_batches(seed, alphabet=b"ACGT", n_batches=12):
-    """Ragged PairHMM batches: haplotypes of 1-700bp, variants of one
-    locus, and reads of 1-500bp, most drawn from the locus with errors and
-    some unrelated; N runs in reads and haplotypes; one all-mismatch
-    deep-decay pair."""
-    import numpy as np
-
-    from genomax.io.formats import PairHMMBatch, PairHMMRead
-
-    rng = np.random.default_rng(seed)
-    abc = np.frombuffer(alphabet, np.uint8)
-
-    def noisy(s, rate):
-        s = s.copy()
-        hit = rng.random(len(s)) < rate
-        s[hit] = rng.choice(abc, int(hit.sum()))
-        if len(s) and rng.random() < 0.2:
-            k = int(rng.integers(0, len(s)))
-            s[k: k + int(rng.integers(1, 30))] = ord("N")
-        return s
-
-    def qual(n):
-        return (rng.integers(10, 41, n) + 33).astype(np.uint8).tobytes()
-
-    out = []
-    for _ in range(n_batches):
-        locus = rng.choice(abc, int(rng.integers(1, 701)))
-        haps = [noisy(locus[int(rng.integers(0, max(1, len(locus) // 4))):],
-                      0.01).tobytes()
-                for _ in range(int(rng.integers(1, 9)))]
-        reads = []
-        for _ in range(int(rng.integers(1, 40))):
-            n = int(rng.integers(1, 501))
-            if rng.random() < 0.8:
-                a = int(rng.integers(0, max(1, len(locus) - n + 1)))
-                bases = noisy(locus[a: a + n], 0.005)
-            else:
-                bases = rng.choice(abc, n)
-            m = len(bases)
-            reads.append(PairHMMRead(bases=bases.tobytes(), base_q=qual(m),
-                                     ins_q=qual(m), del_q=qual(m),
-                                     gcp_q=qual(m)))
-        out.append(PairHMMBatch(reads=reads, haplotypes=haps))
-    q = bytes([73] * 60)
-    out.append(PairHMMBatch(reads=[PairHMMRead(
-        bases=b"A" * 60, base_q=q, ins_q=q, del_q=q, gcp_q=q)],
-        haplotypes=[b"C" * 70]))
-    return out
-
-
 def log10_err(got, want, valid, torch):
     """max |got - want| over the valid slots whose plain result is finite;
     fails unless both are finite at the same slots (pairs too deep for
@@ -147,9 +116,21 @@ def log10_err(got, want, valid, torch):
     return float((got - want)[fin].abs().max()) if bool(fin.any()) else 0.0
 
 
-def slope_ms(fn, torch):
-    """Marginal ms of one more back-to-back call: (t(9) - t(1)) / 8, each
-    t(k) from CUDA events around k calls."""
+def load_cases():
+    """tests/_phmm_cases.py of this checkout, the seeded PairHMM cases the
+    kernel tests use too."""
+    import importlib.util
+
+    path = os.path.join(REPO, "tests", "_phmm_cases.py")
+    spec = importlib.util.spec_from_file_location("_phmm_cases", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def slope_ms(fn, torch, k=9):
+    """Marginal ms of one more back-to-back call: (t(k) - t(1)) / (k - 1),
+    each t(n) from CUDA events around n calls."""
     def t(k):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -162,7 +143,7 @@ def slope_ms(fn, torch):
 
     fn()
     torch.cuda.synchronize()
-    return (t(9) - t(1)) / 8
+    return (t(k) - t(1)) / (k - 1)
 
 
 def main() -> int:
@@ -186,19 +167,24 @@ def main() -> int:
 
     from genomax_torch.config import EngineConfig
     from genomax_torch.engine.executor import Engine
-    from genomax_torch.kernels import _build, pairhmm, sw
+    from genomax.pack.bucketing import unpack_scores as unpack
+
+    from genomax_torch.kernels import _build, pairhmm, pairhmm_long, sw
     from genomax_torch.kernels.expand import expand_factored
     from genomax_torch.kernels.wavefront import (phmm_forward_tiles,
+                                                 phmm_long_forward,
                                                  sw_forward_tiles)
     from genomax_torch.pack import phmm_bucket_to_torch, sw_bucket_to_torch
 
     dev = torch.device("cuda")
     max_err = 0
+    cases = load_cases()
 
-    # 1. build both kernels, one nvcc each, at once
+    # 1. build the kernels, one nvcc each, at once
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        builds = list(pool.map(_build.build, ("sw_tile", "pairhmm_tile")))
+    names = ("sw_tile", "pairhmm_tile", "pairhmm_long")
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        builds = list(pool.map(_build.build, names))
     for path, log in builds:
         print(f"phase 1 build: {os.path.relpath(path, REPO)} in "
               f"{time.perf_counter() - t0:.2f} s")
@@ -293,14 +279,16 @@ def main() -> int:
     # 7. PairHMM kernel vs plain version on the card
     ph_err = 0.0
     for alphabet, gatk, period in ((b"ACGT", False, 32), (b"ACGT", True, 32),
-                                   (b"ACGTX", False, 8), (b"ACGTX", True, 32)):
+                                   (b"ACGTX", False, 8), (b"ACGTX", True, 32),
+                                   (None, False, 32)):
         cfg = PairHMMConfig(gatk_emission=gatk)
-        batches = phmm_batches(7 + len(alphabet) + gatk, alphabet)
+        batches = (cases.streamed_batches(3) if alphabet is None else
+                   cases.phmm_batches(7 + len(alphabet) + gatk, alphabet))
         buckets, n = pack_pairhmm_batches(batches, byte_quals=True,
                                           factored=True, bitmask_codes=True)
-        check(all(b.bitmask_codes == (alphabet == b"ACGT") for b in buckets),
+        check(all(b.bitmask_codes == (alphabet != b"ACGTX") for b in buckets),
               "pack chose other codes than asked")
-        err, nt = 0.0, 0
+        err, nt, nds = 0.0, 0, 0
         for b in buckets:
             t = phmm_bucket_to_torch(b, dev)
             got = pairhmm.pairhmm_forward(*t, rescale_period=period,
@@ -312,12 +300,16 @@ def main() -> int:
             err = max(err, log10_err(got, want,
                                      torch.from_numpy(b.rl > 0).to(dev),
                                      torch))
-            nt = max(nt, b.meta.shape[0])
+            nt, nds = max(nt, b.meta.shape[0]), max(nds, b.nds)
         ph_err = max(ph_err, err)
         check(err <= PH_TOL, f"PairHMM kernel vs plain: {err} > {PH_TOL}")
-        print(f"phase 7 phmm kernel vs plain: {n} ragged jobs, "
-              f"{len(buckets)} buckets (up to {nt} tiles), "
-              f"{'bitmask' if alphabet == b'ACGT' else 'raw'} codes, "
+        check(alphabet is not None or nds > 6144,
+              f"the streamed case packed a {nds}-row stream")
+        print(f"phase 7 phmm kernel vs plain: {n} "
+              f"{'ragged' if alphabet else '151bp x 7-10kbp'} jobs, "
+              f"{len(buckets)} buckets (up to {nt} tiles, stream up to "
+              f"{nds} rows), "
+              f"{'raw' if alphabet == b'ACGTX' else 'bitmask'} codes, "
               f"mm_div {cfg.mm_div:g}, period {period}, max |dlog10| "
               f"{err:.3g}")
 
@@ -372,6 +364,44 @@ def main() -> int:
           f"256 sampled jobs vs native max |err| {err:.3g}, "
           f"stats {json.dumps(stats.as_dict())}")
 
+    # 9, stage by stage: the engine's steps on the same jobs, each timed
+    # to its end on the card
+    def staged():
+        t = {}
+
+        def mark(name, t0):
+            torch.cuda.synchronize()
+            t[name] = time.perf_counter() - t0
+            return time.perf_counter()
+
+        t0 = time.perf_counter()
+        jobs = [(rd, hp) for rd in batch.reads for hp in batch.haplotypes]
+        eng._phmm_offload_mask(jobs)
+        t0 = mark("jobs_mask", t0)
+        (b,), n = pack_pairhmm_batches([batch], byte_quals=True,
+                                       factored=True, bitmask_codes=True)
+        t0 = mark("pack", t0)
+        parts = [torch.from_numpy(a).to(dev) for a in (
+            b.rchar_u, b.qb_u, b.hap_u, b.ridx, b.hidx, b.meta,
+            b.ndiag_tile)]
+        t0 = mark("h2d", t0)
+        tiles = expand_factored(*parts[:5])
+        t0 = mark("expand", t0)
+        r = pairhmm.pairhmm_forward(*tiles, *parts[5:],
+                                    bitmask=b.bitmask_codes)
+        t0 = mark("kernel", t0)
+        host = r.cpu().numpy()
+        t0 = mark("d2h", t0)
+        v = unpack([b], [host], n, np.float32)
+        t0 = mark("unpack", t0)
+        eng._phmm_fallback(jobs, v, type(stats)())
+        mark("fallback", t0)
+        return t
+
+    runs = [staged() for _ in range(3)]
+    print("phase 9 stages, s (three runs): " + ", ".join(
+        f"{k} " + " / ".join(f"{r[k]:.4f}" for r in runs) for k in runs[0]))
+
     # 10. PairHMM timing on the full-width bucket
     (b,), _ = pack_pairhmm_batches([batch], byte_quals=True, factored=True,
                                    bitmask_codes=True)
@@ -400,6 +430,101 @@ def main() -> int:
           f"{cells / ph_plain_ms / 1e6:.2f} (cells = sum rl*hl, {cells}); "
           f"max |dlog10| {err:.3g}")
 
+    # 11. the long-read kernel vs its plain version on the card
+    def long_tile(jobs):
+        arrays, st = pairhmm_long.pack_pairhmm_long(jobs)
+        t = {k: torch.from_numpy(a).to(dev) for k, a in arrays.items()}
+        sweep, anchor, _ = pairhmm_long.long_layout(st["ny_max"],
+                                                    st["strip_w"])
+        valid = torch.from_numpy(arrays["meta"][0] > 0).to(dev)
+
+        def kernel(unroll, mm_div):
+            return pairhmm_long.pairhmm_long_forward(
+                **t, **st, unroll=unroll, mm_div=mm_div)
+
+        def plain(unroll, mm_div):
+            return phmm_long_forward(*t.values(), st["k_strips"],
+                                     st["strip_w"], anchor, sweep, unroll,
+                                     mm_div)
+
+        return kernel, plain, valid, st
+
+    lr_err = 0.0
+    jobs = cases.long_jobs(5)
+    kernel, plain, valid, st = long_tile(jobs)
+    for gatk, unroll in ((False, 16), (True, 8)):
+        mm_div = PairHMMConfig(gatk_emission=gatk).mm_div
+        got, want = kernel(unroll, mm_div), plain(unroll, mm_div)
+        torch.cuda.synchronize()
+        err = log10_err(got, want, valid, torch)
+        lr_err = max(lr_err, err)
+        check(err <= PH_TOL, f"long-read kernel vs plain: {err} > {PH_TOL}")
+        print(f"phase 11 long kernel vs plain: {len(jobs)} jobs (reads "
+              f"511-1500bp, "
+              f"haplotypes to 2kbp), {st['k_strips']} strips of "
+              f"{st['strip_w']} rows, unroll {unroll}, mm_div {mm_div:g}, "
+              f"max |dlog10| {err:.3g}, "
+              f"{int(torch.isfinite(want).sum())} finite")
+
+    # 12. the long-read path through the engine
+    batch = generate_pairhmm_batch(LR_READS, LR_HAPS, read_len=LR_READ_LEN,
+                                   hap_len=LR_HAP_LEN, seed=SEED,
+                                   from_haps=True)
+    lr_jobs = LR_READS * LR_HAPS
+    pairhmm_long.launches = 0
+    t0 = time.perf_counter()
+    values = eng.pairhmm([batch])
+    wall = time.perf_counter() - t0
+    lr_launches = pairhmm_long.launches
+    stats = eng.last_stats
+    check(values.shape == (lr_jobs,) and bool(np.isfinite(values).all()),
+          f"long-read values of shape {values.shape}, or not finite")
+    check(stats.offloaded_jobs == lr_jobs,
+          f"{stats.offloaded_jobs} of {lr_jobs} long jobs left the lane tile")
+    check(lr_launches >= -(-lr_jobs // 128),
+          f"{lr_launches} long-read launches for {lr_jobs} jobs")
+    sample = np.random.default_rng(SEED + 2).choice(lr_jobs, 64,
+                                                    replace=False)
+    jobs = [(batch.reads[j // LR_HAPS], batch.haplotypes[j % LR_HAPS])
+            for j in sample]
+    ref = np.array([native.pairhmm_native([type(batch)(
+        reads=[rd], haplotypes=[hp])])[0] for rd, hp in jobs])
+    err = float(np.abs(values[sample] - ref).max())
+    check(err <= PH_TOL, f"long-read engine vs native on the sample: {err}")
+    raw = pairhmm_long.pairhmm_long(jobs, device=dev)
+    above = ref > -45
+    raw_err = float(np.abs(raw - ref)[above].max()) if above.any() else 0.0
+    lr_err = max(lr_err, raw_err)
+    check(raw_err <= PH_TOL, f"long-read kernel vs native above -45: "
+                             f"{raw_err}")
+    print(f"phase 12 long main path: {lr_jobs} jobs ({LR_READS} reads of "
+          f"{LR_READ_LEN}bp x {LR_HAPS} haps of {LR_HAP_LEN}bp), engine "
+          f"wall {wall:.3f} s, {lr_launches} long-read launches, 64 sampled "
+          f"jobs vs native max |err| {err:.3g}; kernel alone vs native "
+          f"{raw_err:.3g} over the {int(above.sum())} sampled above -45; "
+          f"stats {json.dumps(stats.as_dict())}")
+
+    # 13. long-read timing on one tile of phase 12
+    kernel, plain, valid, st = long_tile(
+        [(rd, hp) for rd in batch.reads[:128 // LR_HAPS]
+         for hp in batch.haplotypes])
+    got, want = kernel(16, 1.0), plain(16, 1.0)
+    err = log10_err(got, want, valid, torch)
+    lr_err = max(lr_err, err)
+    check(err <= PH_TOL, f"long-read kernel vs plain on the tile: {err}")
+    p1, k1, k2, p2 = (slope_ms(lambda: plain(16, 1.0), torch, 3),
+                      slope_ms(lambda: kernel(16, 1.0), torch, 3),
+                      slope_ms(lambda: kernel(16, 1.0), torch, 3),
+                      slope_ms(lambda: plain(16, 1.0), torch, 3))
+    lr_kernel_ms, lr_plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    cells = LR_READ_LEN * LR_HAP_LEN * 128
+    print(f"phase 13 long timing, tile of 128 jobs {LR_READ_LEN} x "
+          f"{LR_HAP_LEN}, {st['k_strips']} strips: kernel {k1:.3f} / "
+          f"{k2:.3f} ms, plain {p1:.3f} / {p2:.3f} ms per call; GCUPS "
+          f"kernel {cells / lr_kernel_ms / 1e6:.2f}, plain "
+          f"{cells / lr_plain_ms / 1e6:.2f} (cells = sum rl*hl, {cells}); "
+          f"max |dlog10| {err:.3g}")
+
     # 6. the card
     smi = subprocess.run(["nvidia-smi", "-i", "0",
                           "--query-gpu=name,power.limit",
@@ -419,7 +544,12 @@ def main() -> int:
          "source": "genomax_torch/csrc/pairhmm_tile.cu",
          "replaces": "genomax/kernels/pairhmm_pallas.py:93",
          "launches": ph_launches, "max_abs_err": ph_err,
-         "ms": ph_kernel_ms, "plain_ms": ph_plain_ms}]}))
+         "ms": ph_kernel_ms, "plain_ms": ph_plain_ms},
+        {"name": "pairhmm_long", "route": "cuda",
+         "source": "genomax_torch/csrc/pairhmm_long.cu",
+         "replaces": "genomax/kernels/pairhmm_long.py:130",
+         "launches": lr_launches, "max_abs_err": lr_err,
+         "ms": lr_kernel_ms, "plain_ms": lr_plain_ms}]}))
     print(f"phase 6 card: {smi.stdout.strip()}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

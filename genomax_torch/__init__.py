@@ -11,6 +11,7 @@ oracle) is imported, not copied; this package adds what runs on the card:
     kernels/expand      PairHMM quality expansion and factored gather
     kernels/sw          wrapper of the hand-written CUDA SW kernel
     kernels/pairhmm     wrapper of the hand-written CUDA PairHMM kernel
+    kernels/pairhmm_long  long-read PairHMM: pack, CUDA kernel wrapper, driver
     kernels/_build      nvcc build of csrc/ at first use, loaded with ctypes
     csrc/               CUDA C++ sources for sm_90a
     engine/executor     Engine: offload, pack, launch, unpack, fp64 fallback

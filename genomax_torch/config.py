@@ -33,14 +33,11 @@ class EngineConfig:
     sw_strips: bool = False
     sw_rotor: bool = False
     # PairHMM knobs of genomax.config.EngineConfig, with its defaults: the
-    # fp32 exponent-rescale period in diagonals; the log10 threshold below
-    # which (or when non-finite) a result is recomputed by the native fp64
-    # model, None disabling it; and the factored host-to-device pack (each
-    # unique read and haplotype shipped once, the job tiles gathered on the
-    # device).
+    # fp32 exponent-rescale period in diagonals, and the log10 threshold
+    # below which (or when non-finite) a result is recomputed by the native
+    # fp64 model, None disabling it.
     rescale_period: int = 32
     phmm_fallback_threshold: float | None = -45.0
-    factored_transfer: bool = True
 
     def __post_init__(self):
         if self.sw_strips:

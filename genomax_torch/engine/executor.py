@@ -8,7 +8,9 @@ scores with ``EngineConfig(sw_strips=False, sw_rotor=False)``: every bucket
 takes the resident lane-tile kernel (here ``csrc/sw_tile.cu``). PairHMM
 packs as the JAX engine's Pallas backend does (byte qualities, factored,
 bitmask codes), expands on the device and runs ``csrc/pairhmm_tile.cu``
-on every bucket.
+on every bucket; the reads too long for it take the long-read kernel
+(``csrc/pairhmm_long.cu``) on the same device, and only jobs past
+``max_device_diags`` go to the native model.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from genomax.pack.bucketing import (pack_pairhmm_batches, pack_sw_pairs,
 
 from genomax_torch.config import EngineConfig
 from genomax_torch.kernels.pairhmm import pairhmm_forward
+from genomax_torch.kernels.pairhmm_long import pairhmm_long
 from genomax_torch.kernels.sw import sw_forward
 from genomax_torch.pack import phmm_bucket_to_torch, sw_bucket_to_torch
 
@@ -140,9 +143,9 @@ class Engine:
                                bitmask=b.bitmask_codes)
 
     def _phmm_offload_mask(self, jobs):
-        """True = too big for the device kernel; scored by the native
-        model. PairHMM applies half the SW bounds, as the JAX engine does,
-        so the kernel sees at most 512 read rows."""
+        """True = too big for the lane-tile kernel. PairHMM applies half
+        the SW bounds, as the JAX engine does, so that kernel sees at most
+        512 read rows."""
         L, D = self.cfg.max_device_len // 2, self.cfg.max_device_diags // 2
         off = np.array([len(rd.bases) + 2 > L or len(rd.bases) + len(hp) + 1 > D
                         for rd, hp in jobs], dtype=bool)
@@ -159,7 +162,7 @@ class Engine:
         buckets, n = pack_pairhmm_batches(
             batches, self.phmm_cfg.phred_offset,
             job_mask=None if off is None else ~off, byte_quals=True,
-            factored=self.cfg.factored_transfer, bitmask_codes=True)
+            factored=True, bitmask_codes=True)
         stats.pack_s = time.perf_counter() - t0
         stats.n_jobs = n
         stats.buckets = len(buckets)
@@ -169,15 +172,41 @@ class Engine:
                                self.device)
         stats.exec_s = time.perf_counter() - t0
         out = unpack_scores(buckets, results, n, np.float32)
-        if off is not None:
-            # The JAX engine sends these to pairhmm_long on its Pallas
-            # backend; the port of pairhmm_long is ROADMAP queue 2 item 8.
-            idx = np.nonzero(off)[0]
-            out = self._phmm_native_subset(jobs, out, idx)
-            stats.offloaded_jobs += len(idx)
-        out = self._phmm_fallback(jobs, out, stats, native_done=off)
+        out, native_done = self._phmm_offload_post(jobs, out, off, stats)
+        out = self._phmm_fallback(jobs, out, stats, native_done=native_done)
         self.last_stats = stats
         return out
+
+    def _phmm_offload_post(self, jobs, out, off, stats):
+        """Score the jobs the lane-tile kernel does not take: the long-read
+        kernel on the device up to ``max_device_diags``, the native fp64
+        model past it. Returns (out, native_done), native_done marking the
+        jobs already exact (the long-read kernel's results still take the
+        fallback). A failure of the long-read kernel raises
+        :class:`EngineError`; nothing falls back to the native model."""
+        if off is None:
+            return out, None
+        idx = np.nonzero(off)[0]
+        stats.offloaded_jobs += len(idx)
+        dev_ok = np.array([len(jobs[i][0].bases) + len(jobs[i][1]) + 1
+                           <= self.cfg.max_device_diags for i in idx],
+                          dtype=bool)
+        if dev_ok.any():
+            didx = idx[dev_ok]
+            try:
+                out[didx] = pairhmm_long([jobs[i] for i in didx],
+                                         self.phmm_cfg.phred_offset,
+                                         device=self.device,
+                                         mm_div=self.phmm_cfg.mm_div)
+            except Exception as e:
+                raise EngineError("pairhmm_long", 0, (len(didx),), e) from e
+        nat = idx[~dev_ok]
+        if not len(nat):
+            return out, None
+        out = self._phmm_native_subset(jobs, out, nat)
+        native_done = np.zeros(len(out), bool)
+        native_done[nat] = True
+        return out, native_done
 
     def _phmm_native_subset(self, jobs, out, idx):
         """Recompute the flat job indices ``idx`` with the native fp64 model

@@ -279,3 +279,147 @@ def phmm_forward_tiles(rchar, qr, mmv, gapm, qi, qd, qg, hap, meta,
         meta[:, 1, :].reshape(-1), int(ndiag_tile.max()), rescale_period,
         mm_div, bitmask)
     return out.reshape(nt, lanes)
+
+
+# ---------------------------------------------------------------------------
+# PairHMM forward for long reads: read-axis strips with a halo
+# ---------------------------------------------------------------------------
+
+# Diagonals per stream and halo chunk of the long-read kernel; a strip's
+# sweep starts at a multiple of it (genomax.kernels.sw_long.CHUNK).
+LONG_CHUNK = 256
+# Ceiling of the carried values of the long-read kernel: cells past a
+# haplotype's end keep being fed from the row-0 Y constant, and repeated
+# rescales would push them to inf (genomax pairhmm_long._kernel).
+_LONG_CAP = 2.0**126
+
+
+def phmm_long_halo_rows(k_strips: int, strip_w: int,
+                        sweep_chunks: int) -> int:
+    """Rows of each halo buffer: every diagonal any strip sweeps."""
+    n = (k_strips - 1) * strip_w + (sweep_chunks + 1) * LONG_CHUNK
+    return -(-n // LONG_CHUNK) * LONG_CHUNK
+
+
+def phmm_long_forward(rchar, qual, hap, meta, k_strips: int, strip_w: int,
+                      anchor: int, sweep_chunks: int, unroll: int = 16,
+                      mm_div: float = 1.0) -> torch.Tensor:
+    """Long-read PairHMM over one tile of 128 jobs (genomax
+    pairhmm_long._kernel), in the same ``(W, L)`` layout and order.
+
+    The read axis runs in ``k_strips`` strips of ``strip_w`` rows, one
+    after another; strip k sweeps the ``sweep_chunks * LONG_CHUNK``
+    diagonals from ``(k*W // LONG_CHUNK) * LONG_CHUNK``. M, X and Y of a
+    strip's last row, and its rescale count, pass to the next strip's row
+    0 through four halo rows per diagonal. Each strip rescales in its own
+    2**80 frame; the reader adopts the writer's count at its start, never
+    runs deeper than its writer, and converts every injected value down
+    by 2**(80 * (cnt_reader - cnt_writer)), clipped at 2**-240. The
+    accumulator carries its own count (the JAX docstring holds the
+    argument).
+
+    rchar: (K*W, 128) int8 raw codes, row i holding base i-1 (pads 1);
+    qual: (6*K*W, 128) fp32, the planes qr, mmv, gapm, qi, qd, qg stacked;
+    hap: (NDt, 128) int8 reversed stream, H[j] at row anchor-1-j (pads 0);
+    meta: (8, 128) int32, row 0 read_len, row 1 hap_len. Returns (128,)
+    fp32 log10 relative to the reference's constant; lanes with read_len 0
+    give -inf."""
+    w, lanes = strip_w, rchar.shape[1]
+    kw = k_strips * w
+    dev = qual.device
+    rchar = rchar.to(torch.int32)
+    hap = hap.to(torch.int32)
+    halo = torch.zeros((4, phmm_long_halo_rows(k_strips, w, sweep_chunks),
+                        lanes), dtype=torch.float32, device=dev)
+    z = torch.zeros((w, lanes), dtype=torch.float32, device=dev)
+    rl, hl = meta[0:1], meta[1:2]
+    rlhl = rl + hl
+    iil = torch.arange(w, device=dev, dtype=torch.int32).unsqueeze(1)
+    row0 = iil == 0
+    y0 = (2.0**PHMM_INIT_LOG2) / hl.clamp_min(1).to(torch.float32)
+    acc, acc_cnt = z, z[0:1]
+    for k in range(k_strips):
+        rows = slice(k * w, (k + 1) * w)
+        code = rchar[rows]
+        qr, mmv, gapm, qi, qd, qg = (qual[j * kw:(j + 1) * kw][rows]
+                                     for j in range(6))
+        ii = iil + k * w
+        dead = (ii == 0) | (ii > rl)
+        pm = torch.where(dead, 0.0, 1.0 - qr)
+        qr = torch.where(dead, 0.0, torch.where(code == _N_CODE, 1.0 - qr,
+                                                qr * (1.0 / mm_div)))
+        qg = torch.where(ii == 0, 1.0, qg)
+        rlmask = ii == rl
+        is0 = k == 0
+        # Frame snap: the writer's count at this strip's first live
+        # diagonal; the accumulator snaps too while it is empty.
+        cnt = z[0:1] if is0 else halo[3, k * w:k * w + 1].clone()
+        acc_cnt = torch.where(acc.amax(dim=0, keepdim=True) > 0.0, acc_cnt,
+                              cnt)
+        da = torch.clamp(cnt - acc_cnt, 0.0, 3.0)
+        half = torch.exp2(-40.0 * da)
+        cmul = torch.where(da < 3.0, half * half, 0.0)
+        M1, Y1 = z, z + torch.where(ii == 0, y0, 0.0)
+        M1s = X1s = Y1s = M2s = X2s = Y2s = accb = z
+        d0 = (k * w) // LONG_CHUNK * LONG_CHUNK
+        for base in range(d0, d0 + sweep_chunks * LONG_CHUNK, unroll):
+            # The writer's rows of this block, read before this strip
+            # overwrites them, in the reader's frame.
+            hin = halo[:, base:base + unroll].clone()
+            g = torch.exp2(40.0 * torch.clamp(cnt - hin[3], -3.0, 1.0))
+            if is0:
+                g = torch.zeros_like(g)
+            hMb, hXb, hYb = ((hin[j] * g) * g for j in range(3))
+            for tt in range(unroll):
+                d = base + tt
+                hw = hap[anchor + k * w - d:anchor + k * w - d + w]
+                match = (code == hw) | (hw == _N_CODE)
+                p = torch.where(match, pm, qr)
+                Mn = p * (mmv * M2s + gapm * (X2s + Y2s))
+                Xn = M1s * qi + X1s * qg
+                Yn = M1 * qd + Y1 * qg
+                accb = accb + torch.where(rlmask & (d <= rlhl), Mn + Xn, 0.0)
+                halo[0, d] = Mn[w - 1]
+                halo[1, d] = Xn[w - 1]
+                halo[2, d] = Yn[w - 1]
+                M2s, X2s, Y2s = M1s, X1s, Y1s
+                M1s = torch.where(row0, hMb[tt:tt + 1], _roll1(Mn))
+                X1s = torch.where(row0, hXb[tt:tt + 1], _roll1(Xn))
+                Y1s = torch.where(row0, hYb[tt:tt + 1], _roll1(Yn))
+                M1, Y1 = Mn, Yn
+            halo[3, base:base + unroll] = cnt
+            acc = acc + accb * cmul
+            accb = torch.zeros_like(accb)
+            # The peak of the live window with the JAX masks, global rows.
+            d = base + unroll - 1
+            jv = d - ii
+            v0 = (ii <= rl) & (jv >= 0) & (jv <= hl)
+            jv1 = (d - 1) - (ii - 1)
+            v1 = (ii >= 1) & (ii - 1 <= rl) & (jv1 >= 0) & (jv1 <= hl)
+            jv2 = (d - 2) - (ii - 1)
+            v2 = (ii >= 1) & (ii - 1 <= rl) & (jv2 >= 0) & (jv2 <= hl)
+            live = torch.where(v0, torch.maximum(M1, Y1), 0.0)
+            live = torch.maximum(live, torch.where(
+                v1, torch.maximum(torch.maximum(M1s, X1s), Y1s), 0.0))
+            live = torch.maximum(live, torch.where(
+                v2, torch.maximum(torch.maximum(M2s, X2s), Y2s), 0.0))
+            peak = live.amax(dim=0, keepdim=True)
+            # A reader never runs deeper than its writer (strip 0 is the
+            # frame of reference and rescales freely).
+            lead_ok = (cnt < hin[3, unroll - 1:unroll]) | is0
+            need = ((d <= rlhl + 1) & (peak > 0.0)
+                    & (peak < PHMM_RESCALE_TRIGGER) & lead_ok)
+            f = torch.where(need, PHMM_RESCALE_FACTOR, 1.0)
+            follow = need & (acc.amax(dim=0, keepdim=True)
+                             < PHMM_RESCALE_TRIGGER)
+            M1, Y1, M1s, X1s, Y1s, M2s, X2s, Y2s = (
+                torch.clamp_max(v * f, _LONG_CAP)
+                for v in (M1, Y1, M1s, X1s, Y1s, M2s, X2s, Y2s))
+            acc = acc * torch.where(follow, PHMM_RESCALE_FACTOR, 1.0)
+            cmul = cmul * torch.where(need & ~follow,
+                                      1.0 / PHMM_RESCALE_FACTOR, 1.0)
+            cnt = cnt + torch.where(need, 1.0, 0.0)
+            acc_cnt = acc_cnt + torch.where(follow, 1.0, 0.0)
+    total = acc.sum(dim=0, keepdim=True)
+    return (torch.log10(total) - acc_cnt * PHMM_RESCALE_LOG10
+            - PHMM_INIT_LOG10)[0]

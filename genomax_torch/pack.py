@@ -8,7 +8,7 @@ import torch
 
 from genomax.pack.bucketing import PairHMMPacked, StreamBand, SWPacked
 
-from genomax_torch.kernels.expand import expand_byte_quals, expand_factored
+from genomax_torch.kernels.expand import expand_factored
 
 
 def sw_bucket_to_torch(b: SWPacked, device: torch.device):
@@ -27,19 +27,16 @@ def phmm_bucket_to_torch(b: PairHMMPacked, device: torch.device,
     (rchar int8, qr, mmv, gapm, qi, qd, qg fp32, hap int8, meta int32,
     ndiag_tile int32), the tiles (NT, NXs|NDs, 128), all contiguous.
 
-    A factored pack ships its unique rows and gather indices, and a
-    byte-quals pack its raw phred bytes; both expand on ``device``. An fp32
-    pack ships its six planes as they are."""
+    ``b`` is a factored pack (``pack_pairhmm_batches(factored=True)``, as
+    the engine packs): its unique rows and gather indices are copied and
+    expanded on ``device``."""
+    if b.rchar_u is None:
+        raise ValueError("phmm_bucket_to_torch takes a factored pack "
+                         "(pack_pairhmm_batches(..., factored=True))")
+
     def dev(a):
         return torch.from_numpy(a).to(device)
 
-    if b.rchar_u is not None:
-        tiles = expand_factored(dev(b.rchar_u), dev(b.qb_u), dev(b.hap_u),
-                                dev(b.ridx), dev(b.hidx), phred_offset)
-    else:
-        quals = (expand_byte_quals(dev(b.qb), phred_offset)
-                 if b.qb is not None else
-                 tuple(dev(a) for a in (b.qr, b.mmv, b.gapm, b.qi, b.qd,
-                                        b.qg)))
-        tiles = (dev(b.rchar),) + quals + (dev(b.hap),)
+    tiles = expand_factored(dev(b.rchar_u), dev(b.qb_u), dev(b.hap_u),
+                            dev(b.ridx), dev(b.hidx), phred_offset)
     return tiles + (dev(b.meta), dev(b.ndiag_tile))

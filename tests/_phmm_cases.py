@@ -1,0 +1,118 @@
+"""Seeded PairHMM cases shared by chip_smoke.py and the port's kernel
+tests: ragged batches for the lane-tile kernel, a bucket whose haplotype
+stream is longer than the JAX engine's resident limit, and jobs for the
+long-read kernel. Imports no jax."""
+
+import numpy as np
+
+from genomax.io.formats import PairHMMBatch, PairHMMRead
+
+def phmm_batches(seed, alphabet=b"ACGT", n_batches=12):
+    """Ragged PairHMM batches: haplotypes of 1-700bp, variants of one
+    locus, and reads of 1-500bp, most drawn from the locus with errors and
+    some unrelated; N runs in reads and haplotypes; one all-mismatch
+    deep-decay pair."""
+    rng = np.random.default_rng(seed)
+    abc = np.frombuffer(alphabet, np.uint8)
+
+    def noisy(s, rate):
+        s = s.copy()
+        hit = rng.random(len(s)) < rate
+        s[hit] = rng.choice(abc, int(hit.sum()))
+        if len(s) and rng.random() < 0.2:
+            k = int(rng.integers(0, len(s)))
+            s[k: k + int(rng.integers(1, 30))] = ord("N")
+        return s
+
+    def qual(n):
+        return (rng.integers(10, 41, n) + 33).astype(np.uint8).tobytes()
+
+    out = []
+    for _ in range(n_batches):
+        locus = rng.choice(abc, int(rng.integers(1, 701)))
+        haps = [noisy(locus[int(rng.integers(0, max(1, len(locus) // 4))):],
+                      0.01).tobytes()
+                for _ in range(int(rng.integers(1, 9)))]
+        reads = []
+        for _ in range(int(rng.integers(1, 40))):
+            n = int(rng.integers(1, 501))
+            if rng.random() < 0.8:
+                a = int(rng.integers(0, max(1, len(locus) - n + 1)))
+                bases = noisy(locus[a: a + n], 0.005)
+            else:
+                bases = rng.choice(abc, n)
+            m = len(bases)
+            reads.append(PairHMMRead(bases=bases.tobytes(), base_q=qual(m),
+                                     ins_q=qual(m), del_q=qual(m),
+                                     gcp_q=qual(m)))
+        out.append(PairHMMBatch(reads=reads, haplotypes=haps))
+    q = bytes([73] * 60)
+    out.append(PairHMMBatch(reads=[PairHMMRead(
+        bases=b"A" * 60, base_q=q, ins_q=q, del_q=q, gcp_q=q)],
+        haplotypes=[b"C" * 70]))
+    return out
+
+
+def _read(rng, bases, lo=10, hi=41):
+    def qual():
+        return (rng.integers(lo, hi, len(bases)) + 33).astype(np.uint8).tobytes()
+
+    return PairHMMRead(bases=bytes(bases), base_q=qual(), ins_q=qual(),
+                       del_q=qual(), gcp_q=qual())
+
+
+def _noisy(rng, s, rate, abc):
+    s = np.array(s, np.uint8)
+    hit = rng.random(len(s)) < rate
+    s[hit] = rng.choice(abc, int(hit.sum()))
+    return s
+
+
+def streamed_batches(seed, n_reads=24, read_len=151, hap_lens=(7000, 10000)):
+    """One batch of 151bp reads against haplotypes of 7-10kbp: the packed
+    haplotype stream is longer than the 6,144 rows the JAX engine keeps
+    resident, so there these buckets take pairhmm_pallas._kernel_streamed.
+    Reads are drawn from the haplotypes with errors, one holds an N run."""
+    rng = np.random.default_rng(seed)
+    abc = np.frombuffer(b"ACGT", np.uint8)
+    locus = rng.choice(abc, hap_lens[1])
+    haps = [_noisy(rng, locus[: int(n)], 0.01, abc)
+            for n in np.linspace(hap_lens[0], hap_lens[1], 3).astype(int)]
+    reads = []
+    for k in range(n_reads):
+        h = haps[k % len(haps)]
+        a = int(rng.integers(0, len(h) - read_len))
+        bases = _noisy(rng, h[a: a + read_len], 0.005, abc)
+        if k == 0:
+            bases[40:52] = ord("N")
+        reads.append(_read(rng, bases))
+    return [PairHMMBatch(reads=reads, haplotypes=[h.tobytes() for h in haps])]
+
+
+def long_jobs(seed, n_jobs=128, read_lens=(511, 1500), hap_max=2000):
+    """(PairHMMRead, haplotype) jobs for the long-read kernel: reads of
+    511-1500bp drawn with errors from haplotypes up to 2kbp, some
+    unrelated; N runs in reads and haplotypes; an identical pair and an
+    all-mismatch deep-decay pair."""
+    rng = np.random.default_rng(seed)
+    abc = np.frombuffer(b"ACGT", np.uint8)
+    jobs = []
+    for k in range(n_jobs - 2):
+        n = int(rng.integers(read_lens[0], read_lens[1] + 1))
+        h = _noisy(rng, rng.choice(abc, int(rng.integers(n, hap_max + 1))),
+                   0.0, abc)
+        if k % 5 == 0:
+            h[int(rng.integers(0, len(h) - 20)):][:20] = ord("N")
+        if k % 7 == 3:
+            bases = rng.choice(abc, n)
+        else:
+            a = int(rng.integers(0, len(h) - n + 1))
+            bases = _noisy(rng, h[a: a + n], 0.005, abc)
+        if k % 4 == 1:
+            bases[int(rng.integers(0, n - 30)):][:30] = ord("N")
+        jobs.append((_read(rng, bases), h.tobytes()))
+    same = rng.choice(abc, read_lens[0] + 89)
+    jobs.append((_read(rng, same, 40, 41), same.tobytes()))
+    jobs.append((_read(rng, np.full(700, ord("A"), np.uint8), 40, 41),
+                 b"C" * 760))
+    return jobs

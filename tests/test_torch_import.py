@@ -26,7 +26,8 @@ def _loaded_after(imports):
     (["genomax_torch", "genomax_torch.engine.executor",
       "genomax_torch.cli.main", "genomax_torch.kernels.sw",
       "genomax_torch.kernels.wavefront", "genomax_torch.kernels.pairhmm",
-      "genomax_torch.kernels.expand", "genomax_torch.pack"], "['torch']"),
+      "genomax_torch.kernels.pairhmm_long", "genomax_torch.kernels.expand",
+      "genomax_torch.pack"], "['torch']"),
     (["genomax.pack.bucketing", "genomax.io.formats", "genomax.layout",
       "genomax.config",
       "genomax.native", "genomax.kernels.oracle", "genomax.io.generator",

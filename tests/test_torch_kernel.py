@@ -1,8 +1,9 @@
 """The CUDA kernels against their plain PyTorch versions on the card:
-csrc/sw_tile.cu (int32 scores, exact) and csrc/pairhmm_tile.cu (within
-1e-4 in log10, or two fp32 ulps of values below -512: nvcc contracts
-a*b+c into FMAs, the plain version rounds each operation). Needs a CUDA device and nvcc; skips without them. This
-file imports no jax, so on a machine without jax it runs as
+csrc/sw_tile.cu (int32 scores, exact), csrc/pairhmm_tile.cu and
+csrc/pairhmm_long.cu (within 1e-4 in log10, or two fp32 ulps of values
+below -512: nvcc contracts a*b+c into FMAs, the plain version rounds each
+operation). Needs a CUDA device and nvcc; skips without them. This file
+imports no jax, so on a machine without jax it runs as
 `python -m pytest --noconftest tests/test_torch_kernel.py`."""
 
 import numpy as np
@@ -16,9 +17,11 @@ from genomax.io.generator import generate_pairhmm_batch
 from genomax.pack.bucketing import (pack_pairhmm_batches, pack_sw_pairs,
                                     unpack_scores)
 
-from chip_smoke import phmm_batches
-from genomax_torch.kernels import _build, pairhmm, sw
-from genomax_torch.kernels.wavefront import phmm_forward_tiles, sw_forward_tiles
+from _phmm_cases import long_jobs, phmm_batches, streamed_batches
+from genomax_torch.kernels import _build, pairhmm, pairhmm_long, sw
+from genomax_torch.kernels.wavefront import (phmm_forward_tiles,
+                                             phmm_long_forward,
+                                             sw_forward_tiles)
 from genomax_torch.pack import phmm_bucket_to_torch, sw_bucket_to_torch
 
 pytestmark = pytest.mark.cuda
@@ -89,32 +92,82 @@ def test_pairhmm_kernel_close_to_plain_version(device, alphabet, gatk, period):
                                       byte_quals=True, factored=True,
                                       bitmask_codes=True)
     assert all(b.bitmask_codes == (alphabet == b"ACGT") for b in buckets)
+    _pairhmm_buckets_close(buckets, device, cfg.mm_div, period)
+
+
+def test_pairhmm_kernel_streamed_bucket_close_to_plain_version(device):
+    """151bp reads against 7-10kbp haplotypes: a stream past the 6,144
+    rows the JAX engine keeps resident (its _kernel_streamed buckets); the
+    CUDA kernel reads the stream from global memory at any length."""
+    buckets, _ = pack_pairhmm_batches(streamed_batches(3), byte_quals=True,
+                                      factored=True, bitmask_codes=True)
+    assert max(b.nds for b in buckets) > 6144
+    _pairhmm_buckets_close(buckets, device, 1.0, 32)
+
+
+def _assert_log10_close(got, want, valid):
+    """Pairs too deep for fp32 come out -inf in both (the engine's fallback
+    takes them); every finite result agrees within 1e-4, or two fp32 ulps
+    of the value below -512 log10, where one ulp is already 6.1e-5 (1.2e-4
+    below -1024)."""
+    assert got.is_cuda and got.dtype == torch.float32
+    got, want = got.reshape(-1)[valid], want.reshape(-1)[valid]
+    fin = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(got), fin)
+    torch.testing.assert_close(got[fin], want[fin], rtol=2.0**-22, atol=1e-4)
+
+
+def _pairhmm_buckets_close(buckets, device, mm_div, period):
     before = pairhmm.launches
     for b in buckets:
         t = phmm_bucket_to_torch(b, device)
         got = pairhmm.pairhmm_forward(*t, rescale_period=period,
-                                      mm_div=cfg.mm_div,
-                                      bitmask=b.bitmask_codes)
+                                      mm_div=mm_div, bitmask=b.bitmask_codes)
         torch.cuda.synchronize()
-        assert got.is_cuda and got.dtype == torch.float32
-        want = phmm_forward_tiles(*t, period, cfg.mm_div, b.bitmask_codes)
-        valid = torch.from_numpy(b.rl > 0).to(device)
-        got, want = got.view(-1)[valid], want.view(-1)[valid]
-        # Pairs too deep for fp32 come out -inf in both (the engine's
-        # fallback takes them); every finite result agrees within 1e-4,
-        # or two fp32 ulps of the value below -512 log10, where one ulp
-        # is already 6.1e-5 (1.2e-4 below -1024).
-        fin = torch.isfinite(want)
-        assert torch.equal(torch.isfinite(got), fin)
-        torch.testing.assert_close(got[fin], want[fin], rtol=2.0**-22,
-                                   atol=1e-4)
+        want = phmm_forward_tiles(*t, period, mm_div, b.bitmask_codes)
+        _assert_log10_close(got, want, torch.from_numpy(b.rl > 0).to(device))
     assert pairhmm.launches - before == len(buckets)
+
+
+@pytest.mark.parametrize("strip_w,unroll,gatk", [
+    (256, 16, False), (256, 8, True), (96, 32, False)],
+    ids=["w256-u16", "w256-u8-gatk", "w96-u32"])
+def test_pairhmm_long_kernel_close_to_plain_version(device, strip_w, unroll,
+                                                    gatk):
+    mm_div = PairHMMConfig(gatk_emission=gatk).mm_div
+    jobs = long_jobs(6, n_jobs=40, read_lens=(300, 900), hap_max=1000)
+    arrays, st = pairhmm_long.pack_pairhmm_long(jobs, strip_w=strip_w)
+    t = {k: torch.from_numpy(a).to(device) for k, a in arrays.items()}
+    before = pairhmm_long.launches
+    got = pairhmm_long.pairhmm_long_forward(**t, **st, unroll=unroll,
+                                            mm_div=mm_div)
+    torch.cuda.synchronize()
+    assert pairhmm_long.launches - before == 1
+    sweep, anchor, _ = pairhmm_long.long_layout(st["ny_max"], st["strip_w"])
+    want = phmm_long_forward(*t.values(), st["k_strips"], st["strip_w"],
+                             anchor, sweep, unroll, mm_div)
+    _assert_log10_close(got, want, torch.from_numpy(arrays["meta"][0] > 0)
+                        .to(device))
+
+
+def test_pairhmm_long_wrapper_rejects_bad_inputs(device):
+    arrays, st = pairhmm_long.pack_pairhmm_long(long_jobs(2, n_jobs=3))
+    t = {k: torch.from_numpy(a).to(device) for k, a in arrays.items()}
+    with pytest.raises(TypeError):
+        pairhmm_long.pairhmm_long_forward(
+            **{**t, "qual": t["qual"].double()}, **st)
+    with pytest.raises(ValueError, match="strip_w"):
+        big = pairhmm_long.pack_pairhmm_long(long_jobs(2, n_jobs=3),
+                                             strip_w=1056)
+        pairhmm_long.pairhmm_long_forward(
+            **{k: torch.from_numpy(a).to(device) for k, a in big[0].items()},
+            **big[1])
 
 
 def test_pairhmm_wrapper_rejects_bad_inputs(device):
     (b,), _ = pack_pairhmm_batches(
         [generate_pairhmm_batch(2, 2, read_len=10, hap_len=12)],
-        byte_quals=True)
+        byte_quals=True, factored=True)
     t = list(phmm_bucket_to_torch(b, device))
     with pytest.raises(TypeError):
         pairhmm.pairhmm_forward(t[0].to(torch.int32), *t[1:])

@@ -1,9 +1,10 @@
 """genomax_torch.Engine.pairhmm on the CPU: the vendored goldens (within
 1e-4 in log10 of the fp64 reference), agreement with the JAX engine on its
 Pallas backend in interpret mode (within 1e-5: the same fp32 formulation),
-the native offload of long reads, the fp64 fallback, the factored and
-unfactored packs, and the refusals: a CUDA device on a host without one, a
-failed kernel build, and a bucket that fails twice."""
+long reads on the long-read kernel and past max_device_diags on the native
+model, the fp64 fallback, and the refusals: a CUDA device on a host without
+one, a failed kernel build, a bucket that fails twice, and a failure of the
+long-read kernel."""
 
 import os
 
@@ -16,6 +17,7 @@ from genomax import native
 from genomax.config import EngineConfig as JaxEngineConfig
 from genomax.config import PairHMMConfig
 from genomax.engine.executor import EngineError
+from genomax.io.formats import PairHMMBatch, PairHMMRead
 from genomax.io.generator import generate_pairhmm_batch
 
 from genomax_torch.config import EngineConfig
@@ -64,11 +66,11 @@ def test_engine_matches_jax_engine_pallas_interpret(gatk):
 
 
 def test_long_read_offloads_to_native():
-    """A 1,200bp read exceeds max_device_len // 2 and is scored by the
-    native fp64 model, as on the JAX engine's non-Pallas backends."""
+    """A 1,200bp read exceeds max_device_len // 2, and with its 1,300bp
+    haplotype max_device_diags too: the native fp64 model scores it."""
     big = generate_pairhmm_batch(1, 1, read_len=1200, hap_len=1300, seed=6)
     small = generate_pairhmm_batch(2, 1, read_len=12, hap_len=15, seed=7)
-    eng = Engine(device="cpu")
+    eng = Engine(EngineConfig(max_device_diags=2048), device="cpu")
     got = eng.pairhmm([small, big])
     assert eng.last_stats.offloaded_jobs == 1 and eng.last_stats.n_jobs == 3
     np.testing.assert_allclose(got[:2], native.pairhmm_native([small]),
@@ -77,6 +79,68 @@ def test_long_read_offloads_to_native():
                                atol=1e-9)
     # already exact: the fallback leaves the offloaded job alone
     assert eng.last_stats.fallback_jobs == 0
+
+
+def _long_batch():
+    """An 80bp read over max_device_len // 2 = 32 and a 12bp one under it
+    (tests/test_pallas_interpret.py's routing case)."""
+    rng = np.random.default_rng(13)
+    abc = np.frombuffer(b"ACGT", np.uint8)
+
+    def read(n):
+        q = bytes([35] * n)
+        return PairHMMRead(bases=rng.choice(abc, n).tobytes(), base_q=q,
+                           ins_q=q, del_q=q, gcp_q=q)
+
+    small, long_rd = read(12), read(80)
+    return PairHMMBatch(reads=[small, long_rd],
+                        haplotypes=[rng.choice(abc, 40).tobytes()])
+
+
+@pytest.mark.parametrize("gatk", [False, True], ids=["reference", "gatk"])
+def test_long_read_takes_long_kernel(monkeypatch, gatk):
+    """A read over max_device_len // 2 takes the long-read kernel on the
+    engine's device, as on the JAX engine's Pallas backend, and agrees
+    with that engine in interpret mode."""
+    batch = _long_batch()
+    phmm_cfg = PairHMMConfig(gatk_emission=gatk)
+    seen = []
+    real = executor.pairhmm_long
+
+    def spy(jobs, *args, **kwargs):
+        seen.append((len(jobs), kwargs["device"]))
+        return real(jobs, *args, **kwargs)
+
+    monkeypatch.setattr(executor, "pairhmm_long", spy)
+    eng = Engine(EngineConfig(max_device_len=64,
+                              phmm_fallback_threshold=None),
+                 phmm_cfg=phmm_cfg, device="cpu")
+    got = eng.pairhmm([batch])
+    assert seen == [(1, torch.device("cpu"))]
+    assert eng.last_stats.offloaded_jobs == 1 and got.dtype == np.float32
+    jax_eng = genomax.Engine(JaxEngineConfig(backend="pallas",
+                                             max_device_len=64,
+                                             phmm_fallback_threshold=None),
+                             phmm_cfg=phmm_cfg, interpret=True)
+    np.testing.assert_allclose(got, jax_eng.pairhmm([batch]), rtol=0,
+                               atol=1e-5)
+    np.testing.assert_allclose(
+        got, native.pairhmm_native([batch], gatk_emission=gatk), atol=2e-4)
+
+
+def test_long_kernel_failure_raises_engine_error(monkeypatch):
+    """The JAX engine reroutes a failed long-read kernel to the native
+    model with a warning; the port raises, naming the stage."""
+
+    def boom(*args, **kwargs):
+        raise RuntimeError("device fault (simulated)")
+
+    monkeypatch.setattr(executor, "pairhmm_long", boom)
+    eng = Engine(EngineConfig(max_device_len=64), device="cpu")
+    with pytest.raises(EngineError) as err:
+        eng.pairhmm([_long_batch()])
+    assert err.value.stage == "pairhmm_long"
+    assert "RuntimeError" in str(err.value)
 
 
 def test_fallback_exact_for_unrelated_pair():
@@ -92,14 +156,6 @@ def test_fallback_exact_for_unrelated_pair():
     off = Engine(EngineConfig(phmm_fallback_threshold=None), device="cpu")
     assert np.isfinite(off.pairhmm([batch])).all()
     assert off.last_stats.fallback_jobs == 0
-
-
-def test_factored_transfer_off_same_values():
-    batches = [generate_pairhmm_batch(5, 3, read_len=23, hap_len=31, seed=5)]
-    on = Engine(device="cpu").pairhmm(batches)
-    off = Engine(EngineConfig(factored_transfer=False),
-                 device="cpu").pairhmm(batches)
-    np.testing.assert_array_equal(on, off)
 
 
 @pytest.mark.parametrize("period", [0, 3, 64])
@@ -140,9 +196,7 @@ def test_kernel_build_failure_raises_not_cpu_scores(monkeypatch):
     assert isinstance(err.value.cause, _build.BuildError)
 
 
-@pytest.mark.parametrize("factored", [True, False],
-                         ids=["factored", "byte_quals"])
-def test_bucket_failing_twice_raises_engine_error(monkeypatch, factored):
+def test_bucket_failing_twice_raises_engine_error(monkeypatch):
     """The retry path names the PairHMM bucket's shape (a PairHMM bucket
     has no sx) and raises EngineError, not AttributeError."""
     calls = []
@@ -151,12 +205,11 @@ def test_bucket_failing_twice_raises_engine_error(monkeypatch, factored):
         calls.append(b)
         raise RuntimeError("device fault (simulated)")
 
-    eng = Engine(EngineConfig(factored_transfer=factored), device="cpu")
+    eng = Engine(device="cpu")
     monkeypatch.setattr(eng, "_phmm_bucket", boom)
     with pytest.raises(EngineError) as err:
         eng.pairhmm([generate_pairhmm_batch(2, 2, 10, 12, seed=1)])
     assert err.value.stage == "pairhmm" and len(calls) == 2
     b = calls[0]
-    shape = (b.rchar_u if factored else b.rchar).shape
-    assert f"shape {shape}" in str(err.value)
+    assert f"shape {b.rchar_u.shape}" in str(err.value)
     assert "RuntimeError" in str(err.value)

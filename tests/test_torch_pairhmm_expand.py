@@ -64,21 +64,30 @@ def test_expand_factored_bit_exact(which):
 
 @pytest.mark.parametrize("which", [0, 1], ids=["acgtn", "weird"])
 def test_bucket_to_torch_same_tiles_for_every_pack_form(which):
-    """Factored, byte-quals and fp32 packs carry the same ten kernel inputs
-    (the fp32 pack's mmv/gapm sum in fp64 on the host: within 1 ulp)."""
+    """The factored pack the engine ships expands to the ten kernel inputs
+    that the byte-quals and fp32 packs of the same batch carry (the fp32
+    pack's mmv/gapm sum in fp64 on the host: within 1 ulp). Other packs
+    are refused."""
     batch = _batches()[which]
-    forms = [pack_pairhmm_batches([batch], bitmask_codes=True, **kw)[0][0]
-             for kw in ({"factored": True}, {"byte_quals": True}, {})]
-    ref = phmm_bucket_to_torch(forms[1], torch.device("cpu"))
-    assert len(ref) == 10 and all(t.is_contiguous() for t in ref)
-    for b in (forms[0], forms[2]):
-        got = phmm_bucket_to_torch(b, torch.device("cpu"))
-        for k, (g, r) in enumerate(zip(got, ref)):
-            assert g.dtype == r.dtype and g.shape == r.shape
-            if b.qb is None and b.rchar_u is None and k in (2, 3):
-                np.testing.assert_allclose(g.numpy(), r.numpy(), rtol=2e-7)
-            else:
-                np.testing.assert_array_equal(g.numpy(), r.numpy())
+    fb, qb, fp = (pack_pairhmm_batches([batch], bitmask_codes=True, **kw)[0][0]
+                  for kw in ({"factored": True}, {"byte_quals": True}, {}))
+    got = phmm_bucket_to_torch(fb, torch.device("cpu"))
+    assert len(got) == 10 and all(t.is_contiguous() for t in got)
+    quals = expand.expand_byte_quals(torch.from_numpy(qb.qb))
+    ref = (torch.from_numpy(qb.rchar), *quals, torch.from_numpy(qb.hap),
+           torch.from_numpy(qb.meta), torch.from_numpy(qb.ndiag_tile))
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and g.shape == r.shape
+        np.testing.assert_array_equal(g.numpy(), r.numpy())
+    planes = (fp.qr, fp.mmv, fp.gapm, fp.qi, fp.qd, fp.qg)
+    for k, a in enumerate(planes, start=1):
+        if k in (2, 3):
+            np.testing.assert_allclose(got[k].numpy(), a, rtol=2e-7)
+        else:
+            np.testing.assert_array_equal(got[k].numpy(), a)
+    for b in (qb, fp):
+        with pytest.raises(ValueError, match="factored"):
+            phmm_bucket_to_torch(b, torch.device("cpu"))
 
 
 def test_phred_offset_below_one_raises():
