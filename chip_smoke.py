@@ -23,7 +23,7 @@ Phases (one line each; any failure exits non-zero):
                 (reads 1-500bp, haplotypes 1-700bp, N runs, a deep-decay
                 pair), bitmask and raw codes, mm_div 1 and 3, and on 151bp
                 reads against 7-10kbp haplotypes (a stream past 6,144
-                rows), within 1e-4
+                rows, timed as in phase 13), within 1e-4
   8. phmm golden Engine(device="cuda").pairhmm_file on test.in and 10s.in
                 within 1e-4 of the fp64 goldens, and the error above -45
                 with the fallback off
@@ -167,8 +167,6 @@ def main() -> int:
 
     from genomax_torch.config import EngineConfig
     from genomax_torch.engine.executor import Engine
-    from genomax.pack.bucketing import unpack_scores as unpack
-
     from genomax_torch.kernels import _build, pairhmm, pairhmm_long, sw
     from genomax_torch.kernels.expand import expand_factored
     from genomax_torch.kernels.wavefront import (phmm_forward_tiles,
@@ -312,6 +310,16 @@ def main() -> int:
               f"{'raw' if alphabet == b'ACGTX' else 'bitmask'} codes, "
               f"mm_div {cfg.mm_div:g}, period {period}, max |dlog10| "
               f"{err:.3g}")
+    # the streamed case's bucket (the last one packed): kernel vs plain ms
+    bm = b.bitmask_codes
+    st_k = lambda: pairhmm.pairhmm_forward(*t, bitmask=bm)  # noqa: E731
+    st_p = lambda: phmm_forward_tiles(*t, 32, 1.0, bm)  # noqa: E731
+    p1, k1, k2, p2 = (slope_ms(st_p, torch, 3), slope_ms(st_k, torch, 3),
+                      slope_ms(st_k, torch, 3), slope_ms(st_p, torch, 3))
+    st_kernel_ms, st_plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    print(f"phase 7 streamed timing, bucket {tuple(t[0].shape)} stream "
+          f"{tuple(t[7].shape)}: kernel {k1:.3f} / {k2:.3f} ms, plain "
+          f"{p1:.3f} / {p2:.3f} ms per call")
 
     # 8. PairHMM engine on the vendored goldens
     gold = os.path.join(REPO, "tests", "golden")
@@ -392,7 +400,7 @@ def main() -> int:
         t0 = mark("kernel", t0)
         host = r.cpu().numpy()
         t0 = mark("d2h", t0)
-        v = unpack([b], [host], n, np.float32)
+        v = unpack_scores([b], [host], n, np.float32)
         t0 = mark("unpack", t0)
         eng._phmm_fallback(jobs, v, type(stats)())
         mark("fallback", t0)
