@@ -88,7 +88,7 @@ def ragged_pairs(seed):
     and tandem repeats (y holds x again about NXs rows later)."""
     import numpy as np
 
-    from genomax.io.formats import SWPair
+    from genomax_torch.io.formats import SWPair
 
     rng = np.random.default_rng(seed)
     abc = np.frombuffer(b"ACGT", np.uint8)
@@ -154,25 +154,19 @@ def main() -> int:
         return 1
     import numpy as np
 
-    from genomax import native
-    from genomax.config import SWConfig
-    from genomax.io.formats import SWPair
-    from genomax.io.generator import random_dna
-    from genomax.kernels import oracle
-    from genomax.pack.bucketing import pack_sw_pairs, unpack_scores
-
-    from genomax.config import PairHMMConfig
-    from genomax.io.generator import generate_pairhmm_batch
-    from genomax.pack.bucketing import pack_pairhmm_batches
-
-    from genomax_torch.config import EngineConfig
+    from genomax_torch import native
+    from genomax_torch.config import EngineConfig, PairHMMConfig, SWConfig
     from genomax_torch.engine.executor import Engine
+    from genomax_torch.io.formats import SWPair
+    from genomax_torch.io.generator import generate_pairhmm_batch, random_dna
     from genomax_torch.kernels import _build, pairhmm, pairhmm_long, sw
     from genomax_torch.kernels.expand import expand_factored
     from genomax_torch.kernels.wavefront import (phmm_forward_tiles,
                                                  phmm_long_forward,
                                                  sw_forward_tiles)
-    from genomax_torch.pack import phmm_bucket_to_torch, sw_bucket_to_torch
+    from genomax_torch.pack import (pack_pairhmm_batches, pack_sw_pairs,
+                                    phmm_bucket_to_torch, sw_bucket_to_torch,
+                                    unpack_scores)
 
     dev = torch.device("cuda")
     max_err = 0
@@ -239,17 +233,14 @@ def main() -> int:
           f"scores of shape {scores.shape} {scores.dtype}")
     check(launches >= stats.buckets >= 1,
           f"{launches} kernel launches for {stats.buckets} buckets")
-    sample = np.random.default_rng(SEED + 1).choice(
-        N_PAIRS, 512 if native.available() else 64, replace=False)
-    sub = [pairs[i] for i in sample]
-    ref_name = "native" if native.available() else "oracle"
-    ref = (native.sw_scores_native(sub) if native.available()
-           else oracle.sw_scores_pairs(sub))
+    sample = np.random.default_rng(SEED + 1).choice(N_PAIRS, 512,
+                                                    replace=False)
+    ref = native.sw_scores_native([pairs[i] for i in sample])
     check(np.array_equal(scores[sample], ref),
-          f"engine != {ref_name} on the sampled pairs")
+          "engine != native model on the sampled pairs")
     print(f"phase 4 main path: {N_PAIRS} x {LEN}bp+'\\n', engine wall "
           f"{wall:.3f} s, {launches} launches for {stats.buckets} buckets, "
-          f"{len(sample)} sampled pairs == {ref_name} model, "
+          f"{len(sample)} sampled pairs == native model, "
           f"stats {json.dumps(stats.as_dict())}")
 
     # 5. timing on the full-width bucket

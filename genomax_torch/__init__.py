@@ -1,20 +1,27 @@
 """genomax_torch — the genomax scoring engine on PyTorch and CUDA.
 
-The port of the JAX package ``genomax`` to one NVIDIA H100. The jax-free
-host layer of ``genomax`` (input formats, packing, layout constants,
-``SWConfig``, ``PairHMMConfig``, the native golden model and the numpy
-oracle) is imported, not copied; this package adds what runs on the card:
+The port of the JAX package ``genomax`` to one NVIDIA H100. It stands on
+its own: it imports torch and numpy, never jax, and nothing of ``genomax``.
+What it needs of the JAX package's host layer it keeps as a copy under the
+same module name, held equal to the original by the tests:
 
-    config.py           engine knobs of the ported paths (explicit device)
-    pack.py             packed buckets -> tensors on a device
+    layout.py           tile-layout constants shared by packs and kernels
+    config.py           SWConfig, PairHMMConfig; EngineConfig (explicit device)
+    io/                 input formats, phred decode, seeded generators
+    native/             golden.cpp: exact SW and fp64 PairHMM models and the
+                        packers' fill loops, built by g++ at first use
+    pack/bucketing      ragged jobs -> dense numpy tiles, bucketed
+    pack/tensors        packed buckets -> tensors on a device
     kernels/wavefront   plain PyTorch SW and PairHMM wavefronts (references)
     kernels/expand      PairHMM quality expansion and factored gather
     kernels/sw          wrapper of the hand-written CUDA SW kernel
+    kernels/sw_long     long-pair SW: pack, CUDA kernel wrapper, driver
     kernels/pairhmm     wrapper of the hand-written CUDA PairHMM kernel
     kernels/pairhmm_long  long-read PairHMM: pack, CUDA kernel wrapper, driver
     kernels/_build      nvcc build of csrc/ at first use, loaded with ctypes
     csrc/               CUDA C++ sources for sm_90a
-    engine/executor     Engine: offload, pack, launch, unpack, fp64 fallback
+    engine/executor     Engine: pack, launch, unpack, long-pair kernels,
+                        native offload, fp64 fallback
     cli/                ``python -m genomax_torch sw|pairhmm``
 
 Importing the package imports neither jax nor torch and compiles nothing.
@@ -30,11 +37,11 @@ def __getattr__(name):
 
         return Engine
     if name == "SWConfig":
-        from genomax.config import SWConfig
+        from genomax_torch.config import SWConfig
 
         return SWConfig
     if name == "PairHMMConfig":
-        from genomax.config import PairHMMConfig
+        from genomax_torch.config import PairHMMConfig
 
         return PairHMMConfig
     raise AttributeError(name)

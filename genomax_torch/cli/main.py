@@ -18,8 +18,8 @@ import time
 
 
 def cmd_sw(args) -> int:
-    from genomax.config import SWConfig
-    from genomax.io.formats import parse_sw_file
+    from genomax_torch.config import SWConfig
+    from genomax_torch.io.formats import parse_sw_file
 
     from genomax_torch.engine.executor import Engine
 
@@ -44,8 +44,8 @@ def cmd_sw(args) -> int:
 
 
 def cmd_pairhmm(args) -> int:
-    from genomax.config import PairHMMConfig
-    from genomax.io.formats import parse_pairhmm_file, write_pairhmm_output
+    from genomax_torch.config import PairHMMConfig
+    from genomax_torch.io.formats import parse_pairhmm_file, write_pairhmm_output
 
     from genomax_torch.engine.executor import Engine
 

@@ -1,8 +1,10 @@
-"""Engine configuration of the port.
+"""Configuration dataclasses of the port.
 
-``genomax.config.EngineConfig`` resolves its backend through jax, so the
-port keeps its own config holding only the knobs its path reads. There is
-no backend resolver: the engine takes an explicit ``torch.device``.
+``SWConfig`` and ``PairHMMConfig`` are copies of the ones in
+``genomax.config``: the same fields, defaults, ``validate()`` and
+``mm_div``. ``EngineConfig`` is the port's own: the JAX package's resolves
+its backend through jax, so the port holds only the knobs its paths read,
+and the engine takes an explicit ``torch.device`` instead of a resolver.
 """
 
 from __future__ import annotations
@@ -15,9 +17,62 @@ MAX_KERNEL_ROWS = 1024
 # The PairHMM kernel runs one thread per read row; the engine sends it reads
 # under max_device_len // 2 (csrc/pairhmm_tile.cu).
 MAX_PHMM_ROWS = MAX_KERNEL_ROWS // 2
-# Rescale periods the packs reserve stream slack for (genomax.layout
-# MAX_UNROLL = 32 rows past every pair's last diagonal).
+# Rescale periods the packs reserve stream slack for (layout.MAX_UNROLL =
+# 32 rows past every pair's last diagonal).
 RESCALE_PERIODS = (1, 2, 4, 8, 16, 32)
+
+
+@dataclasses.dataclass(frozen=True)
+class SWConfig:
+    """Smith-Waterman affine-gap (Gotoh) scoring parameters.
+
+    The defaults are the reference's (antidiagonalSmithWaterman.c:40-43).
+    The gap model is g(k) = open + k*extend, so opening a gap costs
+    open + extend = -4.
+    """
+
+    match: int = 1
+    mismatch: int = -1
+    gap_open: int = -3
+    gap_extend: int = -1
+
+    def validate(self) -> "SWConfig":
+        """The kernels let pad cells decay instead of masking them, which
+        (like local alignment itself) needs penalties to be penalties:
+        mismatch and gap_extend strictly negative, gap_open non-positive,
+        match positive."""
+        if not (self.match > 0 and self.mismatch < 0
+                and self.gap_open <= 0 and self.gap_extend < 0):
+            raise ValueError(
+                f"unsupported SW scoring {self}: need match > 0, "
+                f"mismatch < 0, gap_open <= 0, gap_extend < 0"
+            )
+        return self
+
+
+@dataclasses.dataclass(frozen=True)
+class PairHMMConfig:
+    """PairHMM forward parameters (pairHMMmatrix.c:9,32-55).
+
+    ``log10_init`` is the log10 of the initial Y-row constant. The reference
+    uses DBL_MAX/16 (fp64); the fp32 kernels use 2**120 internally and
+    fold the difference into the final log-space result, so results agree
+    to fp32 tolerance regardless of this constant.
+    """
+
+    phred_offset: float = 33.0
+    # log10(DBL_MAX/16): the reference's scaling constant in log space.
+    log10_init: float = 307.05063220302535
+    # The reference's mismatch emission is plain Qr where GATK uses Qr/3
+    # (pairHMMmatrix.c:32-34 against GKL). False is exact reference parity;
+    # True is the HaplotypeCaller emission, applied alike by the kernels
+    # and the fp64 fallback and offload paths.
+    gatk_emission: bool = False
+
+    @property
+    def mm_div(self) -> float:
+        """Mismatch-emission divisor for the kernels."""
+        return 3.0 if self.gatk_emission else 1.0
 
 
 @dataclasses.dataclass(frozen=True)

@@ -15,24 +15,91 @@ on every bucket; the reads too long for it take the long-read kernel
 
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import numpy as np
 import torch
 
-from genomax import native
-from genomax.config import PairHMMConfig, SWConfig
-from genomax.engine.executor import (EngineError, RunStats, phmm_bucket_stats,
-                                     sw_bucket_stats)
-from genomax.io.formats import PairHMMBatch, parse_pairhmm_file, parse_sw_file
-from genomax.pack.bucketing import (pack_pairhmm_batches, pack_sw_pairs,
-                                    unpack_scores)
-
-from genomax_torch.config import EngineConfig
+from genomax_torch import native
+from genomax_torch.config import EngineConfig, PairHMMConfig, SWConfig
+from genomax_torch.io.formats import (PairHMMBatch, parse_pairhmm_file,
+                                      parse_sw_file)
 from genomax_torch.kernels.pairhmm import pairhmm_forward
 from genomax_torch.kernels.pairhmm_long import pairhmm_long
 from genomax_torch.kernels.sw import sw_forward
-from genomax_torch.pack import phmm_bucket_to_torch, sw_bucket_to_torch
+from genomax_torch.pack import (pack_pairhmm_batches, pack_sw_pairs,
+                                phmm_bucket_to_torch, sw_bucket_to_torch,
+                                unpack_scores)
+
+
+class EngineError(RuntimeError):
+    """Structured engine failure: which stage and bucket failed, and the
+    cause. A bucket gets one retry before this surfaces."""
+
+    def __init__(self, stage: str, bucket: int, shape, cause: Exception):
+        super().__init__(
+            f"{stage} failed on bucket {bucket} (shape {shape}): {cause!r}"
+        )
+        self.stage = stage
+        self.bucket = bucket
+        self.cause = cause
+
+
+@dataclasses.dataclass
+class RunStats:
+    """Per-run metrics: the pack/execute split, cell counts, padding
+    efficiency. The fields and ``as_dict`` keys are those of the JAX
+    engine's RunStats."""
+
+    n_jobs: int = 0
+    dp_cells: int = 0  # true interior DP cells
+    padded_cells: int = 0  # rows * diagonals actually swept
+    pack_s: float = 0.0
+    exec_s: float = 0.0
+    buckets: int = 0
+    fallback_jobs: int = 0  # PairHMM pairs recomputed in native fp64
+    offloaded_jobs: int = 0  # jobs too big for the lane-tile kernels
+    xsharded_jobs: int = 0  # SW pairs scored across devices (not ported)
+
+    @property
+    def gcups(self) -> float:
+        return self.dp_cells / max(self.exec_s, 1e-12) / 1e9
+
+    @property
+    def padding_efficiency(self) -> float:
+        return self.dp_cells / max(self.padded_cells, 1)
+
+    def as_dict(self) -> dict:
+        return {
+            "n_jobs": self.n_jobs,
+            "dp_cells": self.dp_cells,
+            "pack_s": round(self.pack_s, 6),
+            "exec_s": round(self.exec_s, 6),
+            "gcups": round(self.gcups, 3),
+            "padding_efficiency": round(self.padding_efficiency, 4),
+            "buckets": self.buckets,
+            "fallback_jobs": self.fallback_jobs,
+            "offloaded_jobs": self.offloaded_jobs,
+            "xsharded_jobs": self.xsharded_jobs,
+        }
+
+
+def sw_bucket_stats(stats, buckets):
+    """Add the true and the padded cell counts of SW buckets to stats."""
+    for b in buckets:
+        stats.dp_cells += int(((b.nx - 1).astype(np.int64) * (b.ny - 1)).sum())
+        stats.padded_cells += int(b.sx.shape[1]) * 128 * int(
+            b.ndiag_tile.astype(np.int64).sum()
+        )
+
+
+def phmm_bucket_stats(stats, buckets):
+    for b in buckets:
+        stats.dp_cells += int((b.rl.astype(np.int64) * b.hl).sum())
+        stats.padded_cells += int(b.nxs) * 128 * int(
+            b.ndiag_tile.astype(np.int64).sum()
+        )
 
 
 def _shape(b):
@@ -110,8 +177,7 @@ class Engine:
         stats = RunStats(n_jobs=len(pairs))
         off = self._sw_offload_mask(pairs)
         t0 = time.perf_counter()
-        buckets = pack_sw_pairs(pairs, job_mask=None if off is None else ~off,
-                                stream_band=False)
+        buckets = pack_sw_pairs(pairs, job_mask=None if off is None else ~off)
         stats.pack_s = time.perf_counter() - t0
         stats.buckets = len(buckets)
         sw_bucket_stats(stats, buckets)

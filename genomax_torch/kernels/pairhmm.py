@@ -13,11 +13,10 @@ import ctypes
 
 import torch
 
-from genomax.layout import LANES
-
 from genomax_torch.config import MAX_PHMM_ROWS, RESCALE_PERIODS
 from genomax_torch.kernels import _build
 from genomax_torch.kernels.wavefront import phmm_forward_tiles
+from genomax_torch.layout import LANES
 
 # Kernel launches made by pairhmm_forward (CUDA tensors only).
 launches = 0

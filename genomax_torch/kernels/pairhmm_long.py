@@ -17,14 +17,13 @@ import ctypes
 import numpy as np
 import torch
 
-from genomax.io.phred import phred_to_error_prob
-from genomax.layout import LANES, PAD_STREAM, PAD_X, SUB_Q
-from genomax.pack.bucketing import (_full, _reject_bad_read,
-                                    _reject_pad_codes, _round_up)
-
+from genomax_torch.io.phred import phred_to_error_prob
 from genomax_torch.kernels import _build
 from genomax_torch.kernels.wavefront import (LONG_CHUNK, phmm_long_forward,
                                              phmm_long_halo_rows)
+from genomax_torch.layout import LANES, PAD_STREAM, PAD_X, SUB_Q
+from genomax_torch.pack.bucketing import (_full, _reject_bad_read,
+                                          _reject_pad_codes, _round_up)
 
 # Rows per strip (genomax.kernels.pairhmm_long.STRIP_W): one CUDA thread
 # per row, so at most 1024.

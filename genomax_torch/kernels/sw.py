@@ -13,12 +13,10 @@ import ctypes
 
 import torch
 
-from genomax.config import SWConfig
-from genomax.layout import LANES
-
-from genomax_torch.config import MAX_KERNEL_ROWS
+from genomax_torch.config import MAX_KERNEL_ROWS, SWConfig
 from genomax_torch.kernels import _build
 from genomax_torch.kernels.wavefront import sw_forward_tiles
+from genomax_torch.layout import LANES
 
 # Kernel launches made by sw_forward (CUDA tensors only).
 launches = 0

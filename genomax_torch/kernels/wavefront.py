@@ -27,7 +27,7 @@ from __future__ import annotations
 
 import torch
 
-from genomax.config import SWConfig
+from genomax_torch.config import SWConfig
 
 # Boundary-row kill constant, as in genomax/kernels/wavefront.py: it
 # dominates any real score chain and keeps every int32 add from wrapping.

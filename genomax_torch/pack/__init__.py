@@ -1,0 +1,15 @@
+"""Packing of the port: ``bucketing`` lays ragged jobs out as dense numpy
+tiles (a copy of ``genomax.pack.bucketing``), ``tensors`` puts a packed
+bucket on a device."""
+
+from genomax_torch.pack.bucketing import (  # noqa: F401
+    PairHMMPacked,
+    SWPacked,
+    pack_pairhmm_batches,
+    pack_sw_pairs,
+    unpack_scores,
+)
+from genomax_torch.pack.tensors import (  # noqa: F401
+    phmm_bucket_to_torch,
+    sw_bucket_to_torch,
+)

@@ -1,23 +1,19 @@
-"""Packed buckets (``genomax.pack.bucketing.SWPacked`` and ``PairHMMPacked``)
-as tensors on a device. The packing itself is the JAX package's, imported
-unchanged."""
+"""Packed buckets (``pack.bucketing.SWPacked`` and ``PairHMMPacked``) as
+tensors on a device."""
 
 from __future__ import annotations
 
 import torch
 
-from genomax.pack.bucketing import PairHMMPacked, StreamBand, SWPacked
-
 from genomax_torch.kernels.expand import expand_factored
+from genomax_torch.pack.bucketing import PairHMMPacked, SWPacked
 
 
 def sw_bucket_to_torch(b: SWPacked, device: torch.device):
     """(sx (NT,NXs,128) int8, sy (NT,NDs,128) int8, ndiag_tile (NT,) int32)
-    on ``device``. A stream packed as a :class:`StreamBand` is
-    materialized on the host first."""
-    sy = b.sy.materialize() if isinstance(b.sy, StreamBand) else b.sy
+    on ``device``."""
     return (torch.from_numpy(b.sx).to(device),
-            torch.from_numpy(sy).to(device),
+            torch.from_numpy(b.sy).to(device),
             torch.from_numpy(b.ndiag_tile).to(device))
 
 

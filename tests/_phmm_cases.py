@@ -5,7 +5,7 @@ long-read kernel. Imports no jax."""
 
 import numpy as np
 
-from genomax.io.formats import PairHMMBatch, PairHMMRead
+from genomax_torch.io.formats import PairHMMBatch, PairHMMRead
 
 def phmm_batches(seed, alphabet=b"ACGT", n_batches=12):
     """Ragged PairHMM batches: haplotypes of 1-700bp, variants of one

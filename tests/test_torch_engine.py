@@ -14,7 +14,7 @@ import genomax
 from genomax import native
 from genomax.config import EngineConfig as JaxEngineConfig
 from genomax.config import SWConfig
-from genomax.engine.executor import EngineError
+from genomax_torch.engine.executor import EngineError
 from genomax.io.formats import SWPair
 
 from genomax_torch.config import EngineConfig

@@ -10,11 +10,11 @@ import numpy as np
 import pytest
 import torch
 
-from genomax import native
-from genomax.config import PairHMMConfig, SWConfig
-from genomax.io.formats import SWPair
-from genomax.io.generator import generate_pairhmm_batch
-from genomax.pack.bucketing import (pack_pairhmm_batches, pack_sw_pairs,
+from genomax_torch import native
+from genomax_torch.config import PairHMMConfig, SWConfig
+from genomax_torch.io.formats import SWPair
+from genomax_torch.io.generator import generate_pairhmm_batch
+from genomax_torch.pack.bucketing import (pack_pairhmm_batches, pack_sw_pairs,
                                     unpack_scores)
 
 from _phmm_cases import long_jobs, phmm_batches, streamed_batches

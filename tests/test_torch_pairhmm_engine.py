@@ -16,7 +16,7 @@ import genomax
 from genomax import native
 from genomax.config import EngineConfig as JaxEngineConfig
 from genomax.config import PairHMMConfig
-from genomax.engine.executor import EngineError
+from genomax_torch.engine.executor import EngineError
 from genomax.io.formats import PairHMMBatch, PairHMMRead
 from genomax.io.generator import generate_pairhmm_batch
 
