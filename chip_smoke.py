@@ -6,9 +6,10 @@ Run from the repository root on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 Phases (one line each; any failure exits non-zero):
-  1. build      nvcc-builds the three kernels (csrc/sw_tile.cu,
-                csrc/pairhmm_tile.cu, csrc/pairhmm_long.cu) from the
-                checkout, one nvcc each, in parallel
+  1. build      nvcc-builds the four kernels (csrc/sw_tile.cu,
+                csrc/sw_long.cu, csrc/pairhmm_tile.cu,
+                csrc/pairhmm_long.cu) from the checkout, one nvcc each, in
+                parallel, and g++-builds the native golden library
   2. kernel     kernel vs its plain PyTorch version on ragged buckets under
                 three scoring configs, exact
   3. goldens    Engine(device="cuda") on the vendored SW goldens, exact
@@ -40,7 +41,7 @@ Phases (one line each; any failure exits non-zero):
  11. long kernel long-read PairHMM kernel vs its plain version on a tile
                 of 128 jobs (reads 511-1500bp, haplotypes to 2kbp, N runs,
                 a deep-decay pair), mm_div 1 and 3, within 1e-4
- 12. long main   the engine on 2,048 jobs (512 reads of 1,000bp, the
+ 12. long main   the engine on 512 jobs (128 reads of 1,000bp, the
                 reference's longest, x 4 haplotypes of 1,200bp, seeded):
                 every read is past the lane-tile kernel's 510bp and takes
                 the long-read kernel; 64 sampled jobs held against the
@@ -49,6 +50,30 @@ Phases (one line each; any failure exits non-zero):
  13. long time   long-read kernel vs plain ms on one tile of phase 12,
                 slope (t(3) - t(1)) / 2, in turns plain, kernel, kernel,
                 plain
+ 14. sw long     long-pair SW kernel vs its plain version and the native
+                model on a tile of 128 pairs (x 1,023-4,000bp, y to 5kbp,
+                an identical pair, a tandem repeat across a strip seam, an
+                all-mismatch pair, a one-base pair) under three scoring
+                configs, at strip widths 64 and 1024, with the pairs'
+                lengths and without, exact; kernel vs plain ms on that tile
+ 15. sw streamed the lane-tile SW kernel on buckets whose stream passes
+                6,144 rows (x 30-600bp planted in y of 6-10kbp): kernel ==
+                plain == native, exact, and kernel vs plain ms on the
+                largest bucket
+ 16. sw long main  the engine on one tile of 128 pairs of 50,000bp x
+                50,000bp random DNA (seeded), one pair identical (score
+                50,000): all 128 leave the lane-tile kernel for the
+                long-pair kernel, none for the native model; four sampled
+                pairs held against the native model; the kernel's launch
+                count is read around this run; then pack, copy and kernel
+                timed apart
+ 17. sw mixed    the engine on 2,000 pairs with x of 100-4,000bp in one
+                call: some take the lane-tile kernel, the rest the
+                long-pair kernel; results in input order, 256 sampled pairs
+                == native model, both launch counts move
+ 18. sw long time  long-pair kernel ms per 50kbp tile, slope
+                (t(3) - t(1)) / 2, twice (its plain version would take
+                hours there and is timed on phase 14's tile only)
 
 Then one JSON line describing each kernel, the card line, and, last,
 {"ok": true, "device": {...}}. Without a CUDA device, or outside the
@@ -68,7 +93,24 @@ N_PAIRS, LEN, SEED = 25000, 512, 0
 PH_READS, PH_HAPS, PH_READ_LEN, PH_HAP_LEN = 8192, 8, 151, 300
 PH_TOL = 1e-4  # log10, the repo's PairHMM tolerance
 # Long-read path: the reference's longest read (MAX_READ_LEN 1000).
-LR_READS, LR_HAPS, LR_READ_LEN, LR_HAP_LEN = 512, 4, 1000, 1200
+LR_READS, LR_HAPS, LR_READ_LEN, LR_HAP_LEN = 128, 4, 1000, 1200
+# Long-pair SW main path: one tile of 50kbp x 50kbp pairs, the JAX
+# package's own long-pair point.
+LP_PAIRS, LP_LEN = 128, 50000
+# Mixed SW file: x of 100-4,000bp, y up to 1,000bp longer.
+MX_PAIRS, MX_X_LENS = 2000, (100, 4000)
+# Published peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet):
+# device memory rate and fp32 rate outside the tensor cores. The int32
+# rate is 64 lanes on each of 132 SMs at the SM clock nvidia-smi reports.
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
+SMS, INT32_LANES = 132, 64
+# Operations per real cell, counted from the recurrences. SW: P and Q two
+# adds and a max each, the substitution a compare, a select and an add,
+# then four maxes (with 0, P/Q, the diagonal, the running best). PairHMM:
+# M three multiplies and two adds, X and Y two multiplies and an add each.
+SW_OPS_PER_CELL = 12
+PHMM_FLOPS_PER_CELL = 11
 CFGS = [dict(match=1, mismatch=-1, gap_open=-3, gap_extend=-1),
         dict(match=2, mismatch=-3, gap_open=-5, gap_extend=-2),
         dict(match=3, mismatch=-1, gap_open=0, gap_extend=-2)]
@@ -146,6 +188,49 @@ def slope_ms(fn, torch, k=9):
     return (t(k) - t(1)) / (k - 1)
 
 
+def one_ms(fn, torch):
+    """ms of one call after the caller's warm-up, by CUDA events: for the
+    plain versions that take seconds, where launch order is no noise."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def native_sw(native, pairs, cfg=None, threads=8):
+    """native.sw_scores_native over `threads` slices of pairs at once (the
+    library call releases the GIL); the same scores in the same order."""
+    import numpy as np
+
+    if len(pairs) <= 1:
+        return native.sw_scores_native(pairs, cfg)
+    chunks = [pairs[i::threads] for i in range(min(threads, len(pairs)))]
+    with concurrent.futures.ThreadPoolExecutor(len(chunks)) as pool:
+        parts = list(pool.map(lambda c: native.sw_scores_native(c, cfg),
+                              chunks))
+    out = np.zeros(len(pairs), np.int32)
+    for i, part in enumerate(parts):
+        out[i::threads] = part
+    return out
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound_ms(n_bytes, ops, ops_per_s):
+    """(least ms the card could take, which limit binds): every input byte
+    read once and every output byte written once at the memory rate, or
+    the real cells' operations at the peak rate of their type."""
+    by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S, ops / ops_per_s
+    return (max(by_bytes, by_ops) * 1e3,
+            "bytes" if by_bytes >= by_ops else "operations")
+
+
 def main() -> int:
     import torch
 
@@ -159,24 +244,41 @@ def main() -> int:
     from genomax_torch.engine.executor import Engine
     from genomax_torch.io.formats import SWPair
     from genomax_torch.io.generator import generate_pairhmm_batch, random_dna
-    from genomax_torch.kernels import _build, pairhmm, pairhmm_long, sw
+    from genomax_torch.kernels import (_build, pairhmm, pairhmm_long, sw,
+                                       sw_long)
     from genomax_torch.kernels.expand import expand_factored
     from genomax_torch.kernels.wavefront import (phmm_forward_tiles,
                                                  phmm_long_forward,
-                                                 sw_forward_tiles)
+                                                 sw_forward_tiles,
+                                                 sw_long_forward)
     from genomax_torch.pack import (pack_pairhmm_batches, pack_sw_pairs,
                                     phmm_bucket_to_torch, sw_bucket_to_torch,
                                     unpack_scores)
 
     dev = torch.device("cuda")
+    clk = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    check(clk.returncode == 0 and clk.stdout.strip(),
+          f"nvidia-smi failed: {clk.stderr.strip()}")
+    sm_mhz = float(clk.stdout.split()[0])
+    int32_ops = SMS * INT32_LANES * sm_mhz * 1e6  # integer operations / s
+    print(f"bounds: {HBM_BYTES_PER_S / 1e12:g} TB/s, fp32 "
+          f"{FP32_FLOPS / 1e12:g} TFLOP/s, int32 {SMS} SMs x {INT32_LANES} "
+          f"lanes x {sm_mhz:g} MHz = {int32_ops / 1e12:.2f} TOP/s; "
+          f"{SW_OPS_PER_CELL} integer operations per SW cell, "
+          f"{PHMM_FLOPS_PER_CELL} flops per PairHMM cell")
     max_err = 0
     cases = load_cases()
 
     # 1. build the kernels, one nvcc each, at once
     t0 = time.perf_counter()
-    names = ("sw_tile", "pairhmm_tile", "pairhmm_long")
-    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+    names = _build.KERNELS
+    check(len(names) == 4, f"kernels to build: {names}")
+    with concurrent.futures.ThreadPoolExecutor(len(names) + 1) as pool:
+        golden = pool.submit(native.build)
         builds = list(pool.map(_build.build, names))
+        print(f"phase 1 build: {os.path.relpath(golden.result(), REPO)}")
     for path, log in builds:
         print(f"phase 1 build: {os.path.relpath(path, REPO)} in "
               f"{time.perf_counter() - t0:.2f} s")
@@ -258,9 +360,12 @@ def main() -> int:
                       slope_ms(kernel, torch), slope_ms(plain, torch))
     kernel_ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
     cells = int(((b.nx - 1).astype(np.int64) * (b.ny - 1)).sum())
+    sw_bound = bound_ms(nbytes(sx, sy, nd, got), cells * SW_OPS_PER_CELL,
+                        int32_ops)
     print(f"phase 5 timing, bucket {tuple(sx.shape)} stream "
           f"{tuple(sy.shape)}: kernel {k1:.3f} / {k2:.3f} ms, plain "
-          f"{p1:.3f} / {p2:.3f} ms per call; GCUPS kernel "
+          f"{p1:.3f} / {p2:.3f} ms per call, bound {sw_bound[0]:.4f} ms by "
+          f"{sw_bound[1]}; GCUPS kernel "
           f"{cells / kernel_ms / 1e6:.2f}, plain {cells / plain_ms / 1e6:.2f} "
           f"(cells = sum (nx-1)(ny-1) = len(sx) * len(sy) with the '\\n', "
           f"{cells})")
@@ -307,10 +412,13 @@ def main() -> int:
     st_p = lambda: phmm_forward_tiles(*t, 32, 1.0, bm)  # noqa: E731
     p1, k1, k2, p2 = (slope_ms(st_p, torch, 3), slope_ms(st_k, torch, 3),
                       slope_ms(st_k, torch, 3), slope_ms(st_p, torch, 3))
-    st_kernel_ms, st_plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    st_bound = bound_ms(nbytes(*t) + 4 * b.rl.size,
+                        int((b.rl.astype(np.int64) * b.hl).sum())
+                        * PHMM_FLOPS_PER_CELL, FP32_FLOPS)
     print(f"phase 7 streamed timing, bucket {tuple(t[0].shape)} stream "
           f"{tuple(t[7].shape)}: kernel {k1:.3f} / {k2:.3f} ms, plain "
-          f"{p1:.3f} / {p2:.3f} ms per call")
+          f"{p1:.3f} / {p2:.3f} ms per call, bound {st_bound[0]:.4f} ms by "
+          f"{st_bound[1]}")
 
     # 8. PairHMM engine on the vendored goldens
     gold = os.path.join(REPO, "tests", "golden")
@@ -422,9 +530,12 @@ def main() -> int:
                       slope_ms(kernel, torch), slope_ms(plain, torch))
     ph_kernel_ms, ph_plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
     cells = stats.dp_cells  # phase 9's bucket: sum rl*hl
+    ph_bound = bound_ms(nbytes(*t, got), cells * PHMM_FLOPS_PER_CELL,
+                        FP32_FLOPS)
     print(f"phase 10 phmm timing, bucket {tuple(t[0].shape)} stream "
           f"{tuple(t[7].shape)}: expansion {expand_ms:.3f} ms; kernel "
-          f"{k1:.3f} / {k2:.3f} ms, plain {p1:.3f} / {p2:.3f} ms per call; "
+          f"{k1:.3f} / {k2:.3f} ms, plain {p1:.3f} / {p2:.3f} ms per call, "
+          f"bound {ph_bound[0]:.4f} ms by {ph_bound[1]}; "
           f"GCUPS kernel {cells / ph_kernel_ms / 1e6:.2f}, plain "
           f"{cells / ph_plain_ms / 1e6:.2f} (cells = sum rl*hl, {cells}); "
           f"max |dlog10| {err:.3g}")
@@ -432,6 +543,7 @@ def main() -> int:
     # 11. the long-read kernel vs its plain version on the card
     def long_tile(jobs):
         arrays, st = pairhmm_long.pack_pairhmm_long(jobs)
+        st = dict(st)
         t = {k: torch.from_numpy(a).to(dev) for k, a in arrays.items()}
         sweep, anchor, _ = pairhmm_long.long_layout(st["ny_max"],
                                                     st["strip_w"])
@@ -446,7 +558,7 @@ def main() -> int:
                                      st["strip_w"], anchor, sweep, unroll,
                                      mm_div)
 
-        return kernel, plain, valid, st
+        return kernel, plain, valid, {**st, "bytes": nbytes(*t.values())}
 
     lr_err = 0.0
     jobs = cases.long_jobs(5)
@@ -517,12 +629,232 @@ def main() -> int:
                       slope_ms(lambda: plain(16, 1.0), torch, 3))
     lr_kernel_ms, lr_plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
     cells = LR_READ_LEN * LR_HAP_LEN * 128
+    lr_bound = bound_ms(st["bytes"] + 4 * 128, cells * PHMM_FLOPS_PER_CELL,
+                        FP32_FLOPS)
     print(f"phase 13 long timing, tile of 128 jobs {LR_READ_LEN} x "
           f"{LR_HAP_LEN}, {st['k_strips']} strips: kernel {k1:.3f} / "
-          f"{k2:.3f} ms, plain {p1:.3f} / {p2:.3f} ms per call; GCUPS "
+          f"{k2:.3f} ms, plain {p1:.3f} / {p2:.3f} ms per call, bound "
+          f"{lr_bound[0]:.4f} ms by {lr_bound[1]}; GCUPS "
           f"kernel {cells / lr_kernel_ms / 1e6:.2f}, plain "
           f"{cells / lr_plain_ms / 1e6:.2f} (cells = sum rl*hl, {cells}); "
           f"max |dlog10| {err:.3g}")
+
+    # 14. the long-pair SW kernel vs its plain version and the native model
+    def sw_long_tile(pairs, strip_w):
+        b = sw_long.pack_sw_long(pairs, strip_w)
+        t = sw_long.tile_to_torch(b, dev)
+        _, anchor, _ = sw_long._layout(b.ny_max, b.strip_w)
+        kw = dict(k_strips=b.n_strips, strip_w=b.strip_w, ny_max=b.ny_max)
+
+        def kernel(cfg, lengths=True):
+            sx, sy, nx, ny = t
+            if lengths:
+                return sw_long.sw_forward_long(sx, sy, nx=nx, ny=ny, cfg=cfg,
+                                               **kw)
+            return sw_long.sw_forward_long(sx, sy, cfg=cfg, **kw)
+
+        def plain(cfg):
+            return sw_long_forward(*t, b.n_strips, b.strip_w, anchor, cfg)
+
+        return kernel, plain, b, t
+
+    sl_err = 0
+    pairs = cases.long_sw_pairs(3)
+    n = len(pairs)
+    k64, p64, b64, _ = sw_long_tile(pairs, 64)
+    kdef, pdef, bdef, tdef = sw_long_tile(pairs, sw_long.STRIP_W)
+    for ci, c in enumerate(CFGS):
+        cfg = SWConfig(**c)
+        t0 = time.perf_counter()
+        want = torch.from_numpy(native_sw(native, pairs, cfg)).to(dev)
+        t_native = time.perf_counter() - t0
+        got = {"strips of 64": k64(cfg), "strips of 64, no lengths":
+               k64(cfg, False), f"strips of {bdef.strip_w}": kdef(cfg),
+               f"strips of {bdef.strip_w}, no lengths": kdef(cfg, False),
+               f"plain, strips of {bdef.strip_w}": pdef(cfg)}
+        if ci == 0:  # many strips: 63 seams, the slow one, once
+            got["plain, strips of 64"] = p64(cfg)
+        torch.cuda.synchronize()
+        for name, g in got.items():
+            err = int((g[:n].long() - want.long()).abs().max())
+            sl_err = max(sl_err, err)
+            check(err == 0, f"long-pair SW ({name}) != native model under "
+                            f"{cfg}: max |diff| {err}")
+            check(name.endswith("no lengths") or not bool(g[n:].any()),
+                  f"long-pair SW ({name}): an empty lane scored")
+        check(int(want[n - 4]) == 4000 * cfg.match,
+              f"the identical pair scored {int(want[n - 4])}")
+        print(f"phase 14 sw long kernel == plain == native: {n} pairs (x "
+              f"1,023-4,000bp, y to 5kbp), {b64.n_strips} strips of 64 and "
+              f"{bdef.n_strips} of {bdef.strip_w}, with and without "
+              f"lengths, {cfg}, {len(got)} results exact (native "
+              f"{t_native:.2f} s)")
+    cfg = SWConfig()
+    p1, k1, k2, p2 = (one_ms(lambda: pdef(cfg), torch),
+                      slope_ms(lambda: kdef(cfg), torch, 3),
+                      slope_ms(lambda: kdef(cfg), torch, 3),
+                      one_ms(lambda: pdef(cfg), torch))
+    sl4_kernel_ms, sl_plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    cells = sum(len(p.sx) * len(p.sy) for p in pairs)
+    sl4_bound = bound_ms(nbytes(*tdef) + 4 * 128, cells * SW_OPS_PER_CELL,
+                         int32_ops)
+    print(f"phase 14 sw long timing, tile of {n} pairs x 1,023-4,000bp, "
+          f"{bdef.n_strips} strips of {bdef.strip_w}: kernel {k1:.3f} / "
+          f"{k2:.3f} ms, plain {p1:.3f} / {p2:.3f} ms per call, bound "
+          f"{sl4_bound[0]:.4f} ms by {sl4_bound[1]}; GCUPS kernel "
+          f"{cells / sl4_kernel_ms / 1e6:.2f}, plain "
+          f"{cells / sl_plain_ms / 1e6:.2f} (cells = sum len(sx)*len(sy), "
+          f"{cells})")
+
+    # 15. the lane-tile SW kernel on streams past 6,144 rows
+    pairs = cases.streamed_sw_pairs(4)
+    buckets = pack_sw_pairs(pairs)
+    check(min(b.sy.shape[1] for b in buckets) > 6144,
+          "a streamed SW bucket packed a stream of "
+          f"{min(b.sy.shape[1] for b in buckets)} rows")
+    results, cfg = [], SWConfig()
+    for b in buckets:
+        sx, sy, nd = sw_bucket_to_torch(b, dev)
+        got = sw.sw_forward(sx, sy, nd, cfg)
+        want = sw_forward_tiles(sx, sy, nd, cfg)
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max())
+        max_err = max(max_err, err)
+        check(err == 0, f"kernel != plain on streamed bucket "
+                        f"{tuple(sy.shape)}: max |diff| {err}")
+        results.append(got.cpu().numpy())
+    check(np.array_equal(unpack_scores(buckets, results, len(pairs)),
+                         native_sw(native, pairs, cfg)),
+          "kernel != native model on the streamed SW buckets")
+    big = max(buckets, key=lambda b: b.sx.size)
+    sx, sy, nd = sw_bucket_to_torch(big, dev)
+    kernel = lambda: sw.sw_forward(sx, sy, nd, cfg)  # noqa: E731
+    plain = lambda: sw_forward_tiles(sx, sy, nd, cfg)  # noqa: E731
+    p1, k1, k2, p2 = (slope_ms(plain, torch, 3), slope_ms(kernel, torch, 3),
+                      slope_ms(kernel, torch, 3), slope_ms(plain, torch, 3))
+    cells = int(((big.nx - 1).astype(np.int64) * (big.ny - 1)).sum())
+    ss_bound = bound_ms(nbytes(sx, sy, nd) + 4 * big.nx.size,
+                        cells * SW_OPS_PER_CELL, int32_ops)
+    print(f"phase 15 sw streamed: {len(pairs)} pairs (x 30-600bp in y "
+          f"6-10kbp), {len(buckets)} buckets, streams of "
+          f"{min(b.sy.shape[1] for b in buckets)}-"
+          f"{max(b.sy.shape[1] for b in buckets)} rows, kernel == plain == "
+          f"native exact; bucket {tuple(sx.shape)} stream {tuple(sy.shape)}: "
+          f"kernel {k1:.3f} / {k2:.3f} ms, plain {p1:.3f} / {p2:.3f} ms per "
+          f"call, bound {ss_bound[0]:.4f} ms by {ss_bound[1]}; GCUPS kernel "
+          f"{cells / ((k1 + k2) / 2) / 1e6:.2f} (cells {cells})")
+
+    # 16. the long-pair SW path through the engine, one 50kbp x 50kbp tile
+    rng = np.random.default_rng(SEED + 3)
+    pairs = [SWPair(sx=random_dna(rng, LP_LEN), sy=random_dna(rng, LP_LEN))
+             for _ in range(LP_PAIRS)]
+    pairs[LP_PAIRS // 2] = SWPair(sx=pairs[0].sx, sy=pairs[0].sx)
+    native_calls = []
+    real_native = native.sw_scores_native
+    native.sw_scores_native = (
+        lambda ps, cfg=None: native_calls.append(len(ps))
+        or real_native(ps, cfg))
+    sw_long.launches = sw.launches = 0
+    t0 = time.perf_counter()
+    try:
+        scores = eng.sw_scores(pairs)
+    finally:
+        native.sw_scores_native = real_native
+    wall = time.perf_counter() - t0
+    lp_launches, tile_launches = sw_long.launches, sw.launches
+    stats = eng.last_stats
+    # the native model takes seconds per 50kbp pair: one thread each
+    sample = [0, LP_PAIRS // 2, 77, LP_PAIRS - 1]
+    t0 = time.perf_counter()
+    ref = native_sw(native, [pairs[i] for i in sample], threads=len(sample))
+    t_native = time.perf_counter() - t0
+    check(scores.shape == (LP_PAIRS,) and scores.dtype == np.int32,
+          f"scores of shape {scores.shape} {scores.dtype}")
+    check(lp_launches >= 1 and tile_launches == 0,
+          f"{lp_launches} long-pair and {tile_launches} lane-tile launches")
+    check(stats.offloaded_jobs == LP_PAIRS and not native_calls,
+          f"{stats.offloaded_jobs} of {LP_PAIRS} pairs left the lane tile, "
+          f"native calls {native_calls}")
+    check(int(scores[LP_PAIRS // 2]) == LP_LEN,
+          f"the identical pair scored {int(scores[LP_PAIRS // 2])}")
+    check(np.array_equal(scores[sample], ref),
+          f"engine {scores[sample]} != native {ref} on the sampled pairs")
+    print(f"phase 16 sw long main path: {LP_PAIRS} x {LP_LEN}bp x "
+          f"{LP_LEN}bp, engine wall {wall:.3f} s, {lp_launches} long-pair "
+          f"launches, 0 native calls, offloaded_jobs {stats.offloaded_jobs}, "
+          f"identical pair {int(scores[LP_PAIRS // 2])}, {len(sample)} "
+          f"sampled pairs == native model (native {t_native:.1f} s on "
+          f"{len(sample)} threads), stats {json.dumps(stats.as_dict())}")
+
+    # 16, stage by stage: pack, copy, kernel and copy back of that tile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    b50 = sw_long.pack_sw_long(pairs)
+    t_pack = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    t50 = sw_long.tile_to_torch(b50, dev)
+    torch.cuda.synchronize()
+    t_h2d = time.perf_counter() - t0
+    kw50 = dict(k_strips=b50.n_strips, strip_w=b50.strip_w,
+                ny_max=b50.ny_max, nx=t50[2], ny=t50[3])
+    t0 = time.perf_counter()
+    got = sw_long.sw_forward_long(t50[0], t50[1], **kw50)
+    torch.cuda.synchronize()
+    t_kernel = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = got.cpu().numpy()
+    t_d2h = time.perf_counter() - t0
+    check(np.array_equal(host, scores), "the staged tile != the engine's")
+    halo_mb = 128 * (b50.n_strips * b50.strip_w + b50.ny_max
+                     + sw_long.HALO_SLACK) * 8 / 1e6
+    print(f"phase 16 stages, s: pack {t_pack:.4f}, h2d {t_h2d:.4f}, kernel "
+          f"{t_kernel:.4f}, d2h {t_d2h:.4f}; tile {nbytes(*t50) / 1e6:.1f} MB, "
+          f"halo {halo_mb:.1f} MB, {b50.n_strips} strips of {b50.strip_w}")
+
+    # 17. short and long pairs in one call
+    rng = np.random.default_rng(SEED + 4)
+    pairs = []
+    for _ in range(MX_PAIRS):
+        nx_ = int(rng.integers(MX_X_LENS[0], MX_X_LENS[1] + 1))
+        pairs.append(SWPair(sx=random_dna(rng, nx_), sy=random_dna(
+            rng, nx_ + int(rng.integers(0, 1001)))))
+    n_long = sum(len(p.sx) + 2 > eng.cfg.max_device_len for p in pairs)
+    sw_long.launches = sw.launches = 0
+    t0 = time.perf_counter()
+    scores = eng.sw_scores(pairs)
+    wall = time.perf_counter() - t0
+    mx_long, mx_tile = sw_long.launches, sw.launches
+    stats = eng.last_stats
+    check(0 < n_long < MX_PAIRS and stats.offloaded_jobs == n_long,
+          f"{stats.offloaded_jobs} offloaded, {n_long} long of {MX_PAIRS}")
+    check(mx_long == -(-n_long // 128) and mx_tile == stats.buckets >= 1,
+          f"{mx_long} long-pair launches for {n_long} pairs, {mx_tile} "
+          f"lane-tile launches for {stats.buckets} buckets")
+    sample = np.random.default_rng(SEED + 5).choice(MX_PAIRS, 256,
+                                                    replace=False)
+    ref = native_sw(native, [pairs[i] for i in sample])
+    check(np.array_equal(scores[sample], ref),
+          "engine != native model on the mixed file's sampled pairs")
+    print(f"phase 17 sw mixed: {MX_PAIRS} pairs, x {MX_X_LENS[0]}-"
+          f"{MX_X_LENS[1]}bp, engine wall {wall:.3f} s, {mx_tile} lane-tile "
+          f"launches for {MX_PAIRS - n_long} pairs, {mx_long} long-pair "
+          f"launches for {n_long} pairs, 256 sampled pairs == native model "
+          f"in input order, stats {json.dumps(stats.as_dict())}")
+
+    # 18. long-pair kernel timing on the 50kbp tile
+    k50 = lambda: sw_long.sw_forward_long(t50[0], t50[1], **kw50)  # noqa: E731
+    k1, k2 = slope_ms(k50, torch, 3), slope_ms(k50, torch, 3)
+    sl_kernel_ms = (k1 + k2) / 2
+    cells = LP_PAIRS * LP_LEN * LP_LEN
+    sl_bound = bound_ms(nbytes(*t50) + 4 * 128, cells * SW_OPS_PER_CELL,
+                        int32_ops)
+    print(f"phase 18 sw long timing, tile of {LP_PAIRS} pairs {LP_LEN} x "
+          f"{LP_LEN}: kernel {k1:.3f} / {k2:.3f} ms per call, bound "
+          f"{sl_bound[0]:.4f} ms by {sl_bound[1]}; GCUPS kernel "
+          f"{cells / sl_kernel_ms / 1e6:.2f} (cells = sum len(sx)*len(sy), "
+          f"{cells}); the plain version is timed on phase 14's tile only "
+          f"({sl_plain_ms:.1f} ms there against the kernel's "
+          f"{sl4_kernel_ms:.3f} ms): at 50kbp it would take hours")
 
     # 6. the card
     smi = subprocess.run(["nvidia-smi", "-i", "0",
@@ -533,22 +865,29 @@ def main() -> int:
           f"nvidia-smi failed: {smi.stderr.strip()}")
     check("jax" not in sys.modules, "jax was imported")
 
+    def entry(name, source, replaces, n_launches, err, ms, plain_ms, bound):
+        return {"name": name, "route": "cuda",
+                "source": f"genomax_torch/csrc/{source}",
+                "replaces": replaces, "launches": n_launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound[0], "bound_by": bound[1],
+                "library_ms": None}  # no one PyTorch call computes either
+
+    # Each row at the shape its main path gives the kernel; sw_long's plain
+    # version at phase 14's 4kbp tile (at 50kbp it would take hours).
     print(json.dumps({"kernels": [
-        {"name": "sw_tile", "route": "cuda",
-         "source": "genomax_torch/csrc/sw_tile.cu",
-         "replaces": "genomax/kernels/sw_pallas.py:42",
-         "launches": launches, "max_abs_err": max_err,
-         "ms": kernel_ms, "plain_ms": plain_ms},
-        {"name": "pairhmm_tile", "route": "cuda",
-         "source": "genomax_torch/csrc/pairhmm_tile.cu",
-         "replaces": "genomax/kernels/pairhmm_pallas.py:93",
-         "launches": ph_launches, "max_abs_err": ph_err,
-         "ms": ph_kernel_ms, "plain_ms": ph_plain_ms},
-        {"name": "pairhmm_long", "route": "cuda",
-         "source": "genomax_torch/csrc/pairhmm_long.cu",
-         "replaces": "genomax/kernels/pairhmm_long.py:130",
-         "launches": lr_launches, "max_abs_err": lr_err,
-         "ms": lr_kernel_ms, "plain_ms": lr_plain_ms}]}))
+        entry("sw_tile", "sw_tile.cu", "genomax/kernels/sw_pallas.py:42",
+              launches, max_err, kernel_ms, plain_ms, sw_bound),
+        {**entry("sw_long", "sw_long.cu", "genomax/kernels/sw_long.py:126",
+                 lp_launches, sl_err, sl_kernel_ms, sl_plain_ms, sl_bound),
+         "plain_ms_at": "phase 14's tile (x 1,023-4,000bp), where the "
+                        f"kernel takes {sl4_kernel_ms:.3f} ms"},
+        entry("pairhmm_tile", "pairhmm_tile.cu",
+              "genomax/kernels/pairhmm_pallas.py:93", ph_launches, ph_err,
+              ph_kernel_ms, ph_plain_ms, ph_bound),
+        entry("pairhmm_long", "pairhmm_long.cu",
+              "genomax/kernels/pairhmm_long.py:130", lr_launches, lr_err,
+              lr_kernel_ms, lr_plain_ms, lr_bound)]}))
     print(f"phase 6 card: {smi.stdout.strip()}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

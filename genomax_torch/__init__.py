@@ -15,9 +15,9 @@ same module name, held equal to the original by the tests:
     kernels/wavefront   plain PyTorch SW and PairHMM wavefronts (references)
     kernels/expand      PairHMM quality expansion and factored gather
     kernels/sw          wrapper of the hand-written CUDA SW kernel
-    kernels/sw_long     long-pair SW: pack, CUDA kernel wrapper, driver
+    kernels/sw_long     long-pair SW: pack, CUDA kernel wrapper, tile loop
     kernels/pairhmm     wrapper of the hand-written CUDA PairHMM kernel
-    kernels/pairhmm_long  long-read PairHMM: pack, CUDA kernel wrapper, driver
+    kernels/pairhmm_long  long-read PairHMM: pack, CUDA kernel wrapper, tile loop
     kernels/_build      nvcc build of csrc/ at first use, loaded with ctypes
     csrc/               CUDA C++ sources for sm_90a
     engine/executor     Engine: pack, launch, unpack, long-pair kernels,

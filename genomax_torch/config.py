@@ -78,8 +78,10 @@ class PairHMMConfig:
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
     # Pairs with len(sx) + 2 > max_device_len, or len(sx) + len(sy) + 1 >
-    # max_device_diags, leave the device kernel for the native model
-    # (the same predicate as genomax.engine.executor._sw_offload_mask).
+    # max_device_diags, leave the lane-tile kernel (the predicate of
+    # genomax.engine.executor._sw_offload_mask): the long-pair kernels take
+    # them on the same device up to max_device_diags, the native model past
+    # it. PairHMM applies half of both bounds.
     max_device_len: int = 1024
     max_device_diags: int = 1 << 20
     # Routers of the JAX engine whose kernels are not ported yet. The port

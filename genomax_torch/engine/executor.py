@@ -2,10 +2,13 @@
 paths of ``genomax.engine.executor.Engine``.
 
 parse -> offload mask -> pack -> one kernel launch per bucket -> one
-synchronize -> ``unpack_scores`` -> native model for the offloaded jobs
-(and, for PairHMM, the fp64 fallback). SW scores what the JAX engine
-scores with ``EngineConfig(sw_strips=False, sw_rotor=False)``: every bucket
-takes the resident lane-tile kernel (here ``csrc/sw_tile.cu``). PairHMM
+synchronize -> ``unpack_scores`` -> the long-pair kernels and the native
+model for the offloaded jobs (and, for PairHMM, the fp64 fallback). SW
+scores what the JAX engine scores with ``EngineConfig(sw_strips=False,
+sw_rotor=False)``: every bucket takes the lane-tile kernel (here
+``csrc/sw_tile.cu``, at any stream length), pairs whose x is too long for
+it take the long-pair kernel (``csrc/sw_long.cu``) on the same device, and
+only pairs past ``max_device_diags`` go to the native model. PairHMM
 packs as the JAX engine's Pallas backend does (byte qualities, factored,
 bitmask codes), expands on the device and runs ``csrc/pairhmm_tile.cu``
 on every bucket; the reads too long for it take the long-read kernel
@@ -28,6 +31,7 @@ from genomax_torch.io.formats import (PairHMMBatch, parse_pairhmm_file,
 from genomax_torch.kernels.pairhmm import pairhmm_forward
 from genomax_torch.kernels.pairhmm_long import pairhmm_long
 from genomax_torch.kernels.sw import sw_forward
+from genomax_torch.kernels.sw_long import sw_scores_long
 from genomax_torch.pack import (pack_pairhmm_batches, pack_sw_pairs,
                                 phmm_bucket_to_torch, sw_bucket_to_torch,
                                 unpack_scores)
@@ -164,8 +168,8 @@ class Engine:
         return sw_forward(sx, sy, ndiag, self.sw_cfg)
 
     def _sw_offload_mask(self, pairs):
-        """True = too big for the device kernel; scored by the native
-        model (the predicate of the JAX engine)."""
+        """True = too big for the lane-tile kernel (the predicate of the
+        JAX engine); ``_sw_offload_post`` scores these."""
         L, D = self.cfg.max_device_len, self.cfg.max_device_diags
         m = np.array(
             [len(p.sx) + 2 > L or len(p.sx) + len(p.sy) + 1 > D for p in pairs]
@@ -185,15 +189,34 @@ class Engine:
         results = _run_buckets("sw", buckets, self._sw_bucket, self.device)
         stats.exec_s = time.perf_counter() - t0
         out = unpack_scores(buckets, results, len(pairs), np.int32)
-        if off is not None:
-            # The JAX engine sends these to sw_long on its Pallas backend;
-            # the port of sw_long is ROADMAP queue 1 item 8.
-            idx = np.nonzero(off)[0]
-            out[idx] = native.sw_scores_native([pairs[i] for i in idx],
-                                               self.sw_cfg)
-            stats.offloaded_jobs += len(idx)
+        self._sw_offload_post(pairs, out, off, stats)
         self.last_stats = stats
         return out
+
+    def _sw_offload_post(self, pairs, out, off, stats):
+        """Score the pairs the lane-tile kernel does not take, pair by
+        pair: the long-pair kernel on the engine's device up to
+        ``max_device_diags`` (in tiles of 128, in input order), the native
+        model past it. A failure of the long-pair kernel raises
+        :class:`EngineError`; nothing falls back to the native model."""
+        if off is None:
+            return
+        idx = np.nonzero(off)[0]
+        stats.offloaded_jobs += len(idx)
+        dev_ok = np.array([len(pairs[i].sx) + len(pairs[i].sy)
+                           <= self.cfg.max_device_diags for i in idx],
+                          dtype=bool)
+        if dev_ok.any():
+            didx = idx[dev_ok]
+            try:
+                out[didx] = sw_scores_long([pairs[i] for i in didx],
+                                           self.sw_cfg, device=self.device)
+            except Exception as e:
+                raise EngineError("sw_long", 0, (len(didx),), e) from e
+        nat = idx[~dev_ok]
+        if len(nat):
+            out[nat] = native.sw_scores_native([pairs[i] for i in nat],
+                                               self.sw_cfg)
 
     def sw_scores_file(self, path: str) -> np.ndarray:
         return self.sw_scores(parse_sw_file(path))

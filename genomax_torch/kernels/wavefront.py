@@ -2,10 +2,12 @@
 (Smith-Waterman and the PairHMM forward).
 
 They are the plain references of the CUDA kernels ``csrc/sw_tile.cu`` and
-``csrc/pairhmm_tile.cu``: the CPU paths of ``kernels.sw.sw_forward`` and
-``kernels.pairhmm.pairhmm_forward`` run them, the tests hold them against
-the JAX package, and ``chip_smoke.py`` holds the kernels against them on
-the card. They keep the JAX formulation as it is, so the two can be read
+``csrc/pairhmm_tile.cu`` (and, further down, of the strip kernels
+``csrc/sw_long.cu`` and ``csrc/pairhmm_long.cu``): the CPU paths of the
+wrappers in ``kernels.sw``, ``kernels.pairhmm``, ``kernels.sw_long`` and
+``kernels.pairhmm_long`` run them, the tests hold them against the JAX
+package, and ``chip_smoke.py`` holds the kernels against them on the
+card. They keep the JAX formulation as it is, so the two can be read
 side by side:
 
   * the ``(NXs, L)`` layout: x position on axis 0, one pair per column;
@@ -106,6 +108,89 @@ def sw_forward_tiles(sx: torch.Tensor, sy: torch.Tensor,
     flat_y = sy.permute(1, 0, 2).reshape(sy.shape[1], nt * lanes)
     scores = sw_forward_dense(flat_x, flat_y, int(ndiag_tile.max()), cfg)
     return scores.reshape(nt, lanes)
+
+
+def sw_long_forward(sx: torch.Tensor, sy: torch.Tensor, nx: torch.Tensor,
+                    ny: torch.Tensor, k_strips: int, strip_w: int,
+                    anchor: int, cfg: SWConfig = SWConfig()) -> torch.Tensor:
+    """Plain version of the long-pair SW kernel (``csrc/sw_long.cu``): one
+    packed tile of ``kernels.sw_long.pack_sw_long`` -> (128,) int32 scores.
+
+    sx: (K*W, L) codes, row p holding x[p-1]; sy: (NDt, L) reversed stream
+    with y[j-1] at row anchor - j; nx, ny: (L,) matrix dimensions len + 1.
+
+    It sweeps as the kernel does, so that it tests the strip seam and not
+    only the score: the K strips of W rows one after another, strip k over
+    the diagonals [kW + 1, min(kW + W - 1, len x) + len y] of the tile's
+    longest pair; the strip's last row writes its D and Q of diagonal d to
+    halo row d, and the next strip's first row takes the row above from
+    halo row d - 1 (and keeps d - 2 as its diagonal neighbour). One halo
+    serves every strip: a strip reads row d, for the next diagonal, before
+    it writes its own row d. A cell is live iff 1 <= p <= len x and
+    1 <= j <= len y; every other cell is D = 0, P = Q = -KILL, written out
+    rather than left to pad decay.
+    """
+    w, all_lanes = strip_w, sx.shape[1]
+    dev = sx.device
+    out = torch.zeros(all_lanes, dtype=torch.int32, device=dev)
+    # A tile fills its lanes from 0; the lanes past the last pair with a
+    # cell (the pack's empty lanes) score 0 and are left out of the sweep.
+    used = ((nx > 1) & (ny > 1)).nonzero()
+    if not len(used):
+        return out
+    lanes = int(used.max()) + 1
+    sx = sx[:, :lanes].to(torch.int32)
+    sy = sy[:, :lanes].to(torch.int32)
+    lx = (nx[:lanes].to(torch.int32) - 1).view(1, lanes)
+    ly = (ny[:lanes].to(torch.int32) - 1).view(1, lanes)
+    lx_max, ly_max = int(lx.max()), int(ly.max())
+    oge, ge = cfg.gap_open + cfg.gap_extend, cfg.gap_extend
+    best = torch.zeros((w, lanes), dtype=torch.int32, device=dev)
+    nh = k_strips * w + ly_max + 1
+    halo_d = torch.zeros((nh, lanes), dtype=torch.int32, device=dev)
+    halo_q = torch.full((nh, lanes), -KILL, dtype=torch.int32, device=dev)
+    rows = torch.arange(w, dtype=torch.int32, device=dev).view(w, 1)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    neg = torch.full((), -KILL, dtype=torch.int32, device=dev)
+    for k in range(k_strips):
+        row0 = k * w
+        if row0 > lx_max:
+            break
+        p = rows + row0
+        xs = sx[row0: row0 + w]
+        row_live = (p >= 1) & (p <= lx)
+        # State of diagonal kW: all boundary. Row 0 of d1e and q1e is the
+        # row above the strip, rows 1.. the strip's own rows.
+        d1e = torch.zeros((w + 1, lanes), dtype=torch.int32, device=dev)
+        q1e = torch.full((w + 1, lanes), -KILL, dtype=torch.int32, device=dev)
+        p1 = q1e[1:].clone()
+        up2 = d1e[1:].clone()
+        if k:
+            d1e[0], q1e[0] = halo_d[row0], halo_q[row0]
+        for d in range(row0 + 1, min(row0 + w - 1, lx_max) + ly_max + 1):
+            up_d, up_q, d1 = d1e[:-1], q1e[:-1], d1e[1:]
+            j = d - p
+            live = row_live & (j >= 1) & (j <= ly)
+            yw = sy[anchor - d + row0: anchor - d + row0 + w]
+            pn = torch.maximum(d1 + oge, p1 + ge)
+            qn = torch.maximum(up_d + oge, up_q + ge)
+            sub = torch.where(yw == xs, cfg.match, cfg.mismatch)
+            dn = torch.maximum(torch.maximum(pn, qn),
+                               torch.clamp_min(up2 + sub, 0))
+            dn = torch.where(live, dn, zero)
+            pn = torch.where(live, pn, neg)
+            qn = torch.where(live, qn, neg)
+            best = torch.maximum(best, dn)
+            nd1e, nq1e = torch.empty_like(d1e), torch.empty_like(q1e)
+            nd1e[1:], nq1e[1:] = dn, qn
+            if k:  # the seam: read row d before this strip overwrites it
+                nd1e[0], nq1e[0] = halo_d[d], halo_q[d]
+            else:
+                nd1e[0], nq1e[0] = zero, neg
+            halo_d[d], halo_q[d] = dn[-1], qn[-1]
+            up2, p1, d1e, q1e = up_d, pn, nd1e, nq1e
+    out[:lanes] = best.amax(dim=0)
+    return out
 
 
 # ---------------------------------------------------------------------------

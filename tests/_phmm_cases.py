@@ -1,11 +1,13 @@
-"""Seeded PairHMM cases shared by chip_smoke.py and the port's kernel
-tests: ragged batches for the lane-tile kernel, a bucket whose haplotype
+"""Seeded cases shared by chip_smoke.py and the port's kernel tests.
+PairHMM: ragged batches for the lane-tile kernel, a bucket whose haplotype
 stream is longer than the JAX engine's resident limit, and jobs for the
-long-read kernel. Imports no jax."""
+long-read kernel. Smith-Waterman: a ragged tile for the long-pair kernel
+and pairs whose y stream passes the same resident limit. Imports no jax
+and nothing of the JAX package."""
 
 import numpy as np
 
-from genomax_torch.io.formats import PairHMMBatch, PairHMMRead
+from genomax_torch.io.formats import PairHMMBatch, PairHMMRead, SWPair
 
 def phmm_batches(seed, alphabet=b"ACGT", n_batches=12):
     """Ragged PairHMM batches: haplotypes of 1-700bp, variants of one
@@ -116,3 +118,51 @@ def long_jobs(seed, n_jobs=128, read_lens=(511, 1500), hap_max=2000):
     jobs.append((_read(rng, np.full(700, ord("A"), np.uint8), 40, 41),
                  b"C" * 760))
     return jobs
+
+
+def long_sw_pairs(seed, n_pairs=128, x_lens=(1023, 4000), y_max=5000,
+                  seam=1024):
+    """One tile for the long-pair SW kernel: x of 1,023-4,000bp, too long
+    for the lane-tile kernel, against y up to 5kbp, x planted in y with
+    errors on two pairs in three. The last four pairs are an identical pair
+    (its maximum runs through every strip seam), a tandem repeat laid
+    across row ``seam`` (a wrong Q hand-over there changes the score), an
+    all-mismatch pair and a one-base pair."""
+    rng = np.random.default_rng(seed)
+    abc = np.frombuffer(b"ACGT", np.uint8)
+    pairs = []
+    for k in range(n_pairs - 4):
+        x = rng.choice(abc, int(rng.integers(x_lens[0], x_lens[1] + 1)))
+        y = rng.choice(abc, int(rng.integers(len(x), y_max + 1)))
+        if k % 3:
+            a = int(rng.integers(0, len(y) - len(x) + 1))
+            y[a: a + len(x)] = _noisy(rng, x, 0.05, abc)
+        pairs.append(SWPair(sx=x.tobytes(), sy=y.tobytes()))
+    same = rng.choice(abc, x_lens[1]).tobytes()
+    pairs.append(SWPair(sx=same, sy=same))
+    unit = rng.choice(abc, 200).tobytes()
+    head = rng.choice(abc, seam - 100).tobytes()  # copy 2 straddles the seam
+    pairs.append(SWPair(
+        sx=head + unit + unit,
+        sy=head + unit + rng.choice(abc, 57).tobytes() + unit + unit))
+    pairs.append(SWPair(sx=b"A" * x_lens[0], sy=b"C" * y_max))
+    pairs.append(SWPair(sx=b"G", sy=b"G"))
+    return pairs
+
+
+def streamed_sw_pairs(seed, n_pairs=256, x_lens=(30, 600),
+                      y_lens=(6000, 10000)):
+    """Pairs whose y is 6-10kbp against x of 30-600bp planted in it with
+    errors: the packed stream of every bucket passes the 6,144 rows the JAX
+    engine keeps resident, so there these buckets take
+    sw_pallas._kernel_streamed."""
+    rng = np.random.default_rng(seed)
+    abc = np.frombuffer(b"ACGT", np.uint8)
+    pairs = []
+    for _ in range(n_pairs):
+        x = rng.choice(abc, int(rng.integers(x_lens[0], x_lens[1] + 1)))
+        y = rng.choice(abc, int(rng.integers(y_lens[0], y_lens[1] + 1)))
+        a = int(rng.integers(0, len(y) - len(x) + 1))
+        y[a: a + len(x)] = _noisy(rng, x, 0.03, abc)
+        pairs.append(SWPair(sx=x.tobytes() + b"\n", sy=y.tobytes() + b"\n"))
+    return pairs

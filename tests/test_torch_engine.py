@@ -5,6 +5,8 @@ not ported yet, a CUDA device on a host without one, and a failed kernel
 build. Scores are int32; tolerance exact."""
 
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -16,12 +18,15 @@ from genomax.config import EngineConfig as JaxEngineConfig
 from genomax.config import SWConfig
 from genomax_torch.engine.executor import EngineError
 from genomax.io.formats import SWPair
+from genomax.kernels import oracle
 
 from genomax_torch.config import EngineConfig
 from genomax_torch.engine import executor
 from genomax_torch.engine.executor import Engine
 from genomax_torch.kernels import _build
 from _torch_cpu import one_torch_thread  # noqa: F401
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _golden_scores(path):
@@ -71,21 +76,138 @@ def test_engine_matches_jax_engine_resident_kernel(cfg):
     assert eng.last_stats.dp_cells == jax_eng.last_stats.dp_cells
 
 
-def test_engine_offloads_long_x_to_native():
-    """len(sx) + 2 > max_device_len (1024) leaves the kernel for the native
-    model, as on the JAX engine's non-Pallas backends."""
-    rng = np.random.default_rng(2)
+def _mixed_pairs(seed):
+    """Short pairs, pairs whose x passes max_device_len = 128, and one whose
+    diagonals pass max_device_diags = 450, interleaved."""
+    rng = np.random.default_rng(seed)
     abc = np.frombuffer(b"ACGT", np.uint8)
-    long_x = rng.choice(abc, 1023).tobytes()
-    pairs = [SWPair(sx=b"ACGT\n", sy=b"TACGTT\n"),
-             SWPair(sx=long_x, sy=long_x[::-1] + long_x[:300]),
-             SWPair(sx=long_x[:1022], sy=long_x[:1022])]
-    eng = Engine(device="cpu")
+
+    def dna(n):
+        return rng.choice(abc, n).tobytes()
+
+    x = dna(200)
+    return [SWPair(sx=dna(20) + b"\n", sy=dna(40) + b"\n"),
+            SWPair(sx=x, sy=dna(50) + x + dna(30)),       # 480 > 450: native
+            SWPair(sx=dna(90), sy=dna(300)),              # lane tile
+            SWPair(sx=dna(150), sy=dna(260)),             # long-pair kernel
+            SWPair(sx=b"", sy=b""),
+            SWPair(sx=x[:140], sy=x[:140] + b"\n")]       # long-pair kernel
+
+
+_MIXED = dict(max_device_len=128, max_device_diags=450)
+
+
+def test_engine_offloads_long_x_to_native(monkeypatch):
+    """len(sx) + 2 > max_device_len leaves the lane-tile kernel: for the
+    long-pair kernel on the engine's device while len(sx) + len(sy) <=
+    max_device_diags, and only past that for the native model."""
+    pairs = _mixed_pairs(2)
+    to_native, to_long = [], []
+    real_native, real_long = native.sw_scores_native, executor.sw_scores_long
+    monkeypatch.setattr(
+        executor.native, "sw_scores_native",
+        lambda ps, cfg=None: to_native.append(len(ps)) or real_native(ps, cfg))
+    monkeypatch.setattr(
+        executor, "sw_scores_long",
+        lambda ps, cfg, device: to_long.append(
+            (len(ps), str(device))) or real_long(ps, cfg, device=device))
+    eng = Engine(EngineConfig(**_MIXED), device="cpu")
     got = eng.sw_scores(pairs)
-    np.testing.assert_array_equal(got, native.sw_scores_native(pairs))
-    assert got[2] == 1022
-    assert eng.last_stats.offloaded_jobs == 1
-    assert eng.last_stats.n_jobs == 3 and eng.last_stats.buckets == 2
+    np.testing.assert_array_equal(got, real_native(pairs))
+    assert got[1] == 200 and got[5] == 140
+    assert to_long == [(2, "cpu")] and to_native == [1]
+    assert eng.last_stats.offloaded_jobs == 3
+    assert eng.last_stats.n_jobs == 6 and eng.last_stats.buckets == 2
+
+
+@pytest.mark.parametrize("cfg", [
+    SWConfig(), SWConfig(match=3, mismatch=-1, gap_open=0, gap_extend=-2)],
+    ids=["default", "m3x1o0e2"])
+def test_engine_mixed_list_matches_jax_engine_long_pairs(cfg):
+    """Short, long and oversized pairs in one call: the same scores, in
+    input order, and the same offload count as the JAX engine, whose Pallas
+    backend (interpret mode) sends the long pairs to its sw_long."""
+    pairs = _mixed_pairs(5)
+    jax_eng = genomax.Engine(
+        JaxEngineConfig(backend="pallas", sw_strips=False, sw_rotor=False,
+                        unroll=4, **_MIXED),
+        sw_cfg=cfg, interpret=True)
+    eng = Engine(EngineConfig(**_MIXED), sw_cfg=cfg, device="cpu")
+    got = eng.sw_scores(pairs)
+    np.testing.assert_array_equal(got, jax_eng.sw_scores(pairs))
+    np.testing.assert_array_equal(got, oracle.sw_scores_pairs(pairs, cfg))
+    assert (eng.last_stats.offloaded_jobs
+            == jax_eng.last_stats.offloaded_jobs == 3)
+    assert eng.last_stats.buckets == jax_eng.last_stats.buckets
+    assert eng.last_stats.dp_cells == jax_eng.last_stats.dp_cells
+
+
+def test_long_kernel_failure_raises_engine_error_not_native(monkeypatch):
+    """The JAX engine reroutes a failed sw_long to the native model; the
+    port raises, and the native model is not called for those pairs."""
+    def fail(*args, **kwargs):
+        raise RuntimeError("device fault (simulated)")
+
+    called = []
+    monkeypatch.setattr(executor, "sw_scores_long", fail)
+    monkeypatch.setattr(executor.native, "sw_scores_native",
+                        lambda *a, **k: called.append(a))
+    eng = Engine(EngineConfig(**_MIXED), device="cpu")
+    with pytest.raises(EngineError, match="sw_long") as err:
+        eng.sw_scores(_mixed_pairs(2))
+    assert err.value.stage == "sw_long"
+    assert isinstance(err.value.cause, RuntimeError)
+    assert called == []
+
+
+def test_long_kernel_build_failure_raises_not_cpu_scores(monkeypatch):
+    """On a device that is not the CPU the long-pair wrapper launches its
+    kernel or raises: a build failure reaches the caller as EngineError."""
+    def fail(*args, **kwargs):
+        raise _build.BuildError("nvcc failed (simulated)")
+
+    monkeypatch.setattr(_build, "load", fail)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    eng = Engine(EngineConfig(**_MIXED), device="cuda")
+    eng.device = torch.device("meta")  # stand-in for a card on this host
+    rng = np.random.default_rng(0)
+    x = rng.choice(np.frombuffer(b"ACGT", np.uint8), 150).tobytes()
+    with pytest.raises(EngineError, match="sw_long") as err:
+        eng.sw_scores([SWPair(sx=x, sy=x)])
+    assert isinstance(err.value.cause, _build.BuildError)
+
+
+def test_cli_sw_file_with_long_pairs_reaches_long_kernel(tmp_path):
+    """The slice as a whole: `python -m genomax_torch sw` on a file whose
+    pairs pass max_device_len scores them through the long-pair path."""
+    from genomax_torch.io.formats import parse_sw_file, write_sw_input
+
+    rng = np.random.default_rng(3)
+    abc = np.frombuffer(b"ACGT", np.uint8)
+    long_x = rng.choice(abc, 1100).tobytes()
+    seqs = [b"ACGTACGT", b"TTACGTACGTTT", long_x,
+            long_x[:500] + b"GG" + long_x[500:],
+            rng.choice(abc, 1030).tobytes(), rng.choice(abc, 1040).tobytes()]
+    path = tmp_path / "long.in"
+    write_sw_input(str(path), seqs)
+    r = subprocess.run(
+        [sys.executable, "-c",
+         "import sys, torch; torch.set_num_threads(1);"
+         "from genomax_torch.kernels import sw_long, wavefront;"
+         "from genomax_torch.cli.main import main;"
+         "calls = [];"
+         "plain = sw_long.sw_long_forward;"
+         "sw_long.sw_long_forward = lambda *a: calls.append(1) or plain(*a);"
+         "rc = main(['sw', sys.argv[1], '--device', 'cpu', '--stats']);"
+         "print('long tiles', len(calls)); sys.exit(rc)", str(path)],
+        capture_output=True, text=True, cwd=_REPO, timeout=600)
+    assert r.returncode == 0, r.stderr[-400:]
+    got = [int(line.split()[1]) for line in r.stdout.splitlines()
+           if line.startswith("Score: ")]
+    want = native.sw_scores_native(parse_sw_file(str(path)))
+    assert got == list(want) and got[1] > 1000
+    assert "long tiles 1" in r.stdout
+    assert '"offloaded_jobs": 2' in r.stderr
 
 
 @pytest.mark.parametrize("knob", ["sw_strips", "sw_rotor"])

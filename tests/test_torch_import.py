@@ -50,7 +50,7 @@ def test_every_module_imports_without_jax_or_genomax(walked):
     "genomax_torch.io.phred", "genomax_torch.io.generator",
     "genomax_torch.native", "genomax_torch.pack.bucketing",
     "genomax_torch.pack.tensors", "genomax_torch.engine.executor",
-    "genomax_torch.kernels.sw",
+    "genomax_torch.kernels.sw", "genomax_torch.kernels.sw_long",
     "genomax_torch.kernels.pairhmm", "genomax_torch.kernels.pairhmm_long",
     "genomax_torch.kernels.wavefront", "genomax_torch.cli.main"])
 def test_module_is_part_of_the_walk(walked, name):

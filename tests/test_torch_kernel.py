@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain PyTorch versions on the card:
-csrc/sw_tile.cu (int32 scores, exact), csrc/pairhmm_tile.cu and
+csrc/sw_tile.cu and csrc/sw_long.cu (int32 scores, exact),
+csrc/pairhmm_tile.cu and
 csrc/pairhmm_long.cu (within 1e-4 in log10, or two fp32 ulps of values
 below -512: nvcc contracts a*b+c into FMAs, the plain version rounds each
 operation). Needs a CUDA device and nvcc; skips without them. This file
@@ -14,14 +15,17 @@ from genomax_torch import native
 from genomax_torch.config import PairHMMConfig, SWConfig
 from genomax_torch.io.formats import SWPair
 from genomax_torch.io.generator import generate_pairhmm_batch
-from genomax_torch.pack.bucketing import (pack_pairhmm_batches, pack_sw_pairs,
-                                    unpack_scores)
+from genomax_torch.pack.bucketing import (pack_pairhmm_batches,
+                                          pack_sw_pairs, unpack_scores)
 
-from _phmm_cases import long_jobs, phmm_batches, streamed_batches
-from genomax_torch.kernels import _build, pairhmm, pairhmm_long, sw
+from _phmm_cases import (long_jobs, long_sw_pairs, phmm_batches,
+                         streamed_batches, streamed_sw_pairs)
+from genomax_torch.kernels import (_build, pairhmm, pairhmm_long, sw,
+                                   sw_long)
 from genomax_torch.kernels.wavefront import (phmm_forward_tiles,
                                              phmm_long_forward,
-                                             sw_forward_tiles)
+                                             sw_forward_tiles,
+                                             sw_long_forward)
 from genomax_torch.pack import phmm_bucket_to_torch, sw_bucket_to_torch
 
 pytestmark = pytest.mark.cuda
@@ -80,6 +84,78 @@ def test_wrapper_rejects_bad_inputs(device):
     with pytest.raises(ValueError, match="NXs"):
         sw.sw_forward(wide, torch.zeros((1, 2048, 128), dtype=torch.int8,
                                         device=device), nd)
+
+
+def test_kernel_streamed_bucket_equals_plain_version(device):
+    """x of 30-600bp against y of 6-10kbp: every bucket's stream passes
+    the 6,144 rows the JAX engine keeps resident (its _kernel_streamed
+    buckets); the CUDA kernel reads the stream from global memory at any
+    length."""
+    pairs = streamed_sw_pairs(4, n_pairs=200)
+    buckets = pack_sw_pairs(pairs)
+    assert min(b.sy.shape[1] for b in buckets) > 6144
+    results = []
+    for b in buckets:
+        sx, sy, nd = sw_bucket_to_torch(b, device)
+        got = sw.sw_forward(sx, sy, nd)
+        torch.cuda.synchronize()
+        assert torch.equal(got, sw_forward_tiles(sx, sy, nd))
+        results.append(got.cpu().numpy())
+    np.testing.assert_array_equal(unpack_scores(buckets, results, len(pairs)),
+                                  native.sw_scores_native(pairs))
+
+
+@pytest.mark.parametrize("strip_w", [64, 1024], ids=["w64", "w1024"])
+@pytest.mark.parametrize("cfg", CFGS, ids=["default", "m2x3o5e2", "m3x1o0e2"])
+def test_sw_long_kernel_equals_plain_version(device, cfg, strip_w):
+    """A ragged tile with an identical pair, a tandem repeat across a strip
+    seam, an all-mismatch pair and a one-base pair: kernel == plain ==
+    native, with the pairs' lengths and without them."""
+    pairs = long_sw_pairs(7, n_pairs=24, x_lens=(300, 900), y_max=1200,
+                          seam=256 if strip_w == 64 else 1024)
+    b = sw_long.pack_sw_long(pairs, strip_w)
+    sx, sy, nx, ny = sw_long.tile_to_torch(b, device)
+    kw = dict(k_strips=b.n_strips, strip_w=b.strip_w, ny_max=b.ny_max,
+              cfg=cfg)
+    before = sw_long.launches
+    got = sw_long.sw_forward_long(sx, sy, nx=nx, ny=ny, **kw)
+    blind = sw_long.sw_forward_long(sx, sy, **kw)
+    torch.cuda.synchronize()
+    assert sw_long.launches - before == 2
+    assert got.is_cuda and got.dtype == torch.int32 and got.shape == (128,)
+    _, anchor, _ = sw_long._layout(b.ny_max, b.strip_w)
+    want = sw_long_forward(sx, sy, nx, ny, b.n_strips, b.strip_w, anchor, cfg)
+    assert torch.equal(got, want)
+    assert torch.equal(blind[:len(pairs)], want[:len(pairs)])
+    np.testing.assert_array_equal(got.cpu().numpy()[:len(pairs)],
+                                  native.sw_scores_native(pairs, cfg))
+    assert int(got[len(pairs) - 4]) == 900 * cfg.match  # the identical pair
+
+
+def test_sw_long_scores_tiles_in_input_order(device):
+    pairs = long_sw_pairs(8, n_pairs=130, x_lens=(200, 700), y_max=800,
+                          seam=256)
+    before = sw_long.launches
+    got = sw_long.sw_scores_long(pairs, device=device, strip_w=256)
+    assert sw_long.launches - before == 2
+    np.testing.assert_array_equal(got, native.sw_scores_native(pairs))
+
+
+def test_sw_long_wrapper_rejects_bad_inputs(device):
+    b = sw_long.pack_sw_long(long_sw_pairs(1, n_pairs=5, x_lens=(40, 90),
+                                           y_max=120, seam=128), 64)
+    sx, sy, nx, ny = sw_long.tile_to_torch(b, device)
+    kw = dict(k_strips=b.n_strips, strip_w=b.strip_w, ny_max=b.ny_max)
+    with pytest.raises(TypeError):
+        sw_long.sw_forward_long(sx.to(torch.int32), sy, **kw)
+    with pytest.raises(ValueError, match="strip_w"):
+        sw_long.sw_forward_long(sx, sy, **{**kw, "strip_w": 2048})
+    with pytest.raises(ValueError, match="one device"):
+        sw_long.sw_forward_long(sx, sy, nx=nx.cpu(), ny=ny, **kw)
+    wide = torch.ones((2 * sx.shape[0], 128), dtype=torch.int8,
+                      device=device)[::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        sw_long.sw_forward_long(wide, sy, **kw)
 
 
 @pytest.mark.parametrize("alphabet,gatk,period", [
