@@ -55,7 +55,10 @@ Phases (one line each; any failure exits non-zero):
                 an identical pair, a tandem repeat across a strip seam, an
                 all-mismatch pair, a one-base pair) under three scoring
                 configs, at strip widths 64 and 1024, with the pairs'
-                lengths and without, exact; kernel vs plain ms on that tile
+                lengths and without, exact; the plain version at 1024
+                there, and at 64 on a tile a quarter as long (x
+                300-1,100bp, the same special pairs, 18 strips); kernel
+                vs plain ms on the 4kbp tile
  15. sw streamed the lane-tile SW kernel on buckets whose stream passes
                 6,144 rows (x 30-600bp planted in y of 6-10kbp): kernel ==
                 plain == native, exact, and kernel vs plain ms on the
@@ -658,36 +661,48 @@ def main() -> int:
 
         return kernel, plain, b, t
 
+    # The plain version launches some forty torch operations a diagonal:
+    # at strips of 64 it sweeps the 4kbp tile in minutes, so it runs there
+    # on a tile a quarter as long with the same four special pairs, and the
+    # kernel at strips of 64 is held on both tiles.
     sl_err = 0
     pairs = cases.long_sw_pairs(3)
+    small = cases.long_sw_pairs(5, x_lens=(300, 1100), y_max=1300, seam=256)
     n = len(pairs)
-    k64, p64, b64, _ = sw_long_tile(pairs, 64)
+    k64, _, b64, _ = sw_long_tile(pairs, 64)
     kdef, pdef, bdef, tdef = sw_long_tile(pairs, sw_long.STRIP_W)
-    for ci, c in enumerate(CFGS):
+    ks64, ps64, bs64, _ = sw_long_tile(small, 64)
+    for c in CFGS:
         cfg = SWConfig(**c)
         t0 = time.perf_counter()
         want = torch.from_numpy(native_sw(native, pairs, cfg)).to(dev)
+        want_small = torch.from_numpy(native_sw(native, small, cfg)).to(dev)
         t_native = time.perf_counter() - t0
         got = {"strips of 64": k64(cfg), "strips of 64, no lengths":
                k64(cfg, False), f"strips of {bdef.strip_w}": kdef(cfg),
                f"strips of {bdef.strip_w}, no lengths": kdef(cfg, False),
-               f"plain, strips of {bdef.strip_w}": pdef(cfg)}
-        if ci == 0:  # many strips: 63 seams, the slow one, once
-            got["plain, strips of 64"] = p64(cfg)
+               f"plain, strips of {bdef.strip_w}": pdef(cfg),
+               "small tile, strips of 64": ks64(cfg),
+               "small tile, plain, strips of 64": ps64(cfg)}
         torch.cuda.synchronize()
         for name, g in got.items():
-            err = int((g[:n].long() - want.long()).abs().max())
+            ref = want_small if name.startswith("small") else want
+            err = int((g[:n].long() - ref.long()).abs().max())
             sl_err = max(sl_err, err)
             check(err == 0, f"long-pair SW ({name}) != native model under "
                             f"{cfg}: max |diff| {err}")
             check(name.endswith("no lengths") or not bool(g[n:].any()),
                   f"long-pair SW ({name}): an empty lane scored")
-        check(int(want[n - 4]) == 4000 * cfg.match,
-              f"the identical pair scored {int(want[n - 4])}")
+        check(int(want[n - 4]) == 4000 * cfg.match
+              and int(want_small[n - 4]) == 1100 * cfg.match,
+              f"the identical pairs scored {int(want[n - 4])}, "
+              f"{int(want_small[n - 4])}")
         print(f"phase 14 sw long kernel == plain == native: {n} pairs (x "
               f"1,023-4,000bp, y to 5kbp), {b64.n_strips} strips of 64 and "
               f"{bdef.n_strips} of {bdef.strip_w}, with and without "
-              f"lengths, {cfg}, {len(got)} results exact (native "
+              f"lengths, plain at {bdef.strip_w}; {len(small)} pairs (x "
+              f"300-1,100bp, y to 1.3kbp), {bs64.n_strips} strips of 64, "
+              f"kernel and plain; {cfg}, {len(got)} results exact (native "
               f"{t_native:.2f} s)")
     cfg = SWConfig()
     p1, k1, k2, p2 = (one_ms(lambda: pdef(cfg), torch),

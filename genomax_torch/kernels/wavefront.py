@@ -158,7 +158,10 @@ def sw_long_forward(sx: torch.Tensor, sy: torch.Tensor, nx: torch.Tensor,
             break
         p = rows + row0
         xs = sx[row0: row0 + w]
-        row_live = (p >= 1) & (p <= lx)
+        # Row p is live on the diagonals p + 1 .. p + len y (none where it
+        # lies outside 1 .. len x).
+        d_lo = p + 1
+        d_hi = torch.where((p >= 1) & (p <= lx), p + ly, 0)
         # State of diagonal kW: all boundary. Row 0 of d1e and q1e is the
         # row above the strip, rows 1.. the strip's own rows.
         d1e = torch.zeros((w + 1, lanes), dtype=torch.int32, device=dev)
@@ -169,8 +172,7 @@ def sw_long_forward(sx: torch.Tensor, sy: torch.Tensor, nx: torch.Tensor,
             d1e[0], q1e[0] = halo_d[row0], halo_q[row0]
         for d in range(row0 + 1, min(row0 + w - 1, lx_max) + ly_max + 1):
             up_d, up_q, d1 = d1e[:-1], q1e[:-1], d1e[1:]
-            j = d - p
-            live = row_live & (j >= 1) & (j <= ly)
+            live = (d_lo <= d) & (d_hi >= d)
             yw = sy[anchor - d + row0: anchor - d + row0 + w]
             pn = torch.maximum(d1 + oge, p1 + ge)
             qn = torch.maximum(up_d + oge, up_q + ge)
