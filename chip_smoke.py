@@ -50,15 +50,15 @@ Phases (one line each; any failure exits non-zero):
  13. long time   long-read kernel vs plain ms on one tile of phase 12,
                 slope (t(3) - t(1)) / 2, in turns plain, kernel, kernel,
                 plain
- 14. sw long     long-pair SW kernel vs its plain version and the native
+ 14. sw long     long-pair SW kernel vs its plain versions and the native
                 model on a tile of 128 pairs (x 1,023-4,000bp, y to 5kbp,
                 an identical pair, a tandem repeat across a strip seam, an
                 all-mismatch pair, a one-base pair) under three scoring
-                configs, at strip widths 64 and 1024, with the pairs'
-                lengths and without, exact; the plain version at 1024
-                there, and at 64 on a tile a quarter as long (x
-                300-1,100bp, the same special pairs, 18 strips); kernel
-                vs plain ms on the 4kbp tile
+                configs, at strip widths 64 and 1024, exact; the plain
+                strip sweep at 1024 and the plain full-height sweep
+                there, and the strip sweep at 64 on a tile a quarter as
+                long (x 300-1,100bp, the same special pairs, 18 strips);
+                kernel vs plain ms on the 4kbp tile
  15. sw streamed the lane-tile SW kernel on buckets whose stream passes
                 6,144 rows (x 30-600bp planted in y of 6-10kbp): kernel ==
                 plain == native, exact, and kernel vs plain ms on the
@@ -69,14 +69,16 @@ Phases (one line each; any failure exits non-zero):
                 long-pair kernel, none for the native model; four sampled
                 pairs held against the native model; the kernel's launch
                 count is read around this run; then pack, copy and kernel
-                timed apart
+                timed apart, and all 128 scores held against the plain
+                full-height sweep of the same packed tile on the card,
+                exact, which is timed by that one call
  17. sw mixed    the engine on 2,000 pairs with x of 100-4,000bp in one
                 call: some take the lane-tile kernel, the rest the
                 long-pair kernel; results in input order, 256 sampled pairs
                 == native model, both launch counts move
  18. sw long time  long-pair kernel ms per 50kbp tile, slope
-                (t(3) - t(1)) / 2, twice (its plain version would take
-                hours there and is timed on phase 14's tile only)
+                (t(3) - t(1)) / 2, twice, beside phase 16's plain ms on
+                the same tile
 
 Then one JSON line describing each kernel, the card line, and, last,
 {"ok": true, "device": {...}}. Without a CUDA device, or outside the
@@ -108,12 +110,13 @@ MX_PAIRS, MX_X_LENS = 2000, (100, 4000)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 SMS, INT32_LANES = 132, 64
-# Operations per real cell, counted from the recurrences. SW: P and Q two
-# adds and a max each, the substitution a compare, a select and an add,
-# then four maxes (with 0, P/Q, the diagonal, the running best). PairHMM:
-# M three multiplies and two adds, X and Y two multiplies and an add each.
-SW_OPS_PER_CELL = 12
-PHMM_FLOPS_PER_CELL = 11
+# Operations per real cell, counted from the recurrences as written, with
+# no fused instruction assumed. SW: P and Q two adds and a max each; the
+# substitution a compare, a select and an add; four more maxes (P with Q,
+# the diagonal with 0, those two, the running best). PairHMM: M three
+# multiplies and two adds, X and Y two multiplies and an add each.
+SW_OPS_PER_CELL = (2 + 1) + (2 + 1) + 3 + 4
+PHMM_FLOPS_PER_CELL = (3 + 2) + (2 + 1) + (2 + 1)
 CFGS = [dict(match=1, mismatch=-1, gap_open=-3, gap_extend=-1),
         dict(match=2, mismatch=-3, gap_open=-5, gap_extend=-2),
         dict(match=3, mismatch=-1, gap_open=0, gap_extend=-2)]
@@ -253,7 +256,8 @@ def main() -> int:
     from genomax_torch.kernels.wavefront import (phmm_forward_tiles,
                                                  phmm_long_forward,
                                                  sw_forward_tiles,
-                                                 sw_long_forward)
+                                                 sw_long_forward,
+                                                 sw_long_forward_dense)
     from genomax_torch.pack import (pack_pairhmm_batches, pack_sw_pairs,
                                     phmm_bucket_to_torch, sw_bucket_to_torch,
                                     unpack_scores)
@@ -649,39 +653,41 @@ def main() -> int:
         _, anchor, _ = sw_long._layout(b.ny_max, b.strip_w)
         kw = dict(k_strips=b.n_strips, strip_w=b.strip_w, ny_max=b.ny_max)
 
-        def kernel(cfg, lengths=True):
-            sx, sy, nx, ny = t
-            if lengths:
-                return sw_long.sw_forward_long(sx, sy, nx=nx, ny=ny, cfg=cfg,
-                                               **kw)
-            return sw_long.sw_forward_long(sx, sy, cfg=cfg, **kw)
+        def kernel(cfg):
+            return sw_long.sw_forward_long(*t, cfg=cfg, **kw)
 
         def plain(cfg):
             return sw_long_forward(*t, b.n_strips, b.strip_w, anchor, cfg)
 
-        return kernel, plain, b, t
+        def dense(cfg):
+            return sw_long_forward_dense(t[0], t[1], b.n_diags, b.ny_max,
+                                         anchor, cfg)
 
-    # The plain version launches some forty torch operations a diagonal:
-    # at strips of 64 it sweeps the 4kbp tile in minutes, so it runs there
-    # on a tile a quarter as long with the same four special pairs, and the
-    # kernel at strips of 64 is held on both tiles.
+        return kernel, plain, dense, b, t
+
+    # The plain strip sweep launches some forty torch operations a
+    # diagonal: at strips of 64 it sweeps the 4kbp tile in minutes, so it
+    # runs there on a tile a quarter as long with the same four special
+    # pairs, and the kernel at strips of 64 is held on both tiles. The
+    # plain full-height sweep, which phase 16 holds the 50kbp tile
+    # against, is held against the native model here too.
     sl_err = 0
     pairs = cases.long_sw_pairs(3)
     small = cases.long_sw_pairs(5, x_lens=(300, 1100), y_max=1300, seam=256)
     n = len(pairs)
-    k64, _, b64, _ = sw_long_tile(pairs, 64)
-    kdef, pdef, bdef, tdef = sw_long_tile(pairs, sw_long.STRIP_W)
-    ks64, ps64, bs64, _ = sw_long_tile(small, 64)
+    k64, _, _, b64, _ = sw_long_tile(pairs, 64)
+    kdef, pdef, ddef, bdef, tdef = sw_long_tile(pairs, sw_long.STRIP_W)
+    ks64, ps64, _, bs64, _ = sw_long_tile(small, 64)
     for c in CFGS:
         cfg = SWConfig(**c)
         t0 = time.perf_counter()
         want = torch.from_numpy(native_sw(native, pairs, cfg)).to(dev)
         want_small = torch.from_numpy(native_sw(native, small, cfg)).to(dev)
         t_native = time.perf_counter() - t0
-        got = {"strips of 64": k64(cfg), "strips of 64, no lengths":
-               k64(cfg, False), f"strips of {bdef.strip_w}": kdef(cfg),
-               f"strips of {bdef.strip_w}, no lengths": kdef(cfg, False),
+        got = {"strips of 64": k64(cfg),
+               f"strips of {bdef.strip_w}": kdef(cfg),
                f"plain, strips of {bdef.strip_w}": pdef(cfg),
+               "plain, full height": ddef(cfg),
                "small tile, strips of 64": ks64(cfg),
                "small tile, plain, strips of 64": ps64(cfg)}
         torch.cuda.synchronize()
@@ -691,7 +697,7 @@ def main() -> int:
             sl_err = max(sl_err, err)
             check(err == 0, f"long-pair SW ({name}) != native model under "
                             f"{cfg}: max |diff| {err}")
-            check(name.endswith("no lengths") or not bool(g[n:].any()),
+            check(not bool(g[n:].any()),
                   f"long-pair SW ({name}): an empty lane scored")
         check(int(want[n - 4]) == 4000 * cfg.match
               and int(want_small[n - 4]) == 1100 * cfg.match,
@@ -699,27 +705,27 @@ def main() -> int:
               f"{int(want_small[n - 4])}")
         print(f"phase 14 sw long kernel == plain == native: {n} pairs (x "
               f"1,023-4,000bp, y to 5kbp), {b64.n_strips} strips of 64 and "
-              f"{bdef.n_strips} of {bdef.strip_w}, with and without "
-              f"lengths, plain at {bdef.strip_w}; {len(small)} pairs (x "
+              f"{bdef.n_strips} of {bdef.strip_w}, plain at "
+              f"{bdef.strip_w} and at full height; {len(small)} pairs (x "
               f"300-1,100bp, y to 1.3kbp), {bs64.n_strips} strips of 64, "
               f"kernel and plain; {cfg}, {len(got)} results exact (native "
               f"{t_native:.2f} s)")
     cfg = SWConfig()
-    p1, k1, k2, p2 = (one_ms(lambda: pdef(cfg), torch),
-                      slope_ms(lambda: kdef(cfg), torch, 3),
-                      slope_ms(lambda: kdef(cfg), torch, 3),
-                      one_ms(lambda: pdef(cfg), torch))
-    sl4_kernel_ms, sl_plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    k1, p1, f1, k2 = (slope_ms(lambda: kdef(cfg), torch, 3),
+                      one_ms(lambda: pdef(cfg), torch),
+                      one_ms(lambda: ddef(cfg), torch),
+                      slope_ms(lambda: kdef(cfg), torch, 3))
+    sl4_kernel_ms = (k1 + k2) / 2
     cells = sum(len(p.sx) * len(p.sy) for p in pairs)
     sl4_bound = bound_ms(nbytes(*tdef) + 4 * 128, cells * SW_OPS_PER_CELL,
                          int32_ops)
     print(f"phase 14 sw long timing, tile of {n} pairs x 1,023-4,000bp, "
           f"{bdef.n_strips} strips of {bdef.strip_w}: kernel {k1:.3f} / "
-          f"{k2:.3f} ms, plain {p1:.3f} / {p2:.3f} ms per call, bound "
-          f"{sl4_bound[0]:.4f} ms by {sl4_bound[1]}; GCUPS kernel "
-          f"{cells / sl4_kernel_ms / 1e6:.2f}, plain "
-          f"{cells / sl_plain_ms / 1e6:.2f} (cells = sum len(sx)*len(sy), "
-          f"{cells})")
+          f"{k2:.3f} ms, plain strip sweep {p1:.3f} ms, plain full-height "
+          f"sweep {f1:.3f} ms (one call each), bound {sl4_bound[0]:.4f} ms "
+          f"by {sl4_bound[1]}; GCUPS kernel {cells / sl4_kernel_ms / 1e6:.2f}"
+          f", plain {cells / p1 / 1e6:.2f} and {cells / f1 / 1e6:.2f} "
+          f"(cells = sum len(sx)*len(sy), {cells})")
 
     # 15. the lane-tile SW kernel on streams past 6,144 rows
     pairs = cases.streamed_sw_pairs(4)
@@ -811,9 +817,9 @@ def main() -> int:
     torch.cuda.synchronize()
     t_h2d = time.perf_counter() - t0
     kw50 = dict(k_strips=b50.n_strips, strip_w=b50.strip_w,
-                ny_max=b50.ny_max, nx=t50[2], ny=t50[3])
+                ny_max=b50.ny_max)
     t0 = time.perf_counter()
-    got = sw_long.sw_forward_long(t50[0], t50[1], **kw50)
+    got = sw_long.sw_forward_long(*t50, **kw50)
     torch.cuda.synchronize()
     t_kernel = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -825,6 +831,24 @@ def main() -> int:
     print(f"phase 16 stages, s: pack {t_pack:.4f}, h2d {t_h2d:.4f}, kernel "
           f"{t_kernel:.4f}, d2h {t_d2h:.4f}; tile {nbytes(*t50) / 1e6:.1f} MB, "
           f"halo {halo_mb:.1f} MB, {b50.n_strips} strips of {b50.strip_w}")
+
+    # 16, kernel vs plain on that tile: every lane against the plain
+    # full-height sweep (all 50,176 rows at once over 100,001 diagonals; the
+    # plain strip sweep would take 49 times the steps), in one timed call
+    _, anchor50, _ = sw_long._layout(b50.ny_max, b50.strip_w)
+    want = []
+    sl_plain_ms = one_ms(lambda: want.append(sw_long_forward_dense(
+        t50[0], t50[1], b50.n_diags, b50.ny_max, anchor50)), torch)
+    err = int((got.long() - want[0].long()).abs().max())
+    sl_err = max(sl_err, err)
+    check(err == 0, f"long-pair SW kernel != plain full-height sweep on the "
+                    f"50kbp tile: max |diff| {err}")
+    check(np.array_equal(want[0].cpu().numpy(), scores),
+          "the engine's scores != the plain full-height sweep's")
+    print(f"phase 16 sw long kernel == plain on the 50kbp tile: all "
+          f"{LP_PAIRS} scores exact against the plain full-height sweep "
+          f"({b50.n_strips * b50.strip_w} rows x {b50.n_diags} diagonals), "
+          f"plain {sl_plain_ms:.1f} ms (one call)")
 
     # 17. short and long pairs in one call
     rng = np.random.default_rng(SEED + 4)
@@ -857,7 +881,7 @@ def main() -> int:
           f"in input order, stats {json.dumps(stats.as_dict())}")
 
     # 18. long-pair kernel timing on the 50kbp tile
-    k50 = lambda: sw_long.sw_forward_long(t50[0], t50[1], **kw50)  # noqa: E731
+    k50 = lambda: sw_long.sw_forward_long(*t50, **kw50)  # noqa: E731
     k1, k2 = slope_ms(k50, torch, 3), slope_ms(k50, torch, 3)
     sl_kernel_ms = (k1 + k2) / 2
     cells = LP_PAIRS * LP_LEN * LP_LEN
@@ -866,10 +890,9 @@ def main() -> int:
     print(f"phase 18 sw long timing, tile of {LP_PAIRS} pairs {LP_LEN} x "
           f"{LP_LEN}: kernel {k1:.3f} / {k2:.3f} ms per call, bound "
           f"{sl_bound[0]:.4f} ms by {sl_bound[1]}; GCUPS kernel "
-          f"{cells / sl_kernel_ms / 1e6:.2f} (cells = sum len(sx)*len(sy), "
-          f"{cells}); the plain version is timed on phase 14's tile only "
-          f"({sl_plain_ms:.1f} ms there against the kernel's "
-          f"{sl4_kernel_ms:.3f} ms): at 50kbp it would take hours")
+          f"{cells / sl_kernel_ms / 1e6:.2f}, plain "
+          f"{cells / sl_plain_ms / 1e6:.2f} at phase 16's {sl_plain_ms:.1f} "
+          f"ms (cells = sum len(sx)*len(sy), {cells})")
 
     # 6. the card
     smi = subprocess.run(["nvidia-smi", "-i", "0",
@@ -888,15 +911,13 @@ def main() -> int:
                 "bound_ms": bound[0], "bound_by": bound[1],
                 "library_ms": None}  # no one PyTorch call computes either
 
-    # Each row at the shape its main path gives the kernel; sw_long's plain
-    # version at phase 14's 4kbp tile (at 50kbp it would take hours).
+    # Each row at the shape its main path gives the kernel, kernel and
+    # plain alike; sw_long's plain version is the full-height sweep.
     print(json.dumps({"kernels": [
         entry("sw_tile", "sw_tile.cu", "genomax/kernels/sw_pallas.py:42",
               launches, max_err, kernel_ms, plain_ms, sw_bound),
-        {**entry("sw_long", "sw_long.cu", "genomax/kernels/sw_long.py:126",
-                 lp_launches, sl_err, sl_kernel_ms, sl_plain_ms, sl_bound),
-         "plain_ms_at": "phase 14's tile (x 1,023-4,000bp), where the "
-                        f"kernel takes {sl4_kernel_ms:.3f} ms"},
+        entry("sw_long", "sw_long.cu", "genomax/kernels/sw_long.py:126",
+              lp_launches, sl_err, sl_kernel_ms, sl_plain_ms, sl_bound),
         entry("pairhmm_tile", "pairhmm_tile.cu",
               "genomax/kernels/pairhmm_pallas.py:93", ph_launches, ph_err,
               ph_kernel_ms, ph_plain_ms, ph_bound),

@@ -36,8 +36,7 @@
 // needs no initial value (torch.empty), and what a chunk fetches past the
 // written range is never used. The TPU kernel's zero-initialised halo and
 // its "zeros past the matrix only lower dead cells" argument have no part
-// here. With nx = K*W and ny = ny_max (lengths unknown) the pad codes
-// mismatch everything and the dead cells decay, as in sw_tile.cu.
+// here.
 //
 // kNeg is safe at any length: P and Q are recomputed every step as
 // max(D + open + extend, . + extend) with D >= 0, so they never drift

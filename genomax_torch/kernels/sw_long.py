@@ -106,20 +106,17 @@ def pack_sw_long(pairs, strip_w: int = STRIP_W) -> SWLongPacked:
     )
 
 
-def sw_forward_long(sx: torch.Tensor, sy: torch.Tensor, *, k_strips: int,
-                    strip_w: int, ny_max: int, cfg: SWConfig = SWConfig(),
-                    nx: torch.Tensor | None = None,
-                    ny: torch.Tensor | None = None) -> torch.Tensor:
+def sw_forward_long(sx: torch.Tensor, sy: torch.Tensor, nx: torch.Tensor,
+                    ny: torch.Tensor, *, k_strips: int, strip_w: int,
+                    ny_max: int, cfg: SWConfig = SWConfig()) -> torch.Tensor:
     """(128,) int32 scores of one packed tile of long pairs, on the
     inputs' device.
 
     sx: (K*W, 128) int8 x codes; sy: (NDt, 128) int8 reversed stream
     anchored at ``_layout(ny_max, strip_w)``'s anchor, NDt its ndt.
     nx, ny: (128,) int32 matrix dimensions of each pair
-    (``SWLongPacked.nx/ny``); with them a pair sweeps only its own strips
-    and diagonals. Without them every lane sweeps the whole tile, K*W rows
-    by ny_max - 1 columns, and the pad codes let the cells past a pair's
-    matrix decay.
+    (``SWLongPacked.nx/ny``): a pair sweeps only its own strips and
+    diagonals.
     """
     if strip_w % WARP or not WARP <= strip_w <= MAX_STRIP_W:
         raise ValueError(f"sw_forward_long: strip_w={strip_w} must be a "
@@ -130,11 +127,6 @@ def sw_forward_long(sx: torch.Tensor, sy: torch.Tensor, *, k_strips: int,
                          f"ny_max={ny_max} must be positive")
     _, anchor, ndt = _layout(ny_max, strip_w)
     kw = k_strips * strip_w
-    if (nx is None) != (ny is None):
-        raise ValueError("sw_forward_long: give both nx and ny, or neither")
-    if nx is None:
-        nx = torch.full((LANES,), kw, dtype=torch.int32, device=sx.device)
-        ny = torch.full((LANES,), ny_max, dtype=torch.int32, device=sx.device)
     tensors = (sx, sy, nx, ny)
     want = ((kw, LANES), (ndt, LANES), (LANES,), (LANES,))
     got = tuple(tuple(t.shape) for t in tensors)
@@ -185,7 +177,7 @@ def tile_to_torch(b: SWLongPacked, device):
                  for a in (b.sx, b.sy, b.nx, b.ny))
 
 
-def sw_scores_long(pairs, cfg: SWConfig = SWConfig(), device="cpu",
+def sw_scores_long(pairs, cfg: SWConfig = SWConfig(), *, device,
                    strip_w: int = STRIP_W) -> np.ndarray:
     """Scores of SWPair jobs of any length, in order: tiles of 128 in input
     order, packed on the host, copied to ``device`` and scored there, all
@@ -196,8 +188,8 @@ def sw_scores_long(pairs, cfg: SWConfig = SWConfig(), device="cpu",
         b = pack_sw_long(pairs[base : base + LANES], strip_w)
         sx, sy, nx, ny = tile_to_torch(b, device)
         pending.append((base, b.n_valid, sw_forward_long(
-            sx, sy, k_strips=b.n_strips, strip_w=b.strip_w, ny_max=b.ny_max,
-            cfg=cfg, nx=nx, ny=ny)))
+            sx, sy, nx, ny, k_strips=b.n_strips, strip_w=b.strip_w,
+            ny_max=b.ny_max, cfg=cfg)))
     out = np.zeros(len(pairs), np.int32)
     for base, n, r in pending:
         out[base : base + n] = r.cpu().numpy()[:n]

@@ -195,6 +195,27 @@ def sw_long_forward(sx: torch.Tensor, sy: torch.Tensor, nx: torch.Tensor,
     return out
 
 
+def sw_long_forward_dense(sx: torch.Tensor, sy: torch.Tensor, n_diags: int,
+                          ny_max: int, anchor: int,
+                          cfg: SWConfig = SWConfig()) -> torch.Tensor:
+    """The same tile in one full-height sweep, without strips: all K*W rows
+    at once over the tile's n_diags = max(len x + len y) + 1 diagonals
+    (``SWLongPacked.n_diags``), by ``sw_forward_dense``. It takes a K-th of
+    the strip sweep's steps, so it is the plain version that a 50kbp tile
+    can be held against; it knows nothing of seams or lengths (the pad
+    codes let the cells past a pair's matrix decay).
+
+    sx, sy, anchor as in ``sw_long_forward``; the codes of every y lie in
+    the stream's rows [anchor - ny_max, anchor).
+    """
+    kw, lanes = sx.shape
+    stream = torch.zeros((n_diags + kw, lanes), dtype=sy.dtype,
+                         device=sy.device)
+    n = min(ny_max, n_diags)
+    stream[n_diags - n: n_diags] = sy[anchor - n: anchor]
+    return sw_forward_dense(sx, stream, n_diags, cfg)
+
+
 # ---------------------------------------------------------------------------
 # PairHMM forward
 # ---------------------------------------------------------------------------

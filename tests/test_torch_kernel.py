@@ -25,7 +25,8 @@ from genomax_torch.kernels import (_build, pairhmm, pairhmm_long, sw,
 from genomax_torch.kernels.wavefront import (phmm_forward_tiles,
                                              phmm_long_forward,
                                              sw_forward_tiles,
-                                             sw_long_forward)
+                                             sw_long_forward,
+                                             sw_long_forward_dense)
 from genomax_torch.pack import phmm_bucket_to_torch, sw_bucket_to_torch
 
 pytestmark = pytest.mark.cuda
@@ -109,8 +110,8 @@ def test_kernel_streamed_bucket_equals_plain_version(device):
 @pytest.mark.parametrize("cfg", CFGS, ids=["default", "m2x3o5e2", "m3x1o0e2"])
 def test_sw_long_kernel_equals_plain_version(device, cfg, strip_w):
     """A ragged tile with an identical pair, a tandem repeat across a strip
-    seam, an all-mismatch pair and a one-base pair: kernel == plain ==
-    native, with the pairs' lengths and without them."""
+    seam, an all-mismatch pair and a one-base pair: kernel == plain (the
+    strip sweep and the full-height sweep) == native."""
     pairs = long_sw_pairs(7, n_pairs=24, x_lens=(300, 900), y_max=1200,
                           seam=256 if strip_w == 64 else 1024)
     b = sw_long.pack_sw_long(pairs, strip_w)
@@ -118,15 +119,15 @@ def test_sw_long_kernel_equals_plain_version(device, cfg, strip_w):
     kw = dict(k_strips=b.n_strips, strip_w=b.strip_w, ny_max=b.ny_max,
               cfg=cfg)
     before = sw_long.launches
-    got = sw_long.sw_forward_long(sx, sy, nx=nx, ny=ny, **kw)
-    blind = sw_long.sw_forward_long(sx, sy, **kw)
+    got = sw_long.sw_forward_long(sx, sy, nx, ny, **kw)
     torch.cuda.synchronize()
-    assert sw_long.launches - before == 2
+    assert sw_long.launches - before == 1
     assert got.is_cuda and got.dtype == torch.int32 and got.shape == (128,)
     _, anchor, _ = sw_long._layout(b.ny_max, b.strip_w)
     want = sw_long_forward(sx, sy, nx, ny, b.n_strips, b.strip_w, anchor, cfg)
     assert torch.equal(got, want)
-    assert torch.equal(blind[:len(pairs)], want[:len(pairs)])
+    assert torch.equal(got, sw_long_forward_dense(sx, sy, b.n_diags, b.ny_max,
+                                                  anchor, cfg))
     np.testing.assert_array_equal(got.cpu().numpy()[:len(pairs)],
                                   native.sw_scores_native(pairs, cfg))
     assert int(got[len(pairs) - 4]) == 900 * cfg.match  # the identical pair
@@ -147,15 +148,15 @@ def test_sw_long_wrapper_rejects_bad_inputs(device):
     sx, sy, nx, ny = sw_long.tile_to_torch(b, device)
     kw = dict(k_strips=b.n_strips, strip_w=b.strip_w, ny_max=b.ny_max)
     with pytest.raises(TypeError):
-        sw_long.sw_forward_long(sx.to(torch.int32), sy, **kw)
+        sw_long.sw_forward_long(sx.to(torch.int32), sy, nx, ny, **kw)
     with pytest.raises(ValueError, match="strip_w"):
-        sw_long.sw_forward_long(sx, sy, **{**kw, "strip_w": 2048})
+        sw_long.sw_forward_long(sx, sy, nx, ny, **{**kw, "strip_w": 2048})
     with pytest.raises(ValueError, match="one device"):
-        sw_long.sw_forward_long(sx, sy, nx=nx.cpu(), ny=ny, **kw)
+        sw_long.sw_forward_long(sx, sy, nx.cpu(), ny, **kw)
     wide = torch.ones((2 * sx.shape[0], 128), dtype=torch.int8,
                       device=device)[::2]
     with pytest.raises(ValueError, match="contiguous"):
-        sw_long.sw_forward_long(wide, sy, **kw)
+        sw_long.sw_forward_long(wide, sy, nx, ny, **kw)
 
 
 @pytest.mark.parametrize("alphabet,gatk,period", [

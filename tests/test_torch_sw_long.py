@@ -1,8 +1,8 @@
 """The long-pair SW path of the port on the CPU: ``pack_sw_long`` against
 the JAX pack bit for bit, the plain strip sweep ``sw_long_forward`` against
 ``genomax.kernels.sw_long`` in interpret mode, the oracle and the native
-model across strip seams (int32, exact: no tolerance), and the wrapper's
-input checks. The CUDA kernel itself is held against this plain version on
+model across strip seams (int32, exact: no tolerance), the full-height
+plain sweep against the strip sweep, and the wrapper's input checks. The CUDA kernel itself is held against this plain version on
 the card (tests/test_torch_kernel.py, chip_smoke.py)."""
 
 import dataclasses
@@ -20,6 +20,7 @@ from genomax_torch import native
 from genomax_torch.config import SWConfig
 from genomax_torch.kernels import _build
 from genomax_torch.kernels import sw_long as torch_long
+from genomax_torch.kernels.wavefront import sw_long_forward_dense
 from _torch_cpu import one_torch_thread  # noqa: F401
 
 CFGS = [dict(), dict(match=2, mismatch=-3, gap_open=-5, gap_extend=-2),
@@ -108,21 +109,27 @@ def test_plain_is_the_same_at_every_strip_width(strip_w):
     np.testing.assert_array_equal(got, native.sw_scores_native(pairs))
 
 
-@pytest.mark.parametrize("cfg", CFGS[:2], ids=CFG_IDS[:2])
-def test_plain_without_lengths_equals_with_lengths(cfg):
-    """Without nx and ny every lane sweeps the tile's full extent and the
-    pad codes let the dead cells decay: the contract of the JAX wrapper,
-    which takes no lengths either."""
+@pytest.mark.parametrize("strip_w", [64, 1024])
+@pytest.mark.parametrize("cfg", CFGS, ids=CFG_IDS)
+def test_full_height_plain_equals_strip_plain(cfg, strip_w):
+    """The full-height sweep of a packed tile (the plain version a 50kbp
+    tile is held against on the card) equals the strip sweep on every lane,
+    the empty ones too."""
     pairs = _seam_pairs()
-    b = torch_long.pack_sw_long(pairs, 64)
+    b = torch_long.pack_sw_long(pairs, strip_w)
     sx, sy, nx, ny = torch_long.tile_to_torch(b, "cpu")
-    kw = dict(k_strips=b.n_strips, strip_w=b.strip_w, ny_max=b.ny_max,
-              cfg=SWConfig(**cfg))
-    with_len = torch_long.sw_forward_long(sx, sy, nx=nx, ny=ny, **kw)
-    without = torch_long.sw_forward_long(sx, sy, **kw)
-    assert with_len.shape == (128,) and with_len.dtype == torch.int32
-    assert torch.equal(with_len[:len(pairs)], without[:len(pairs)])
-    assert not with_len[len(pairs):].any()
+    _, anchor, _ = torch_long._layout(b.ny_max, b.strip_w)
+    strips = torch_long.sw_forward_long(
+        sx, sy, nx, ny, k_strips=b.n_strips, strip_w=b.strip_w,
+        ny_max=b.ny_max, cfg=SWConfig(**cfg))
+    dense = sw_long_forward_dense(sx, sy, b.n_diags, b.ny_max, anchor,
+                                  SWConfig(**cfg))
+    assert strips.shape == (128,) and strips.dtype == torch.int32
+    assert dense.dtype == torch.int32 and torch.equal(dense, strips)
+    assert not strips[len(pairs):].any()
+    np.testing.assert_array_equal(
+        dense.numpy()[:len(pairs)],
+        native.sw_scores_native(pairs, SWConfig(**cfg)))
 
 
 def test_tiles_of_128_in_input_order():
@@ -151,28 +158,38 @@ def _tile(strip_w=64):
 def test_wrapper_rejects_strip_width(strip_w):
     b, (sx, sy, nx, ny) = _tile()
     with pytest.raises(ValueError, match="strip_w"):
-        torch_long.sw_forward_long(sx, sy, k_strips=b.n_strips,
+        torch_long.sw_forward_long(sx, sy, nx, ny, k_strips=b.n_strips,
                                    strip_w=strip_w, ny_max=b.ny_max)
 
 
 @pytest.mark.parametrize("what", ["sx-rows", "sy-rows", "nx-shape",
-                                  "k_strips", "one-length"])
+                                  "k_strips", "ny-shape"])
 def test_wrapper_rejects_shapes(what):
     b, (sx, sy, nx, ny) = _tile()
-    kw = dict(k_strips=b.n_strips, strip_w=b.strip_w, ny_max=b.ny_max,
-              nx=nx, ny=ny)
+    kw = dict(k_strips=b.n_strips, strip_w=b.strip_w, ny_max=b.ny_max)
     if what == "sx-rows":
         sx = sx[:-8]
     elif what == "sy-rows":
         sy = sy[8:]
     elif what == "nx-shape":
-        kw["nx"] = nx[:64]
+        nx = nx[:64]
     elif what == "k_strips":
         kw["k_strips"] = b.n_strips + 1
     else:
-        kw["ny"] = None
-    with pytest.raises(ValueError):
-        torch_long.sw_forward_long(sx, sy, **kw)
+        ny = ny.view(1, 128)
+    with pytest.raises(ValueError, match="shapes"):
+        torch_long.sw_forward_long(sx, sy, nx, ny, **kw)
+
+
+def test_wrapper_needs_the_lengths_and_the_device():
+    """nx, ny and the device have no default: a tile is never swept blind,
+    and sw_scores_long never picks the CPU by itself."""
+    b, (sx, sy, nx, ny) = _tile()
+    with pytest.raises(TypeError):
+        torch_long.sw_forward_long(sx, sy, k_strips=b.n_strips,
+                                   strip_w=b.strip_w, ny_max=b.ny_max)
+    with pytest.raises(TypeError, match="device"):
+        torch_long.sw_scores_long(_seam_pairs()[:2])
 
 
 @pytest.mark.parametrize("what", ["sx", "sy", "nx"])
@@ -181,9 +198,9 @@ def test_wrapper_rejects_dtypes(what):
     t = dict(sx=sx, sy=sy, nx=nx, ny=ny)
     t[what] = t[what].to(torch.int64)
     with pytest.raises(TypeError, match="dtypes"):
-        torch_long.sw_forward_long(t["sx"], t["sy"], k_strips=b.n_strips,
-                                   strip_w=b.strip_w, ny_max=b.ny_max,
-                                   nx=t["nx"], ny=t["ny"])
+        torch_long.sw_forward_long(t["sx"], t["sy"], t["nx"], t["ny"],
+                                   k_strips=b.n_strips, strip_w=b.strip_w,
+                                   ny_max=b.ny_max)
 
 
 def test_pack_rejects_pad_codes_and_tile_size():
@@ -205,9 +222,8 @@ def test_device_tensor_launches_or_raises(monkeypatch):
     b, tensors = _tile()
     sx, sy, nx, ny = (t.to("meta") for t in tensors)
     with pytest.raises(_build.BuildError):
-        torch_long.sw_forward_long(sx, sy, k_strips=b.n_strips,
-                                   strip_w=b.strip_w, ny_max=b.ny_max,
-                                   nx=nx, ny=ny)
+        torch_long.sw_forward_long(sx, sy, nx, ny, k_strips=b.n_strips,
+                                   strip_w=b.strip_w, ny_max=b.ny_max)
 
 
 def test_long_kernel_is_registered_with_the_build():
