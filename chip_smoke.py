@@ -5,20 +5,27 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-Phases (one line each; any failure exits non-zero):
-  1. build      nvcc-builds the four kernels (csrc/sw_tile.cu,
-                csrc/sw_long.cu, csrc/pairhmm_tile.cu,
+Phases (one line each; any failure exits non-zero). They run in the
+order 1, 2, 19, 3, 4, 5, 20, 7-18, 6:
+  1. build      nvcc-builds the five kernels (csrc/sw_tile.cu,
+                csrc/sw_long.cu, csrc/sw_strips.cu, csrc/pairhmm_tile.cu,
                 csrc/pairhmm_long.cu) from the checkout, one nvcc each, in
                 parallel, and g++-builds the native golden library
-  2. kernel     kernel vs its plain PyTorch version on ragged buckets under
-                three scoring configs, exact
+  2. kernel     the lane-tile SW kernel vs its plain PyTorch version on
+                ragged buckets under three scoring configs, exact
   3. goldens    Engine(device="cuda") on the vendored SW goldens, exact
   4. main path  the engine on 25,000 pairs of 512bp random DNA + '\\n'
-                (seeded), sampled pairs held against the native golden
-                model; the kernel's launch count is read around this run
-  5. timing     kernel vs plain ms per 25k-pair bucket by CUDA events,
-                slope (t(9) - t(1)) / 8, in turns plain, kernel, kernel,
-                plain
+                (seeded), twice: with sw_strips on (the bucket of 520 rows
+                takes the strips kernel) and off (the lane-tile kernel);
+                for each the wall and both kernels' launch counts read
+                around the run, 512 sampled pairs held against the native
+                golden model; the two runs equal on all 25,000 pairs
+  5. timing     on phase 4's bucket: the lane-tile kernel vs its plain
+                version and the strips kernel vs the lane-tile kernel, ms
+                per call by CUDA events, slope (t(9) - t(1)) / 8, in turns
+                plain, lane tile, strips, strips, lane tile, plain; the
+                plain strip sweep of the same bucket timed by one call and
+                held against the strips kernel on all 28,672 lanes, exact
   6. card       the card's name and power limit from nvidia-smi
   7. phmm kernel PairHMM kernel vs its plain version on ragged batches
                 (reads 1-500bp, haplotypes 1-700bp, N runs, a deep-decay
@@ -72,13 +79,27 @@ Phases (one line each; any failure exits non-zero):
                 timed apart, and all 128 scores held against the plain
                 full-height sweep of the same packed tile on the card,
                 exact, which is timed by that one call
- 17. sw mixed    the engine on 2,000 pairs with x of 100-4,000bp in one
-                call: some take the lane-tile kernel, the rest the
-                long-pair kernel; results in input order, 256 sampled pairs
-                == native model, both launch counts move
+ 17. sw mixed    the engine on 2,000 pairs with x of 20-4,000bp in one
+                call: buckets under strips_min_nxs rows take the lane-tile
+                kernel, the others the strips kernel, pairs past 1,022bp
+                the long-pair kernel; results in input order, 256 sampled
+                pairs == native model, all three launch counts move
  18. sw long time  long-pair kernel ms per 50kbp tile, slope
                 (t(3) - t(1)) / 2, twice, beside phase 16's plain ms on
                 the same tile
+ 19. sw strips   the strips kernel vs its plain strip sweep, the plain
+                lane-tile sweep and the native model on ragged buckets of
+                136-608 rows (an identical pair, a tandem repeat across
+                seams, an all-mismatch pair, a one-base y, an empty y)
+                under three scoring configs, at the router's strip width
+                and at 88 rows (every last strip re-padded), exact; the
+                plain strip sweep at both widths under the default config
+                and at 88 under the other two
+ 20. sw sweep    kernel GCUPS of the lane-tile and the strips kernels on
+                4,096 pairs of 32, 64, 128, 256, 512 and 1,000bp (slope
+                (t(5) - t(1)) / 4, in turns), the strips kernel at each
+                strip width of 32-256 rows there, and whether the router
+                takes each point; no plain calls
 
 Then one JSON line describing each kernel, the card line, and, last,
 {"ok": true, "device": {...}}. Without a CUDA device, or outside the
@@ -102,8 +123,10 @@ LR_READS, LR_HAPS, LR_READ_LEN, LR_HAP_LEN = 128, 4, 1000, 1200
 # Long-pair SW main path: one tile of 50kbp x 50kbp pairs, the JAX
 # package's own long-pair point.
 LP_PAIRS, LP_LEN = 128, 50000
-# Mixed SW file: x of 100-4,000bp, y up to 1,000bp longer.
-MX_PAIRS, MX_X_LENS = 2000, (100, 4000)
+# Mixed SW file: x of 20-4,000bp, y up to 1,000bp longer.
+MX_PAIRS, MX_X_LENS = 2000, (20, 4000)
+# SW sweep: pairs per point and lengths.
+SWEEP_PAIRS, SWEEP_LENS = 4096, (32, 64, 128, 256, 512, 1000)
 # Published peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet):
 # device memory rate and fp32 rate outside the tensor cores. The int32
 # rate is 64 lanes on each of 132 SMs at the SM clock nvidia-smi reports.
@@ -251,16 +274,17 @@ def main() -> int:
     from genomax_torch.io.formats import SWPair
     from genomax_torch.io.generator import generate_pairhmm_batch, random_dna
     from genomax_torch.kernels import (_build, pairhmm, pairhmm_long, sw,
-                                       sw_long)
+                                       sw_long, sw_strips)
     from genomax_torch.kernels.expand import expand_factored
     from genomax_torch.kernels.wavefront import (phmm_forward_tiles,
                                                  phmm_long_forward,
                                                  sw_forward_tiles,
                                                  sw_long_forward,
-                                                 sw_long_forward_dense)
+                                                 sw_long_forward_dense,
+                                                 sw_strips_forward_tiles)
     from genomax_torch.pack import (pack_pairhmm_batches, pack_sw_pairs,
                                     phmm_bucket_to_torch, sw_bucket_to_torch,
-                                    unpack_scores)
+                                    sw_strips_to_torch, unpack_scores)
 
     dev = torch.device("cuda")
     clk = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=clocks.max.sm",
@@ -281,7 +305,7 @@ def main() -> int:
     # 1. build the kernels, one nvcc each, at once
     t0 = time.perf_counter()
     names = _build.KERNELS
-    check(len(names) == 4, f"kernels to build: {names}")
+    check(len(names) == 5, f"kernels to build: {names}")
     with concurrent.futures.ThreadPoolExecutor(len(names) + 1) as pool:
         golden = pool.submit(native.build)
         builds = list(pool.map(_build.build, names))
@@ -315,6 +339,54 @@ def main() -> int:
         print(f"phase 2 kernel == plain: {len(pairs)} ragged pairs, "
               f"{len(buckets)} buckets, {cfg}, max_abs_err 0")
 
+    # 19. the strips kernel vs its plain versions and the native model
+    def strips_inputs(b, strip_w=None):
+        prep = sw_strips.prep_bucket_strips(b, strip_w)
+        (_, _, _, nyt), st = prep
+        return sw_strips_to_torch(prep, b, dev), st, int(nyt.max())
+
+    strips_err = 0
+    pairs = cases.strips_sw_pairs(3, x_lens=(126, 600))
+    buckets = pack_sw_pairs(pairs)
+    big = [i for i, b in enumerate(buckets) if b.sx.shape[1] >= 128]
+    check(len(big) >= 4, f"{len(big)} strips buckets")
+    t0 = time.perf_counter()
+    for ci, c in enumerate(CFGS):
+        cfg = SWConfig(**c)
+        results, widths = [], set()
+        for i, b in enumerate(buckets):
+            want = sw_forward_tiles(*sw_bucket_to_torch(b, dev), cfg)
+            if i in big:
+                for strip_w in (None, 88):
+                    t, st, ny_max = strips_inputs(b, strip_w)
+                    check(strip_w is None
+                          or st["k_strips"] * 88 != b.sx.shape[1],
+                          f"strips of 88 fill {b.sx.shape[1]} rows")
+                    widths.add(st["strip_w"])
+                    got = {"kernel": sw_strips.sw_forward_strips(
+                        *t, ny_max=ny_max, cfg=cfg, **st)}
+                    if ci == 0 or strip_w == 88:
+                        got["plain strip sweep"] = sw_strips_forward_tiles(
+                            *t, cfg=cfg, **st)
+                    torch.cuda.synchronize()
+                    for name, g in got.items():
+                        err = int((g.long() - want.long()).abs().max())
+                        strips_err = max(strips_err, err)
+                        check(err == 0, f"strips ({name}, W={st['strip_w']}) "
+                                        f"!= plain lane-tile sweep on bucket "
+                                        f"{tuple(b.sx.shape)} under {cfg}: "
+                                        f"max |diff| {err}")
+            results.append(want.cpu().numpy())
+        check(np.array_equal(unpack_scores(buckets, results, len(pairs)),
+                             native_sw(native, pairs, cfg)),
+              f"strips buckets != native model under {cfg}")
+        print(f"phase 19 sw strips kernel == plain == native: {len(pairs)} "
+              f"pairs, {len(big)} buckets of "
+              f"{min(buckets[i].sx.shape[1] for i in big)}-"
+              f"{max(buckets[i].sx.shape[1] for i in big)} rows, strip widths "
+              f"{sorted(widths)}, {cfg}, max_abs_err 0 "
+              f"({time.perf_counter() - t0:.1f} s so far)")
+
     # 3. engine on the vendored goldens
     eng = Engine(device="cuda")
     sw.launches = 0
@@ -328,29 +400,40 @@ def main() -> int:
         print(f"phase 3 golden {name}: {len(got)} scores exact")
     print(f"phase 3 kernel launches: {sw.launches}")
 
-    # 4. the main path at full width
+    # 4. the main path at full width, with sw_strips on and off
     rng = np.random.default_rng(SEED)
     pairs = [SWPair(sx=random_dna(rng, LEN) + b"\n",
                     sy=random_dna(rng, LEN) + b"\n") for _ in range(N_PAIRS)]
-    sw.launches = 0
-    t0 = time.perf_counter()
-    scores = eng.sw_scores(pairs)
-    wall = time.perf_counter() - t0
-    launches = sw.launches
-    stats = eng.last_stats
-    check(scores.shape == (N_PAIRS,) and scores.dtype == np.int32,
-          f"scores of shape {scores.shape} {scores.dtype}")
-    check(launches >= stats.buckets >= 1,
-          f"{launches} kernel launches for {stats.buckets} buckets")
     sample = np.random.default_rng(SEED + 1).choice(N_PAIRS, 512,
                                                     replace=False)
     ref = native.sw_scores_native([pairs[i] for i in sample])
-    check(np.array_equal(scores[sample], ref),
-          "engine != native model on the sampled pairs")
-    print(f"phase 4 main path: {N_PAIRS} x {LEN}bp+'\\n', engine wall "
-          f"{wall:.3f} s, {launches} launches for {stats.buckets} buckets, "
-          f"{len(sample)} sampled pairs == native model, "
-          f"stats {json.dumps(stats.as_dict())}")
+    main = {}
+    for on in (True, False):
+        e4 = Engine(EngineConfig(sw_strips=on), device="cuda")
+        sw.launches = sw_strips.launches = 0
+        t0 = time.perf_counter()
+        scores = e4.sw_scores(pairs)
+        wall = time.perf_counter() - t0
+        n_tile, n_strips = sw.launches, sw_strips.launches
+        stats = e4.last_stats
+        check(scores.shape == (N_PAIRS,) and scores.dtype == np.int32,
+              f"scores of shape {scores.shape} {scores.dtype}")
+        check((n_strips if on else n_tile) >= stats.buckets >= 1
+              and (n_tile if on else n_strips) == 0,
+              f"sw_strips={on}: {n_tile} lane-tile and {n_strips} strips "
+              f"launches for {stats.buckets} buckets")
+        check(np.array_equal(scores[sample], ref),
+              f"sw_strips={on}: engine != native model on the sampled pairs")
+        main[on] = (scores, n_tile, n_strips)
+        print(f"phase 4 main path, sw_strips={on}: {N_PAIRS} x {LEN}bp+'\\n', "
+              f"engine wall {wall:.3f} s, {n_tile} lane-tile and {n_strips} "
+              f"strips launches for {stats.buckets} buckets, {len(sample)} "
+              f"sampled pairs == native model, "
+              f"stats {json.dumps(stats.as_dict())}")
+    check(np.array_equal(main[True][0], main[False][0]),
+          "sw_strips on and off disagree on the 25,000 pairs")
+    launches, strips_launches = main[False][1], main[True][2]
+    print(f"phase 4 sw_strips on == off on all {N_PAIRS} pairs")
 
     # 5. timing on the full-width bucket
     (b,) = pack_sw_pairs(pairs)
@@ -361,14 +444,31 @@ def main() -> int:
     err = int((got.long() - want.long()).abs().max())
     max_err = max(max_err, err)
     check(err == 0, f"kernel != plain on the 25k bucket: {err}")
+    ts4, st4, ny4 = strips_inputs(b)
     kernel = lambda: sw.sw_forward(sx, sy, nd, cfg)  # noqa: E731
     plain = lambda: sw_forward_tiles(sx, sy, nd, cfg)  # noqa: E731
-    p1, k1, k2, p2 = (slope_ms(plain, torch), slope_ms(kernel, torch),
-                      slope_ms(kernel, torch), slope_ms(plain, torch))
+    strips = lambda: sw_strips.sw_forward_strips(  # noqa: E731
+        *ts4, ny_max=ny4, cfg=cfg, **st4)
+    p1, k1, s1, s2, k2, p2 = (
+        slope_ms(plain, torch), slope_ms(kernel, torch),
+        slope_ms(strips, torch), slope_ms(strips, torch),
+        slope_ms(kernel, torch), slope_ms(plain, torch))
     kernel_ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    strips_ms = (s1 + s2) / 2
     cells = int(((b.nx - 1).astype(np.int64) * (b.ny - 1)).sum())
     sw_bound = bound_ms(nbytes(sx, sy, nd, got), cells * SW_OPS_PER_CELL,
                         int32_ops)
+    got4 = strips()
+    sw4 = []
+    strips_plain_ms = one_ms(lambda: sw4.append(sw_strips_forward_tiles(
+        *ts4, cfg=cfg, **st4)), torch)
+    err = max(int((got4.long() - sw4[0].long()).abs().max()),
+              int((got4.long() - want.long()).abs().max()))
+    strips_err = max(strips_err, err)
+    check(err == 0, f"strips kernel != plain strip sweep on the 25k bucket: "
+                    f"{err}")
+    strips_bound = bound_ms(nbytes(*ts4, got4), cells * SW_OPS_PER_CELL,
+                            int32_ops)
     print(f"phase 5 timing, bucket {tuple(sx.shape)} stream "
           f"{tuple(sy.shape)}: kernel {k1:.3f} / {k2:.3f} ms, plain "
           f"{p1:.3f} / {p2:.3f} ms per call, bound {sw_bound[0]:.4f} ms by "
@@ -376,6 +476,52 @@ def main() -> int:
           f"{cells / kernel_ms / 1e6:.2f}, plain {cells / plain_ms / 1e6:.2f} "
           f"(cells = sum (nx-1)(ny-1) = len(sx) * len(sy) with the '\\n', "
           f"{cells})")
+    print(f"phase 5 strips timing, same bucket, {st4['k_strips']} strips of "
+          f"{st4['strip_w']} rows: strips kernel {s1:.3f} / {s2:.3f} ms per "
+          f"call ({cells / strips_ms / 1e6:.2f} GCUPS, "
+          f"{kernel_ms / strips_ms:.2f}x the lane-tile kernel's "
+          f"{kernel_ms:.3f}), plain strip sweep "
+          f"{strips_plain_ms:.1f} ms (one call), == kernel on all "
+          f"{got4.numel()} lanes; bound {strips_bound[0]:.4f} ms by "
+          f"{strips_bound[1]}")
+
+    # 20. both SW kernels across lengths, kernel only: the lane-tile
+    # kernel, then the strips kernel at the router's width and at each
+    # width of 32-256 rows below the bucket's
+    rng = np.random.default_rng(SEED + 6)
+    for length in SWEEP_LENS:
+        sp = [SWPair(sx=random_dna(rng, length), sy=random_dna(rng, length))
+              for _ in range(SWEEP_PAIRS)]
+        (bs,) = pack_sw_pairs(sp)
+        t = sw_bucket_to_torch(bs, dev)
+        tsw, stw, nyw = strips_inputs(bs)
+        routed = sw_strips.maybe_prep_strips(EngineConfig(), bs) is not None
+        fk = lambda: sw.sw_forward(*t)  # noqa: E731
+        fs = lambda: sw_strips.sw_forward_strips(  # noqa: E731
+            *tsw, ny_max=nyw, **stw)
+        ref = fk()
+        check(torch.equal(ref, fs()), f"strips != lane tile at {length}bp")
+        a1, b1, b2, a2 = (slope_ms(fk, torch, 5), slope_ms(fs, torch, 5),
+                          slope_ms(fs, torch, 5), slope_ms(fk, torch, 5))
+        c = SWEEP_PAIRS * length * length
+        widths = []
+        for strip_w in (32, 64, 96, 128, 256):
+            if strip_w >= bs.sx.shape[1]:
+                break
+            tw, stx, nyx = strips_inputs(bs, strip_w)
+            fw = lambda: sw_strips.sw_forward_strips(  # noqa: E731
+                *tw, ny_max=nyx, **stx)
+            check(torch.equal(fw(), ref),
+                  f"strips at W={strip_w} differ at {length}bp")
+            widths.append(f"{strip_w}: {slope_ms(fw, torch, 5):.3f}")
+        print(f"phase 20 sw sweep {length}bp: {SWEEP_PAIRS} pairs, bucket "
+              f"{tuple(t[0].shape)}; lane tile {a1:.3f} / {a2:.3f} ms = "
+              f"{c / ((a1 + a2) / 2) / 1e6:.2f} GCUPS; strips at the "
+              f"router's width ({stw['k_strips']} x {stw['strip_w']} rows) "
+              f"{b1:.3f} / {b2:.3f} ms = {c / ((b1 + b2) / 2) / 1e6:.2f} "
+              f"GCUPS; by strip width (ms) {', '.join(widths)}; the router "
+              f"{'takes' if routed else 'declines'} it (strips_min_nxs "
+              f"{EngineConfig().strips_min_nxs})")
 
     # 7. PairHMM kernel vs plain version on the card
     ph_err = 0.0
@@ -858,17 +1004,21 @@ def main() -> int:
         pairs.append(SWPair(sx=random_dna(rng, nx_), sy=random_dna(
             rng, nx_ + int(rng.integers(0, 1001)))))
     n_long = sum(len(p.sx) + 2 > eng.cfg.max_device_len for p in pairs)
-    sw_long.launches = sw.launches = 0
+    e17 = Engine(EngineConfig(sw_strips=True), device="cuda")
+    sw_long.launches = sw.launches = sw_strips.launches = 0
     t0 = time.perf_counter()
-    scores = eng.sw_scores(pairs)
+    scores = e17.sw_scores(pairs)
     wall = time.perf_counter() - t0
-    mx_long, mx_tile = sw_long.launches, sw.launches
-    stats = eng.last_stats
+    mx_long, mx_tile, mx_strips = (sw_long.launches, sw.launches,
+                                   sw_strips.launches)
+    stats = e17.last_stats
     check(0 < n_long < MX_PAIRS and stats.offloaded_jobs == n_long,
           f"{stats.offloaded_jobs} offloaded, {n_long} long of {MX_PAIRS}")
-    check(mx_long == -(-n_long // 128) and mx_tile == stats.buckets >= 1,
+    check(mx_long == -(-n_long // 128) and mx_tile >= 1 and mx_strips >= 1
+          and mx_tile + mx_strips == stats.buckets,
           f"{mx_long} long-pair launches for {n_long} pairs, {mx_tile} "
-          f"lane-tile launches for {stats.buckets} buckets")
+          f"lane-tile and {mx_strips} strips launches for {stats.buckets} "
+          f"buckets")
     sample = np.random.default_rng(SEED + 5).choice(MX_PAIRS, 256,
                                                     replace=False)
     ref = native_sw(native, [pairs[i] for i in sample])
@@ -876,9 +1026,10 @@ def main() -> int:
           "engine != native model on the mixed file's sampled pairs")
     print(f"phase 17 sw mixed: {MX_PAIRS} pairs, x {MX_X_LENS[0]}-"
           f"{MX_X_LENS[1]}bp, engine wall {wall:.3f} s, {mx_tile} lane-tile "
-          f"launches for {MX_PAIRS - n_long} pairs, {mx_long} long-pair "
-          f"launches for {n_long} pairs, 256 sampled pairs == native model "
-          f"in input order, stats {json.dumps(stats.as_dict())}")
+          f"and {mx_strips} strips launches for {MX_PAIRS - n_long} pairs, "
+          f"{mx_long} long-pair launches for {n_long} pairs, 256 sampled "
+          f"pairs == native model in input order, "
+          f"stats {json.dumps(stats.as_dict())}")
 
     # 18. long-pair kernel timing on the 50kbp tile
     k50 = lambda: sw_long.sw_forward_long(*t50, **kw50)  # noqa: E731
@@ -912,10 +1063,15 @@ def main() -> int:
                 "library_ms": None}  # no one PyTorch call computes either
 
     # Each row at the shape its main path gives the kernel, kernel and
-    # plain alike; sw_long's plain version is the full-height sweep.
+    # plain alike; sw_long's plain version is the full-height sweep. The
+    # lane-tile kernel's launches are phase 4's sw_strips=False run's, the
+    # strips kernel's the sw_strips=True run's.
     print(json.dumps({"kernels": [
         entry("sw_tile", "sw_tile.cu", "genomax/kernels/sw_pallas.py:42",
               launches, max_err, kernel_ms, plain_ms, sw_bound),
+        entry("sw_strips", "sw_strips.cu", "genomax/kernels/sw_strips.py:68",
+              strips_launches, strips_err, strips_ms, strips_plain_ms,
+              strips_bound),
         entry("sw_long", "sw_long.cu", "genomax/kernels/sw_long.py:126",
               lp_launches, sl_err, sl_kernel_ms, sl_plain_ms, sl_bound),
         entry("pairhmm_tile", "pairhmm_tile.cu",

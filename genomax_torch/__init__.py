@@ -40,6 +40,10 @@ def __getattr__(name):
         from genomax_torch.config import SWConfig
 
         return SWConfig
+    if name == "EngineConfig":
+        from genomax_torch.config import EngineConfig
+
+        return EngineConfig
     if name == "PairHMMConfig":
         from genomax_torch.config import PairHMMConfig
 

@@ -6,7 +6,8 @@ prints one "Score: %d" line per pair (appended to --output when given);
 pairhmm writes one "%f" log10 likelihood per line to <output>,
 overwriting it; both then print "elapsed %f". --stats prints the run's
 RunStats as JSON on stderr. --device picks the torch device, and there is
-no fallback from one to the other.
+no fallback from one to the other: without a card, --device cuda (the
+default) prints the error and returns 2.
 """
 
 from __future__ import annotations
@@ -101,7 +102,10 @@ def main(argv=None) -> int:
         print(f"genomax_torch: error: no such file: {e.filename}",
               file=sys.stderr)
         return 2
-    except ValueError as e:
+    except (ValueError, RuntimeError) as e:
+        # RuntimeError: no CUDA device for --device cuda, or EngineError
+        # from a kernel that failed to build or launch; nothing falls back
+        # to the CPU.
         print(f"genomax_torch: error: {e}", file=sys.stderr)
         return 2
 

@@ -84,10 +84,20 @@ class EngineConfig:
     # it. PairHMM applies half of both bounds.
     max_device_len: int = 1024
     max_device_diags: int = 1 << 20
-    # Routers of the JAX engine whose kernels are not ported yet. The port
-    # runs the JAX engine's sw_strips=False, sw_rotor=False configuration,
-    # in which every SW bucket takes the resident lane-tile kernel.
-    sw_strips: bool = False
+    # Route SW buckets of at least strips_min_nxs rows through the
+    # strip-mined kernel (kernels/sw_strips.py, csrc/sw_strips.cu), which
+    # sweeps only each strip's live diagonals; the rest, and the buckets it
+    # declines, take the lane-tile kernel (csrc/sw_tile.cu). Measured on
+    # one NVIDIA H100 80GB HBM3 at 700.00 W (chip_smoke.py phases 5, 20):
+    # on the 25,000 x 512bp bucket (224 tiles x 520 rows) the strips
+    # kernel takes 17.03 ms against the lane-tile kernel's 46.24; on 4,096
+    # pairs it wins 1.67x at 64bp (72 rows) and 3.02x at 1,000bp, and
+    # loses at 32bp (40 rows: 53.5 against 61.9 GCUPS). Hence on by
+    # default, from 72 rows (the JAX engine's floor is 128, a TPU number).
+    sw_strips: bool = True
+    strips_min_nxs: int = 72
+    # The JAX engine's short-pair rotor, not ported yet; the port runs that
+    # engine's sw_rotor=False configuration.
     sw_rotor: bool = False
     # PairHMM knobs of genomax.config.EngineConfig, with its defaults: the
     # fp32 exponent-rescale period in diagonals, and the log10 threshold
@@ -97,14 +107,13 @@ class EngineConfig:
     phmm_fallback_threshold: float | None = -45.0
 
     def __post_init__(self):
-        if self.sw_strips:
-            raise NotImplementedError(
-                "sw_strips: the strip-mined SW kernel is not ported yet "
-                "(ROADMAP queue 2 item 1)")
         if self.sw_rotor:
             raise NotImplementedError(
                 "sw_rotor: the short-pair rotor SW kernel is not ported yet "
-                "(ROADMAP queue 2 item 3)")
+                "(ROADMAP queue 2 item 2)")
+        if self.strips_min_nxs < 1:
+            raise ValueError(f"strips_min_nxs={self.strips_min_nxs}: want a "
+                             "positive row count")
         if not 8 <= self.max_device_len <= MAX_KERNEL_ROWS:
             raise ValueError(
                 f"max_device_len={self.max_device_len}: the SW kernel takes "

@@ -53,11 +53,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sw_cell.cuh"
+
 namespace {
 
 constexpr int kLanes = 128;        // pairs per packed tile
 constexpr int kChunk = 32;         // diagonals per seam prefetch (one warp)
-constexpr int kNeg = -(1 << 28);   // -inf of P and Q
+constexpr int kNeg = kSwNeg;       // -inf of P and Q (sw_cell.cuh)
 
 __global__ void __launch_bounds__(1024)
 sw_long_kernel(const int8_t* __restrict__ sx, const int8_t* __restrict__ sy,
@@ -78,7 +80,7 @@ sw_long_kernel(const int8_t* __restrict__ sx, const int8_t* __restrict__ sy,
   const int r = threadIdx.x;
   const int lx = nx[l] - 1;  // len(x)
   const int ly = ny[l] - 1;  // len(y)
-  const int oge = gap_open + gap_extend;
+  const SwScoring sc{match, mismatch, gap_open + gap_extend, gap_extend};
   const int8_t* ys = sy + l;
   int2* const hl = halo + static_cast<size_t>(l) * nh;
 
@@ -138,10 +140,7 @@ sw_long_kernel(const int8_t* __restrict__ sx, const int8_t* __restrict__ sy,
       const int j = d - p;
       int dn = 0, pn = kNeg, qn = kNeg;
       if (row_live && j >= 1 && j <= ly) {
-        pn = max(d1 + oge, p1 + gap_extend);
-        qn = max(up_d + oge, up_q + gap_extend);
-        dn = max(max(pn, qn), max(up2 + (xc == yc ? match : mismatch), 0));
-        best = max(best, dn);
+        dn = sw_cell(d1, p1, up_d, up_q, up2, xc == yc, sc, pn, qn, best);
       }
       const int wb = (d & 1) * w;
       dsh[wb + r] = dn;

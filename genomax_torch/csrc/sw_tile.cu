@@ -33,11 +33,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sw_cell.cuh"
+
 namespace {
 
 constexpr int kLanes = 128;        // pairs per packed tile
-constexpr int kNeg = -(1 << 28);   // -inf of P and Q: far below any score,
-                                   // and NEG + gap_extend cannot wrap
+constexpr int kNeg = kSwNeg;       // -inf of P and Q (sw_cell.cuh)
 
 __global__ void __launch_bounds__(1024)
 sw_tile_kernel(const int8_t* __restrict__ sx, const int8_t* __restrict__ sy,
@@ -55,7 +56,7 @@ sw_tile_kernel(const int8_t* __restrict__ sx, const int8_t* __restrict__ sy,
   const int p = threadIdx.x;
   const int nd = ndiag_tile[t];
   const int anchor = nds - nxs;
-  const int oge = gap_open + gap_extend;
+  const SwScoring sc{match, mismatch, gap_open + gap_extend, gap_extend};
   const int8_t xc = sx[(static_cast<size_t>(t) * nxs + p) * kLanes + l];
   const int8_t* ys = sy + static_cast<size_t>(t) * nds * kLanes + l;
 
@@ -76,10 +77,7 @@ sw_tile_kernel(const int8_t* __restrict__ sx, const int8_t* __restrict__ sy,
     int dn = 0, pn = kNeg, qn = kNeg;
     if (p > 0 && j > 0) {
       const int8_t yc = __ldg(ys + static_cast<size_t>(anchor - j) * kLanes);
-      pn = max(d1 + oge, p1 + gap_extend);
-      qn = max(up_d + oge, up_q + gap_extend);
-      dn = max(max(pn, qn), max(up2 + (xc == yc ? match : mismatch), 0));
-      best = max(best, dn);
+      dn = sw_cell(d1, p1, up_d, up_q, up2, xc == yc, sc, pn, qn, best);
     }
     const int wb = (d & 1) * nxs;
     dsh[wb + p] = dn;

@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C entry point. It is compiled by
 ``nvcc`` into ``genomax_torch/_build/<name>-<hash>.so``, keyed on a hash of
-the source and the flags, so a later run that finds the library skips the
-build, and loaded with ``ctypes``. Nothing is built when a module is
-imported, and a failed build raises :class:`BuildError`.
+the source, every header it includes with quotes (``sw_cell.cuh``) and the
+flags, so a later run that finds the library skips the build and an edit
+to a header builds anew, and loaded with ``ctypes``. Nothing is built when
+a module is imported, and a failed build raises :class:`BuildError`.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -20,7 +22,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 # Every kernel source of the port (csrc/<name>.cu).
-KERNELS = ("sw_tile", "sw_long", "pairhmm_tile", "pairhmm_long")
+KERNELS = ("sw_tile", "sw_long", "sw_strips", "pairhmm_tile",
+           "pairhmm_long")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -43,14 +46,34 @@ def nvcc() -> str | None:
     return cand if os.access(cand, os.X_OK) else None
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
+
+
+def key(name: str) -> str:
+    """Hash of csrc/<name>.cu, of every header it includes with quotes
+    (followed recursively, resolved beside the including file) and of the
+    flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    todo, seen = [os.path.join(CSRC, name + ".cu")], set()
+    while todo:
+        path = os.path.normpath(todo.pop(0))
+        if path in seen:
+            continue
+        seen.add(path)
+        with open(path, "rb") as f:
+            text = f.read()
+        h.update(os.path.basename(path).encode() + b"\0" + text)
+        todo += [os.path.join(os.path.dirname(path), inc.decode())
+                 for inc in _INCLUDE.findall(text)]
+    return h.hexdigest()[:16]
+
+
 def build(name: str) -> tuple[str, str]:
     """(path of the library built from csrc/<name>.cu, nvcc's messages).
     The messages are empty when the library of this source already
     existed."""
     src = os.path.join(CSRC, name + ".cu")
-    with open(src, "rb") as f:
-        key = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    path = os.path.join(BUILD_DIR, f"{name}-{key.hexdigest()[:16]}.so")
+    path = os.path.join(BUILD_DIR, f"{name}-{key(name)}.so")
     if os.path.exists(path):
         return path, ""
     exe = nvcc()

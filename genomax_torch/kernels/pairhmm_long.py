@@ -143,7 +143,7 @@ def _launch(rchar, qual, hap, meta, k_strips, strip_w, anchor, sweep,
     return out
 
 
-def pairhmm_long(jobs, phred_offset: float = 33.0, device="cpu",
+def pairhmm_long(jobs, phred_offset: float = 33.0, *, device,
                  strip_w: int = STRIP_W, unroll: int = UNROLL,
                  mm_div: float = 1.0) -> np.ndarray:
     """log10 likelihoods of (PairHMMRead, haplotype bytes) jobs of any read

@@ -3,12 +3,12 @@
 
 They are the plain references of the CUDA kernels ``csrc/sw_tile.cu`` and
 ``csrc/pairhmm_tile.cu`` (and, further down, of the strip kernels
-``csrc/sw_long.cu`` and ``csrc/pairhmm_long.cu``): the CPU paths of the
-wrappers in ``kernels.sw``, ``kernels.pairhmm``, ``kernels.sw_long`` and
-``kernels.pairhmm_long`` run them, the tests hold them against the JAX
-package, and ``chip_smoke.py`` holds the kernels against them on the
-card. They keep the JAX formulation as it is, so the two can be read
-side by side:
+``csrc/sw_long.cu``, ``csrc/sw_strips.cu`` and ``csrc/pairhmm_long.cu``):
+the CPU paths of the wrappers in ``kernels.sw``, ``kernels.pairhmm``,
+``kernels.sw_long``, ``kernels.sw_strips`` and ``kernels.pairhmm_long``
+run them, the tests hold them against the JAX package, and
+``chip_smoke.py`` holds the kernels against them on the card. They keep
+the JAX formulation as it is, so the two can be read side by side:
 
   * the ``(NXs, L)`` layout: x position on axis 0, one pair per column;
   * the reversed diagonal stream, anchored at A = NDs - NXs: the window of
@@ -193,6 +193,34 @@ def sw_long_forward(sx: torch.Tensor, sy: torch.Tensor, nx: torch.Tensor,
             up2, p1, d1e, q1e = up_d, pn, nd1e, nq1e
     out[:lanes] = best.amax(dim=0)
     return out
+
+
+def sw_strips_forward_tiles(sx: torch.Tensor, sy: torch.Tensor,
+                            nx: torch.Tensor, ny: torch.Tensor, *,
+                            k_strips: int, strip_w: int, anchor: int,
+                            cfg: SWConfig = SWConfig()) -> torch.Tensor:
+    """Plain version of the strip-mined SW kernel (``csrc/sw_strips.cu``):
+    a packed bucket swept in K strips of W rows -> (NT, 128) int32 scores.
+
+    sx: (NT, K*W, 128) codes (``kernels.sw_strips.prep_bucket_strips``:
+    the bucket's sx re-padded to K*W rows); sy: (NT, NDs, 128), the
+    bucket's stream untouched; nx, ny: (NT*128,) matrix dimensions len + 1
+    of each slot (``SWPacked.nx/ny``); anchor: NDs - NXs of the bucket
+    before the re-pad, so that y[j-1] sits at stream row anchor - j.
+
+    The bucket flattened to (K*W, NT*128) columns has the layout of one
+    long-pair tile, so this is ``sw_long_forward`` over all its columns.
+    Every stream read stays in [0, NDs) while W <= NXs: the pack's anchor
+    is at least max(nx + ny - 1) + 32.
+    """
+    nt, kw, lanes = sx.shape
+    if nt == 0:
+        return torch.zeros((0, lanes), dtype=torch.int32, device=sx.device)
+    flat_x = sx.permute(1, 0, 2).reshape(kw, nt * lanes)
+    flat_y = sy.permute(1, 0, 2).reshape(sy.shape[1], nt * lanes)
+    scores = sw_long_forward(flat_x, flat_y, nx, ny, k_strips, strip_w,
+                             anchor, cfg)
+    return scores.reshape(nt, lanes)
 
 
 def sw_long_forward_dense(sx: torch.Tensor, sy: torch.Tensor, n_diags: int,

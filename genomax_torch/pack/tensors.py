@@ -17,6 +17,15 @@ def sw_bucket_to_torch(b: SWPacked, device: torch.device):
             torch.from_numpy(b.ndiag_tile).to(device))
 
 
+def sw_strips_to_torch(prep, b: SWPacked, device: torch.device):
+    """(sx (NT,K*W,128) int8, sy (NT,NDs,128) int8, nx, ny (NT*128,) int32)
+    on ``device``: the re-padded codes and stream of a strips prep of
+    bucket ``b`` (``kernels.sw_strips.prep_bucket_strips``) and the
+    bucket's per-slot lengths."""
+    (sx, sy, _, _), _ = prep
+    return tuple(torch.from_numpy(a).to(device) for a in (sx, sy, b.nx, b.ny))
+
+
 def phmm_bucket_to_torch(b: PairHMMPacked, device: torch.device,
                          phred_offset: float = 33.0):
     """The ten inputs of ``kernels.pairhmm.pairhmm_forward`` on ``device``:

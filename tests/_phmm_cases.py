@@ -1,8 +1,9 @@
 """Seeded cases shared by chip_smoke.py and the port's kernel tests.
 PairHMM: ragged batches for the lane-tile kernel, a bucket whose haplotype
 stream is longer than the JAX engine's resident limit, and jobs for the
-long-read kernel. Smith-Waterman: a ragged tile for the long-pair kernel
-and pairs whose y stream passes the same resident limit. Imports no jax
+long-read kernel. Smith-Waterman: a ragged tile for the long-pair kernel,
+pairs whose y stream passes the same resident limit, and ragged buckets
+of 128 rows or more for the strips kernel. Imports no jax
 and nothing of the JAX package."""
 
 import numpy as np
@@ -165,4 +166,36 @@ def streamed_sw_pairs(seed, n_pairs=256, x_lens=(30, 600),
         a = int(rng.integers(0, len(y) - len(x) + 1))
         y[a: a + len(x)] = _noisy(rng, x, 0.03, abc)
         pairs.append(SWPair(sx=x.tobytes() + b"\n", sy=y.tobytes() + b"\n"))
+    return pairs
+
+
+def strips_sw_pairs(seed, n_pairs=300, x_lens=(126, 1000), y_extra=300):
+    """Pairs whose buckets have 128 rows or more, the strips kernel's: x of
+    126-1,000bp against y from half as long to y_extra longer, x planted in
+    y with errors on two pairs in three. The last six pairs are an
+    identical pair of x_lens[1] (its maximum runs through every strip
+    seam), a tandem repeat of a 150bp unit (each copy straddles several
+    seams at any strip width up to 150), an all-mismatch pair, a long x
+    against a one-base y, a long x against an empty y (a lane that scores
+    0 in a live bucket) and a one-base pair (in a small bucket)."""
+    rng = np.random.default_rng(seed)
+    abc = np.frombuffer(b"ACGT", np.uint8)
+    pairs = []
+    for k in range(n_pairs - 6):
+        x = rng.choice(abc, int(rng.integers(x_lens[0], x_lens[1] + 1)))
+        y = rng.choice(abc, int(rng.integers(len(x) // 2,
+                                             len(x) + y_extra + 1)))
+        if k % 3 and len(y) >= len(x):
+            a = int(rng.integers(0, len(y) - len(x) + 1))
+            y[a: a + len(x)] = _noisy(rng, x, 0.05, abc)
+        pairs.append(SWPair(sx=x.tobytes(), sy=y.tobytes()))
+    same = rng.choice(abc, x_lens[1]).tobytes()
+    pairs.append(SWPair(sx=same, sy=same))
+    unit = rng.choice(abc, 150).tobytes()
+    pairs.append(SWPair(sx=rng.choice(abc, 37).tobytes() + unit + unit,
+                        sy=unit + rng.choice(abc, 41).tobytes() + unit + unit))
+    pairs.append(SWPair(sx=b"A" * 200, sy=b"C" * 300))
+    pairs.append(SWPair(sx=same[:300], sy=b"G"))
+    pairs.append(SWPair(sx=same[:400], sy=b""))
+    pairs.append(SWPair(sx=b"T", sy=b"T"))
     return pairs

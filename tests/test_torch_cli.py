@@ -6,6 +6,9 @@ import os
 import subprocess
 import sys
 
+import pytest
+import torch
+
 from genomax_torch.cli.main import main
 from _torch_cpu import one_torch_thread  # noqa: F401
 
@@ -46,6 +49,39 @@ def test_cli_missing_file(capsys):
     rc = main(["sw", "/definitely/not/here.in", "--device", "cpu"])
     assert rc == 2
     assert "no such file" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("cmd", ["sw", "pairhmm"])
+def test_cli_without_a_card_prints_the_error(capsys, monkeypatch, golden_dir,
+                                             tmp_path, cmd):
+    """--device cuda (the default) on a host without a card: a one-line
+    error and rc 2, no traceback and no CPU scores."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = ([cmd, os.path.join(golden_dir, "sw_small.in")] if cmd == "sw"
+            else [cmd, os.path.join(golden_dir, "test.in"),
+                  str(tmp_path / "out")])
+    assert main(args) == 2
+    out = capsys.readouterr()
+    assert "Score:" not in out.out
+    assert out.err.startswith("genomax_torch: error: ")
+    assert "no CUDA device" in out.err
+
+
+def test_cli_engine_failure_prints_the_error(capsys, monkeypatch, golden_dir):
+    """An EngineError (here: a bucket that cannot reach the device) ends in
+    the same one-line error and rc 2."""
+    from genomax_torch.engine import executor
+
+    def fail(b, device):
+        raise RuntimeError("device fault (simulated)")
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(executor, "sw_bucket_to_torch", fail)
+    assert main(["sw", os.path.join(golden_dir, "sw_small.in"),
+                 "--device", "cuda"]) == 2
+    err = capsys.readouterr().err
+    assert err.startswith("genomax_torch: error: sw failed on bucket 0")
+    assert "device fault (simulated)" in err
 
 
 def test_cli_custom_scoring(capsys, golden_dir):

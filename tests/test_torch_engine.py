@@ -1,8 +1,9 @@
 """genomax_torch.Engine on the CPU: the vendored goldens, agreement with the
 JAX engine in the same configuration (resident Pallas kernel in interpret
-mode, strips and rotor off), the native offload, and the refusals: knobs
-not ported yet, a CUDA device on a host without one, and a failed kernel
-build. Scores are int32; tolerance exact."""
+mode, strips and rotor off; the strips route is tests/test_torch_sw_strips.py),
+the native offload, and the refusals: knobs not ported yet, a CUDA device
+on a host without one, and a failed kernel build. Scores are int32;
+tolerance exact."""
 
 import os
 import subprocess
@@ -68,7 +69,7 @@ def test_engine_matches_jax_engine_resident_kernel(cfg):
         JaxEngineConfig(backend="pallas", sw_strips=False, sw_rotor=False,
                         unroll=4),
         sw_cfg=cfg, interpret=True)
-    eng = Engine(sw_cfg=cfg, device="cpu")
+    eng = Engine(EngineConfig(sw_strips=False), sw_cfg=cfg, device="cpu")
     got = eng.sw_scores(pairs)
     np.testing.assert_array_equal(got, jax_eng.sw_scores(pairs))
     np.testing.assert_array_equal(got, native.sw_scores_native(pairs, cfg))
@@ -132,7 +133,8 @@ def test_engine_mixed_list_matches_jax_engine_long_pairs(cfg):
         JaxEngineConfig(backend="pallas", sw_strips=False, sw_rotor=False,
                         unroll=4, **_MIXED),
         sw_cfg=cfg, interpret=True)
-    eng = Engine(EngineConfig(**_MIXED), sw_cfg=cfg, device="cpu")
+    eng = Engine(EngineConfig(sw_strips=False, **_MIXED), sw_cfg=cfg,
+                 device="cpu")
     got = eng.sw_scores(pairs)
     np.testing.assert_array_equal(got, jax_eng.sw_scores(pairs))
     np.testing.assert_array_equal(got, oracle.sw_scores_pairs(pairs, cfg))
@@ -210,7 +212,7 @@ def test_cli_sw_file_with_long_pairs_reaches_long_kernel(tmp_path):
     assert '"offloaded_jobs": 2' in r.stderr
 
 
-@pytest.mark.parametrize("knob", ["sw_strips", "sw_rotor"])
+@pytest.mark.parametrize("knob", ["sw_rotor"])
 def test_unported_routers_raise(knob):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         EngineConfig(**{knob: True})

@@ -51,10 +51,25 @@ def test_every_module_imports_without_jax_or_genomax(walked):
     "genomax_torch.native", "genomax_torch.pack.bucketing",
     "genomax_torch.pack.tensors", "genomax_torch.engine.executor",
     "genomax_torch.kernels.sw", "genomax_torch.kernels.sw_long",
+    "genomax_torch.kernels.sw_strips",
     "genomax_torch.kernels.pairhmm", "genomax_torch.kernels.pairhmm_long",
     "genomax_torch.kernels.wavefront", "genomax_torch.cli.main"])
 def test_module_is_part_of_the_walk(walked, name):
     assert name in walked["modules"]
+
+
+@pytest.mark.parametrize("name,module", [
+    ("Engine", "genomax_torch.engine.executor"),
+    ("EngineConfig", "genomax_torch.config"),
+    ("SWConfig", "genomax_torch.config"),
+    ("PairHMMConfig", "genomax_torch.config")])
+def test_lazy_export(name, module):
+    import importlib
+
+    import genomax_torch
+
+    assert getattr(genomax_torch, name) is getattr(
+        importlib.import_module(module), name)
 
 
 def test_native_builds_into_the_ports_build_dir(walked):

@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain PyTorch versions on the card:
-csrc/sw_tile.cu and csrc/sw_long.cu (int32 scores, exact),
+csrc/sw_tile.cu, csrc/sw_long.cu and csrc/sw_strips.cu (int32 scores,
+exact),
 csrc/pairhmm_tile.cu and
 csrc/pairhmm_long.cu (within 1e-4 in log10, or two fp32 ulps of values
 below -512: nvcc contracts a*b+c into FMAs, the plain version rounds each
@@ -12,22 +13,26 @@ import pytest
 import torch
 
 from genomax_torch import native
-from genomax_torch.config import PairHMMConfig, SWConfig
+from genomax_torch.config import EngineConfig, PairHMMConfig, SWConfig
 from genomax_torch.io.formats import SWPair
 from genomax_torch.io.generator import generate_pairhmm_batch
 from genomax_torch.pack.bucketing import (pack_pairhmm_batches,
                                           pack_sw_pairs, unpack_scores)
 
 from _phmm_cases import (long_jobs, long_sw_pairs, phmm_batches,
-                         streamed_batches, streamed_sw_pairs)
+                         streamed_batches, streamed_sw_pairs,
+                         strips_sw_pairs)
+from genomax_torch.engine.executor import Engine
 from genomax_torch.kernels import (_build, pairhmm, pairhmm_long, sw,
-                                   sw_long)
+                                   sw_long, sw_strips)
 from genomax_torch.kernels.wavefront import (phmm_forward_tiles,
                                              phmm_long_forward,
                                              sw_forward_tiles,
                                              sw_long_forward,
-                                             sw_long_forward_dense)
-from genomax_torch.pack import phmm_bucket_to_torch, sw_bucket_to_torch
+                                             sw_long_forward_dense,
+                                             sw_strips_forward_tiles)
+from genomax_torch.pack import (phmm_bucket_to_torch, sw_bucket_to_torch,
+                                sw_strips_to_torch)
 
 pytestmark = pytest.mark.cuda
 
@@ -157,6 +162,83 @@ def test_sw_long_wrapper_rejects_bad_inputs(device):
                       device=device)[::2]
     with pytest.raises(ValueError, match="contiguous"):
         sw_long.sw_forward_long(wide, sy, nx, ny, **kw)
+
+
+def _strips_inputs(b, device, strip_w=None):
+    prep = sw_strips.prep_bucket_strips(b, strip_w)
+    (_, _, _, nyt), st = prep
+    return sw_strips_to_torch(prep, b, device), dict(st, ny_max=int(nyt.max()))
+
+
+@pytest.mark.parametrize("strip_w", [None, 88], ids=["router", "w88"])
+@pytest.mark.parametrize("cfg", CFGS, ids=["default", "m2x3o5e2", "m3x1o0e2"])
+def test_sw_strips_kernel_equals_plain_version(device, cfg, strip_w):
+    """Ragged buckets of 136-408 rows (an identical pair, a tandem repeat
+    across seams, an all-mismatch pair, a one-base y, an empty y): kernel
+    == plain strip sweep == plain lane-tile sweep == native, at the
+    router's strip width and at 88 rows, where every last strip is
+    re-padded."""
+    pairs = strips_sw_pairs(3, n_pairs=150, x_lens=(126, 400))
+    buckets = pack_sw_pairs(pairs)
+    big = [b for b in buckets if b.sx.shape[1] >= 128]
+    assert len(big) >= 3
+    before = sw_strips.launches
+    results = []
+    for b in buckets:
+        tiles = sw_bucket_to_torch(b, device)
+        want = sw_forward_tiles(*tiles, cfg)
+        if b.sx.shape[1] >= 128:
+            t, st = _strips_inputs(b, device, strip_w)
+            assert (st["k_strips"] * st["strip_w"] != b.sx.shape[1]
+                    or strip_w is None)
+            got = sw_strips.sw_forward_strips(*t, cfg=cfg, **st)
+            torch.cuda.synchronize()
+            assert got.is_cuda and got.dtype == torch.int32
+            assert torch.equal(got, want)
+            del st["ny_max"]
+            assert torch.equal(got, sw_strips_forward_tiles(*t, cfg=cfg,
+                                                            **st))
+        results.append(want.cpu().numpy())
+    assert sw_strips.launches - before == len(big)
+    np.testing.assert_array_equal(unpack_scores(buckets, results, len(pairs)),
+                                  native.sw_scores_native(pairs, cfg))
+
+
+def test_sw_strips_wrapper_rejects_bad_inputs(device):
+    b = pack_sw_pairs(strips_sw_pairs(1, n_pairs=10, x_lens=(130, 140)))[-1]
+    t, st = _strips_inputs(b, device)
+    with pytest.raises(TypeError):
+        sw_strips.sw_forward_strips(t[0].to(torch.int32), *t[1:], **st)
+    with pytest.raises(ValueError, match="strip_w"):
+        sw_strips.sw_forward_strips(*t, **{**st, "strip_w": 2048})
+    with pytest.raises(ValueError, match="one device"):
+        sw_strips.sw_forward_strips(t[0], t[1], t[2].cpu(), t[3], **st)
+    # A ring one entry short for the longest y: the kernel cannot see it
+    # from the host without a copy back, so that pair scores -1.
+    short = sw_strips.sw_forward_strips(*t, **{**st,
+                                               "ny_max": st["ny_max"] - 1})
+    torch.cuda.synchronize()
+    bad = (t[3] > st["ny_max"] - 1).view(short.shape)
+    assert bool(bad.any()) and bool((short[bad] == -1).all())
+    assert bool((short[~bad] >= 0).all())
+
+
+def test_engine_strips_on_equals_off(device):
+    """The engine with sw_strips on and off on the card: the same scores,
+    equal to native, the buckets of 128 rows or more through the strips
+    kernel and the rest through the lane-tile kernel."""
+    pairs = strips_sw_pairs(5, n_pairs=400, x_lens=(60, 900))
+    n_big = sum(b.sx.shape[1] >= 128 for b in pack_sw_pairs(pairs))
+    sw.launches = sw_strips.launches = 0
+    on = Engine(EngineConfig(sw_strips=True, strips_min_nxs=128),
+                device=device).sw_scores(pairs)
+    assert (sw.launches, sw_strips.launches) == (
+        len(pack_sw_pairs(pairs)) - n_big, n_big)
+    sw.launches = sw_strips.launches = 0
+    off = Engine(EngineConfig(sw_strips=False), device=device).sw_scores(pairs)
+    assert sw_strips.launches == 0 and sw.launches == len(pack_sw_pairs(pairs))
+    np.testing.assert_array_equal(on, off)
+    np.testing.assert_array_equal(on, native.sw_scores_native(pairs))
 
 
 @pytest.mark.parametrize("alphabet,gatk,period", [

@@ -62,7 +62,7 @@ def test_plain_version_matches_jax_interpret(strip_w, unroll, gatk):
     jobs = _jobs(11)
     mm_div = PairHMMConfig(gatk_emission=gatk).mm_div
     got = torch_long.pairhmm_long(jobs, strip_w=strip_w, unroll=unroll,
-                                  mm_div=mm_div)
+                                  mm_div=mm_div, device="cpu")
     want = jax_long.pairhmm_long(jobs, strip_w=strip_w, unroll=unroll,
                                  interpret=True, mm_div=mm_div)
     assert got.dtype == np.float32 and got.shape == (len(jobs),)
@@ -84,10 +84,19 @@ def test_driver_scores_tiles_of_128_in_order():
         jobs.append((PairHMMRead(bases=rng.choice(abc, n).tobytes(),
                                  base_q=q, ins_q=q, del_q=q, gcp_q=q),
                      rng.choice(abc, h).tobytes()))
-    got = torch_long.pairhmm_long(jobs, strip_w=8, unroll=8)
+    got = torch_long.pairhmm_long(jobs, strip_w=8, unroll=8, device="cpu")
     ref = [oracle.pairhmm_log10(rd.bases, rd.base_q, rd.ins_q, rd.del_q,
                                 rd.gcp_q, h) for rd, h in jobs]
     np.testing.assert_allclose(got, ref, atol=2e-4)
+
+
+def test_driver_needs_the_device():
+    """The device has no default: pairhmm_long never picks the CPU by
+    itself, as sw_scores_long does not."""
+    with pytest.raises(TypeError, match="device"):
+        torch_long.pairhmm_long(_jobs(2)[:2])
+    with pytest.raises(TypeError):
+        torch_long.pairhmm_long(_jobs(2)[:2], 33.0, "cpu")
 
 
 def _tile(strip_w=24):
