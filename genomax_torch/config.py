@@ -88,12 +88,14 @@ class EngineConfig:
     # strip-mined kernel (kernels/sw_strips.py, csrc/sw_strips.cu), which
     # sweeps only each strip's live diagonals; the rest, and the buckets it
     # declines, take the lane-tile kernel (csrc/sw_tile.cu). Measured on
-    # one NVIDIA H100 80GB HBM3 at 700.00 W (chip_smoke.py phases 5, 20):
-    # on the 25,000 x 512bp bucket (224 tiles x 520 rows) the strips
-    # kernel takes 17.03 ms against the lane-tile kernel's 46.24; on 4,096
-    # pairs it wins 1.67x at 64bp (72 rows) and 3.02x at 1,000bp, and
-    # loses at 32bp (40 rows: 53.5 against 61.9 GCUPS). Hence on by
-    # default, from 72 rows (the JAX engine's floor is 128, a TPU number).
+    # one NVIDIA H100 80GB HBM3 at 700.00 W (chip_smoke.py phases 5, 20,
+    # two runs): on the 25,000 x 512bp bucket (224 tiles x 520 rows) the
+    # strips kernel takes 17.03 and 16.93 ms against the lane-tile
+    # kernel's 46.24 and 46.20; on 4,096 pairs it wins 1.54-1.67x at 64bp
+    # (72 rows) and 3.02-3.05x at 1,000bp, while at 32bp (40 rows, kernels
+    # under 0.1 ms) the runs disagree (0.86x, 1.31x). Hence on by default,
+    # from 72 rows, the smallest bucket where every run agrees (the JAX
+    # engine's floor of 128 is a TPU number).
     sw_strips: bool = True
     strips_min_nxs: int = 72
     # The JAX engine's short-pair rotor, not ported yet; the port runs that

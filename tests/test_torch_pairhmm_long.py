@@ -90,7 +90,7 @@ def test_driver_scores_tiles_of_128_in_order():
     np.testing.assert_allclose(got, ref, atol=2e-4)
 
 
-def test_driver_needs_the_device():
+def test_pairhmm_long_needs_the_device():
     """The device has no default: pairhmm_long never picks the CPU by
     itself, as sw_scores_long does not."""
     with pytest.raises(TypeError, match="device"):
