@@ -6,11 +6,12 @@ Run from the repository root on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 Phases (one line each; any failure exits non-zero). They run in the
-order 1, 2, 19, 3, 4, 5, 20, 7-18, 6:
-  1. build      nvcc-builds the five kernels (csrc/sw_tile.cu,
-                csrc/sw_long.cu, csrc/sw_strips.cu, csrc/pairhmm_tile.cu,
-                csrc/pairhmm_long.cu) from the checkout, one nvcc each, in
-                parallel, and g++-builds the native golden library
+order 1, 2, 19, 21, 3, 4, 5, 22, 23, 20, 7-18, 6:
+  1. build      nvcc-builds the six kernels (csrc/sw_tile.cu,
+                csrc/sw_long.cu, csrc/sw_strips.cu, csrc/sw_rotor.cu,
+                csrc/pairhmm_tile.cu, csrc/pairhmm_long.cu) from the
+                checkout, one nvcc each, in parallel, and g++-builds the
+                native golden library
   2. kernel     the lane-tile SW kernel vs its plain PyTorch version on
                 ragged buckets under three scoring configs, exact
   3. goldens    Engine(device="cuda") on the vendored SW goldens, exact
@@ -81,9 +82,11 @@ order 1, 2, 19, 3, 4, 5, 20, 7-18, 6:
                 exact, which is timed by that one call
  17. sw mixed    the engine on 2,000 pairs with x of 20-4,000bp in one
                 call: buckets under strips_min_nxs rows take the lane-tile
-                kernel, the others the strips kernel, pairs past 1,022bp
-                the long-pair kernel; results in input order, 256 sampled
-                pairs == native model, all three launch counts move
+                kernel (or the rotor where its predicate takes them), the
+                others the strips kernel, pairs past 1,022bp the long-pair
+                kernel; results in input order, 256 sampled pairs ==
+                native model, the lane-tile, strips and long-pair launch
+                counts move
  18. sw long time  long-pair kernel ms per 50kbp tile, slope
                 (t(3) - t(1)) / 2, twice, beside phase 16's plain ms on
                 the same tile
@@ -93,13 +96,34 @@ order 1, 2, 19, 3, 4, 5, 20, 7-18, 6:
                 seams, an all-mismatch pair, a one-base y, an empty y)
                 under three scoring configs, at the router's strip width
                 and at 88 rows (every last strip re-padded), exact; the
-                plain strip sweep at both widths under the default config
-                and at 88 under the other two
+                plain strip sweep at both widths under the default config,
+                and at 88 on the first bucket under the other two
  20. sw sweep    kernel GCUPS of the lane-tile and the strips kernels on
                 4,096 pairs of 32, 64, 128, 256, 512 and 1,000bp (slope
                 (t(5) - t(1)) / 4, in turns), the strips kernel at each
-                strip width of 32-256 rows there, and whether the router
-                takes each point; no plain calls
+                strip width of 32-256 rows there, the rotor kernel at
+                rotor_max_slots 1-32 at 32, 64 and 128bp, and which kernel
+                the router sends each point to; no plain calls
+ 21. sw rotor    the rotor kernel (both wrappers) vs its plain rotor sweep,
+                the plain lane-tile sweep and the native model on ragged
+                buckets of 32-135bp at periods 40, 48, 64, 80 and 136 (the
+                unrolls 8, 24, 32, 16, 8), an identical pair at the
+                period's edge, an all-mismatch pair, a one-base y and a
+                one-base pair, queues 2 and up to 32 deep, under three
+                scoring configs; and on the queue-leak adversary (tiles of
+                identical and of all-mismatch pairs in turns, at T = 64
+                and 72), where every all-mismatch pair scores 0; exact
+ 22. rotor main  the engine on 25,000 pairs of 64bp random DNA + '\n'
+                (seeded; one bucket of 72 rows, T = 72): with sw_rotor on
+                and off, at strips_min_nxs 72 and 73 and at the defaults;
+                the three short-pair kernels' launch counts read around
+                each run and held to the kernel the predicates pick; 512
+                sampled pairs == native model; all runs equal on all
+                25,000 pairs
+ 23. rotor time  on phase 22's bucket: the rotor kernel at the default
+                rotor_max_slots vs its plain version, the strips kernel and
+                the lane-tile kernel, slope (t(9) - t(1)) / 8, in turns;
+                the plain rotor sweep == the kernel on every lane
 
 Then one JSON line describing each kernel, the card line, and, last,
 {"ok": true, "device": {...}}. Without a CUDA device, or outside the
@@ -125,8 +149,12 @@ LR_READS, LR_HAPS, LR_READ_LEN, LR_HAP_LEN = 128, 4, 1000, 1200
 LP_PAIRS, LP_LEN = 128, 50000
 # Mixed SW file: x of 20-4,000bp, y up to 1,000bp longer.
 MX_PAIRS, MX_X_LENS = 2000, (20, 4000)
-# SW sweep: pairs per point and lengths.
+# SW sweep: pairs per point and lengths; the rotor's lengths and queue
+# depths (rotor_max_slots).
 SWEEP_PAIRS, SWEEP_LENS = 4096, (32, 64, 128, 256, 512, 1000)
+ROTOR_LENS, ROTOR_SLOTS = (32, 64, 128), (1, 2, 4, 8, 16, 32)
+# Rotor main path: bench.py's short-pair point, 25,000 x 64bp + '\n'.
+RT_PAIRS, RT_LEN = 25000, 64
 # Published peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet):
 # device memory rate and fp32 rate outside the tensor cores. The int32
 # rate is 64 lanes on each of 132 SMs at the SM clock nvidia-smi reports.
@@ -274,17 +302,19 @@ def main() -> int:
     from genomax_torch.io.formats import SWPair
     from genomax_torch.io.generator import generate_pairhmm_batch, random_dna
     from genomax_torch.kernels import (_build, pairhmm, pairhmm_long, sw,
-                                       sw_long, sw_strips)
+                                       sw_long, sw_rotor, sw_strips)
     from genomax_torch.kernels.expand import expand_factored
     from genomax_torch.kernels.wavefront import (phmm_forward_tiles,
                                                  phmm_long_forward,
                                                  sw_forward_tiles,
                                                  sw_long_forward,
                                                  sw_long_forward_dense,
+                                                 sw_rotor_forward_tiles,
                                                  sw_strips_forward_tiles)
     from genomax_torch.pack import (pack_pairhmm_batches, pack_sw_pairs,
                                     phmm_bucket_to_torch, sw_bucket_to_torch,
-                                    sw_strips_to_torch, unpack_scores)
+                                    sw_rotor_to_torch, sw_strips_to_torch,
+                                    unpack_scores)
 
     dev = torch.device("cuda")
     clk = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=clocks.max.sm",
@@ -305,7 +335,7 @@ def main() -> int:
     # 1. build the kernels, one nvcc each, at once
     t0 = time.perf_counter()
     names = _build.KERNELS
-    check(len(names) == 5, f"kernels to build: {names}")
+    check(len(names) == 6, f"kernels to build: {names}")
     with concurrent.futures.ThreadPoolExecutor(len(names) + 1) as pool:
         golden = pool.submit(native.build)
         builds = list(pool.map(_build.build, names))
@@ -365,7 +395,7 @@ def main() -> int:
                     widths.add(st["strip_w"])
                     got = {"kernel": sw_strips.sw_forward_strips(
                         *t, ny_max=ny_max, cfg=cfg, **st)}
-                    if ci == 0 or strip_w == 88:
+                    if ci == 0 or (strip_w == 88 and i == big[0]):
                         got["plain strip sweep"] = sw_strips_forward_tiles(
                             *t, cfg=cfg, **st)
                     torch.cuda.synchronize()
@@ -385,6 +415,80 @@ def main() -> int:
               f"{min(buckets[i].sx.shape[1] for i in big)}-"
               f"{max(buckets[i].sx.shape[1] for i in big)} rows, strip widths "
               f"{sorted(widths)}, {cfg}, max_abs_err 0 "
+              f"({time.perf_counter() - t0:.1f} s so far)")
+
+    # 21. the rotor kernel vs its plain versions and the native model
+    def rotor_inputs(b, max_slots):
+        """Phase 21's prep of bucket b at its own period, gate or no gate:
+        (xrev, ybuf) on the card and the statics."""
+        T = -(-max(int(b.nx.max()), int(b.ny.max())) // 8) * 8
+        prep = sw_rotor.prep_bucket_rotor(b, T, max_slots)
+        return sw_rotor_to_torch(prep, dev), prep[1]
+
+    def p_rows(full, st):
+        """The bucket wrapper's rows of sw_forward_rotor's (NT_r*P8, 128)."""
+        p = st["n_slots"]
+        return full.view(-1, -(-p // 8) * 8, 128)[:, :p].reshape(-1, 128)
+
+    rotor_err, t0 = 0, time.perf_counter()
+    for ci, c in enumerate(CFGS):
+        cfg = SWConfig(**c)
+        periods, n_buckets, n_pairs = set(), 0, 0
+        for length in (39, 47, 63, 79, 135):
+            pairs = cases.rotor_sw_pairs(10 + length, length)
+            buckets = pack_sw_pairs(pairs)
+            for max_slots in (2, 32):
+                results = []
+                for b in buckets:
+                    (x, y), st = rotor_inputs(b, max_slots)
+                    periods.add((st["period"], st["unroll"]))
+                    got = sw_rotor.sw_forward_rotor_bucket(x, y, cfg=cfg,
+                                                           **st)
+                    full = sw_rotor.sw_forward_rotor(x, y, cfg=cfg, **st)
+                    plain = sw_rotor_forward_tiles(x, y, cfg=cfg, **st)
+                    n = -(-b.n_valid // 128)
+                    tiles = sw_forward_tiles(*sw_bucket_to_torch(b, dev),
+                                             cfg)[:n]
+                    torch.cuda.synchronize()
+                    for name, g, w in (("kernel", full, plain),
+                                       ("bucket wrapper", got,
+                                        p_rows(plain, st)),
+                                       ("lane tile", got[:n], tiles)):
+                        err = int((g.long() - w.long()).abs().max())
+                        rotor_err = max(rotor_err, err)
+                        check(err == 0, f"rotor {name} != plain on bucket "
+                                        f"{tuple(b.sx.shape)}, {st}, {cfg}:"
+                                        f" max |diff| {err}")
+                    results.append(got.cpu().numpy())
+                check(np.array_equal(unpack_scores(buckets, results,
+                                                   len(pairs)),
+                                     native_sw(native, pairs, cfg)),
+                      f"rotor buckets != native model at {length}bp, "
+                      f"{max_slots} slots, {cfg}")
+                n_buckets += len(buckets)
+            n_pairs += len(pairs)
+        # the queue-leak adversary: identical and all-mismatch tiles in
+        # turns, queued two deep
+        for length in (63, 71):
+            (b,) = pack_sw_pairs(cases.rotor_leak_pairs(ci, length))
+            (x, y), st = rotor_inputs(b, 2)
+            check(st["n_slots"] == 2, f"leak queues {st}")
+            got = sw_rotor.sw_forward_rotor_bucket(x, y, cfg=cfg, **st)
+            plain = p_rows(sw_rotor_forward_tiles(x, y, cfg=cfg, **st), st)
+            err = int((got.long() - plain.long()).abs().max())
+            rotor_err = max(rotor_err, err)
+            check(err == 0 and bool((got[0::2] == length * cfg.match).all())
+                  and not bool(got[1::2].any()),
+                  f"rotor queue leak at T={st['period']} under {cfg}: max "
+                  f"|diff| {err}, identical {got[0::2].unique().tolist()}, "
+                  f"all-mismatch {got[1::2].unique().tolist()}")
+        check({u for _, u in periods} == {8, 16, 24, 32},
+              f"rotor unrolls {sorted(periods)}")
+        print(f"phase 21 sw rotor kernel == plain == native: {n_pairs} pairs "
+              f"of 32-135bp, {n_buckets} bucket preps at (period, unroll) "
+              f"{sorted(periods)}, queues 2 and up to 32 deep, both "
+              f"wrappers; queue leak at T = 64 and 72 (all-mismatch pairs "
+              f"0); {cfg}, max_abs_err 0 "
               f"({time.perf_counter() - t0:.1f} s so far)")
 
     # 3. engine on the vendored goldens
@@ -485,6 +589,102 @@ def main() -> int:
           f"{got4.numel()} lanes; bound {strips_bound[0]:.4f} ms by "
           f"{strips_bound[1]}")
 
+    # 22. the rotor's main path: 25,000 x 64bp + '\n', one bucket of 72
+    # rows, with sw_rotor on and off, at strips_min_nxs 72 (strips first
+    # takes the bucket), 73 (the rotor's, if on) and the defaults
+    def routed_to(cfg, b):
+        if sw_strips.maybe_prep_strips(cfg, b) is not None:
+            return "strips"
+        if sw_rotor.maybe_prep_rotor(cfg, b) is not None:
+            return "rotor"
+        return "lane tile"
+
+    rng = np.random.default_rng(SEED + 7)
+    pairs = [SWPair(sx=random_dna(rng, RT_LEN) + b"\n",
+                    sy=random_dna(rng, RT_LEN) + b"\n")
+             for _ in range(RT_PAIRS)]
+    (rb,) = pack_sw_pairs(pairs)
+    check(rb.sx.shape[1] == 72, f"the 64bp bucket has {rb.sx.shape[1]} rows")
+    sample = np.random.default_rng(SEED + 8).choice(RT_PAIRS, 512,
+                                                    replace=False)
+    ref = native.sw_scores_native([pairs[i] for i in sample])
+    runs, rt_scores, rotor_launches = [], None, 0
+    for kw in (dict(), dict(sw_rotor=False),
+               dict(sw_rotor=True, strips_min_nxs=72),
+               dict(sw_rotor=True, strips_min_nxs=73),
+               dict(sw_rotor=False, strips_min_nxs=73)):
+        cfg22 = EngineConfig(**kw)
+        want = routed_to(cfg22, rb)
+        e22 = Engine(cfg22, device="cuda")
+        sw.launches = sw_strips.launches = sw_rotor.launches = 0
+        t0 = time.perf_counter()
+        scores = e22.sw_scores(pairs)
+        wall = time.perf_counter() - t0
+        n = {"lane tile": sw.launches, "strips": sw_strips.launches,
+             "rotor": sw_rotor.launches}
+        check(scores.shape == (RT_PAIRS,) and scores.dtype == np.int32,
+              f"scores of shape {scores.shape} {scores.dtype}")
+        check(n[want] == 1 and sum(n.values()) == 1,
+              f"{kw}: launches {n}, want one of {want}")
+        check(np.array_equal(scores[sample], ref),
+              f"{kw}: engine != native model on the sampled pairs")
+        check(rt_scores is None or np.array_equal(scores, rt_scores),
+              f"{kw}: scores differ from the first run's")
+        rt_scores = scores
+        if want == "rotor" and not rotor_launches:
+            rotor_launches = n["rotor"]
+        runs.append(want)
+        print(f"phase 22 rotor main path, {kw or 'defaults'}: {RT_PAIRS} x "
+              f"{RT_LEN}bp+'\\n', engine wall {wall:.3f} s, launches "
+              f"{json.dumps(n)} (the predicates pick {want}), 512 sampled "
+              f"pairs == native model, "
+              f"stats {json.dumps(e22.last_stats.as_dict())}")
+    check(runs.count("rotor") >= 1 and rotor_launches >= 1,
+          f"no run of phase 22 took the rotor: {runs}")
+    print(f"phase 22 all {len(runs)} runs equal on all {RT_PAIRS} pairs")
+
+    # 23. rotor timing on phase 22's bucket, at the default queue depth
+    rprep = sw_rotor.maybe_prep_rotor(EngineConfig(sw_rotor=True), rb)
+    rx, ry = sw_rotor_to_torch(rprep, dev)
+    rst, cfg = rprep[1], SWConfig()
+    rt = sw_bucket_to_torch(rb, dev)
+    ts22, st22, ny22 = strips_inputs(rb)
+    f_rotor = lambda: sw_rotor.sw_forward_rotor_bucket(  # noqa: E731
+        rx, ry, cfg=cfg, **rst)
+    f_plain = lambda: sw_rotor_forward_tiles(  # noqa: E731
+        rx, ry, cfg=cfg, **rst)
+    f_strips = lambda: sw_strips.sw_forward_strips(  # noqa: E731
+        *ts22, ny_max=ny22, cfg=cfg, **st22)
+    f_tile = lambda: sw.sw_forward(*rt, cfg)  # noqa: E731
+    got = f_rotor()
+    n_live = -(-rb.n_valid // 128)
+    for name, w in (("plain", p_rows(f_plain(), rst)),
+                    ("strips", f_strips()[:n_live]),
+                    ("lane tile", f_tile()[:n_live])):
+        err = int((got[:len(w)].long() - w.long()).abs().max())
+        rotor_err = max(rotor_err, err)
+        check(err == 0, f"rotor != {name} on the 64bp bucket: {err}")
+    rp1, r1, s1, k1, k2, s2, r2, rp2 = (
+        slope_ms(f_plain, torch), slope_ms(f_rotor, torch),
+        slope_ms(f_strips, torch), slope_ms(f_tile, torch),
+        slope_ms(f_tile, torch), slope_ms(f_strips, torch),
+        slope_ms(f_rotor, torch), slope_ms(f_plain, torch))
+    rotor_ms, rotor_plain_ms = (r1 + r2) / 2, (rp1 + rp2) / 2
+    rt_cells = int(((rb.nx - 1).astype(np.int64) * (rb.ny - 1)).sum())
+    rotor_bound = bound_ms(nbytes(rx, ry, got), rt_cells * SW_OPS_PER_CELL,
+                           int32_ops)
+    print(f"phase 23 rotor timing, bucket {tuple(rt[0].shape)} as "
+          f"{rx.shape[0]} rotor tiles x {rst['n_slots']} slots, T "
+          f"{rst['period']} (rotor_max_slots "
+          f"{EngineConfig().rotor_max_slots}): rotor {r1:.4f} / {r2:.4f} ms "
+          f"({rt_cells / rotor_ms / 1e6:.2f} GCUPS), plain rotor sweep "
+          f"{rp1:.3f} / {rp2:.3f} ms, strips {s1:.4f} / {s2:.4f} ms "
+          f"({rt_cells / ((s1 + s2) / 2) / 1e6:.2f} GCUPS), lane tile "
+          f"{k1:.4f} / {k2:.4f} ms ({rt_cells / ((k1 + k2) / 2) / 1e6:.2f} "
+          f"GCUPS); rotor {(s1 + s2) / 2 / rotor_ms:.2f}x strips; bound "
+          f"{rotor_bound[0]:.4f} ms by {rotor_bound[1]} (cells {rt_cells}); "
+          f"kernel == plain == strips == lane tile on every live lane")
+
     # 20. both SW kernels across lengths, kernel only: the lane-tile
     # kernel, then the strips kernel at the router's width and at each
     # width of 32-256 rows below the bucket's
@@ -495,7 +695,6 @@ def main() -> int:
         (bs,) = pack_sw_pairs(sp)
         t = sw_bucket_to_torch(bs, dev)
         tsw, stw, nyw = strips_inputs(bs)
-        routed = sw_strips.maybe_prep_strips(EngineConfig(), bs) is not None
         fk = lambda: sw.sw_forward(*t)  # noqa: E731
         fs = lambda: sw_strips.sw_forward_strips(  # noqa: E731
             *tsw, ny_max=nyw, **stw)
@@ -514,14 +713,37 @@ def main() -> int:
             check(torch.equal(fw(), ref),
                   f"strips at W={strip_w} differ at {length}bp")
             widths.append(f"{strip_w}: {slope_ms(fw, torch, 5):.3f}")
+        # the rotor at each queue depth, in turns with itself, beside the
+        # lane tile and strips of this point
+        rotor = []
+        if length in ROTOR_LENS:
+            n_live = -(-bs.n_valid // 128)
+            for slots in ROTOR_SLOTS:
+                rp = sw_rotor.maybe_prep_rotor(
+                    EngineConfig(sw_rotor=True, rotor_max_slots=slots), bs)
+                check(rp is not None, f"the rotor declines {length}bp")
+                rxy = sw_rotor_to_torch(rp, dev)
+                fr = lambda: sw_rotor.sw_forward_rotor_bucket(  # noqa: E731
+                    *rxy, **rp[1])
+                check(torch.equal(fr()[:n_live], ref[:n_live]),
+                      f"rotor at {slots} slots differs at {length}bp")
+                r1, r2 = slope_ms(fr, torch, 5), slope_ms(fr, torch, 5)
+                rotor.append(f"{slots}: {r1:.4f} / {r2:.4f} ms = "
+                             f"{c / ((r1 + r2) / 2) / 1e6:.2f} GCUPS")
+            rotor = [f"rotor (T {rp[1]['period']}) by rotor_max_slots "
+                     + "; ".join(rotor)]
+        dflt = EngineConfig()
         print(f"phase 20 sw sweep {length}bp: {SWEEP_PAIRS} pairs, bucket "
               f"{tuple(t[0].shape)}; lane tile {a1:.3f} / {a2:.3f} ms = "
               f"{c / ((a1 + a2) / 2) / 1e6:.2f} GCUPS; strips at the "
               f"router's width ({stw['k_strips']} x {stw['strip_w']} rows) "
               f"{b1:.3f} / {b2:.3f} ms = {c / ((b1 + b2) / 2) / 1e6:.2f} "
-              f"GCUPS; by strip width (ms) {', '.join(widths)}; the router "
-              f"{'takes' if routed else 'declines'} it (strips_min_nxs "
-              f"{EngineConfig().strips_min_nxs})")
+              f"GCUPS; by strip width (ms) {', '.join(widths)}; "
+              + "".join(r + "; " for r in rotor)
+              + f"the default router sends it to the {routed_to(dflt, bs)} "
+              f"kernel (sw_rotor {dflt.sw_rotor}, rotor_max_slots "
+              f"{dflt.rotor_max_slots}, strips_min_nxs "
+              f"{dflt.strips_min_nxs})")
 
     # 7. PairHMM kernel vs plain version on the card
     ph_err = 0.0
@@ -1006,27 +1228,29 @@ def main() -> int:
     n_long = sum(len(p.sx) + 2 > eng.cfg.max_device_len for p in pairs)
     e17 = Engine(EngineConfig(sw_strips=True), device="cuda")
     sw_long.launches = sw.launches = sw_strips.launches = 0
+    sw_rotor.launches = 0
     t0 = time.perf_counter()
     scores = e17.sw_scores(pairs)
     wall = time.perf_counter() - t0
-    mx_long, mx_tile, mx_strips = (sw_long.launches, sw.launches,
-                                   sw_strips.launches)
+    mx_long, mx_tile, mx_strips, mx_rotor = (
+        sw_long.launches, sw.launches, sw_strips.launches, sw_rotor.launches)
     stats = e17.last_stats
     check(0 < n_long < MX_PAIRS and stats.offloaded_jobs == n_long,
           f"{stats.offloaded_jobs} offloaded, {n_long} long of {MX_PAIRS}")
     check(mx_long == -(-n_long // 128) and mx_tile >= 1 and mx_strips >= 1
-          and mx_tile + mx_strips == stats.buckets,
+          and mx_tile + mx_strips + mx_rotor == stats.buckets,
           f"{mx_long} long-pair launches for {n_long} pairs, {mx_tile} "
-          f"lane-tile and {mx_strips} strips launches for {stats.buckets} "
-          f"buckets")
+          f"lane-tile, {mx_strips} strips and {mx_rotor} rotor launches for "
+          f"{stats.buckets} buckets")
     sample = np.random.default_rng(SEED + 5).choice(MX_PAIRS, 256,
                                                     replace=False)
     ref = native_sw(native, [pairs[i] for i in sample])
     check(np.array_equal(scores[sample], ref),
           "engine != native model on the mixed file's sampled pairs")
     print(f"phase 17 sw mixed: {MX_PAIRS} pairs, x {MX_X_LENS[0]}-"
-          f"{MX_X_LENS[1]}bp, engine wall {wall:.3f} s, {mx_tile} lane-tile "
-          f"and {mx_strips} strips launches for {MX_PAIRS - n_long} pairs, "
+          f"{MX_X_LENS[1]}bp, engine wall {wall:.3f} s, {mx_tile} lane-tile, "
+          f"{mx_strips} strips and {mx_rotor} rotor launches for "
+          f"{MX_PAIRS - n_long} pairs, "
           f"{mx_long} long-pair launches for {n_long} pairs, 256 sampled "
           f"pairs == native model in input order, "
           f"stats {json.dumps(stats.as_dict())}")
@@ -1065,13 +1289,17 @@ def main() -> int:
     # Each row at the shape its main path gives the kernel, kernel and
     # plain alike; sw_long's plain version is the full-height sweep. The
     # lane-tile kernel's launches are phase 4's sw_strips=False run's, the
-    # strips kernel's the sw_strips=True run's.
+    # strips kernel's the sw_strips=True run's, the rotor's phase 22's
+    # first run that the predicates send to it.
     print(json.dumps({"kernels": [
         entry("sw_tile", "sw_tile.cu", "genomax/kernels/sw_pallas.py:42",
               launches, max_err, kernel_ms, plain_ms, sw_bound),
         entry("sw_strips", "sw_strips.cu", "genomax/kernels/sw_strips.py:68",
               strips_launches, strips_err, strips_ms, strips_plain_ms,
               strips_bound),
+        entry("sw_rotor", "sw_rotor.cu", "genomax/kernels/sw_rotor.py:141",
+              rotor_launches, rotor_err, rotor_ms, rotor_plain_ms,
+              rotor_bound),
         entry("sw_long", "sw_long.cu", "genomax/kernels/sw_long.py:126",
               lp_launches, sl_err, sl_kernel_ms, sl_plain_ms, sl_bound),
         entry("pairhmm_tile", "pairhmm_tile.cu",

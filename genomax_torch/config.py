@@ -17,6 +17,9 @@ MAX_KERNEL_ROWS = 1024
 # The PairHMM kernel runs one thread per read row; the engine sends it reads
 # under max_device_len // 2 (csrc/pairhmm_tile.cu).
 MAX_PHMM_ROWS = MAX_KERNEL_ROWS // 2
+# The rotor kernel runs one warp per queue, each lane holding up to five
+# columns of the period (csrc/sw_rotor.cu): periods up to 32 * 5.
+MAX_ROTOR_PERIOD = 160
 # Rescale periods the packs reserve stream slack for (layout.MAX_UNROLL =
 # 32 rows past every pair's last diagonal).
 RESCALE_PERIODS = (1, 2, 4, 8, 16, 32)
@@ -87,20 +90,35 @@ class EngineConfig:
     # Route SW buckets of at least strips_min_nxs rows through the
     # strip-mined kernel (kernels/sw_strips.py, csrc/sw_strips.cu), which
     # sweeps only each strip's live diagonals; the rest, and the buckets it
-    # declines, take the lane-tile kernel (csrc/sw_tile.cu). Measured on
-    # one NVIDIA H100 80GB HBM3 at 700.00 W (chip_smoke.py phases 5, 20,
-    # two runs): on the 25,000 x 512bp bucket (224 tiles x 520 rows) the
-    # strips kernel takes 17.03 and 16.93 ms against the lane-tile
-    # kernel's 46.24 and 46.20; on 4,096 pairs it wins 1.54-1.67x at 64bp
-    # (72 rows) and 3.02-3.05x at 1,000bp, while at 32bp (40 rows, kernels
-    # under 0.1 ms) the runs disagree (0.86x, 1.31x). Hence on by default,
-    # from 72 rows, the smallest bucket where every run agrees (the JAX
-    # engine's floor of 128 is a TPU number).
+    # declines, go to the rotor (below) or the lane-tile kernel
+    # (csrc/sw_tile.cu). Measured on one NVIDIA H100 80GB HBM3 at 700.00 W
+    # (chip_smoke.py phases 5, 20): on the 25,000 x 512bp bucket (224
+    # tiles x 520 rows) the strips kernel takes 16.93-17.03 ms against the
+    # lane-tile kernel's 46.20-46.24, and it wins 1.54-3.05x from 64bp (72
+    # rows) to 1,000bp. The rotor (below) beats it about twice over on the
+    # short buckets up to 136 rows, so strips start at 144 rows, the first
+    # bucket past 136 (the JAX engine's floor of 128 is a TPU number).
     sw_strips: bool = True
-    strips_min_nxs: int = 72
-    # The JAX engine's short-pair rotor, not ported yet; the port runs that
-    # engine's sw_rotor=False configuration.
-    sw_rotor: bool = False
+    strips_min_nxs: int = 144
+    # Column-stationary rotor for short pairs (kernels/sw_rotor.py,
+    # csrc/sw_rotor.cu): a bucket that strips declines, whose every pair
+    # fits one period T = round_up(max(nx, ny) + 1, 8) <= rotor_max_period
+    # and that passes the rotor's geometry gate, queues its tiles per lane,
+    # rotor_max_slots pairs a queue at most; the rest take the lane-tile
+    # kernel. The knobs, the period of 136 and the order of the routers are
+    # genomax.config's. Measured on one NVIDIA H100 80GB HBM3 at 700.00 W
+    # (chip_smoke.py phases 20 and 23, two runs): on 4,096 pairs the rotor
+    # at 4 slots runs 178 / 113 GCUPS at 32bp (T = 40) against the lane
+    # tile's 95 / 85, 325 / 308 at 64bp (T = 72) against strips' 164 / 171,
+    # 481 / 480 at 128bp (T = 136) against strips' 227 / 226; on the 25,000
+    # x 64bp bucket 0.259 / 0.256 ms against strips' 0.528 / 0.533 ms. At
+    # each point every run of the rotor beats every run of the other
+    # kernel. Four slots is the best depth or within 2% of it at every
+    # point: deeper queues leave the card too few warps (32 slots give 128
+    # at 4,096 pairs), shallower ones sweep more pad steps.
+    sw_rotor: bool = True
+    rotor_max_period: int = 136
+    rotor_max_slots: int = 4
     # PairHMM knobs of genomax.config.EngineConfig, with its defaults: the
     # fp32 exponent-rescale period in diagonals, and the log10 threshold
     # below which (or when non-finite) a result is recomputed by the native
@@ -109,13 +127,18 @@ class EngineConfig:
     phmm_fallback_threshold: float | None = -45.0
 
     def __post_init__(self):
-        if self.sw_rotor:
-            raise NotImplementedError(
-                "sw_rotor: the short-pair rotor SW kernel is not ported yet "
-                "(ROADMAP queue 2 item 2)")
         if self.strips_min_nxs < 1:
             raise ValueError(f"strips_min_nxs={self.strips_min_nxs}: want a "
                              "positive row count")
+        if (not 8 <= self.rotor_max_period <= MAX_ROTOR_PERIOD
+                or self.rotor_max_period % 8):
+            raise ValueError(
+                f"rotor_max_period={self.rotor_max_period}: want a multiple "
+                f"of 8 in [8, {MAX_ROTOR_PERIOD}] (the rotor kernel's warp "
+                "holds at most that many columns)")
+        if self.rotor_max_slots < 1:
+            raise ValueError(f"rotor_max_slots={self.rotor_max_slots}: want "
+                             "at least one pair a queue")
         if not 8 <= self.max_device_len <= MAX_KERNEL_ROWS:
             raise ValueError(
                 f"max_device_len={self.max_device_len}: the SW kernel takes "

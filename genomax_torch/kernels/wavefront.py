@@ -223,6 +223,72 @@ def sw_strips_forward_tiles(sx: torch.Tensor, sy: torch.Tensor,
     return scores.reshape(nt, lanes)
 
 
+def sw_rotor_forward_tiles(xrev: torch.Tensor, ybuf: torch.Tensor, *,
+                           period: int, n_slots: int, anchor: int,
+                           unroll: int,
+                           cfg: SWConfig = SWConfig()) -> torch.Tensor:
+    """Plain version of the rotor SW kernel (``csrc/sw_rotor.cu``): rotor
+    tiles of ``kernels.sw_rotor.prep_bucket_rotor`` -> (NT_r * P8, 128)
+    int32, P8 = round_up(P, 8), row q of a tile's block the score of queue
+    slot q; rows P..P8-1 are 0.
+
+    xrev: (NT_r, NB, 128), xrev[A - (qT + r)] = x_q[r-1] (pads 1); ybuf:
+    (NT_r, NY, 128), ybuf[qT + p] = y_q[p] (pads 0). The JAX formulation
+    (genomax/kernels/sw_rotor.py ``_kernel``) on a (T, NT_r*128) frame:
+    frame row p always computes matrix column p + 1, so pair q's cell
+    (r, c) falls on step d = qT + r + c; the -KILL pins of row T-1 make the
+    circular roll the left boundary; the moving wrap row p* = (d-1) mod T
+    is the r = 0 slot between two pairs of a queue, where the y code of
+    that row is refreshed from ybuf[d-1], D and Q are forced to 0 (no
+    chain leaks from pair q-1's pad rows) and the column's running max
+    moves to ``harv``, whose column maxes give slot m-2's score at each
+    period boundary m. The steps run in blocks of ``unroll``, and a
+    harvest falls at a block start only if unroll divides T (the caller
+    checks it; the JAX kernel silently scores 0 otherwise).
+    """
+    nt, _, lanes = xrev.shape
+    T, P, A = period, n_slots, anchor
+    p8 = -(-P // 8) * 8
+    out = torch.zeros((nt, p8, lanes), dtype=torch.int32, device=xrev.device)
+    if nt == 0:
+        return out.reshape(0, lanes)
+    cols = nt * lanes
+    xf = xrev.to(torch.int32).permute(1, 0, 2).reshape(-1, cols)
+    yf = ybuf.to(torch.int32).permute(1, 0, 2).reshape(-1, cols)
+    ge, og_e = cfg.gap_extend, cfg.gap_open + cfg.gap_extend
+    ii = torch.arange(T, device=xrev.device).unsqueeze(1)
+    z = torch.zeros((T, cols), dtype=torch.int32, device=xrev.device)
+
+    def pinned(value):  # value everywhere, -KILL at row T-1
+        return torch.where(ii == T - 1, -KILL, z + value)
+
+    subm, subx = pinned(cfg.match), pinned(cfg.mismatch)
+    ogev, gevP, kT1 = pinned(og_e), pinned(ge), pinned(0)
+    syb = z.clone()
+    P1 = D1 = D2 = Dv = Qv = mx = harv = z
+    for blk in range((P + 1) * T // unroll + 1):
+        d0 = blk * unroll + 1
+        m = (d0 - 1) // T
+        if m * T == d0 - 1 and 2 <= m < P + 2:
+            out[:, m - 2] = harv.amax(dim=0).view(nt, lanes)
+        for d in range(d0, d0 + unroll):
+            pstar = (d - 1) % T
+            wrap = ii == pstar
+            syb[pstar] = yf[d - 1]
+            xw = xf[A - d + 1: A - d + 1 + T]
+            Pn = torch.maximum(D1 + kT1, P1 + gevP)
+            Qn = torch.where(wrap, 0, torch.maximum(Dv, Qv + ge))
+            sub = torch.where(xw == syb, subm, subx)
+            Dn = torch.maximum(torch.maximum(Pn, Qn) + ogev,
+                               torch.clamp_min(D2 + sub, 0))
+            Dn = torch.where(wrap, 0, Dn)
+            harv = torch.where(wrap, mx, harv)
+            mx = torch.maximum(torch.where(wrap, 0, mx), Dn)
+            P1, D1, D2, Dv, Qv = (torch.roll(Pn, 1, 0), torch.roll(Dn, 1, 0),
+                                  D1, Dn, Qn)
+    return out.reshape(nt * p8, lanes)
+
+
 def sw_long_forward_dense(sx: torch.Tensor, sy: torch.Tensor, n_diags: int,
                           ny_max: int, anchor: int,
                           cfg: SWConfig = SWConfig()) -> torch.Tensor:

@@ -26,6 +26,13 @@ def sw_strips_to_torch(prep, b: SWPacked, device: torch.device):
     return tuple(torch.from_numpy(a).to(device) for a in (sx, sy, b.nx, b.ny))
 
 
+def sw_rotor_to_torch(prep, device: torch.device):
+    """(xrev (NT_r,NB,128) int8, ybuf (NT_r,NY,128) int8) on ``device``: the
+    arrays of a rotor prep (``kernels.sw_rotor.prep_bucket_rotor``)."""
+    (xrev, ybuf), _ = prep
+    return tuple(torch.from_numpy(a).to(device) for a in (xrev, ybuf))
+
+
 def phmm_bucket_to_torch(b: PairHMMPacked, device: torch.device,
                          phred_offset: float = 33.0):
     """The ten inputs of ``kernels.pairhmm.pairhmm_forward`` on ``device``:

@@ -2,9 +2,10 @@
 PairHMM: ragged batches for the lane-tile kernel, a bucket whose haplotype
 stream is longer than the JAX engine's resident limit, and jobs for the
 long-read kernel. Smith-Waterman: a ragged tile for the long-pair kernel,
-pairs whose y stream passes the same resident limit, and ragged buckets
-of 128 rows or more for the strips kernel. Imports no jax
-and nothing of the JAX package."""
+pairs whose y stream passes the same resident limit, ragged buckets
+of 128 rows or more for the strips kernel, and short buckets with the
+queue adversaries for the rotor kernel. Imports no jax and nothing of the
+JAX package."""
 
 import numpy as np
 
@@ -199,3 +200,44 @@ def strips_sw_pairs(seed, n_pairs=300, x_lens=(126, 1000), y_extra=300):
     pairs.append(SWPair(sx=same[:400], sy=b""))
     pairs.append(SWPair(sx=b"T", sy=b"T"))
     return pairs
+
+
+def rotor_sw_pairs(seed, length, n_pairs=640):
+    """Short pairs for the rotor kernel: x of 3/4 length to length bases
+    against y of half length to length, x planted in y with errors on two
+    pairs in three. The last four pairs are an identical pair of ``length``
+    (at the period's edge, nx = ny = T - 1, where length + 1 is a multiple
+    of 8), an all-mismatch pair of that length, a long x against a
+    one-base y and a one-base pair (in a bucket of its own)."""
+    rng = np.random.default_rng(seed)
+    abc = np.frombuffer(b"ACGT", np.uint8)
+    pairs = []
+    for k in range(n_pairs - 4):
+        x = rng.choice(abc, int(rng.integers(3 * length // 4, length + 1)))
+        y = rng.choice(abc, int(rng.integers(length // 2, length + 1)))
+        if k % 3:
+            n = min(len(x), len(y))
+            a = int(rng.integers(0, len(y) - n + 1))
+            y[a: a + n] = _noisy(rng, x[:n], 0.05, abc)
+        pairs.append(SWPair(sx=x.tobytes(), sy=y.tobytes()))
+    same = rng.choice(abc, length).tobytes()
+    pairs.append(SWPair(sx=same, sy=same))
+    pairs.append(SWPair(sx=b"A" * length, sy=b"C" * length))
+    pairs.append(SWPair(sx=same, sy=b"G"))
+    pairs.append(SWPair(sx=b"G", sy=b"G"))
+    return pairs
+
+
+def rotor_leak_pairs(seed, length, n_tiles=4):
+    """The rotor's queue-leak adversary as one bucket: tiles of 128
+    identical pairs of ``length`` and of 128 all-mismatch pairs of the
+    same length, in turns. Every pair has the same diagonal count, so the
+    pack keeps this order, and bucket tiles t and t+1 are consecutive
+    slots of one lane queue wherever t % P < P - 1: a chain that crossed
+    the boundary slot from the maximum-scoring pair would give the
+    all-mismatch pair behind it a score above 0."""
+    g = np.random.default_rng(seed).choice(
+        np.frombuffer(b"ACGT", np.uint8), length).tobytes()
+    tile = [[SWPair(sx=g, sy=g)] * 128,
+            [SWPair(sx=b"A" * length, sy=b"T" * length)] * 128]
+    return [p for k in range(n_tiles) for p in tile[k % 2]]

@@ -69,7 +69,8 @@ def test_engine_matches_jax_engine_resident_kernel(cfg):
         JaxEngineConfig(backend="pallas", sw_strips=False, sw_rotor=False,
                         unroll=4),
         sw_cfg=cfg, interpret=True)
-    eng = Engine(EngineConfig(sw_strips=False), sw_cfg=cfg, device="cpu")
+    eng = Engine(EngineConfig(sw_strips=False, sw_rotor=False), sw_cfg=cfg,
+                 device="cpu")
     got = eng.sw_scores(pairs)
     np.testing.assert_array_equal(got, jax_eng.sw_scores(pairs))
     np.testing.assert_array_equal(got, native.sw_scores_native(pairs, cfg))
@@ -133,8 +134,8 @@ def test_engine_mixed_list_matches_jax_engine_long_pairs(cfg):
         JaxEngineConfig(backend="pallas", sw_strips=False, sw_rotor=False,
                         unroll=4, **_MIXED),
         sw_cfg=cfg, interpret=True)
-    eng = Engine(EngineConfig(sw_strips=False, **_MIXED), sw_cfg=cfg,
-                 device="cpu")
+    eng = Engine(EngineConfig(sw_strips=False, sw_rotor=False, **_MIXED),
+                 sw_cfg=cfg, device="cpu")
     got = eng.sw_scores(pairs)
     np.testing.assert_array_equal(got, jax_eng.sw_scores(pairs))
     np.testing.assert_array_equal(got, oracle.sw_scores_pairs(pairs, cfg))
@@ -214,8 +215,21 @@ def test_cli_sw_file_with_long_pairs_reaches_long_kernel(tmp_path):
 
 @pytest.mark.parametrize("knob", ["sw_rotor"])
 def test_unported_routers_raise(knob):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        EngineConfig(**{knob: True})
+    """No router of the JAX engine's default configuration is left
+    unported: sw_rotor, the last (it raised NotImplementedError until the
+    rotor kernel landed), constructs, with the JAX sizes."""
+    cfg = EngineConfig(**{knob: True})
+    assert getattr(cfg, knob) is True
+    assert cfg.rotor_max_period == 136 and cfg.rotor_max_slots >= 1
+
+
+@pytest.mark.parametrize("bad", [
+    dict(rotor_max_period=0), dict(rotor_max_period=100),
+    dict(rotor_max_period=168), dict(rotor_max_slots=0)],
+    ids=["period-0", "period-not-x8", "period-past-160", "slots-0"])
+def test_rotor_sizes_out_of_range_raise(bad):
+    with pytest.raises(ValueError, match=next(iter(bad))):
+        EngineConfig(**bad)
 
 
 def test_max_device_len_past_kernel_rows_raises():
@@ -244,6 +258,10 @@ def test_kernel_build_failure_raises_not_cpu_scores(monkeypatch):
         executor, "sw_bucket_to_torch",
         lambda b, device: tuple(torch.from_numpy(a).to("meta") for a in
                                 (b.sx, b.sy, b.ndiag_tile)))
+    monkeypatch.setattr(
+        executor, "sw_rotor_to_torch",
+        lambda prep, device: tuple(torch.from_numpy(a).to("meta") for a in
+                                   prep[0]))
     with pytest.raises(EngineError) as err:
         eng.sw_scores([SWPair(sx=b"ACGT", sy=b"ACGT")])
     assert isinstance(err.value.cause, _build.BuildError)

@@ -1,6 +1,6 @@
 """The CUDA kernels against their plain PyTorch versions on the card:
-csrc/sw_tile.cu, csrc/sw_long.cu and csrc/sw_strips.cu (int32 scores,
-exact),
+csrc/sw_tile.cu, csrc/sw_long.cu, csrc/sw_strips.cu and csrc/sw_rotor.cu
+(int32 scores, exact),
 csrc/pairhmm_tile.cu and
 csrc/pairhmm_long.cu (within 1e-4 in log10, or two fp32 ulps of values
 below -512: nvcc contracts a*b+c into FMAs, the plain version rounds each
@@ -20,19 +20,20 @@ from genomax_torch.pack.bucketing import (pack_pairhmm_batches,
                                           pack_sw_pairs, unpack_scores)
 
 from _phmm_cases import (long_jobs, long_sw_pairs, phmm_batches,
-                         streamed_batches, streamed_sw_pairs,
-                         strips_sw_pairs)
+                         rotor_leak_pairs, rotor_sw_pairs, streamed_batches,
+                         streamed_sw_pairs, strips_sw_pairs)
 from genomax_torch.engine.executor import Engine
 from genomax_torch.kernels import (_build, pairhmm, pairhmm_long, sw,
-                                   sw_long, sw_strips)
+                                   sw_long, sw_rotor, sw_strips)
 from genomax_torch.kernels.wavefront import (phmm_forward_tiles,
                                              phmm_long_forward,
                                              sw_forward_tiles,
                                              sw_long_forward,
                                              sw_long_forward_dense,
+                                             sw_rotor_forward_tiles,
                                              sw_strips_forward_tiles)
 from genomax_torch.pack import (phmm_bucket_to_torch, sw_bucket_to_torch,
-                                sw_strips_to_torch)
+                                sw_rotor_to_torch, sw_strips_to_torch)
 
 pytestmark = pytest.mark.cuda
 
@@ -230,13 +231,123 @@ def test_engine_strips_on_equals_off(device):
     pairs = strips_sw_pairs(5, n_pairs=400, x_lens=(60, 900))
     n_big = sum(b.sx.shape[1] >= 128 for b in pack_sw_pairs(pairs))
     sw.launches = sw_strips.launches = 0
-    on = Engine(EngineConfig(sw_strips=True, strips_min_nxs=128),
-                device=device).sw_scores(pairs)
+    on = Engine(EngineConfig(sw_strips=True, strips_min_nxs=128,
+                             sw_rotor=False), device=device).sw_scores(pairs)
     assert (sw.launches, sw_strips.launches) == (
         len(pack_sw_pairs(pairs)) - n_big, n_big)
     sw.launches = sw_strips.launches = 0
-    off = Engine(EngineConfig(sw_strips=False), device=device).sw_scores(pairs)
+    off = Engine(EngineConfig(sw_strips=False, sw_rotor=False),
+                 device=device).sw_scores(pairs)
     assert sw_strips.launches == 0 and sw.launches == len(pack_sw_pairs(pairs))
+    np.testing.assert_array_equal(on, off)
+    np.testing.assert_array_equal(on, native.sw_scores_native(pairs))
+
+
+def _rotor_prep(b, max_slots):
+    """The rotor prep of bucket b at its own period, gate or no gate."""
+    T = -(-max(int(b.nx.max()), int(b.ny.max())) // 8) * 8
+    return sw_rotor.prep_bucket_rotor(b, T, max_slots)
+
+
+@pytest.mark.parametrize("max_slots", [2, 32])
+@pytest.mark.parametrize("length", [39, 47, 63, 79, 135])
+@pytest.mark.parametrize("cfg", CFGS, ids=["default", "m2x3o5e2", "m3x1o0e2"])
+def test_sw_rotor_kernel_equals_plain_version(device, cfg, length,
+                                              max_slots):
+    """Ragged short buckets at periods 40-136 (the unrolls 8, 24, 32, 16
+    and 8), queues 2 deep and up to 32, an identical pair at the period's
+    edge, an all-mismatch pair, a one-base y and a one-base pair: kernel
+    == plain rotor sweep == plain lane-tile sweep == native, in both
+    wrappers."""
+    pairs = rotor_sw_pairs(3, length, n_pairs=400)
+    buckets = pack_sw_pairs(pairs)
+    before = sw_rotor.launches
+    results = []
+    for b in buckets:
+        prep = _rotor_prep(b, max_slots)
+        x, y = sw_rotor_to_torch(prep, device)
+        got = sw_rotor.sw_forward_rotor_bucket(x, y, cfg=cfg, **prep[1])
+        full = sw_rotor.sw_forward_rotor(x, y, cfg=cfg, **prep[1])
+        torch.cuda.synchronize()
+        assert got.is_cuda and got.dtype == torch.int32
+        plain = sw_rotor_forward_tiles(x, y, cfg=cfg, **prep[1])
+        assert torch.equal(full, plain)
+        p, p8 = prep[1]["n_slots"], -(-prep[1]["n_slots"] // 8) * 8
+        assert torch.equal(got, plain.view(-1, p8, 128)[:, :p].reshape(-1,
+                                                                     128))
+        n = -(-b.n_valid // 128)
+        want = sw_forward_tiles(*sw_bucket_to_torch(b, device), cfg)
+        assert torch.equal(got[:n], want[:n])
+        results.append(got.cpu().numpy())
+    assert sw_rotor.launches - before == 2 * len(buckets)
+    np.testing.assert_array_equal(unpack_scores(buckets, results, len(pairs)),
+                                  native.sw_scores_native(pairs, cfg))
+
+
+@pytest.mark.parametrize("length", [63, 71])
+@pytest.mark.parametrize("cfg", CFGS, ids=["default", "m2x3o5e2", "m3x1o0e2"])
+def test_sw_rotor_kernel_holds_the_queue_leak(device, cfg, length):
+    """Tiles of identical pairs and of all-mismatch pairs in turns, queued
+    two deep: every all-mismatch pair right behind a maximum-scoring one
+    scores exactly 0, and the identical pairs length * match."""
+    (b,) = pack_sw_pairs(rotor_leak_pairs(5, length))
+    prep = _rotor_prep(b, 2)
+    assert prep[1]["n_slots"] == 2
+    x, y = sw_rotor_to_torch(prep, device)
+    got = sw_rotor.sw_forward_rotor_bucket(x, y, cfg=cfg, **prep[1])
+    torch.cuda.synchronize()
+    plain = sw_rotor_forward_tiles(x, y, cfg=cfg, **prep[1])
+    assert torch.equal(got, plain.view(-1, 8, 128)[:, :2].reshape(-1, 128))
+    assert bool((got[0::2] == length * cfg.match).all())
+    assert not bool(got[1::2].any())
+
+
+def test_sw_rotor_out_of_contract(device):
+    """The wrappers raise before any launch on a period past 160 or one
+    the unroll does not divide; a launch whose buffers are too short for
+    the sweep writes -1 to each slot of its queues and nothing else."""
+    (b,) = pack_sw_pairs(rotor_leak_pairs(6, 63))
+    prep = _rotor_prep(b, 2)
+    x, y = sw_rotor_to_torch(prep, device)
+    st = prep[1]
+    before = sw_rotor.launches
+    with pytest.raises(ValueError, match="period"):
+        sw_rotor.sw_forward_rotor(x, y, **{**st, "period": 168,
+                                          "unroll": 24})
+    with pytest.raises(ValueError, match="unroll"):
+        sw_rotor.sw_forward_rotor(x, y, **{**st, "unroll": 24})
+    assert sw_rotor.launches == before
+    out = sw_rotor._launch(x, y, st["period"], st["n_slots"], 8, 8,
+                           SWConfig(), "test")
+    torch.cuda.synchronize()
+    assert sw_rotor.launches == before + 1
+    assert bool((out[:, :st["n_slots"]] == -1).all())
+    assert not bool(out[:, st["n_slots"]:].any())
+
+
+def test_engine_rotor_on_equals_off(device):
+    """The engine with the rotor on and off on the card: the same scores,
+    equal to native; with the rotor on, the buckets its predicate takes
+    launch the rotor kernel and no other."""
+    pairs = (rotor_sw_pairs(7, 63, n_pairs=300)
+             + rotor_sw_pairs(8, 135, n_pairs=200)
+             + strips_sw_pairs(9, n_pairs=60, x_lens=(200, 400)))
+    cfg_on = EngineConfig(sw_rotor=True, strips_min_nxs=128)
+    buckets = pack_sw_pairs(pairs)
+    n_strips = sum(sw_strips.maybe_prep_strips(cfg_on, b) is not None
+                   for b in buckets)
+    n_rotor = sum(sw_strips.maybe_prep_strips(cfg_on, b) is None
+                  and sw_rotor.maybe_prep_rotor(cfg_on, b) is not None
+                  for b in buckets)
+    assert n_rotor >= 2 and n_strips >= 1
+    sw.launches = sw_strips.launches = sw_rotor.launches = 0
+    on = Engine(cfg_on, device=device).sw_scores(pairs)
+    assert (sw_rotor.launches, sw_strips.launches, sw.launches) == (
+        n_rotor, n_strips, len(buckets) - n_rotor - n_strips)
+    sw_rotor.launches = 0
+    off = Engine(EngineConfig(sw_rotor=False, strips_min_nxs=128),
+                 device=device).sw_scores(pairs)
+    assert sw_rotor.launches == 0
     np.testing.assert_array_equal(on, off)
     np.testing.assert_array_equal(on, native.sw_scores_native(pairs))
 

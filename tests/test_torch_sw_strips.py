@@ -230,8 +230,8 @@ def test_engine_matches_jax_engine_strips(monkeypatch, c):
     jax_eng = genomax.Engine(
         JaxEngineConfig(backend="pallas", sw_strips=True, sw_rotor=False,
                         unroll=4), sw_cfg=jcfg, interpret=True)
-    eng = Engine(EngineConfig(sw_strips=True, strips_min_nxs=128),
-                 sw_cfg=cfg, device="cpu")
+    eng = Engine(EngineConfig(sw_strips=True, strips_min_nxs=128,
+                              sw_rotor=False), sw_cfg=cfg, device="cpu")
     got = eng.sw_scores(pairs)
     np.testing.assert_array_equal(got, jax_eng.sw_scores(pairs))
     np.testing.assert_array_equal(got, native.sw_scores_native(pairs, jcfg))
@@ -319,7 +319,7 @@ def test_build_key_covers_the_included_header(monkeypatch, tmp_path):
     shutil.copytree(_build.CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", str(csrc))
     keys = {n: _build.key(n) for n in ("sw_tile", "sw_long", "sw_strips",
-                                       "pairhmm_tile")}
+                                       "sw_rotor", "pairhmm_tile")}
     with open(csrc / "sw_cell.cuh", "ab") as f:
         f.write(b"// edited\n")
     for name, k in keys.items():
