@@ -155,6 +155,11 @@ SWEEP_PAIRS, SWEEP_LENS = 4096, (32, 64, 128, 256, 512, 1000)
 ROTOR_LENS, ROTOR_SLOTS = (32, 64, 128), (1, 2, 4, 8, 16, 32)
 # Rotor main path: bench.py's short-pair point, 25,000 x 64bp + '\n'.
 RT_PAIRS, RT_LEN = 25000, 64
+# Stacked SW: the stack depths of the main path and the sweep (sw_stack),
+# the x lengths of phase 24's buckets (8-96 rows), and the kernel's
+# threads a block (stack * rows).
+STACKS, STACK_MAX_X, MAX_THREADS = (2, 4, 8), (6, 14, 30, 46, 62, 70, 94), 1024
+STACK_LENS = (32, 64)
 # Published peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet):
 # device memory rate and fp32 rate outside the tensor cores. The int32
 # rate is 64 lanes on each of 132 SMs at the SM clock nvidia-smi reports.
@@ -302,7 +307,8 @@ def main() -> int:
     from genomax_torch.io.formats import SWPair
     from genomax_torch.io.generator import generate_pairhmm_batch, random_dna
     from genomax_torch.kernels import (_build, pairhmm, pairhmm_long, sw,
-                                       sw_long, sw_rotor, sw_strips)
+                                       sw_long, sw_rotor, sw_stacked,
+                                       sw_strips)
     from genomax_torch.kernels.expand import expand_factored
     from genomax_torch.kernels.wavefront import (phmm_forward_tiles,
                                                  phmm_long_forward,
@@ -310,11 +316,12 @@ def main() -> int:
                                                  sw_long_forward,
                                                  sw_long_forward_dense,
                                                  sw_rotor_forward_tiles,
+                                                 sw_stacked_forward_tiles,
                                                  sw_strips_forward_tiles)
     from genomax_torch.pack import (pack_pairhmm_batches, pack_sw_pairs,
                                     phmm_bucket_to_torch, sw_bucket_to_torch,
-                                    sw_rotor_to_torch, sw_strips_to_torch,
-                                    unpack_scores)
+                                    sw_rotor_to_torch, sw_stacked_to_torch,
+                                    sw_strips_to_torch, unpack_scores)
 
     dev = torch.device("cuda")
     clk = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=clocks.max.sm",
@@ -335,7 +342,7 @@ def main() -> int:
     # 1. build the kernels, one nvcc each, at once
     t0 = time.perf_counter()
     names = _build.KERNELS
-    check(len(names) == 6, f"kernels to build: {names}")
+    check(len(names) == 7, f"kernels to build: {names}")
     with concurrent.futures.ThreadPoolExecutor(len(names) + 1) as pool:
         golden = pool.submit(native.build)
         builds = list(pool.map(_build.build, names))
@@ -491,6 +498,56 @@ def main() -> int:
               f"0); {cfg}, max_abs_err 0 "
               f"({time.perf_counter() - t0:.1f} s so far)")
 
+    # 24. the stacked kernel vs its plain versions and the native model
+    def stacked_inputs(b, stack):
+        prep = sw_stacked.prep_bucket_stacked(b, stack)
+        check(prep is not None, f"bucket {b.sx.shape} does not stack {stack}")
+        return sw_stacked_to_torch(prep, dev), prep[1]
+
+    stacked_err, t0 = 0, time.perf_counter()
+    for c in CFGS:
+        cfg = SWConfig(**c)
+        n_pairs, shapes = 0, []
+        for max_x in STACK_MAX_X:
+            pairs = cases.stacked_sw_pairs(max_x, max_x)
+            (b,) = pack_sw_pairs(pairs)
+            h, nt = b.sx.shape[1], b.sx.shape[0]
+            tiles = sw_forward_tiles(*sw_bucket_to_torch(b, dev), cfg)
+            want = torch.from_numpy(native_sw(native, pairs, cfg))
+            for stack in (2, 3, 4, MAX_THREADS // h):
+                t, st = stacked_inputs(b, stack)
+                got = sw_stacked.sw_forward_stacked(*t, cfg=cfg, **st)
+                plain = sw_stacked_forward_tiles(*t, cfg=cfg, **st)
+                torch.cuda.synchronize()
+                for name, g, w in (("plain stacked sweep", got, plain),
+                                   ("plain lane-tile sweep", got[:nt],
+                                    tiles)):
+                    err = int((g.long() - w.long()).abs().max())
+                    stacked_err = max(stacked_err, err)
+                    check(err == 0, f"stacked kernel != {name} on bucket "
+                                    f"{tuple(b.sx.shape)} at S={stack}, "
+                                    f"{cfg}: max |diff| {err}")
+                check(nt % stack == 0 or not bool(got[nt:].any()),
+                      f"a pad tile scored at S={stack}, h={h}")
+                got = unpack_scores([b], [got.cpu().numpy()], len(pairs))
+                check(np.array_equal(got, want.numpy()),
+                      f"stacked kernel != native model at h={h}, "
+                      f"S={stack}, {cfg}")
+            shapes.append(f"{h} rows at S 2/3/4/{MAX_THREADS // h}")
+            n_pairs += len(pairs)
+        # the directed ghost-read adversary: every pair scores 0
+        pairs = cases.stacked_ghost_pairs(47)
+        (b,) = pack_sw_pairs(pairs)
+        t, st = stacked_inputs(b, 2)
+        got = sw_stacked.sw_forward_stacked(*t, cfg=cfg, **st)
+        check(b.sx.shape[0] == 2 and not bool(got.any()),
+              f"ghost reads under {cfg}: scores {got.unique().tolist()}")
+        print(f"phase 24 sw stacked kernel == plain == lane tile == native: "
+              f"{n_pairs} pairs in buckets of {', '.join(shapes)} (5 tiles, "
+              f"pad tiles at S 2, 3, 4); ghost-read adversary (256 pairs, "
+              f"S 2) all 0; {cfg}, max_abs_err 0 "
+              f"({time.perf_counter() - t0:.1f} s so far)")
+
     # 3. engine on the vendored goldens
     eng = Engine(device="cuda")
     sw.launches = 0
@@ -597,6 +654,8 @@ def main() -> int:
             return "strips"
         if sw_rotor.maybe_prep_rotor(cfg, b) is not None:
             return "rotor"
+        if sw_stacked.maybe_prep_stacked(cfg, b) is not None:
+            return "stacked"
         return "lane tile"
 
     rng = np.random.default_rng(SEED + 7)
@@ -617,11 +676,12 @@ def main() -> int:
         want = routed_to(cfg22, rb)
         e22 = Engine(cfg22, device="cuda")
         sw.launches = sw_strips.launches = sw_rotor.launches = 0
+        sw_stacked.launches = 0
         t0 = time.perf_counter()
         scores = e22.sw_scores(pairs)
         wall = time.perf_counter() - t0
         n = {"lane tile": sw.launches, "strips": sw_strips.launches,
-             "rotor": sw_rotor.launches}
+             "rotor": sw_rotor.launches, "stacked": sw_stacked.launches}
         check(scores.shape == (RT_PAIRS,) and scores.dtype == np.int32,
               f"scores of shape {scores.shape} {scores.dtype}")
         check(n[want] == 1 and sum(n.values()) == 1,
@@ -685,6 +745,87 @@ def main() -> int:
           f"{rotor_bound[0]:.4f} ms by {rotor_bound[1]} (cells {rt_cells}); "
           f"kernel == plain == strips == lane tile on every live lane")
 
+    # 25. the stacked route on phase 22's pairs: sw_stack 2, 4 and 8 send
+    # the bucket to the stacked kernel and bypass the rotor
+    stacked_launches, stacked_walls = {}, []
+    for stack in STACKS:
+        cfg25 = EngineConfig(sw_stack=stack)
+        check(routed_to(cfg25, rb) == "stacked",
+              f"sw_stack={stack}: the predicates pick {routed_to(cfg25, rb)}")
+        e25 = Engine(cfg25, device="cuda")
+        sw.launches = sw_strips.launches = sw_rotor.launches = 0
+        sw_stacked.launches = 0
+        t0 = time.perf_counter()
+        scores = e25.sw_scores(pairs)
+        wall = time.perf_counter() - t0
+        n = {"lane tile": sw.launches, "strips": sw_strips.launches,
+             "rotor": sw_rotor.launches, "stacked": sw_stacked.launches}
+        check(n == {"lane tile": 0, "strips": 0, "rotor": 0, "stacked": 1},
+              f"sw_stack={stack}: launches {n}")
+        check(scores.shape == (RT_PAIRS,) and scores.dtype == np.int32,
+              f"scores of shape {scores.shape} {scores.dtype}")
+        check(np.array_equal(scores[sample], ref),
+              f"sw_stack={stack}: engine != native model on the sampled "
+              f"pairs")
+        check(np.array_equal(scores, rt_scores),
+              f"sw_stack={stack}: scores differ from the default route's")
+        stacked_launches[stack] = n["stacked"]
+        stacked_walls.append(wall)
+        print(f"phase 25 stacked main path, sw_stack={stack}: {RT_PAIRS} x "
+              f"{RT_LEN}bp+'\\n', engine wall {wall:.3f} s, launches "
+              f"{json.dumps(n)}, 512 sampled pairs == native model, == the "
+              f"default route on all {RT_PAIRS} pairs, "
+              f"stats {json.dumps(e25.last_stats.as_dict())}")
+
+    # 26. stacked timing on phase 22's bucket at S = 2, 4, 8, beside its
+    # plain version, the rotor and the lane tile, in turns
+    f_stk, f_stp, stk_in = {}, {}, {}
+    for stack in STACKS:
+        t, st = stacked_inputs(rb, stack)
+        stk_in[stack] = (t, st)
+        f_stk[stack] = (lambda t=t, st=st: sw_stacked.sw_forward_stacked(
+            *t, **st))
+        f_stp[stack] = (lambda t=t, st=st: sw_stacked_forward_tiles(
+            *t, **st))
+        got = f_stk[stack]()
+        for name, w in (("plain", f_stp[stack]()),
+                        ("lane tile", f_tile()[:n_live])):
+            err = int((got[:len(w)].long() - w.long()).abs().max())
+            stacked_err = max(stacked_err, err)
+            check(err == 0, f"stacked (S={stack}) != {name} on the 64bp "
+                            f"bucket: {err}")
+    order = ([f_stp[k] for k in STACKS] + [f_stk[k] for k in STACKS]
+             + [f_rotor, f_tile])
+    times = [slope_ms(f, torch) for f in order + order[::-1]]
+    half = len(order)
+    pairs_ms = [(a, b) for a, b in zip(times[:half], times[half:][::-1])]
+    n_s = len(STACKS)
+    stp_ms = {k: pairs_ms[i] for i, k in enumerate(STACKS)}
+    stk_ms = {k: pairs_ms[n_s + i] for i, k in enumerate(STACKS)}
+    r26, k26 = pairs_ms[-2], pairs_ms[-1]
+
+    def mean(ab):
+        return (ab[0] + ab[1]) / 2
+
+    stacked_ms, stacked_plain_ms = mean(stk_ms[4]), mean(stp_ms[4])
+    stacked_bound = bound_ms(nbytes(*stk_in[4][0], f_stk[4]()),
+                             rt_cells * SW_OPS_PER_CELL, int32_ops)
+    print(f"phase 26 stacked timing, bucket {tuple(rt[0].shape)}: "
+          + "; ".join(
+              f"S={k} ({stk_in[k][0][0].shape[0]} stacked tiles x "
+              f"{k * stk_in[k][1]['h']} threads) kernel {stk_ms[k][0]:.4f} / "
+              f"{stk_ms[k][1]:.4f} ms ({rt_cells / mean(stk_ms[k]) / 1e6:.2f}"
+              f" GCUPS), plain {stp_ms[k][0]:.3f} / {stp_ms[k][1]:.3f} ms"
+              for k in STACKS)
+          + f"; rotor {r26[0]:.4f} / {r26[1]:.4f} ms, lane tile "
+          f"{k26[0]:.4f} / {k26[1]:.4f} ms in the same turns; best stacked "
+          f"{min(mean(v) for v in stk_ms.values()):.4f} ms = "
+          f"{min(mean(v) for v in stk_ms.values()) / mean(r26):.2f}x the "
+          f"rotor, {min(mean(v) for v in stk_ms.values()) / mean(k26):.2f}x "
+          f"the lane tile; bound at S=4 {stacked_bound[0]:.4f} ms by "
+          f"{stacked_bound[1]}; kernel == plain == lane tile on every live "
+          f"lane")
+
     # 20. both SW kernels across lengths, kernel only: the lane-tile
     # kernel, then the strips kernel at the router's width and at each
     # width of 32-256 rows below the bucket's
@@ -715,6 +856,21 @@ def main() -> int:
             widths.append(f"{strip_w}: {slope_ms(fw, torch, 5):.3f}")
         # the rotor at each queue depth, in turns with itself, beside the
         # lane tile and strips of this point
+        # the stacked kernel at each depth, in turns with itself
+        stacked = []
+        if length in STACK_LENS:
+            n_live = -(-bs.n_valid // 128)
+            for stack in STACKS:
+                t, st = stacked_inputs(bs, stack)
+                fst = lambda: sw_stacked.sw_forward_stacked(  # noqa: E731
+                    *t, **st)
+                check(torch.equal(fst()[:n_live], ref[:n_live]),
+                      f"stacked at S={stack} differs at {length}bp")
+                s1, s2 = slope_ms(fst, torch, 5), slope_ms(fst, torch, 5)
+                stacked.append(f"{stack}: {s1:.4f} / {s2:.4f} ms = "
+                               f"{c / ((s1 + s2) / 2) / 1e6:.2f} GCUPS")
+            stacked = [f"stacked ({bs.sx.shape[1]} rows) by sw_stack "
+                       + "; ".join(stacked)]
         rotor = []
         if length in ROTOR_LENS:
             n_live = -(-bs.n_valid // 128)
@@ -739,7 +895,7 @@ def main() -> int:
               f"router's width ({stw['k_strips']} x {stw['strip_w']} rows) "
               f"{b1:.3f} / {b2:.3f} ms = {c / ((b1 + b2) / 2) / 1e6:.2f} "
               f"GCUPS; by strip width (ms) {', '.join(widths)}; "
-              + "".join(r + "; " for r in rotor)
+              + "".join(r + "; " for r in rotor + stacked)
               + f"the default router sends it to the {routed_to(dflt, bs)} "
               f"kernel (sw_rotor {dflt.sw_rotor}, rotor_max_slots "
               f"{dflt.rotor_max_slots}, strips_min_nxs "
@@ -1290,7 +1446,8 @@ def main() -> int:
     # plain alike; sw_long's plain version is the full-height sweep. The
     # lane-tile kernel's launches are phase 4's sw_strips=False run's, the
     # strips kernel's the sw_strips=True run's, the rotor's phase 22's
-    # first run that the predicates send to it.
+    # first run that the predicates send to it, the stacked kernel's (at
+    # S = 4, as its times) phase 25's sw_stack=4 run's.
     print(json.dumps({"kernels": [
         entry("sw_tile", "sw_tile.cu", "genomax/kernels/sw_pallas.py:42",
               launches, max_err, kernel_ms, plain_ms, sw_bound),
@@ -1300,6 +1457,9 @@ def main() -> int:
         entry("sw_rotor", "sw_rotor.cu", "genomax/kernels/sw_rotor.py:141",
               rotor_launches, rotor_err, rotor_ms, rotor_plain_ms,
               rotor_bound),
+        entry("sw_stacked", "sw_stacked.cu",
+              "genomax/kernels/sw_stacked.py:63", stacked_launches[4],
+              stacked_err, stacked_ms, stacked_plain_ms, stacked_bound),
         entry("sw_long", "sw_long.cu", "genomax/kernels/sw_long.py:126",
               lp_launches, sl_err, sl_kernel_ms, sl_plain_ms, sl_bound),
         entry("pairhmm_tile", "pairhmm_tile.cu",

@@ -100,6 +100,16 @@ class EngineConfig:
     # bucket past 136 (the JAX engine's floor of 128 is a TPU number).
     sw_strips: bool = True
     strips_min_nxs: int = 144
+    # Sublane-stacked SW for short pairs (kernels/sw_stacked.py,
+    # csrc/sw_stacked.cu): with sw_stack >= 2, a bucket of at most
+    # stack_max_nxs rows that strips declines stacks sw_stack tiles deep,
+    # and the rotor is bypassed (the JAX engine's order: an explicit
+    # opt-in). A block of the kernel scores sw_stack pairs of one lane, a
+    # thread a row, so one barrier a diagonal serves sw_stack pairs; it
+    # holds sw_stack * stack_max_nxs <= 1,024 threads. 0 or 1 disables,
+    # the default, as in genomax.config. MEASURED-HERE
+    sw_stack: int = 0
+    stack_max_nxs: int = 96
     # Column-stationary rotor for short pairs (kernels/sw_rotor.py,
     # csrc/sw_rotor.cu): a bucket that strips declines, whose every pair
     # fits one period T = round_up(max(nx, ny) + 1, 8) <= rotor_max_period
@@ -127,6 +137,12 @@ class EngineConfig:
     phmm_fallback_threshold: float | None = -45.0
 
     def __post_init__(self):
+        if (self.sw_stack >= 2
+                and self.sw_stack * self.stack_max_nxs > MAX_KERNEL_ROWS):
+            raise ValueError(
+                f"sw_stack={self.sw_stack} x stack_max_nxs="
+                f"{self.stack_max_nxs} rows: the stacked kernel runs a "
+                f"thread a row and takes at most {MAX_KERNEL_ROWS} a block")
         if self.strips_min_nxs < 1:
             raise ValueError(f"strips_min_nxs={self.strips_min_nxs}: want a "
                              "positive row count")

@@ -1,5 +1,6 @@
 // One cell of the Smith-Waterman (Gotoh, score only) recurrence, shared by
-// the SW kernels of this directory (sw_tile.cu, sw_long.cu, sw_strips.cu).
+// the SW kernels of this directory (sw_tile.cu, sw_long.cu, sw_strips.cu,
+// sw_rotor.cu, sw_stacked.cu).
 //
 // Cell (p, j) of pair x, y:
 //   P = max(D(p, j-1) + open + extend, P(p, j-1) + extend)    gap along y

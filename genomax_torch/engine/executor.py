@@ -4,15 +4,18 @@ paths of ``genomax.engine.executor.Engine``.
 parse -> offload mask -> pack -> one kernel launch per bucket -> one
 synchronize -> ``unpack_scores`` -> the long-pair kernels and the native
 model for the offloaded jobs (and, for PairHMM, the fp64 fallback). SW
-routes each bucket as the JAX engine does with ``sw_stack=0``: with
-``sw_strips`` on, a bucket of at least ``strips_min_nxs`` rows takes the
-strip-mined kernel (``csrc/sw_strips.cu``) unless its prep declines it;
-then, with ``sw_rotor`` on, a bucket of short pairs that the rotor's
-predicate takes goes to the column-stationary rotor kernel
-(``csrc/sw_rotor.cu``); every other bucket takes the lane-tile kernel
-(``csrc/sw_tile.cu``, at any stream length); pairs whose x is too long for
-these take the long-pair kernel (``csrc/sw_long.cu``) on the same device,
-and only pairs past ``max_device_diags`` go to the native model. PairHMM
+routes each bucket in the JAX engine's order: with ``sw_strips`` on, a
+bucket of at least ``strips_min_nxs`` rows takes the strip-mined kernel
+(``csrc/sw_strips.cu``) unless its prep declines it; then, with
+``sw_rotor`` on and ``sw_stack`` below 2, a bucket of short pairs that the
+rotor's predicate takes goes to the column-stationary rotor kernel
+(``csrc/sw_rotor.cu``); then, with ``sw_stack`` >= 2, a bucket of at most
+``stack_max_nxs`` rows that the stacked prep takes goes to the
+sublane-stacked kernel (``csrc/sw_stacked.cu``); every other bucket takes
+the lane-tile kernel (``csrc/sw_tile.cu``, at any stream length); pairs
+whose x is too long for these take the long-pair kernel
+(``csrc/sw_long.cu``) on the same device, and only pairs past
+``max_device_diags`` go to the native model. PairHMM
 packs as the JAX engine's Pallas backend does (byte qualities, factored,
 bitmask codes), expands on the device and runs ``csrc/pairhmm_tile.cu``
 on every bucket; the reads too long for it take the long-read kernel
@@ -38,12 +41,14 @@ from genomax_torch.kernels.sw import sw_forward
 from genomax_torch.kernels.sw_long import sw_scores_long
 from genomax_torch.kernels.sw_rotor import (maybe_prep_rotor,
                                             sw_forward_rotor_bucket)
+from genomax_torch.kernels.sw_stacked import (maybe_prep_stacked,
+                                              sw_forward_stacked)
 from genomax_torch.kernels.sw_strips import (maybe_prep_strips,
                                              sw_forward_strips)
 from genomax_torch.pack import (pack_pairhmm_batches, pack_sw_pairs,
                                 phmm_bucket_to_torch, sw_bucket_to_torch,
-                                sw_rotor_to_torch, sw_strips_to_torch,
-                                unpack_scores)
+                                sw_rotor_to_torch, sw_stacked_to_torch,
+                                sw_strips_to_torch, unpack_scores)
 
 
 class EngineError(RuntimeError):
@@ -175,8 +180,11 @@ class Engine:
     def _sw_bucket(self, b):
         # The routing of genomax.engine.executor.Engine._sw_bucket: strips
         # where its predicate takes the bucket, then the rotor where its
-        # predicate does, else the lane-tile kernel. The rotor's rows come
-        # back in bucket tile order, so unpack_scores needs no change.
+        # predicate does (never under sw_stack >= 2), then the stacked
+        # kernel where its predicate does, else the lane-tile kernel. The
+        # rotor's and the stacked kernel's rows come back in bucket tile
+        # order (the stack's pad tiles last, past n_valid), so
+        # unpack_scores needs no change.
         prep = maybe_prep_strips(self.cfg, b)
         if prep is not None:
             (_, _, _, nyt), statics = prep
@@ -187,6 +195,11 @@ class Engine:
         if prep is not None:
             return sw_forward_rotor_bucket(
                 *sw_rotor_to_torch(prep, self.device), cfg=self.sw_cfg,
+                **prep[1])
+        prep = maybe_prep_stacked(self.cfg, b)
+        if prep is not None:
+            return sw_forward_stacked(
+                *sw_stacked_to_torch(prep, self.device), cfg=self.sw_cfg,
                 **prep[1])
         sx, sy, ndiag = sw_bucket_to_torch(b, self.device)
         return sw_forward(sx, sy, ndiag, self.sw_cfg)

@@ -10,8 +10,8 @@ tile t // P, so each of the 128 lanes of a rotor tile scores P pairs one
 after another with period T = round_up(max(nx, ny) + 1, 8); matrix column
 c of pair q is swept at steps qT + r + c, T^2 slots a pair where the
 lane-tile kernel sweeps NXs * (nx + ny - 1). The engine sends a bucket
-here when ``EngineConfig.sw_rotor`` is on and the strips kernel declined
-it. CUDA tensors launch the kernel on the current stream; CPU tensors take
+here when ``EngineConfig.sw_rotor`` is on, ``sw_stack`` is below 2 and
+the strips kernel declined it. CUDA tensors launch the kernel on the current stream; CPU tensors take
 the plain version (``kernels.wavefront.sw_rotor_forward_tiles``). There is
 no other route: a build or launch failure raises.
 """
@@ -120,10 +120,10 @@ def maybe_prep_rotor(cfg, bucket, n_shards: int = 1):
     a sharded engine needs the rotor tile count divisible by its devices.
 
     The gate declines where 3 T^2 > 2 NXs max_diags, so equality routes:
-    the JAX code's behaviour, not its comment's (which says <). The JAX
-    predicate's third gate, an explicit sw_stack opt-in, has no knob here
-    (the stacked kernel is not ported)."""
-    if not cfg.sw_rotor:
+    the JAX code's behaviour, not its comment's (which says <). As in the
+    JAX predicate, cfg.sw_stack >= 2 declines every bucket: stacking is an
+    explicit opt-in that bypasses the rotor (``kernels.sw_stacked``)."""
+    if not cfg.sw_rotor or cfg.sw_stack >= 2:
         return None
     maxlen = max(int(bucket.nx.max()), int(bucket.ny.max())) - 1
     T = _round_up(maxlen + 1, 8)

@@ -3,9 +3,11 @@
 
 They are the plain references of the CUDA kernels ``csrc/sw_tile.cu`` and
 ``csrc/pairhmm_tile.cu`` (and, further down, of the strip kernels
-``csrc/sw_long.cu``, ``csrc/sw_strips.cu`` and ``csrc/pairhmm_long.cu``):
-the CPU paths of the wrappers in ``kernels.sw``, ``kernels.pairhmm``,
-``kernels.sw_long``, ``kernels.sw_strips`` and ``kernels.pairhmm_long``
+``csrc/sw_long.cu``, ``csrc/sw_strips.cu`` and ``csrc/pairhmm_long.cu``,
+and of the short-pair kernels ``csrc/sw_rotor.cu`` and
+``csrc/sw_stacked.cu``): the CPU paths of the wrappers in ``kernels.sw``,
+``kernels.pairhmm``, ``kernels.sw_long``, ``kernels.sw_strips``,
+``kernels.sw_rotor``, ``kernels.sw_stacked`` and ``kernels.pairhmm_long``
 run them, the tests hold them against the JAX package, and
 ``chip_smoke.py`` holds the kernels against them on the card. They keep
 the JAX formulation as it is, so the two can be read side by side:
@@ -30,6 +32,7 @@ from __future__ import annotations
 import torch
 
 from genomax_torch.config import SWConfig
+from genomax_torch.layout import PAD_STREAM
 
 # Boundary-row kill constant, as in genomax/kernels/wavefront.py: it
 # dominates any real score chain and keeps every int32 add from wrapping.
@@ -45,12 +48,16 @@ _N_CODE = ord("N")
 _N_BITMASK = 15  # 'N' in the pack's match-bitmask codes
 
 
-def sw_make_consts(sxb: torch.Tensor, cfg: SWConfig):
+def sw_make_consts(sxb: torch.Tensor, cfg: SWConfig,
+                   region_h: int | None = None):
     """Loop-invariant (NXs, L) vectors (genomax wavefront.sw_make_consts):
     match/mismatch and gap-open+extend carry -KILL at the bottom row,
-    gap-extend for Q's carry at row 0."""
-    rows = torch.arange(sxb.shape[0], device=sxb.device).unsqueeze(1)
-    row0, rowl = rows == 0, rows == sxb.shape[0] - 1
+    gap-extend for Q's carry at row 0. ``region_h``: the pin period of
+    stacked tiles, whose rows q*region_h take the row-0 pin and rows
+    q*region_h - 1 the bottom-row pins (default: one region, NXs rows)."""
+    h = sxb.shape[0] if region_h is None else region_h
+    rows = torch.arange(sxb.shape[0], device=sxb.device).unsqueeze(1) % h
+    row0, rowl = rows == 0, rows == h - 1
 
     def vec(mask, value):
         v = torch.full_like(sxb, value)
@@ -108,6 +115,57 @@ def sw_forward_tiles(sx: torch.Tensor, sy: torch.Tensor,
     flat_y = sy.permute(1, 0, 2).reshape(sy.shape[1], nt * lanes)
     scores = sw_forward_dense(flat_x, flat_y, int(ndiag_tile.max()), cfg)
     return scores.reshape(nt, lanes)
+
+
+def sw_stacked_forward_tiles(sx: torch.Tensor, sy: torch.Tensor,
+                             ndt: torch.Tensor, *, stack: int, h: int,
+                             cfg: SWConfig = SWConfig()) -> torch.Tensor:
+    """Plain version of the stacked SW kernel (``csrc/sw_stacked.cu``):
+    stacked tiles of ``kernels.sw_stacked.prep_bucket_stacked`` ->
+    (NT*stack, 128) int32, row t*stack + q the scores of region q of
+    stacked tile t (bucket tile t*stack + q).
+
+    sx: (NT, stack*h, 128), region q's rows [q*h, (q+1)*h) the codes of one
+    bucket tile; sy: (NT, a0 + stack*h, 128), region q's stream at rows
+    [a0 + (q-1)*h, a0 + q*h), y_q[k] at row a0 + q*h - 1 - k; ndt: (NT,)
+    the largest diagonal count of the stack. The JAX formulation
+    (genomax/kernels/sw_stacked.py ``_kernel``): every region sweeps in
+    phase in one (stack*h, L) frame; the window of diagonal d is rows
+    [a0 - d, a0 - d + stack*h), whose row q*h + s holds y_q[d-1-s] while
+    0 <= d-1-s < h and a neighbour's bases otherwise, so those rows are
+    masked to PAD_STREAM (the ghost-read mask); the -KILL pins of every
+    region's first and last row make the circular roll the first-column
+    boundary of each region. All tiles sweep the largest ndt.
+    """
+    nt, nxs, lanes = sx.shape
+    if nt == 0:
+        return torch.zeros((0, lanes), dtype=torch.int32, device=sx.device)
+    a0 = sy.shape[1] - nxs
+    nd = int(ndt.max())
+    if not (nxs == stack * h and h <= a0 and nd <= a0):
+        raise ValueError(f"stacked tiles of {nxs} rows, stream of "
+                         f"{sy.shape[1]} rows and {nd} diagonals do not "
+                         f"hold {stack} regions of h={h} rows")
+    x = sx.to(torch.int32).permute(1, 0, 2).reshape(nxs, nt * lanes)
+    y = sy.to(torch.int32).permute(1, 0, 2).reshape(sy.shape[1], nt * lanes)
+    subm, subx, gev, ogev = sw_make_consts(x, cfg, region_h=h)
+    smod = torch.arange(nxs, device=sx.device).unsqueeze(1) % h
+    z = torch.zeros_like(x)
+    p1, d1, d1s, q1s, d2s, mx = z, z, z, z, z, z
+    for d in range(nd):
+        k = (d - 1) - smod  # the stream index row q*h + s reads
+        syw = torch.where((k >= 0) & (k < h), y[a0 - d: a0 - d + nxs],
+                          PAD_STREAM)
+        pn = torch.maximum(d1, p1 + cfg.gap_extend)
+        qn = torch.maximum(d1s, q1s + gev)
+        sub = torch.where(syw == x, subm, subx)
+        dn = torch.maximum(torch.maximum(pn, qn) + ogev,
+                           torch.clamp_min(d2s + sub, 0))
+        mx = torch.maximum(mx, dn)
+        p1, d1, d1s, q1s, d2s = (pn, dn, torch.roll(dn, 1, 0),
+                                 torch.roll(qn, 1, 0), d1s)
+    best = mx.view(stack, h, nt, lanes).amax(dim=1)  # (stack, NT, L)
+    return best.permute(1, 0, 2).reshape(nt * stack, lanes)
 
 
 def sw_long_forward(sx: torch.Tensor, sy: torch.Tensor, nx: torch.Tensor,

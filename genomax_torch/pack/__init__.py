@@ -13,5 +13,6 @@ from genomax_torch.pack.tensors import (  # noqa: F401
     phmm_bucket_to_torch,
     sw_bucket_to_torch,
     sw_rotor_to_torch,
+    sw_stacked_to_torch,
     sw_strips_to_torch,
 )

@@ -1,8 +1,9 @@
 """Ragged-length packing: bucket, pad and lay out alignment jobs as dense
 tiles for the wavefront kernels. A copy of ``genomax/pack/bucketing.py``
 that produces the same arrays bit for bit; what the port does not use is
-left out (the stream band, the tile padding of the sharded engine, and the
-pure-Python fill loops: the native fill always runs, see ``native``).
+left out (the stream band, which ``pad_tiles_to`` therefore does not
+handle, and the pure-Python fill loops: the native fill always runs, see
+``native``).
 
 Ragged lengths are handled exactly by the kernels' pad-code decay (see
 kernels/wavefront.py); bucketing by padded shape only controls padding
@@ -257,6 +258,55 @@ def _full(shape, fill, dtype):
     if fill:
         a.fill(fill)
     return a
+
+
+def pad_tiles_to(bucket, multiple: int):
+    """Pad a packed bucket's tile count to a multiple (the stacked SW
+    re-pack stacks ``multiple`` tiles deep; the JAX package also shards
+    the tile dim over a device mesh). Pad tiles carry all-pad codes and
+    sweep a single diagonal; per-slot nx/ny/hl pad with 1, the rest with
+    0, and perm/n_valid still index the original job list."""
+    nt = bucket.ndiag_tile.shape[0]
+    want = _round_up(nt, multiple)
+    if want == nt:
+        return bucket
+    extra = want - nt
+
+    def padt(a, fill):
+        pad = _full((extra,) + a.shape[1:], fill, a.dtype)
+        return np.concatenate([a, pad], axis=0)
+
+    kw = {}
+    for f in dataclasses.fields(bucket):
+        v = getattr(bucket, f.name)
+        if v is None:
+            kw[f.name] = None
+        elif f.name in ("perm", "n_valid"):
+            kw[f.name] = v  # index into the ORIGINAL job list; never pad
+        elif f.name == "ndiag_tile":
+            kw[f.name] = padt(v, 1)
+        elif f.name in ("sx", "rchar"):
+            kw[f.name] = padt(v, PAD_X)
+        elif f.name in ("sy", "hap"):
+            kw[f.name] = padt(v, PAD_STREAM)
+        elif f.name == "ridx":
+            # Factored gather indices: pad tiles must point at the
+            # all-pad row (last), NOT row 0 (a real read's bytes).
+            kw[f.name] = padt(v, bucket.rchar_u.shape[0] - 1)
+        elif f.name == "hidx":
+            kw[f.name] = padt(v, bucket.hap_u.shape[0] - 1)
+        elif f.name in ("rchar_u", "qb_u", "hap_u"):
+            kw[f.name] = v  # unique-row tables are not tile-indexed
+        elif isinstance(v, np.ndarray) and v.ndim >= 2 and v.shape[0] == nt:
+            kw[f.name] = padt(v, 0)
+        elif (isinstance(v, np.ndarray) and v.ndim == 1
+              and v.shape[0] == nt * LANES):
+            fill = 1 if f.name in ("hl", "nx", "ny") else 0
+            pad = np.full(extra * LANES, fill, v.dtype)
+            kw[f.name] = np.concatenate([v, pad])
+        else:
+            kw[f.name] = v
+    return type(bucket)(**kw)
 
 
 def pack_sw_pairs(pairs, job_mask=None) -> list[SWPacked]:

@@ -33,6 +33,13 @@ def sw_rotor_to_torch(prep, device: torch.device):
     return tuple(torch.from_numpy(a).to(device) for a in (xrev, ybuf))
 
 
+def sw_stacked_to_torch(prep, device: torch.device):
+    """(sx (NT',S*h,128) int8, sy (NT',a0+S*h,128) int8, ndt (NT',) int32)
+    on ``device``: the arrays of a stacked prep
+    (``kernels.sw_stacked.prep_bucket_stacked``)."""
+    return tuple(torch.from_numpy(a).to(device) for a in prep[0])
+
+
 def phmm_bucket_to_torch(b: PairHMMPacked, device: torch.device,
                          phred_offset: float = 33.0):
     """The ten inputs of ``kernels.pairhmm.pairhmm_forward`` on ``device``:

@@ -3,8 +3,9 @@ PairHMM: ragged batches for the lane-tile kernel, a bucket whose haplotype
 stream is longer than the JAX engine's resident limit, and jobs for the
 long-read kernel. Smith-Waterman: a ragged tile for the long-pair kernel,
 pairs whose y stream passes the same resident limit, ragged buckets
-of 128 rows or more for the strips kernel, and short buckets with the
-queue adversaries for the rotor kernel. Imports no jax and nothing of the
+of 128 rows or more for the strips kernel, short buckets with the
+queue adversaries for the rotor kernel, and short buckets with the
+ghost-read adversary for the stacked kernel. Imports no jax and nothing of the
 JAX package."""
 
 import numpy as np
@@ -241,3 +242,50 @@ def rotor_leak_pairs(seed, length, n_tiles=4):
     tile = [[SWPair(sx=g, sy=g)] * 128,
             [SWPair(sx=b"A" * length, sy=b"T" * length)] * 128]
     return [p for k in range(n_tiles) for p in tile[k % 2]]
+
+
+def stacked_sw_pairs(seed, max_x, n_pairs=600):
+    """Short pairs for the stacked kernel, in one bucket of
+    h = round_up(max_x + 2, 8) rows (max_x <= 94): x of max_x // 2 to
+    max_x bases (63 to max_x past 62, the bucket ladder's step) against y
+    of 1 to max_x + 2 (every y fits one region), x planted in y with
+    errors on two pairs in three. The last pairs are an identical pair of
+    max_x, an all-mismatch pair of that length, x of max_x against a
+    one-base y and, where it joins the bucket (max_x <= 62), a one-base
+    pair. 600 pairs fill five tiles, a count that 2, 3 and 4 do not divide
+    (pad tiles)."""
+    rng = np.random.default_rng(seed)
+    abc = np.frombuffer(b"ACGT", np.uint8)
+    same = rng.choice(abc, max_x).tobytes()
+    special = [SWPair(sx=same, sy=same),
+               SWPair(sx=b"A" * max_x, sy=b"C" * max_x),
+               SWPair(sx=same, sy=b"G")]
+    if max_x <= 62:
+        special.append(SWPair(sx=b"G", sy=b"G"))
+    lo = 63 if max_x > 62 else max(1, max_x // 2)
+    pairs = []
+    for k in range(n_pairs - len(special)):
+        x = rng.choice(abc, int(rng.integers(lo, max_x + 1)))
+        y = rng.choice(abc, int(rng.integers(1, max_x + 3)))
+        if k % 3:
+            n = min(len(x), len(y))
+            a = int(rng.integers(0, len(y) - n + 1))
+            y[a: a + n] = _noisy(rng, x[:n], 0.05, abc)
+        pairs.append(SWPair(sx=x.tobytes(), sy=y.tobytes()))
+    return pairs + special
+
+
+def stacked_ghost_pairs(seed):
+    """The directed ghost-read adversary of the stacked kernel
+    (tests/test_pallas_interpret.py): 256 pairs of one shape, so the pack
+    keeps their order and a stack of 2 puts pair l and pair 128 + l in
+    adjacent regions of lane l. Pair l is A*50 against a 54-base y without
+    an A; pair 128 + l is that y's first 50 bases against A*54. Every
+    pair is all-mismatch against its own y and scores 0; a region that
+    read its neighbour's stream would score up to 50."""
+    rng = np.random.default_rng(seed)
+    abc = np.frombuffer(b"ACGT", np.uint8)
+    region0 = [SWPair(sx=b"A" * 50, sy=rng.choice(abc[1:], 54).tobytes())
+               for _ in range(128)]
+    region1 = [SWPair(sx=p.sy[:50], sy=b"A" * 54) for p in region0]
+    return region0 + region1

@@ -213,14 +213,15 @@ def test_cli_sw_file_with_long_pairs_reaches_long_kernel(tmp_path):
     assert '"offloaded_jobs": 2' in r.stderr
 
 
-@pytest.mark.parametrize("knob", ["sw_rotor"])
-def test_unported_routers_raise(knob):
-    """No router of the JAX engine's default configuration is left
-    unported: sw_rotor, the last (it raised NotImplementedError until the
-    rotor kernel landed), constructs, with the JAX sizes."""
-    cfg = EngineConfig(**{knob: True})
-    assert getattr(cfg, knob) is True
+@pytest.mark.parametrize("knob,value", [("sw_rotor", True), ("sw_stack", 4)])
+def test_jax_engine_routers_construct(knob, value):
+    """Every single-device SW router of the JAX engine has its knob here
+    and constructs with the JAX sizes: sw_rotor (which raised
+    NotImplementedError until the rotor kernel landed) and sw_stack."""
+    cfg = EngineConfig(**{knob: value})
+    assert getattr(cfg, knob) == value
     assert cfg.rotor_max_period == 136 and cfg.rotor_max_slots >= 1
+    assert cfg.stack_max_nxs == 96
 
 
 @pytest.mark.parametrize("bad", [

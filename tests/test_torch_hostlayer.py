@@ -12,6 +12,7 @@ import pytest
 
 from genomax import layout as jax_layout
 from genomax import native as jax_native
+from genomax.config import EngineConfig as JaxEngineConfig
 from genomax.config import PairHMMConfig as JaxPairHMMConfig
 from genomax.config import SWConfig as JaxSWConfig
 from genomax.engine import executor as jax_executor
@@ -21,7 +22,7 @@ from genomax.io.phred import phred_to_error_prob as jax_phred
 from genomax.pack import bucketing as jax_bucketing
 
 from genomax_torch import layout, native
-from genomax_torch.config import PairHMMConfig, SWConfig
+from genomax_torch.config import EngineConfig, PairHMMConfig, SWConfig
 from genomax_torch.engine import executor
 from genomax_torch.io import formats, generator
 from genomax_torch.io.phred import phred_to_error_prob
@@ -55,6 +56,20 @@ def test_config_defaults_equal(cls, jax_cls):
     _same_fields(cls(), jax_cls())
     assert ([f.name for f in dataclasses.fields(cls)]
             == [f.name for f in dataclasses.fields(jax_cls)])
+
+
+def test_engine_config_stack_knobs_equal():
+    """sw_stack and stack_max_nxs carry the JAX names and defaults, and the
+    SW routing knobs come in the JAX order: strips, stack, rotor."""
+    ours, theirs = EngineConfig(), JaxEngineConfig()
+    for name in ("sw_stack", "stack_max_nxs"):
+        assert getattr(ours, name) == getattr(theirs, name), name
+    routing = ["sw_strips", "strips_min_nxs", "sw_stack", "stack_max_nxs",
+               "sw_rotor", "rotor_max_period", "rotor_max_slots"]
+    for cls in (EngineConfig, JaxEngineConfig):
+        names = [f.name for f in dataclasses.fields(cls)]
+        i = names.index("sw_strips")
+        assert names[i: i + len(routing)] == routing, cls
 
 
 @pytest.mark.parametrize("kw", [
@@ -275,6 +290,35 @@ def test_unpack_scores_equal():
     theirs = jax_bucketing.unpack_scores(buckets, results, len(pairs))
     np.testing.assert_array_equal(ours, theirs)
     assert ours.dtype == theirs.dtype
+
+
+def _packs_to_pad(kind):
+    """(the port's buckets, the JAX package's) of one kind: SW, or PairHMM
+    factored (gather indices past the unique rows) or with fp32 planes."""
+    if kind == "sw":
+        return (bucketing.pack_sw_pairs(_ragged_sw_pairs(4, formats.SWPair)),
+                jax_bucketing.pack_sw_pairs(_ragged_sw_pairs(
+                    4, jax_formats.SWPair)))
+    kw = (dict(byte_quals=True, factored=True, bitmask_codes=True)
+          if kind == "pairhmm-factored" else {})
+    return (bucketing.pack_pairhmm_batches(_ragged_batches(8, formats),
+                                           **kw)[0],
+            jax_bucketing.pack_pairhmm_batches(
+                _ragged_batches(8, jax_formats), **kw)[0])
+
+
+@pytest.mark.parametrize("multiple", [1, 3, 8])
+@pytest.mark.parametrize("kind", ["sw", "pairhmm-factored", "pairhmm-floats"])
+def test_pad_tiles_to_equal(kind, multiple):
+    ours, theirs = _packs_to_pad(kind)
+    padded = [bucketing.pad_tiles_to(b, multiple) for b in ours]
+    _assert_packs_equal(padded,
+                        [jax_bucketing.pad_tiles_to(b, multiple)
+                         for b in theirs])
+    for b, p in zip(ours, padded):
+        assert p.ndiag_tile.shape[0] % multiple == 0
+        assert p.n_valid == b.n_valid and p.perm is b.perm
+    assert multiple == 1 or any(p is not b for b, p in zip(ours, padded))
 
 
 @pytest.mark.parametrize("x", [0, 1, 63, 64, 65, 136, 137, 515, 768, 769,

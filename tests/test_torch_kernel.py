@@ -1,6 +1,6 @@
 """The CUDA kernels against their plain PyTorch versions on the card:
-csrc/sw_tile.cu, csrc/sw_long.cu, csrc/sw_strips.cu and csrc/sw_rotor.cu
-(int32 scores, exact),
+csrc/sw_tile.cu, csrc/sw_long.cu, csrc/sw_strips.cu, csrc/sw_rotor.cu and
+csrc/sw_stacked.cu (int32 scores, exact),
 csrc/pairhmm_tile.cu and
 csrc/pairhmm_long.cu (within 1e-4 in log10, or two fp32 ulps of values
 below -512: nvcc contracts a*b+c into FMAs, the plain version rounds each
@@ -20,20 +20,23 @@ from genomax_torch.pack.bucketing import (pack_pairhmm_batches,
                                           pack_sw_pairs, unpack_scores)
 
 from _phmm_cases import (long_jobs, long_sw_pairs, phmm_batches,
-                         rotor_leak_pairs, rotor_sw_pairs, streamed_batches,
-                         streamed_sw_pairs, strips_sw_pairs)
+                         rotor_leak_pairs, rotor_sw_pairs, stacked_ghost_pairs,
+                         stacked_sw_pairs, streamed_batches, streamed_sw_pairs,
+                         strips_sw_pairs)
 from genomax_torch.engine.executor import Engine
 from genomax_torch.kernels import (_build, pairhmm, pairhmm_long, sw,
-                                   sw_long, sw_rotor, sw_strips)
+                                   sw_long, sw_rotor, sw_stacked, sw_strips)
 from genomax_torch.kernels.wavefront import (phmm_forward_tiles,
                                              phmm_long_forward,
                                              sw_forward_tiles,
                                              sw_long_forward,
                                              sw_long_forward_dense,
                                              sw_rotor_forward_tiles,
+                                             sw_stacked_forward_tiles,
                                              sw_strips_forward_tiles)
 from genomax_torch.pack import (phmm_bucket_to_torch, sw_bucket_to_torch,
-                                sw_rotor_to_torch, sw_strips_to_torch)
+                                sw_rotor_to_torch, sw_stacked_to_torch,
+                                sw_strips_to_torch)
 
 pytestmark = pytest.mark.cuda
 
@@ -348,6 +351,94 @@ def test_engine_rotor_on_equals_off(device):
     off = Engine(EngineConfig(sw_rotor=False, strips_min_nxs=128),
                  device=device).sw_scores(pairs)
     assert sw_rotor.launches == 0
+    np.testing.assert_array_equal(on, off)
+    np.testing.assert_array_equal(on, native.sw_scores_native(pairs))
+
+
+def _stacked(b, stack, device):
+    prep = sw_stacked.prep_bucket_stacked(b, stack)
+    assert prep is not None
+    return sw_stacked_to_torch(prep, device), prep[1]
+
+
+@pytest.mark.parametrize("max_x", [6, 30, 62, 70, 94])
+@pytest.mark.parametrize("cfg", CFGS, ids=["default", "m2x3o5e2", "m3x1o0e2"])
+def test_sw_stacked_kernel_equals_plain_version(device, cfg, max_x):
+    """Ragged buckets of 8-96 rows and five tiles, stacked 2, 3, 4 deep
+    and as deep as 1,024 threads allow (pad tiles at each), with an
+    identical pair, an all-mismatch pair, a one-base y and (up to 62
+    bases) a one-base pair: kernel == plain stacked sweep == plain
+    lane-tile sweep == native; the pad tiles score 0."""
+    pairs = stacked_sw_pairs(max_x, max_x)
+    (b,) = pack_sw_pairs(pairs)
+    nt, h = b.sx.shape[:2]
+    tiles = sw_forward_tiles(*sw_bucket_to_torch(b, device), cfg)
+    want = native.sw_scores_native(pairs, cfg)
+    before = sw_stacked.launches
+    stacks = (2, 3, 4, 1024 // h)
+    for stack in stacks:
+        t, st = _stacked(b, stack, device)
+        got = sw_stacked.sw_forward_stacked(*t, cfg=cfg, **st)
+        torch.cuda.synchronize()
+        assert got.is_cuda and got.dtype == torch.int32
+        assert torch.equal(got, sw_stacked_forward_tiles(*t, cfg=cfg, **st))
+        assert torch.equal(got[:nt], tiles)
+        assert not bool(got[nt:].any())
+        np.testing.assert_array_equal(
+            unpack_scores([b], [got.cpu().numpy()], len(pairs)), want)
+    assert sw_stacked.launches - before == len(stacks)
+
+
+@pytest.mark.parametrize("cfg", CFGS, ids=["default", "m2x3o5e2", "m3x1o0e2"])
+def test_sw_stacked_kernel_reads_no_ghosts(device, cfg):
+    """The directed ghost-read adversary, stacked 2 deep: region 1's x is
+    region 0's stream in the same lane, and every pair scores 0."""
+    (b,) = pack_sw_pairs(stacked_ghost_pairs(47))
+    t, st = _stacked(b, 2, device)
+    got = sw_stacked.sw_forward_stacked(*t, cfg=cfg, **st)
+    torch.cuda.synchronize()
+    assert got.shape == (2, 128) and not bool(got.any())
+
+
+def test_sw_stacked_out_of_contract(device):
+    """The wrapper raises before any launch past 1,024 threads or below a
+    stack of 2; a launch whose tiles sweep past the stream's anchor
+    writes -1 to their slots."""
+    (b,) = pack_sw_pairs(stacked_sw_pairs(7, 30))
+    (x, y, nd), st = _stacked(b, 2, device)
+    before = sw_stacked.launches
+    with pytest.raises(ValueError, match="1024"):
+        sw_stacked.sw_forward_stacked(x.repeat(1, 17, 1), y, nd, stack=34,
+                                      h=32)
+    with pytest.raises(ValueError, match="stack"):
+        sw_stacked.sw_forward_stacked(x, y, nd, stack=1, h=64)
+    assert sw_stacked.launches == before
+    h = st["h"]
+    short = y[:, : 3 * h].contiguous()  # anchor h < every tile's diagonals
+    assert int(nd.min()) > h
+    out = sw_stacked._launch(x, short, nd, 2, h, SWConfig())
+    torch.cuda.synchronize()
+    assert sw_stacked.launches == before + 1
+    assert bool((out == -1).all())
+
+
+@pytest.mark.parametrize("stack", [2, 4, 8])
+def test_engine_stacked_route(device, stack):
+    """EngineConfig(sw_stack=S) on the card: the short buckets launch the
+    stacked kernel, none the rotor; the scores equal the default route's
+    and the native model's."""
+    pairs = (stacked_sw_pairs(8, 62) + stacked_sw_pairs(9, 70)
+             + strips_sw_pairs(9, n_pairs=60, x_lens=(200, 400)))
+    cfg = EngineConfig(sw_stack=stack)
+    buckets = pack_sw_pairs(pairs)
+    n_stacked = sum(sw_strips.maybe_prep_strips(cfg, b) is None
+                    and sw_stacked.maybe_prep_stacked(cfg, b) is not None
+                    for b in buckets)
+    assert n_stacked == 2
+    sw_stacked.launches = sw_rotor.launches = 0
+    on = Engine(cfg, device=device).sw_scores(pairs)
+    assert (sw_stacked.launches, sw_rotor.launches) == (n_stacked, 0)
+    off = Engine(device=device).sw_scores(pairs)
     np.testing.assert_array_equal(on, off)
     np.testing.assert_array_equal(on, native.sw_scores_native(pairs))
 
