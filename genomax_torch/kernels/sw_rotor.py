@@ -11,9 +11,10 @@ after another with period T = round_up(max(nx, ny) + 1, 8); matrix column
 c of pair q is swept at steps qT + r + c, T^2 slots a pair where the
 lane-tile kernel sweeps NXs * (nx + ny - 1). The engine sends a bucket
 here when ``EngineConfig.sw_rotor`` is on, ``sw_stack`` is below 2 and
-the strips kernel declined it. CUDA tensors launch the kernel on the current stream; CPU tensors take
-the plain version (``kernels.wavefront.sw_rotor_forward_tiles``). There is
-no other route: a build or launch failure raises.
+the strips kernel declined it. CUDA tensors launch the kernel on the
+current stream; CPU tensors take the plain version
+(``kernels.wavefront.sw_rotor_forward_tiles``). There is no other route:
+a build or launch failure raises.
 """
 
 from __future__ import annotations

@@ -85,11 +85,22 @@ def sw_forward_dense(sx: torch.Tensor, sy_rev: torch.Tensor, n_diags: int,
     if not 0 <= n_diags <= anchor:
         raise ValueError(f"n_diags={n_diags} outside the stream window "
                          f"(anchor {anchor})")
-    subm, subx, gev, ogev = sw_make_consts(sx, cfg)
+    return sw_sweep(sx, lambda d: sy_rev[anchor - d: anchor - d + nxs],
+                    n_diags, cfg).amax(dim=0)
+
+
+def sw_sweep(sx: torch.Tensor, window, n_diags: int, cfg: SWConfig,
+             region_h: int | None = None) -> torch.Tensor:
+    """The carried-diagonal sweep of genomax wavefront.sw_step over the
+    int32 (NXs, L) frame ``sx``: diagonals 0 .. n_diags-1, ``window(d)``
+    the (NXs, L) stream window of diagonal d, the boundary pins of
+    ``sw_make_consts`` (``region_h`` for stacked tiles). Returns the
+    running max of D, (NXs, L)."""
+    subm, subx, gev, ogev = sw_make_consts(sx, cfg, region_h)
     z = torch.zeros_like(sx)
     p1, d1, d1s, q1s, d2s, mx = z, z, z, z, z, z
     for d in range(n_diags):
-        syw = sy_rev[anchor - d: anchor - d + nxs]
+        syw = window(d)
         pn = torch.maximum(d1, p1 + cfg.gap_extend)
         qn = torch.maximum(d1s, q1s + gev)
         sub = torch.where(syw == sx, subm, subx)
@@ -98,7 +109,7 @@ def sw_forward_dense(sx: torch.Tensor, sy_rev: torch.Tensor, n_diags: int,
         mx = torch.maximum(mx, dn)
         p1, d1, d1s, q1s, d2s = (pn, dn, torch.roll(dn, 1, 0),
                                  torch.roll(qn, 1, 0), d1s)
-    return mx.amax(dim=0)
+    return mx
 
 
 def sw_forward_tiles(sx: torch.Tensor, sy: torch.Tensor,
@@ -148,22 +159,14 @@ def sw_stacked_forward_tiles(sx: torch.Tensor, sy: torch.Tensor,
                          f"hold {stack} regions of h={h} rows")
     x = sx.to(torch.int32).permute(1, 0, 2).reshape(nxs, nt * lanes)
     y = sy.to(torch.int32).permute(1, 0, 2).reshape(sy.shape[1], nt * lanes)
-    subm, subx, gev, ogev = sw_make_consts(x, cfg, region_h=h)
     smod = torch.arange(nxs, device=sx.device).unsqueeze(1) % h
-    z = torch.zeros_like(x)
-    p1, d1, d1s, q1s, d2s, mx = z, z, z, z, z, z
-    for d in range(nd):
+
+    def window(d):
         k = (d - 1) - smod  # the stream index row q*h + s reads
-        syw = torch.where((k >= 0) & (k < h), y[a0 - d: a0 - d + nxs],
-                          PAD_STREAM)
-        pn = torch.maximum(d1, p1 + cfg.gap_extend)
-        qn = torch.maximum(d1s, q1s + gev)
-        sub = torch.where(syw == x, subm, subx)
-        dn = torch.maximum(torch.maximum(pn, qn) + ogev,
-                           torch.clamp_min(d2s + sub, 0))
-        mx = torch.maximum(mx, dn)
-        p1, d1, d1s, q1s, d2s = (pn, dn, torch.roll(dn, 1, 0),
-                                 torch.roll(qn, 1, 0), d1s)
+        return torch.where((k >= 0) & (k < h), y[a0 - d: a0 - d + nxs],
+                           PAD_STREAM)
+
+    mx = sw_sweep(x, window, nd, cfg, region_h=h)
     best = mx.view(stack, h, nt, lanes).amax(dim=1)  # (stack, NT, L)
     return best.permute(1, 0, 2).reshape(nt * stack, lanes)
 

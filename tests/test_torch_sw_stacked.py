@@ -32,7 +32,8 @@ from genomax_torch.engine.executor import Engine, EngineError
 from genomax_torch.kernels import _build
 from genomax_torch.kernels import sw_rotor as torch_rotor
 from genomax_torch.kernels import sw_stacked as torch_stacked
-from genomax_torch.pack import pack_sw_pairs, sw_stacked_to_torch, unpack_scores
+from genomax_torch.pack import (pack_sw_pairs, sw_stacked_to_torch,
+                                unpack_scores)
 from _phmm_cases import stacked_ghost_pairs, stacked_sw_pairs
 from _torch_cpu import one_torch_thread  # noqa: F401
 
