@@ -108,12 +108,14 @@ class EngineConfig:
     # thread a row, so one barrier a diagonal serves sw_stack pairs; it
     # holds sw_stack * stack_max_nxs <= 1,024 threads. 0 or 1 disables,
     # the default, as in genomax.config. Measured on one NVIDIA H100 80GB
-    # HBM3 at 700.00 W (chip_smoke.py phases 20 and 26): on the 25,000 x
-    # 64bp bucket (224 tiles x 72 rows) the stacked kernel takes 0.654 ms
-    # at S = 4 (0.662 at 2, 0.703 at 8) against the rotor's 0.256 and the
-    # lane tile's 0.876; on 4,096 pairs it runs 111-121 GCUPS at 32bp and
-    # 122-131 at 64bp against the rotor's 177 and 332 at 4 slots. It beats
-    # the lane tile and never the rotor, so sw_stack stays 0.
+    # HBM3 at 700.00 W (chip_smoke.py phases 20 and 26, two runs): on the
+    # 25,000 x 64bp bucket (224 tiles x 72 rows) the stacked kernel takes
+    # 0.654 / 0.649 ms at S = 4 (0.662 / 0.652 at 2, 0.703 / 0.693 at 8)
+    # against the rotor's 0.256 / 0.258 and the lane tile's 0.876 / 0.880;
+    # on 4,096 pairs its best S runs 121 / 119 GCUPS at 32bp and 131 / 129
+    # at 64bp against the rotor's 177 / 103 and 332 / 342 at 4 slots. It
+    # beats the lane tile everywhere and the rotor only at 32bp in one run,
+    # where a kernel takes 0.03-0.05 ms, so sw_stack stays 0.
     sw_stack: int = 0
     stack_max_nxs: int = 96
     # Column-stationary rotor for short pairs (kernels/sw_rotor.py,
