@@ -4,12 +4,12 @@
 They are the plain references of the CUDA kernels ``csrc/sw_tile.cu`` and
 ``csrc/pairhmm_tile.cu`` (and, further down, of the strip kernels
 ``csrc/sw_long.cu``, ``csrc/sw_strips.cu`` and ``csrc/pairhmm_long.cu``,
-and of the short-pair kernels ``csrc/sw_rotor.cu`` and
-``csrc/sw_stacked.cu``): the CPU paths of the wrappers in ``kernels.sw``,
-``kernels.pairhmm``, ``kernels.sw_long``, ``kernels.sw_strips``,
-``kernels.sw_rotor``, ``kernels.sw_stacked`` and ``kernels.pairhmm_long``
-run them, the tests hold them against the JAX package, and
-``chip_smoke.py`` holds the kernels against them on the card. They keep
+and of the short-pair kernels ``csrc/sw_rotor.cu``, ``csrc/sw_stacked.cu``
+and ``csrc/sw_conveyor.cu``): the CPU paths of the wrappers in
+``kernels.sw``, ``kernels.pairhmm``, ``kernels.sw_long``,
+``kernels.sw_strips``, ``kernels.sw_rotor``, ``kernels.sw_stacked``,
+``kernels.sw_conveyor`` and ``kernels.pairhmm_long`` run them, the tests
+hold them against the JAX package, and ``chip_smoke.py`` holds the kernels against them on the card. They keep
 the JAX formulation as it is, so the two can be read side by side:
 
   * the ``(NXs, L)`` layout: x position on axis 0, one pair per column;
@@ -32,7 +32,7 @@ from __future__ import annotations
 import torch
 
 from genomax_torch.config import SWConfig
-from genomax_torch.layout import PAD_STREAM
+from genomax_torch.layout import PAD_STREAM, PAD_X
 
 # Boundary-row kill constant, as in genomax/kernels/wavefront.py: it
 # dominates any real score chain and keeps every int32 add from wrapping.
@@ -347,6 +347,71 @@ def sw_rotor_forward_tiles(xrev: torch.Tensor, ybuf: torch.Tensor, *,
             mx = torch.maximum(torch.where(wrap, 0, mx), Dn)
             P1, D1, D2, Dv, Qv = (torch.roll(Pn, 1, 0), torch.roll(Dn, 1, 0),
                                   D1, Dn, Qn)
+    return out.reshape(nt * p8, lanes)
+
+
+def sw_conveyor_forward_tiles(sched: torch.Tensor, sy: torch.Tensor, *,
+                              nxs: int, n_slots: int, period: int, a0: int,
+                              unroll: int,
+                              cfg: SWConfig = SWConfig()) -> torch.Tensor:
+    """Plain version of the conveyor SW kernel (``csrc/sw_conveyor.cu``):
+    tiles of ``kernels.sw_conveyor.pack_sw_conveyor`` -> (NT * P8, 128)
+    int32, P8 = round_up(P, 8), row q of a tile's block the score of queue
+    slot q; rows P..P8-1 are 0.
+
+    sched: (NT, SR, 128), row d the x code that the switching row
+    r* = (d-1) mod T adopts at step d (pads 1); sy: (NT, NB, 128), the
+    shared stream, row a0 - m holding the code of coordinate m (pads 0).
+    The JAX formulation (genomax/kernels/sw_conveyor.py ``_kernel``) on an
+    (nxs, NT*128) frame: row r of pair q computes column j at step
+    d = qT + r + j; the -KILL pins of rows 0 and nxs-1 (``sw_make_consts``)
+    make the circular roll's wrap inert; at each step the switching row
+    collects its running max into ``done``, takes its x code from sched,
+    and restarts P, the diagonal D and its max at the pair's boundary
+    (zero). At each period boundary d = qT, before that step's collect,
+    ``done`` holds pair q-2's row maxima: its column max is slot q-2's
+    score, and ``done`` restarts. The steps run to (P+1)T + unroll, the
+    JAX kernel's last block.
+    """
+    nt, _, lanes = sched.shape
+    T, P = period, n_slots
+    p8 = -(-P // 8) * 8
+    out = torch.zeros((nt, p8, lanes), dtype=torch.int32, device=sched.device)
+    if nt == 0:
+        return out.reshape(0, lanes)
+    cols = nt * lanes
+    sf = sched.to(torch.int32).permute(1, 0, 2).reshape(-1, cols)
+    yf = sy.to(torch.int32).permute(1, 0, 2).reshape(-1, cols)
+    x = torch.full((nxs, cols), PAD_X, dtype=torch.int32, device=sched.device)
+    subm, subx, gev, ogev = sw_make_consts(x, cfg)
+
+    def zeros():
+        return torch.zeros_like(x)
+
+    P1, D1, D1s, Q1s, D2s, mx, done = (zeros() for _ in range(7))
+    for d in range((P + 1) * T + unroll):
+        if d % T == 0:
+            if 2 <= d // T < P + 2:
+                out[:, d // T - 2] = done.amax(dim=0).view(nt, lanes)
+            done = zeros()
+        r = (d - 1) % T  # the switching row; none when r >= nxs
+        syw = yf[a0 - d: a0 - d + nxs]
+        if r < nxs:
+            done[r] = mx[r]
+            x[r] = sf[d]
+        Pn = torch.maximum(D1, P1 + cfg.gap_extend)
+        Qn = torch.maximum(D1s, Q1s + gev)
+        sub = torch.where(syw == x, subm, subx)
+        diag = D2s + sub
+        if r < nxs:  # the pair's boundary: P' = 0, D(r-1, 0) = 0, max = 0
+            Pn[r] = 0
+            diag[r] = sub[r]
+            mx[r] = 0
+        Dn = torch.maximum(torch.maximum(Pn, Qn) + ogev,
+                           torch.clamp_min(diag, 0))
+        mx = torch.maximum(mx, Dn)
+        P1, D1, D1s, Q1s, D2s = (Pn, Dn, torch.roll(Dn, 1, 0),
+                                 torch.roll(Qn, 1, 0), D1s)
     return out.reshape(nt * p8, lanes)
 
 

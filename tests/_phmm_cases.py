@@ -4,9 +4,10 @@ stream is longer than the JAX engine's resident limit, and jobs for the
 long-read kernel. Smith-Waterman: a ragged tile for the long-pair kernel,
 pairs whose y stream passes the same resident limit, ragged buckets
 of 128 rows or more for the strips kernel, short buckets with the
-queue adversaries for the rotor kernel, and short buckets with the
-ghost-read adversary for the stacked kernel. Imports no jax and nothing of the
-JAX package."""
+queue adversaries for the rotor kernel, short buckets with the
+ghost-read adversary for the stacked kernel, and short pairs with the
+queue-leak adversary for the conveyor kernel. Imports no jax and nothing
+of the JAX package."""
 
 import numpy as np
 
@@ -289,3 +290,58 @@ def stacked_ghost_pairs(seed):
                for _ in range(128)]
     region1 = [SWPair(sx=p.sy[:50], sy=b"A" * 54) for p in region0]
     return region0 + region1
+
+
+# Lengths of x and y in the conveyor's kinds: ragged short pairs, y past the
+# window (T > nxs), and x longer than y.
+CONVEYOR_KINDS = {"ragged": ((5, 50), (5, 50)), "long-y": ((5, 19), (60, 99)),
+                  "long-x": ((30, 60), (5, 25))}
+
+
+def conveyor_sw_pairs(seed, kind, n_pairs=300):
+    """Short pairs for the conveyor kernel (kernels/sw_conveyor.py): x and
+    y lengths from CONVEYOR_KINDS[kind], x planted in y with errors on two
+    pairs in three, a trailing '\\n' on every other pair (a base of both
+    sequences, as in a file). 300 pairs queue two slots deep at
+    max_slots 2 and three deep from 3. The last five pairs are an
+    identical pair, an all-mismatch pair, a one-base pair, a one-base x
+    against the longest y and the longest x against a one-base y, none
+    with a '\\n'. "long-y" packs T = 104 > nxs = 24, so some steps have no
+    switching row."""
+    (xlo, xhi), (ylo, yhi) = CONVEYOR_KINDS[kind]
+    rng = np.random.default_rng(seed)
+    abc = np.frombuffer(b"ACGT", np.uint8)
+    pairs = []
+    for k in range(n_pairs - 5):
+        x = rng.choice(abc, int(rng.integers(xlo, xhi + 1)))
+        y = rng.choice(abc, int(rng.integers(ylo, yhi + 1)))
+        if k % 3:
+            n = min(len(x), len(y))
+            a = int(rng.integers(0, len(y) - n + 1))
+            b = int(rng.integers(0, len(x) - n + 1))
+            y[a: a + n] = _noisy(rng, x[b: b + n], 0.05, abc)
+        nl = b"\n" if k % 2 else b""
+        pairs.append(SWPair(sx=x.tobytes() + nl, sy=y.tobytes() + nl))
+    n = min(xhi, yhi)
+    same = rng.choice(abc, n).tobytes()
+    pairs += [SWPair(sx=same, sy=same), SWPair(sx=b"A" * n, sy=b"C" * n),
+              SWPair(sx=b"G", sy=b"G"),
+              SWPair(sx=b"T", sy=rng.choice(abc, yhi).tobytes()),
+              SWPair(sx=rng.choice(abc, xhi).tobytes(), sy=b"A")]
+    return pairs
+
+
+def conveyor_leak_pairs(seed, x_len, y_len):
+    """The conveyor's queue-leak adversary: 128 pairs that score
+    x_len * match (x the first x_len bases of y), 128 all-mismatch pairs
+    of the same lengths, and both again. All have one y length, so the
+    pack's stable sort keeps this order, and slot q of lane l holds pair
+    128 q + l: at max_slots 2 and 4 every lane's queue runs
+    maximum-scoring, all-mismatch in turns. A chain or a running max
+    that crossed the switch row from a maximum-scoring pair would give the
+    all-mismatch pair behind it a score above 0."""
+    g = np.random.default_rng(seed).choice(
+        np.frombuffer(b"ACGT", np.uint8), y_len).tobytes()
+    same, miss = (SWPair(sx=g[:x_len], sy=g),
+                  SWPair(sx=b"A" * x_len, sy=b"T" * y_len))
+    return ([same] * 128 + [miss] * 128) * 2

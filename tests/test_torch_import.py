@@ -52,6 +52,7 @@ def test_every_module_imports_without_jax_or_genomax(walked):
     "genomax_torch.pack.tensors", "genomax_torch.engine.executor",
     "genomax_torch.kernels.sw", "genomax_torch.kernels.sw_long",
     "genomax_torch.kernels.sw_strips", "genomax_torch.kernels.sw_rotor",
+    "genomax_torch.kernels.sw_stacked", "genomax_torch.kernels.sw_conveyor",
     "genomax_torch.kernels.pairhmm", "genomax_torch.kernels.pairhmm_long",
     "genomax_torch.kernels.wavefront", "genomax_torch.cli.main"])
 def test_module_is_part_of_the_walk(walked, name):

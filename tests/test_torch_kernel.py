@@ -1,6 +1,6 @@
 """The CUDA kernels against their plain PyTorch versions on the card:
-csrc/sw_tile.cu, csrc/sw_long.cu, csrc/sw_strips.cu, csrc/sw_rotor.cu and
-csrc/sw_stacked.cu (int32 scores, exact),
+csrc/sw_tile.cu, csrc/sw_long.cu, csrc/sw_strips.cu, csrc/sw_rotor.cu,
+csrc/sw_stacked.cu and csrc/sw_conveyor.cu (int32 scores, exact),
 csrc/pairhmm_tile.cu and
 csrc/pairhmm_long.cu (within 1e-4 in log10, or two fp32 ulps of values
 below -512: nvcc contracts a*b+c into FMAs, the plain version rounds each
@@ -19,15 +19,18 @@ from genomax_torch.io.generator import generate_pairhmm_batch
 from genomax_torch.pack.bucketing import (pack_pairhmm_batches,
                                           pack_sw_pairs, unpack_scores)
 
-from _phmm_cases import (long_jobs, long_sw_pairs, phmm_batches,
-                         rotor_leak_pairs, rotor_sw_pairs, stacked_ghost_pairs,
-                         stacked_sw_pairs, streamed_batches, streamed_sw_pairs,
-                         strips_sw_pairs)
+from _phmm_cases import (CONVEYOR_KINDS, conveyor_leak_pairs,
+                         conveyor_sw_pairs, long_jobs, long_sw_pairs,
+                         phmm_batches, rotor_leak_pairs, rotor_sw_pairs,
+                         stacked_ghost_pairs, stacked_sw_pairs,
+                         streamed_batches, streamed_sw_pairs, strips_sw_pairs)
 from genomax_torch.engine.executor import Engine
 from genomax_torch.kernels import (_build, pairhmm, pairhmm_long, sw,
-                                   sw_long, sw_rotor, sw_stacked, sw_strips)
+                                   sw_conveyor, sw_long, sw_rotor, sw_stacked,
+                                   sw_strips)
 from genomax_torch.kernels.wavefront import (phmm_forward_tiles,
                                              phmm_long_forward,
+                                             sw_conveyor_forward_tiles,
                                              sw_forward_tiles,
                                              sw_long_forward,
                                              sw_long_forward_dense,
@@ -441,6 +444,89 @@ def test_engine_stacked_route(device, stack):
     off = Engine(device=device).sw_scores(pairs)
     np.testing.assert_array_equal(on, off)
     np.testing.assert_array_equal(on, native.sw_scores_native(pairs))
+
+
+def _conveyor(pairs, max_slots, device):
+    b = sw_conveyor.pack_sw_conveyor(pairs, max_slots=max_slots)
+    t = (torch.from_numpy(b.sched).to(device),
+         torch.from_numpy(b.sy).to(device))
+    return b, t, dict(nxs=b.nxs, n_slots=b.n_slots, period=b.period,
+                      a0=b.a0)
+
+
+@pytest.mark.parametrize("max_slots", [1, 2, 4, 64])
+@pytest.mark.parametrize("cfg", CFGS, ids=["default", "m2x3o5e2", "m3x1o0e2"])
+def test_sw_conveyor_kernel_equals_plain_version(device, cfg, max_slots):
+    """Ragged short pairs, y past the window (T > nxs) and x longer than
+    y, each with an identical pair, an all-mismatch pair, one-base pairs
+    and pairs without a '\\n', queued one to three slots deep: kernel ==
+    plain conveyor sweep on every row (rows P..P8-1 are 0) == native."""
+    before = sw_conveyor.launches
+    for i, kind in enumerate(CONVEYOR_KINDS):
+        pairs = conveyor_sw_pairs(40 + i, kind)
+        b, t, st = _conveyor(pairs, max_slots, device)
+        got = sw_conveyor.sw_forward_conveyor(*t, cfg=cfg, **st)
+        torch.cuda.synchronize()
+        assert got.is_cuda and got.dtype == torch.int32
+        assert torch.equal(got, sw_conveyor_forward_tiles(
+            *t, cfg=cfg, unroll=sw_conveyor.UNROLL, **st))
+        p8 = -(-b.n_slots // 8) * 8
+        assert not bool(got.view(-1, p8, 128)[:, b.n_slots:].any())
+        np.testing.assert_array_equal(
+            sw_conveyor.unpack_conveyor(b, got.cpu().numpy(), len(pairs)),
+            native.sw_scores_native(pairs, cfg))
+    assert sw_conveyor.launches - before == len(CONVEYOR_KINDS)
+
+
+@pytest.mark.parametrize("x_len", [45, 20])
+@pytest.mark.parametrize("cfg", CFGS, ids=["default", "m2x3o5e2", "m3x1o0e2"])
+def test_sw_conveyor_kernel_holds_the_queue_leak(device, cfg, x_len):
+    """Maximum-scoring and all-mismatch pairs in turns in every lane's
+    queue, at T = nxs = 48 and at T = 48 > nxs = 24: every all-mismatch
+    pair scores exactly 0, every other x_len * match."""
+    pairs = conveyor_leak_pairs(33, x_len, 45)
+    b, t, st = _conveyor(pairs, 4, device)
+    assert b.n_slots == 4
+    got = sw_conveyor.sw_forward_conveyor(*t, cfg=cfg, **st)
+    torch.cuda.synchronize()
+    assert torch.equal(got, sw_conveyor_forward_tiles(
+        *t, cfg=cfg, unroll=sw_conveyor.UNROLL, **st))
+    slots = got.view(8, 128)
+    assert bool((slots[0::2][:2] == x_len * cfg.match).all())
+    assert not bool(slots[1::2].any())
+
+
+def test_sw_conveyor_out_of_contract(device):
+    """The wrapper raises before any launch on nxs past 1,024 or a period
+    below the window; a launch whose stream is too short for the sweep
+    writes -1 to every slot, 0 to the rows past P, and nothing else."""
+    b, (s, y), st = _conveyor(conveyor_leak_pairs(34, 45, 45), 4, device)
+    before = sw_conveyor.launches
+    with pytest.raises(ValueError, match="nxs"):
+        sw_conveyor.sw_forward_conveyor(s, y, **{**st, "nxs": 1032,
+                                                 "period": 1032})
+    with pytest.raises(ValueError, match="period"):
+        sw_conveyor.sw_forward_conveyor(s, y, **{**st, "period": 40})
+    assert sw_conveyor.launches == before
+    out = sw_conveyor._launch(s, y, st["nxs"], st["n_slots"], st["period"],
+                              10, SWConfig())
+    torch.cuda.synchronize()
+    assert sw_conveyor.launches == before + 1
+    blocks = out.view(-1, 8, 128)
+    assert bool((blocks[:, :st["n_slots"]] == -1).all())
+    assert not bool(blocks[:, st["n_slots"]:].any())
+
+
+def test_sw_scores_conveyor_on_the_card(device):
+    """The library entry on the card: one launch, scores == the native
+    model, == the entry on the CPU."""
+    pairs = conveyor_sw_pairs(44, "ragged", n_pairs=700)
+    before = sw_conveyor.launches
+    got = sw_conveyor.sw_scores_conveyor(pairs, max_slots=2, device=device)
+    assert sw_conveyor.launches == before + 1
+    np.testing.assert_array_equal(got, native.sw_scores_native(pairs))
+    np.testing.assert_array_equal(got, sw_conveyor.sw_scores_conveyor(
+        pairs, max_slots=2, device="cpu"))
 
 
 @pytest.mark.parametrize("alphabet,gatk,period", [
