@@ -6,11 +6,11 @@ Run from the repository root on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 Phases (one line each; any failure exits non-zero). They run in the
-order 1, 2, 19, 21, 24, 3, 4, 5, 22, 23, 25, 26, 20, 7-18, 6:
-  1. build      nvcc-builds the seven kernels (csrc/sw_tile.cu,
+order 1, 2, 19, 21, 24, 27, 3, 4, 5, 22, 23, 25, 26, 28, 29, 20, 7-18, 6:
+  1. build      nvcc-builds the eight kernels (csrc/sw_tile.cu,
                 csrc/sw_long.cu, csrc/sw_strips.cu, csrc/sw_rotor.cu,
-                csrc/sw_stacked.cu, csrc/pairhmm_tile.cu,
-                csrc/pairhmm_long.cu) from the
+                csrc/sw_stacked.cu, csrc/sw_conveyor.cu,
+                csrc/pairhmm_tile.cu, csrc/pairhmm_long.cu) from the
                 checkout, one nvcc each, in parallel, and g++-builds the
                 native golden library
   2. kernel     the lane-tile SW kernel vs its plain PyTorch version on
@@ -104,8 +104,10 @@ order 1, 2, 19, 21, 24, 3, 4, 5, 22, 23, 25, 26, 20, 7-18, 6:
                 (t(5) - t(1)) / 4, in turns), the strips kernel at each
                 strip width of 32-256 rows there, the rotor kernel at
                 rotor_max_slots 1-32 at 32, 64 and 128bp, the stacked
-                kernel at sw_stack 2, 4 and 8 at 32 and 64bp, and which
-                kernel the router sends each point to; no plain calls
+                kernel at sw_stack 2, 4 and 8 at 32 and 64bp, the
+                conveyor kernel at max_slots 4 and 64 at 32, 64 and
+                128bp, and which kernel the router sends each point to;
+                no plain calls
  21. sw rotor    the rotor kernel (both wrappers) vs its plain rotor sweep,
                 the plain lane-tile sweep and the native model on ragged
                 buckets of 32-135bp at periods 40, 48, 64, 80 and 136 (the
@@ -143,6 +145,26 @@ order 1, 2, 19, 21, 24, 3, 4, 5, 22, 23, 25, 26, 20, 7-18, 6:
                 and 8 vs its plain version, the rotor and the lane-tile
                 kernel, slope (t(9) - t(1)) / 8, in turns; the plain
                 stacked sweep == the kernel on every lane
+ 27. sw conveyor the conveyor kernel vs its plain conveyor sweep and the
+                native model on ragged short pairs, y past the window
+                (T > nxs) and x longer than y (each with an identical, an
+                all-mismatch and one-base pairs, half without '\\n'), and
+                on the queue-leak adversary (maximum-scoring and
+                all-mismatch pairs in turns in every lane's queue, at
+                T = nxs and T > nxs, where every all-mismatch pair scores
+                0), at max_slots 1, 2, 4 and 64, under three scoring
+                configs; rows P..P8-1 are 0; exact
+ 28. conveyor main  the library entry sw_scores_conveyor(device="cuda")
+                on phase 22's 25,000 x 64bp pairs at its default 64 slots:
+                one conveyor launch (the count read around the call), all
+                scores == phase 22's engine scores, 512 sampled pairs ==
+                native model; the wall, then pack, copy, kernel and
+                copy back with unpack apart (three runs)
+ 29. conveyor time  on phase 22's pairs packed at max_slots 4, 16 and 64:
+                the kernel, slope (t(9) - t(1)) / 8, in turns, each
+                depth's scores == the engine's; the plain conveyor sweep
+                at 64 slots by one call, == the kernel on every row;
+                beside the rotor's time of phase 23, GCUPS and the bound
 
 Then one JSON line describing each kernel, the card line, and, last,
 {"ok": true, "device": {...}}. Without a CUDA device, or outside the
@@ -179,6 +201,10 @@ RT_PAIRS, RT_LEN = 25000, 64
 # threads a block (stack * rows).
 STACKS, STACK_MAX_X, MAX_THREADS = (2, 4, 8), (6, 14, 30, 46, 62, 70, 94), 1024
 STACK_LENS = (32, 64)
+# Conveyor SW: the queue depths (max_slots) of phase 27's checks, of phase
+# 29's timing (the library default, 64, last) and of the sweep's points.
+CONVEYOR_CHECK_SLOTS, CONVEYOR_SLOTS = (1, 2, 4, 64), (4, 16, 64)
+CONVEYOR_SWEEP_SLOTS = (4, 64)
 # Published peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet):
 # device memory rate and fp32 rate outside the tensor cores. The int32
 # rate is 64 lanes on each of 132 SMs at the SM clock nvidia-smi reports.
@@ -326,11 +352,12 @@ def main() -> int:
     from genomax_torch.io.formats import SWPair
     from genomax_torch.io.generator import generate_pairhmm_batch, random_dna
     from genomax_torch.kernels import (_build, pairhmm, pairhmm_long, sw,
-                                       sw_long, sw_rotor, sw_stacked,
-                                       sw_strips)
+                                       sw_conveyor, sw_long, sw_rotor,
+                                       sw_stacked, sw_strips)
     from genomax_torch.kernels.expand import expand_factored
     from genomax_torch.kernels.wavefront import (phmm_forward_tiles,
                                                  phmm_long_forward,
+                                                 sw_conveyor_forward_tiles,
                                                  sw_forward_tiles,
                                                  sw_long_forward,
                                                  sw_long_forward_dense,
@@ -361,7 +388,7 @@ def main() -> int:
     # 1. build the kernels, one nvcc each, at once
     t0 = time.perf_counter()
     names = _build.KERNELS
-    check(len(names) == 7, f"kernels to build: {names}")
+    check(len(names) == 8, f"kernels to build: {names}")
     with concurrent.futures.ThreadPoolExecutor(len(names) + 1) as pool:
         golden = pool.submit(native.build)
         builds = list(pool.map(_build.build, names))
@@ -565,6 +592,67 @@ def main() -> int:
               f"{n_pairs} pairs in buckets of {', '.join(shapes)} (5 tiles, "
               f"pad tiles at S 2, 3, 4); ghost-read adversary (256 pairs, "
               f"S 2) all 0; {cfg}, max_abs_err 0 "
+              f"({time.perf_counter() - t0:.1f} s so far)")
+
+    # 27. the conveyor kernel vs its plain version and the native model
+    def conveyor_inputs(pairs, max_slots):
+        """The pack of pairs at max_slots: the pack, (sched, sy) on the
+        card and the wrapper's statics."""
+        b = sw_conveyor.pack_sw_conveyor(pairs, max_slots=max_slots)
+        return b, (torch.from_numpy(b.sched).to(dev),
+                   torch.from_numpy(b.sy).to(dev)), dict(
+            nxs=b.nxs, n_slots=b.n_slots, period=b.period, a0=b.a0)
+
+    def conveyor_plain(t, st, cfg=SWConfig()):
+        return sw_conveyor_forward_tiles(*t, cfg=cfg,
+                                         unroll=sw_conveyor.UNROLL, **st)
+
+    conveyor_cases = {kind: cases.conveyor_sw_pairs(30, kind)
+                      for kind in cases.CONVEYOR_KINDS}
+    conveyor_cases["leak"] = cases.conveyor_leak_pairs(31, 45, 45)
+    conveyor_cases["leak, T > nxs"] = cases.conveyor_leak_pairs(32, 20, 45)
+    conveyor_err, t0 = 0, time.perf_counter()
+    for c in CFGS:
+        cfg = SWConfig(**c)
+        geoms = set()
+        for name, pairs in conveyor_cases.items():
+            want = native_sw(native, pairs, cfg)
+            for max_slots in CONVEYOR_CHECK_SLOTS:
+                b, t, st = conveyor_inputs(pairs, max_slots)
+                geoms.add((st["nxs"], st["period"], st["n_slots"]))
+                got = sw_conveyor.sw_forward_conveyor(*t, cfg=cfg, **st)
+                plain = conveyor_plain(t, st, cfg)
+                torch.cuda.synchronize()
+                err = int((got.long() - plain.long()).abs().max())
+                conveyor_err = max(conveyor_err, err)
+                check(err == 0, f"conveyor kernel != plain on {name} at "
+                                f"max_slots {max_slots}, {st}, {cfg}: max "
+                                f"|diff| {err}")
+                p8 = -(-st["n_slots"] // 8) * 8
+                check(not bool(got.view(-1, p8, 128)[:, st["n_slots"]:]
+                               .any()),
+                      f"conveyor rows past P not 0 on {name}, {st}")
+                scores = sw_conveyor.unpack_conveyor(b, got.cpu().numpy(),
+                                                     len(pairs))
+                check(np.array_equal(scores, want),
+                      f"conveyor kernel != native model on {name} at "
+                      f"max_slots {max_slots}, {cfg}")
+                if name.startswith("leak"):
+                    miss = np.array([p.sx.startswith(b"A" * 20)
+                                     for p in pairs])
+                    check(not scores[miss].any(),
+                          f"conveyor queue leak on {name} at max_slots "
+                          f"{max_slots}, {cfg}: all-mismatch pairs score "
+                          f"{np.unique(scores[miss]).tolist()}")
+        check(any(T > nxs for nxs, T, _ in geoms)
+              and any(p >= 2 for _, _, p in geoms),
+              f"conveyor geometries (nxs, T, P) {sorted(geoms)}")
+        shown = ", ".join(f"{k} ({len(v)} pairs)"
+                          for k, v in conveyor_cases.items())
+        print(f"phase 27 sw conveyor kernel == plain == native: {shown} "
+              f"at max_slots {CONVEYOR_CHECK_SLOTS}, (nxs, T, P) "
+              f"{sorted(geoms)}; rows past P 0, all-mismatch pairs of the "
+              f"leak 0; {cfg}, max_abs_err 0 "
               f"({time.perf_counter() - t0:.1f} s so far)")
 
     # 3. engine on the vendored goldens
@@ -843,6 +931,93 @@ def main() -> int:
           f"{stacked_bound[0]:.4f} ms by {stacked_bound[1]}; kernel == plain "
           f"== lane tile on every live lane")
 
+    # 28. the conveyor's library entry on phase 22's pairs: one launch, the
+    # engine's scores; then its stages apart, each synchronized
+    sw_conveyor.launches = 0
+    t0 = time.perf_counter()
+    scores = sw_conveyor.sw_scores_conveyor(pairs, device="cuda")
+    wall = time.perf_counter() - t0
+    conveyor_launches = sw_conveyor.launches
+    check(conveyor_launches == 1,
+          f"sw_scores_conveyor made {conveyor_launches} conveyor launches")
+    check(scores.shape == (RT_PAIRS,) and scores.dtype == np.int32,
+          f"scores of shape {scores.shape} {scores.dtype}")
+    check(np.array_equal(scores[sample], ref),
+          "sw_scores_conveyor != native model on the sampled pairs")
+    check(np.array_equal(scores, rt_scores),
+          "sw_scores_conveyor != the engine's scores (phase 22)")
+    stages = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        cb = sw_conveyor.pack_sw_conveyor(pairs)
+        t1 = time.perf_counter()
+        ct = (torch.from_numpy(cb.sched).to(dev),
+              torch.from_numpy(cb.sy).to(dev))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        res = sw_conveyor.sw_forward_conveyor(
+            *ct, nxs=cb.nxs, n_slots=cb.n_slots, period=cb.period, a0=cb.a0)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        got = sw_conveyor.unpack_conveyor(cb, res.cpu().numpy(), RT_PAIRS)
+        t4 = time.perf_counter()
+        check(np.array_equal(got, scores), "conveyor stages != the entry")
+        stages.append((t1 - t0, t2 - t1, t3 - t2, t4 - t3))
+    print(f"phase 28 conveyor main path, sw_scores_conveyor(device=cuda) at "
+          f"max_slots 64: {RT_PAIRS} x {RT_LEN}bp+'\\n', {cb.sched.shape[0]} "
+          f"tiles x {cb.n_slots} slots, nxs {cb.nxs}, T {cb.period}, "
+          f"{(cb.sched.nbytes + cb.sy.nbytes) / 1e6:.2f} MB packed; wall "
+          f"{wall:.3f} s, {conveyor_launches} conveyor launch, all "
+          f"{RT_PAIRS} scores == the engine's (phase 22), 512 sampled pairs "
+          f"== native model; stages, s (three runs, each synchronized): "
+          + "; ".join(f"pack {a:.4f}, h2d {b_:.4f}, kernel {k:.4f}, d2h + "
+                      f"unpack {u:.4f}" for a, b_, k, u in stages))
+
+    # 29. conveyor timing on that pack at max_slots 4, 16, 64, in turns,
+    # beside the plain conveyor sweep at 64 (one call) and the rotor
+    f_conv, conv_in = {}, {}
+    for slots in CONVEYOR_SLOTS:
+        b, t, st = conveyor_inputs(pairs, slots)
+        conv_in[slots] = (b, t, st)
+        f_conv[slots] = (lambda t=t, st=st: sw_conveyor.sw_forward_conveyor(
+            *t, **st))
+        got = sw_conveyor.unpack_conveyor(b, f_conv[slots]().cpu().numpy(),
+                                          RT_PAIRS)
+        check(np.array_equal(got, rt_scores),
+              f"the conveyor at max_slots {slots} != the engine's scores")
+    order = [f_conv[k] for k in CONVEYOR_SLOTS]
+    times = [slope_ms(f, torch) for f in order + order[::-1]]
+    n_c = len(CONVEYOR_SLOTS)
+    conv_ms = {k: (times[i], times[2 * n_c - 1 - i])
+               for i, k in enumerate(CONVEYOR_SLOTS)}
+    b64, t64, st64 = conv_in[64]
+    got = f_conv[64]()
+    want = []
+    conveyor_plain_ms = one_ms(lambda: want.append(conveyor_plain(t64, st64)),
+                               torch)
+    err = int((got.long() - want[0].long()).abs().max())
+    conveyor_err = max(conveyor_err, err)
+    check(err == 0, f"conveyor kernel != plain conveyor sweep on the 64bp "
+                    f"pack at max_slots 64: max |diff| {err}")
+    conveyor_ms = mean(conv_ms[64])
+    conveyor_bound = bound_ms(nbytes(*t64, got), rt_cells * SW_OPS_PER_CELL,
+                              int32_ops)
+    shown = []
+    for k in CONVEYOR_SLOTS:
+        nt_k, st = conv_in[k][0].sched.shape[0], conv_in[k][2]
+        steps = (st["n_slots"] + 1) * st["period"] + sw_conveyor.UNROLL
+        shown.append(f"max_slots {k} ({nt_k} tiles x {st['n_slots']} slots "
+                     f"= {nt_k * 128} queues of {steps} steps) kernel "
+                     f"{conv_ms[k][0]:.4f} / {conv_ms[k][1]:.4f} ms "
+                     f"({rt_cells / mean(conv_ms[k]) / 1e6:.2f} GCUPS)")
+    print(f"phase 29 conveyor timing, phase 22's {RT_PAIRS} x {RT_LEN}bp "
+          f"pairs (cells {rt_cells}): " + "; ".join(shown)
+          + f"; plain conveyor sweep at max_slots 64 {conveyor_plain_ms:.1f} "
+          f"ms (one call, {steps} steps), == kernel on every row; rotor "
+          f"(phase 23) {rotor_ms:.4f} ms, the conveyor at 64 slots "
+          f"{conveyor_ms / rotor_ms:.2f}x it; bound {conveyor_bound[0]:.4f} "
+          f"ms by {conveyor_bound[1]}")
+
     # 20. both SW kernels across lengths, kernel only: the lane-tile
     # kernel, then the strips kernel at the router's width and at each
     # width of 32-256 rows below the bucket's
@@ -905,6 +1080,23 @@ def main() -> int:
                              f"{c / ((r1 + r2) / 2) / 1e6:.2f} GCUPS")
             rotor = [f"rotor (T {rp[1]['period']}) by rotor_max_slots "
                      + "; ".join(rotor)]
+        # the conveyor (library entry only) at two queue depths
+        conveyor = []
+        if length in ROTOR_LENS:
+            want = unpack_scores([bs], [ref.cpu().numpy()], len(sp))
+            for slots in CONVEYOR_SWEEP_SLOTS:
+                cb, ct, cst = conveyor_inputs(sp, slots)
+                fc = lambda: sw_conveyor.sw_forward_conveyor(  # noqa: E731
+                    *ct, **cst)
+                check(np.array_equal(sw_conveyor.unpack_conveyor(
+                    cb, fc().cpu().numpy(), len(sp)), want),
+                      f"conveyor at {slots} slots differs at {length}bp")
+                c1, c2 = slope_ms(fc, torch, 5), slope_ms(fc, torch, 5)
+                conveyor.append(f"{slots} ({cb.sched.shape[0]} x "
+                                f"{cst['n_slots']}): {c1:.4f} / {c2:.4f} ms "
+                                f"= {c / ((c1 + c2) / 2) / 1e6:.2f} GCUPS")
+            conveyor = [f"conveyor (T {cst['period']}) by max_slots "
+                        + "; ".join(conveyor)]
         dflt = EngineConfig()
         print(f"phase 20 sw sweep {length}bp: {SWEEP_PAIRS} pairs, bucket "
               f"{tuple(t[0].shape)}; lane tile {a1:.3f} / {a2:.3f} ms = "
@@ -912,7 +1104,7 @@ def main() -> int:
               f"router's width ({stw['k_strips']} x {stw['strip_w']} rows) "
               f"{b1:.3f} / {b2:.3f} ms = {c / ((b1 + b2) / 2) / 1e6:.2f} "
               f"GCUPS; by strip width (ms) {', '.join(widths)}; "
-              + "".join(r + "; " for r in rotor + stacked)
+              + "".join(r + "; " for r in rotor + stacked + conveyor)
               + f"the default router sends it to the {routed_to(dflt, bs)} "
               f"kernel (sw_rotor {dflt.sw_rotor}, rotor_max_slots "
               f"{dflt.rotor_max_slots}, strips_min_nxs "
@@ -1464,7 +1656,8 @@ def main() -> int:
     # lane-tile kernel's launches are phase 4's sw_strips=False run's, the
     # strips kernel's the sw_strips=True run's, the rotor's phase 22's
     # first run that the predicates send to it, the stacked kernel's (at
-    # S = 4, as its times) phase 25's sw_stack=4 run's.
+    # S = 4, as its times) phase 25's sw_stack=4 run's, the conveyor's (at
+    # the library default of 64 slots, as its times) phase 28's.
     print(json.dumps({"kernels": [
         entry("sw_tile", "sw_tile.cu", "genomax/kernels/sw_pallas.py:42",
               launches, max_err, kernel_ms, plain_ms, sw_bound),
@@ -1477,6 +1670,9 @@ def main() -> int:
         entry("sw_stacked", "sw_stacked.cu",
               "genomax/kernels/sw_stacked.py:63", stacked_launches[4],
               stacked_err, stacked_ms, stacked_plain_ms, stacked_bound),
+        entry("sw_conveyor", "sw_conveyor.cu",
+              "genomax/kernels/sw_conveyor.py:135", conveyor_launches,
+              conveyor_err, conveyor_ms, conveyor_plain_ms, conveyor_bound),
         entry("sw_long", "sw_long.cu", "genomax/kernels/sw_long.py:126",
               lp_launches, sl_err, sl_kernel_ms, sl_plain_ms, sl_bound),
         entry("pairhmm_tile", "pairhmm_tile.cu",

@@ -16,6 +16,10 @@ same module name, held equal to the original by the tests:
     kernels/expand      PairHMM quality expansion and factored gather
     kernels/sw          wrapper of the hand-written CUDA SW kernel
     kernels/sw_long     long-pair SW: pack, CUDA kernel wrapper, tile loop
+    kernels/sw_strips   strip-mined SW: width rule, re-pad, predicate, wrapper
+    kernels/sw_rotor    rotor SW: lane-queue pack and prep, predicate, wrappers
+    kernels/sw_stacked  stacked SW: re-stack S tiles deep, predicate, wrapper
+    kernels/sw_conveyor conveyor SW: pack, unpack, wrapper, library entry
     kernels/pairhmm     wrapper of the hand-written CUDA PairHMM kernel
     kernels/pairhmm_long  long-read PairHMM: pack, CUDA kernel wrapper, tile loop
     kernels/_build      nvcc build of csrc/ at first use, loaded with ctypes

@@ -28,7 +28,9 @@
 // score, and `done` restarts at 0. The steps run to (P+1)T + 8, the end of
 // the TPU kernel's last block of UNROLL = 8 steps. The TPU's unroll
 // blocks, its pltpu.roll and its VMEM scratch are its layout, with no part
-// here.
+// here. The cell is the TPU kernel's (P' and Q' stored without open +
+// extend, the pins in the constants), not sw_cell.cuh's, so that the
+// kernel and the plain version match operation for operation.
 //
 // Design: one block per queue (tile t, lane l), one thread per window row
 // (nxs <= 1024 threads). Thread r keeps its row's P', D, the D it read a
@@ -41,19 +43,18 @@
 // one __reduce_max_sync a warp, a shared word a warp, and thread 0's max
 // of those after the step's barrier.
 //
-// Bound on this card: the per-step block barrier and the shared round
-// trip, as in sw_tile.cu, on some 20 integer operations a row; a queue
-// runs (P+1)T + 8 steps one after another, so a shallow pack (few queues,
-// long ones: 512 queues at 64 slots for 25,000 pairs) leaves most SMs a
-// few blocks and is latency-bound. Several rows a thread, warp shuffles
-// in place of the shared rows and DPX max-plus intrinsics
-// (__viaddmax_s32) are the levers for later.
+// Bound on this card: the per-step chain (shared load, a dozen dependent
+// integer operations, shared store, block barrier), as in sw_tile.cu. A
+// queue runs its (P+1)T + 8 steps one after another, and on an H100 at
+// 700 W 25,000 pairs of 64bp take the same 0.61 ms at 4, 16 and 64 slots
+// (PERF.md): few long queues wait on the chain's latency, many short ones
+// on the SM's rate of the same work. Several queues a block, several rows
+// a thread, warp shuffles in place of the shared rows and DPX max-plus
+// intrinsics (__viaddmax_s32) are the levers for later.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
-
-#include "sw_cell.cuh"
 
 namespace {
 
@@ -61,7 +62,7 @@ constexpr int kLanes = 128;         // queues per tile
 constexpr int kMaxRows = 1024;      // threads in a block: nxs <= 1024
 constexpr int kUnroll = 8;          // the TPU kernel's block of steps
 constexpr int kChunk = 256;         // steps staged at once
-constexpr int kKill = -kSwNeg;      // the TPU kernel's KILL = 1 << 28
+constexpr int kKill = 1 << 28;      // the boundary pin (wavefront.KILL)
 constexpr int kPadX = 1;            // x pad code (layout.PAD_X)
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -184,7 +185,8 @@ extern "C" int sw_conveyor_launch(const void* sched, const void* sy,
                                   int P, int T, int a0, int p8, int match,
                                   int mismatch, int gap_open, int gap_extend,
                                   void* stream) {
-  if (nxs < 1 || nxs > kMaxRows) return static_cast<int>(cudaErrorInvalidValue);
+  if (nxs < 1 || nxs > kMaxRows)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (nt <= 0) return 0;
   const size_t smem = (4 * static_cast<size_t>(nxs) + 32) * sizeof(int32_t) +
                       2 * kChunk + nxs;

@@ -9,8 +9,9 @@ and ``csrc/sw_conveyor.cu``): the CPU paths of the wrappers in
 ``kernels.sw``, ``kernels.pairhmm``, ``kernels.sw_long``,
 ``kernels.sw_strips``, ``kernels.sw_rotor``, ``kernels.sw_stacked``,
 ``kernels.sw_conveyor`` and ``kernels.pairhmm_long`` run them, the tests
-hold them against the JAX package, and ``chip_smoke.py`` holds the kernels against them on the card. They keep
-the JAX formulation as it is, so the two can be read side by side:
+hold them against the JAX package, and ``chip_smoke.py`` holds the
+kernels against them on the card. They keep the JAX formulation as it
+is, so the two can be read side by side:
 
   * the ``(NXs, L)`` layout: x position on axis 0, one pair per column;
   * the reversed diagonal stream, anchored at A = NDs - NXs: the window of
