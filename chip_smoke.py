@@ -6,10 +6,11 @@ Run from the repository root on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 Phases (one line each; any failure exits non-zero). They run in the
-order 1, 2, 19, 21, 24, 27, 3, 4, 5, 22, 23, 25, 26, 28, 29, 20, 7-18, 6:
-  1. build      nvcc-builds the eight kernels (csrc/sw_tile.cu,
+order 1, 2, 19, 21, 24, 27, 3, 4, 5, 22, 23, 25, 26, 28, 29, 20, 7-18,
+30-32, 6:
+  1. build      nvcc-builds the nine kernels (csrc/sw_tile.cu,
                 csrc/sw_long.cu, csrc/sw_strips.cu, csrc/sw_rotor.cu,
-                csrc/sw_stacked.cu, csrc/sw_conveyor.cu,
+                csrc/sw_stacked.cu, csrc/sw_conveyor.cu, csrc/sw_xstrip.cu,
                 csrc/pairhmm_tile.cu, csrc/pairhmm_long.cu) from the
                 checkout, one nvcc each, in parallel, and g++-builds the
                 native golden library
@@ -165,6 +166,29 @@ order 1, 2, 19, 21, 24, 27, 3, 4, 5, 22, 23, 25, 26, 28, 29, 20, 7-18, 6:
                 depth's scores == the engine's; the plain conveyor sweep
                 at 64 slots by one call, == the kernel on every row;
                 beside the rotor's time of phase 23, GCUPS and the bound
+ 30. xstrip kernel  the cross-device strip kernel vs its plain block on
+                seeded states and halos at w = 24, 1,024, 1,032 and 5,000
+                rows (sub-strip seams) and U = 1, 8, 32 and 64, contiguous
+                and lane-major in place, under three scoring configs, all
+                eight outputs exact; then the K-strip ring (each strip's
+                halo handed to the next a block later, in one process) at
+                K = 1, 2, 4 and 8 on the cases of tests/test_xsharded.py
+                and phase 14's 4kbp tile: kernel ring == plain ring ==
+                native model, exact, K * n_blocks launches each
+ 31. xshard main  initialize_distributed over NCCL at world size 1 (a free
+                localhost port) and ShardedEngine(make_mesh(1, "cuda"),
+                xshard_min_len=40,000) on phase 16's tile: all 128 pairs
+                take the cross-device path, the launch count read around
+                the call is n_blocks, all 128 scores == phase 16's sw_long
+                scores, the identical pair 50,000, four sampled == native;
+                the wall, then pack, copy and forward apart; then phase
+                17's file (== Engine, exact) and phase 9's jobs (within
+                1e-5 of Engine, the same fallbacks) through it
+ 32. xstrip time  the kernel on one block at the 50kbp shape (w = 50,008,
+                U = 32), in place, vs its plain block, slope (t(9) - t(1))
+                / 8 in turns, its bound; the kernel and plain rings on the
+                4kbp tile at K = 1 by one call each; the forward's wall
+                beside phase 18's sw_long time
 
 Then one JSON line describing each kernel, the card line, and, last,
 {"ok": true, "device": {...}}. Without a CUDA device, or outside the
@@ -174,6 +198,7 @@ repository, it exits non-zero and prints no result. It imports no jax.
 import concurrent.futures
 import json
 import os
+import socket
 import subprocess
 import sys
 import time
@@ -205,6 +230,12 @@ STACK_LENS = (32, 64)
 # 29's timing (the library default, 64, last) and of the sweep's points.
 CONVEYOR_CHECK_SLOTS, CONVEYOR_SLOTS = (1, 2, 4, 64), (4, 16, 64)
 CONVEYOR_SWEEP_SLOTS = (4, 64)
+# Cross-device strip kernel: phase 30's strip widths (sub-strip seams at
+# 1,024 rows) and block lengths, the ring's strip counts; phase 31's
+# xshard_min_len, under which phase 16's 50kbp pairs take the cross-device
+# path and phase 17's pairs (x up to 4kbp) do not.
+XSTRIP_WIDTHS, XSTRIP_UNROLLS = (24, 1024, 1032, 5000), (1, 8, 32, 64)
+XSTRIP_RINGS, XS_MIN_LEN = (1, 2, 4, 8), 40000
 # Published peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet):
 # device memory rate and fp32 rate outside the tensor cores. The int32
 # rate is 64 lanes on each of 132 SMs at the SM clock nvidia-smi reports.
@@ -348,6 +379,9 @@ def main() -> int:
 
     from genomax_torch import native
     from genomax_torch.config import EngineConfig, PairHMMConfig, SWConfig
+    from genomax_torch.dist import xsharded
+    from genomax_torch.dist.engine import ShardedEngine
+    from genomax_torch.dist.mesh import initialize_distributed, make_mesh
     from genomax_torch.engine.executor import Engine
     from genomax_torch.io.formats import SWPair
     from genomax_torch.io.generator import generate_pairhmm_batch, random_dna
@@ -363,7 +397,8 @@ def main() -> int:
                                                  sw_long_forward_dense,
                                                  sw_rotor_forward_tiles,
                                                  sw_stacked_forward_tiles,
-                                                 sw_strips_forward_tiles)
+                                                 sw_strips_forward_tiles,
+                                                 sw_xstrip_block)
     from genomax_torch.pack import (pack_pairhmm_batches, pack_sw_pairs,
                                     phmm_bucket_to_torch, sw_bucket_to_torch,
                                     sw_rotor_to_torch, sw_stacked_to_torch,
@@ -388,7 +423,7 @@ def main() -> int:
     # 1. build the kernels, one nvcc each, at once
     t0 = time.perf_counter()
     names = _build.KERNELS
-    check(len(names) == 8, f"kernels to build: {names}")
+    check(len(names) == 9, f"kernels to build: {names}")
     with concurrent.futures.ThreadPoolExecutor(len(names) + 1) as pool:
         golden = pool.submit(native.build)
         builds = list(pool.map(_build.build, names))
@@ -1210,6 +1245,7 @@ def main() -> int:
           f"{wall:.3f} s, {ph_launches} launches for {stats.buckets} buckets, "
           f"256 sampled jobs vs native max |err| {err:.3g}, "
           f"stats {json.dumps(stats.as_dict())}")
+    ph_batch, ph_values, ph_fallbacks = batch, values, stats.fallback_jobs
 
     # 9, stage by stage: the engine's steps on the same jobs, each timed
     # to its end on the card
@@ -1539,6 +1575,7 @@ def main() -> int:
           f"identical pair {int(scores[LP_PAIRS // 2])}, {len(sample)} "
           f"sampled pairs == native model (native {t_native:.1f} s on "
           f"{len(sample)} threads), stats {json.dumps(stats.as_dict())}")
+    lp_pairs, lp_scores, lp_sample, lp_ref = pairs, scores, sample, ref
 
     # 16, stage by stage: pack, copy, kernel and copy back of that tile
     torch.cuda.synchronize()
@@ -1619,6 +1656,7 @@ def main() -> int:
           f"{mx_long} long-pair launches for {n_long} pairs, 256 sampled "
           f"pairs == native model in input order, "
           f"stats {json.dumps(stats.as_dict())}")
+    mx_pairs, mx_scores = pairs, scores
 
     # 18. long-pair kernel timing on the 50kbp tile
     k50 = lambda: sw_long.sw_forward_long(*t50, **kw50)  # noqa: E731
@@ -1633,6 +1671,214 @@ def main() -> int:
           f"{cells / sl_kernel_ms / 1e6:.2f}, plain "
           f"{cells / sl_plain_ms / 1e6:.2f} at phase 16's {sl_plain_ms:.1f} "
           f"ms (cells = sum len(sx)*len(sy), {cells})")
+
+    # 30. the cross-device strip kernel vs its plain version, then the
+    # K-strip ring, each strip's halo handed to the next, on the card
+    xs_err, t0 = 0, time.perf_counter()
+    for ci, c in enumerate(CFGS):
+        cfg = SWConfig(**c)
+        for w in XSTRIP_WIDTHS:
+            for U in XSTRIP_UNROLLS:
+                sxb, slab, hD, hQ, st = (
+                    torch.from_numpy(a).to(dev) if not isinstance(a, tuple)
+                    else tuple(torch.from_numpy(b).to(dev) for b in a)
+                    for a in cases.xstrip_inputs(1000 * ci + w + U, w, U))
+                want = sw_xstrip_block(sxb, slab, hD, hQ, st, w=w, U=U,
+                                       cfg=cfg)
+                lane_major = tuple(a.t().contiguous().t() for a in st)
+                got = {"contiguous": xsharded.strip_block(
+                           sxb, slab, hD, hQ, st, w=w, U=U, cfg=cfg),
+                       "lane-major in place": xsharded.strip_block(
+                           sxb, slab, hD, hQ, lane_major, w=w, U=U, cfg=cfg,
+                           out=lane_major)}
+                torch.cuda.synchronize()
+                for name, g in got.items():
+                    for i, (a, b) in enumerate(zip((*g[0], g[1], g[2]),
+                                                   (*want[0], want[1],
+                                                    want[2]))):
+                        err = int((a.long() - b.long()).abs().max())
+                        xs_err = max(xs_err, err)
+                        check(err == 0, f"sw_xstrip ({name}) output {i} != "
+                                        f"plain at w={w}, U={U} under {cfg}:"
+                                        f" max |diff| {err}")
+        print(f"phase 30 xstrip kernel == plain: w {XSTRIP_WIDTHS} x U "
+              f"{XSTRIP_UNROLLS}, contiguous and lane-major in place, {cfg}, "
+              f"8 outputs exact ({time.perf_counter() - t0:.1f} s so far)")
+    ring_cases = cases.xshard_cases() + [
+        ("4kbp tile", cases.long_sw_pairs(3), 32)]
+    ring_native = {name: native_sw(native, pairs)
+                   for name, pairs, _ in ring_cases}
+    for K in XSTRIP_RINGS:
+        n_launch = 0
+        for name, pairs, U in ring_cases:
+            pk = xsharded.pack_sw_xsharded(pairs, K, unroll=U)
+            sx, sy = (torch.from_numpy(a).to(dev) for a in (pk.sx, pk.sy))
+            kw = dict(n_strips=K, strip_w=pk.strip_w, n_diags=pk.n_diags,
+                      unroll=U, anchor=pk.anchor)
+            before = xsharded.launches
+            got = xsharded.sw_forward_xsharded_ring(sx, sy, **kw)
+            n = xsharded.launches - before
+            plain = xsharded.sw_forward_xsharded_ring(
+                sx, sy, block=sw_xstrip_block, **kw)
+            torch.cuda.synchronize()
+            check(n == K * xsharded.n_blocks(pk.n_diags, U, K),
+                  f"{n} xstrip launches for the {name} ring at K = {K}")
+            err = int((got.long() - plain.long()).abs().max())
+            xs_err = max(xs_err, err)
+            check(err == 0, f"xstrip ring ({name}, K = {K}) != plain ring: "
+                            f"max |diff| {err}")
+            check(np.array_equal(got.cpu().numpy()[: len(pairs)],
+                                 ring_native[name])
+                  and not bool(got[len(pairs):].any()),
+                  f"xstrip ring ({name}, K = {K}) != native model")
+            n_launch += n
+        print(f"phase 30 xstrip ring, K = {K}: {len(ring_cases)} cases "
+              f"({', '.join(n for n, _, _ in ring_cases)}) == plain ring == "
+              f"native, exact, {n_launch} launches "
+              f"({time.perf_counter() - t0:.1f} s so far)")
+
+    # 31. the cross-device path through ShardedEngine on a one-rank NCCL
+    # mesh: phase 16's tile, then phase 17's file and phase 9's jobs
+    sock = socket.socket()
+    sock.bind(("localhost", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    t0 = time.perf_counter()
+    initialize_distributed(f"localhost:{port}", 1, 0, backend="nccl",
+                           timeout_s=300)
+    t_init = time.perf_counter() - t0
+    try:
+        mesh = make_mesh(1, device="cuda")
+        check(mesh.group is not None and mesh.size == 1
+              and torch.distributed.get_backend() == "nccl",
+              f"mesh {mesh}, backend {torch.distributed.get_backend()}")
+        xeng = ShardedEngine(mesh, EngineConfig(xshard_min_len=XS_MIN_LEN))
+        xsharded.launches = sw_long.launches = sw.launches = 0
+        t0 = time.perf_counter()
+        scores = xeng.sw_scores(lp_pairs)
+        wall = time.perf_counter() - t0
+        xs_launches = xsharded.launches
+        stats = xeng.last_stats
+        xs_unroll = xeng.cfg.unroll
+        xs_blocks = xsharded.n_blocks(2 * LP_LEN + 1, xs_unroll, 1)
+        check(stats.xsharded_jobs == stats.offloaded_jobs == LP_PAIRS,
+              f"xsharded_jobs {stats.xsharded_jobs}, offloaded_jobs "
+              f"{stats.offloaded_jobs} of {LP_PAIRS}")
+        check(xs_launches == xs_blocks and sw_long.launches == 0
+              and sw.launches == 0,
+              f"{xs_launches} xstrip launches (want {xs_blocks}), "
+              f"{sw_long.launches} long-pair, {sw.launches} lane-tile")
+        check(np.array_equal(scores, lp_scores),
+              "the cross-device scores != phase 16's sw_long scores")
+        check(int(scores[LP_PAIRS // 2]) == LP_LEN,
+              f"the identical pair scored {int(scores[LP_PAIRS // 2])}")
+        check(np.array_equal(scores[lp_sample], lp_ref),
+              "the cross-device scores != native on the sampled pairs")
+        print(f"phase 31 xshard main path: ShardedEngine on a one-rank NCCL "
+              f"mesh (init {t_init:.2f} s), {LP_PAIRS} x {LP_LEN}bp x "
+              f"{LP_LEN}bp, xshard_min_len {XS_MIN_LEN}, unroll {xs_unroll}: "
+              f"wall {wall:.3f} s, {xs_launches} xstrip launches, 0 long-pair"
+              f", xsharded_jobs {stats.xsharded_jobs}, all {LP_PAIRS} == "
+              f"phase 16's sw_long scores, identical pair {LP_LEN}, "
+              f"{len(lp_sample)} sampled == native, stats "
+              f"{json.dumps(stats.as_dict())}")
+
+        # 31, stage by stage: pack, copy, forward of that tile
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pkx = xsharded.pack_sw_xsharded(lp_pairs, 1, unroll=xs_unroll)
+        t_pack = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sxs = torch.from_numpy(pkx.sx).to(dev)
+        sys_ = torch.from_numpy(pkx.sy).to(dev)
+        torch.cuda.synchronize()
+        t_h2d = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got = xsharded.sw_forward_xsharded(
+            sxs, sys_, mesh=mesh, strip_w=pkx.strip_w, n_diags=pkx.n_diags,
+            unroll=xs_unroll, anchor=pkx.anchor)
+        torch.cuda.synchronize()
+        t_fwd = time.perf_counter() - t0
+        check(np.array_equal(got.cpu().numpy(), scores),
+              "the staged forward != the engine's")
+        print(f"phase 31 stages, s: pack {t_pack:.4f}, h2d {t_h2d:.4f}, "
+              f"forward {t_fwd:.4f} ({pkx.n_diags} diagonals in "
+              f"{xs_launches} blocks of {xs_unroll}, one strip of "
+              f"{pkx.strip_w} rows, state {6 * pkx.strip_w * 128 * 4 / 1e6:.1f}"
+              f" MB)")
+
+        t0 = time.perf_counter()
+        scores = xeng.sw_scores(mx_pairs)
+        wall = time.perf_counter() - t0
+        check(np.array_equal(scores, mx_scores),
+              "ShardedEngine != Engine on phase 17's mixed file")
+        check(xeng.last_stats.xsharded_jobs == 0,
+              f"{xeng.last_stats.xsharded_jobs} mixed pairs took xshard")
+        print(f"phase 31 xshard mixed: {MX_PAIRS} pairs through "
+              f"ShardedEngine == Engine, exact, wall {wall:.3f} s, stats "
+              f"{json.dumps(xeng.last_stats.as_dict())}")
+        t0 = time.perf_counter()
+        values = xeng.pairhmm([ph_batch])
+        wall = time.perf_counter() - t0
+        err = float(np.abs(values - ph_values).max())
+        check(err <= 1e-5 and xeng.last_stats.fallback_jobs == ph_fallbacks,
+              f"ShardedEngine PairHMM vs Engine: max |err| {err}, fallbacks "
+              f"{xeng.last_stats.fallback_jobs} vs {ph_fallbacks}")
+        print(f"phase 31 xshard pairhmm: {len(values)} jobs through "
+              f"ShardedEngine, max |err| vs Engine {err:.3g}, fallbacks "
+              f"{ph_fallbacks} both, wall {wall:.3f} s")
+    finally:
+        torch.distributed.destroy_process_group()
+
+    # 32. the strip kernel on one block at the 50kbp shape, in place as the
+    # forward runs it, in turns with the plain block; the rings on the 4kbp
+    # tile by one call each
+    w, U = pkx.strip_w, xs_unroll
+    s = xsharded.slab_start(pkx.anchor, 0, xs_blocks // 2, strip_w=w, unroll=U,
+                            ndt=pkx.sy.shape[0])
+    slab = sys_[s: s + w + U]
+    zh = torch.zeros((U, 128), dtype=torch.int32, device=dev)
+    st = xsharded.new_state(w, dev)
+    got = xsharded.strip_block(sxs, slab, zh, zh, st, w=w, U=U)
+    plain = sw_xstrip_block(sxs, slab, zh, zh, st, w=w, U=U)
+    torch.cuda.synchronize()
+    for a, b in zip((*got[0], got[1], got[2]),
+                    (*plain[0], plain[1], plain[2])):
+        err = int((a.long() - b.long()).abs().max())
+        xs_err = max(xs_err, err)
+        check(err == 0, f"sw_xstrip != plain on the 50kbp block: {err}")
+    pst = tuple(a.contiguous() for a in st)
+    kern = lambda: xsharded.strip_block(  # noqa: E731
+        sxs, slab, zh, zh, st, w=w, U=U, out=st)
+    plain_blk = lambda: sw_xstrip_block(  # noqa: E731
+        sxs, slab, zh, zh, pst, w=w, U=U)
+    p1, k1, k2, p2 = (slope_ms(plain_blk, torch), slope_ms(kern, torch),
+                      slope_ms(kern, torch), slope_ms(plain_blk, torch))
+    xs_kernel_ms, xs_plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    xs_bound = bound_ms(nbytes(sxs, slab, zh, zh) + 2 * nbytes(*st)
+                        + 2 * nbytes(zh), SW_OPS_PER_CELL * w * U * 128,
+                        int32_ops)
+    pk4 = xsharded.pack_sw_xsharded(ring_cases[-1][1], 1, unroll=U)
+    sx4, sy4 = (torch.from_numpy(a).to(dev) for a in (pk4.sx, pk4.sy))
+    kw4 = dict(n_strips=1, strip_w=pk4.strip_w, n_diags=pk4.n_diags,
+               unroll=U, anchor=pk4.anchor)
+    r4_plain_ms = one_ms(lambda: xsharded.sw_forward_xsharded_ring(
+        sx4, sy4, block=sw_xstrip_block, **kw4), torch)
+    r4_kernel_ms = one_ms(lambda: xsharded.sw_forward_xsharded_ring(
+        sx4, sy4, **kw4), torch)
+    cells = LP_PAIRS * LP_LEN * LP_LEN
+    print(f"phase 32 xstrip timing, one block of w {w} rows x U {U} x 128 "
+          f"lanes: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} "
+          f"ms per call, bound {xs_bound[0]:.4f} ms by {xs_bound[1]} (bytes "
+          f"{(nbytes(sxs, slab, zh, zh) + 2 * nbytes(*st) + 2 * nbytes(zh)) / HBM_BYTES_PER_S * 1e3:.4f}"
+          f" ms, operations {SW_OPS_PER_CELL * w * U * 128 / int32_ops * 1e3:.4f}"
+          f" ms); {xs_launches} blocks x {xs_kernel_ms:.4f} ms = "
+          f"{xs_launches * xs_kernel_ms / 1e3:.3f} s of kernel; forward wall "
+          f"{t_fwd:.3f} s ({cells / t_fwd / 1e9:.2f} GCUPS) against phase "
+          f"18's sw_long {sl_kernel_ms / 1e3:.3f} s per tile; 4kbp tile "
+          f"(K = 1, {xsharded.n_blocks(pk4.n_diags, U, 1)} blocks): kernel "
+          f"ring {r4_kernel_ms:.1f} ms, plain ring {r4_plain_ms:.1f} ms (one "
+          f"call each)")
 
     # 6. the card
     smi = subprocess.run(["nvidia-smi", "-i", "0",
@@ -1675,6 +1921,8 @@ def main() -> int:
               conveyor_err, conveyor_ms, conveyor_plain_ms, conveyor_bound),
         entry("sw_long", "sw_long.cu", "genomax/kernels/sw_long.py:126",
               lp_launches, sl_err, sl_kernel_ms, sl_plain_ms, sl_bound),
+        entry("sw_xstrip", "sw_xstrip.cu", "genomax/dist/xsharded.py:72",
+              xs_launches, xs_err, xs_kernel_ms, xs_plain_ms, xs_bound),
         entry("pairhmm_tile", "pairhmm_tile.cu",
               "genomax/kernels/pairhmm_pallas.py:93", ph_launches, ph_err,
               ph_kernel_ms, ph_plain_ms, ph_bound),

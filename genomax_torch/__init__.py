@@ -26,6 +26,9 @@ same module name, held equal to the original by the tests:
     csrc/               CUDA C++ sources for sm_90a
     engine/executor     Engine: pack, launch, unpack, long-pair kernels,
                         native offload, fp64 fallback
+    dist/               multi-device: torch.distributed mesh, tile-sharded
+                        buckets, ShardedEngine, the cross-device SW
+                        wavefront (csrc/sw_xstrip.cu)
     cli/                ``python -m genomax_torch sw|pairhmm``
 
 Importing the package imports neither jax nor torch and compiles nothing.

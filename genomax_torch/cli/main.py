@@ -8,6 +8,13 @@ overwriting it; both then print "elapsed %f". --stats prints the run's
 RunStats as JSON on stderr. --device picks the torch device, and there is
 no fallback from one to the other: without a card, --device cuda (the
 default) prints the error and returns 2.
+
+--devices N scores over a mesh of N ranks (ShardedEngine), one process a
+device: N is the process group's size, 1 in a lone process, the world size
+under ``torchrun`` (or of --num-processes processes started with
+--coordinator and each its --process-id). Rank 0 alone writes the output.
+--xshard MINLEN (with --devices) sends SW pairs past --max-device-len
+whose x has at least MINLEN bases through the cross-device wavefront.
 """
 
 from __future__ import annotations
@@ -18,20 +25,48 @@ import sys
 import time
 
 
+def _build_engine(args, **kw):
+    """Engine, or ShardedEngine over a mesh of --devices ranks, with the
+    process group started first (genomax.cli.main._build_engine)."""
+    from genomax_torch.config import EngineConfig
+    from genomax_torch.engine.executor import Engine
+
+    if args.xshard is not None and not args.devices:
+        raise ValueError("--xshard routes through the cross-device "
+                         "wavefront; it requires --devices N")
+    cfg_kw = {} if args.max_device_len is None else dict(
+        max_device_len=args.max_device_len)
+    cfg = EngineConfig(xshard_min_len=args.xshard, **cfg_kw)
+    if not args.devices:
+        return Engine(cfg, device=args.device, **kw)
+    from genomax_torch.dist.engine import ShardedEngine
+    from genomax_torch.dist.mesh import (BACKENDS, initialize_distributed,
+                                         make_mesh)
+
+    initialize_distributed(args.coordinator, args.num_processes,
+                           args.process_id, backend=BACKENDS[args.device])
+    return ShardedEngine(make_mesh(args.devices, device=args.device), cfg,
+                         **kw)
+
+
+def _is_writer(eng) -> bool:
+    """Every rank computes the same results; rank 0 writes them."""
+    return getattr(eng, "mesh", None) is None or eng.mesh.rank == 0
+
+
 def cmd_sw(args) -> int:
     from genomax_torch.config import SWConfig
     from genomax_torch.io.formats import parse_sw_file
 
-    from genomax_torch.engine.executor import Engine
-
-    eng = Engine(sw_cfg=SWConfig(match=args.match, mismatch=args.mismatch,
-                                 gap_open=args.gap_open,
-                                 gap_extend=args.gap_extend),
-                 device=args.device)
+    eng = _build_engine(args, sw_cfg=SWConfig(
+        match=args.match, mismatch=args.mismatch, gap_open=args.gap_open,
+        gap_extend=args.gap_extend))
     pairs = parse_sw_file(args.input)
     t0 = time.time()
     scores = eng.sw_scores(pairs)
     elapsed = time.time() - t0
+    if not _is_writer(eng):
+        return 0
     lines = "".join("Score: %d\n" % s for s in scores)
     if args.output:
         with open(args.output, "a") as f:
@@ -48,19 +83,37 @@ def cmd_pairhmm(args) -> int:
     from genomax_torch.config import PairHMMConfig
     from genomax_torch.io.formats import parse_pairhmm_file, write_pairhmm_output
 
-    from genomax_torch.engine.executor import Engine
-
-    eng = Engine(phmm_cfg=PairHMMConfig(gatk_emission=args.gatk_emission),
-                 device=args.device)
+    eng = _build_engine(args, phmm_cfg=PairHMMConfig(
+        gatk_emission=args.gatk_emission))
     batches = parse_pairhmm_file(args.input)
     t0 = time.time()
     values = eng.pairhmm(batches)
     elapsed = time.time() - t0
+    if not _is_writer(eng):
+        return 0
     write_pairhmm_output(args.output, values)
     print("elapsed %f" % elapsed)
     if args.stats:
         print(json.dumps(eng.last_stats.as_dict()), file=sys.stderr)
     return 0
+
+
+def _add_mesh_args(p):
+    p.add_argument("--max-device-len", type=int, metavar="L",
+                   help="pairs whose padded x extent exceeds L leave the "
+                        "lane-tile kernels for the long-pair paths "
+                        "(EngineConfig.max_device_len; default 1024)")
+    p.add_argument("--devices", type=int, metavar="N",
+                   help="score over a mesh of N ranks, one process a device "
+                        "(ShardedEngine); N must be the process group's size")
+    p.add_argument("--xshard", type=int, metavar="MINLEN",
+                   help="with --devices: SW pairs past --max-device-len with "
+                        "len(x) >= MINLEN score through the cross-device "
+                        "wavefront (one DP matrix in per-rank strips)")
+    p.add_argument("--coordinator", metavar="HOST:PORT",
+                   help="the process group's TCP rendezvous")
+    p.add_argument("--num-processes", type=int)
+    p.add_argument("--process-id", type=int)
 
 
 def main(argv=None) -> int:
@@ -83,6 +136,7 @@ def main(argv=None) -> int:
     p.add_argument("--gap-extend", type=int, default=-1)
     p.add_argument("--stats", action="store_true",
                    help="print JSON run stats to stderr")
+    _add_mesh_args(p)
     p.set_defaults(fn=cmd_sw)
     p = sub.add_parser("pairhmm", help="PairHMM forward log10 likelihoods "
                                        "for a reads x haplotypes file")
@@ -94,6 +148,7 @@ def main(argv=None) -> int:
                         "reference's plain Qr")
     p.add_argument("--stats", action="store_true",
                    help="print JSON run stats to stderr")
+    _add_mesh_args(p)
     p.set_defaults(fn=cmd_pairhmm)
     args = ap.parse_args(argv)
     try:
@@ -108,6 +163,18 @@ def main(argv=None) -> int:
         # to the CPU.
         print(f"genomax_torch: error: {e}", file=sys.stderr)
         return 2
+    finally:
+        _leave_group()
+
+
+def _leave_group():
+    """Destroy the process group that --devices started, if any."""
+    if "torch.distributed" not in sys.modules:
+        return
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -143,8 +143,24 @@ class EngineConfig:
     # fp64 model, None disabling it.
     rescale_period: int = 32
     phmm_fallback_threshold: float | None = -45.0
+    # Cross-device SW wavefront (ShardedEngine only; genomax.config's
+    # fields and defaults): offloaded SW pairs whose x has at least
+    # xshard_min_len bases score through one DP matrix split into per-rank
+    # strips of x (dist/xsharded.py, csrc/sw_xstrip.cu) instead of the
+    # long-pair kernel; None disables. unroll is its block length U: the
+    # diagonals one kernel launch sweeps and the halo rows a rank hands its
+    # right neighbour per block (any U >= 1; the port's other kernels do
+    # not read it).
+    unroll: int = 32
+    xshard_min_len: int | None = None
 
     def __post_init__(self):
+        if self.unroll < 1:
+            raise ValueError(f"unroll={self.unroll}: want a block of at "
+                             "least one diagonal")
+        if self.xshard_min_len is not None and self.xshard_min_len < 1:
+            raise ValueError(f"xshard_min_len={self.xshard_min_len}: want a "
+                             "positive x length, or None")
         if (self.sw_stack >= 2
                 and self.sw_stack * self.stack_max_nxs > MAX_KERNEL_ROWS):
             raise ValueError(

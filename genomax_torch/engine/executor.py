@@ -78,7 +78,7 @@ class RunStats:
     buckets: int = 0
     fallback_jobs: int = 0  # PairHMM pairs recomputed in native fp64
     offloaded_jobs: int = 0  # jobs too big for the lane-tile kernels
-    xsharded_jobs: int = 0  # SW pairs scored across devices (not ported)
+    xsharded_jobs: int = 0  # SW pairs scored across devices (ShardedEngine)
 
     @property
     def gcups(self) -> float:
@@ -223,12 +223,17 @@ class Engine:
         stats.buckets = len(buckets)
         sw_bucket_stats(stats, buckets)
         t0 = time.perf_counter()
-        results = _run_buckets("sw", buckets, self._sw_bucket, self.device)
+        results = self._sw_run(buckets)
         stats.exec_s = time.perf_counter() - t0
         out = unpack_scores(buckets, results, len(pairs), np.int32)
         self._sw_offload_post(pairs, out, off, stats)
         self.last_stats = stats
         return out
+
+    def _sw_run(self, buckets) -> list[np.ndarray]:
+        """(NT, 128) scores of each bucket on the host (``ShardedEngine``
+        shares them over its mesh)."""
+        return _run_buckets("sw", buckets, self._sw_bucket, self.device)
 
     def _sw_offload_post(self, pairs, out, off, stats):
         """Score the pairs the lane-tile kernel does not take, pair by
@@ -294,14 +299,18 @@ class Engine:
         stats.buckets = len(buckets)
         phmm_bucket_stats(stats, buckets)
         t0 = time.perf_counter()
-        results = _run_buckets("pairhmm", buckets, self._phmm_bucket,
-                               self.device)
+        results = self._phmm_run(buckets)
         stats.exec_s = time.perf_counter() - t0
         out = unpack_scores(buckets, results, n, np.float32)
         out, native_done = self._phmm_offload_post(jobs, out, off, stats)
         out = self._phmm_fallback(jobs, out, stats, native_done=native_done)
         self.last_stats = stats
         return out
+
+    def _phmm_run(self, buckets) -> list[np.ndarray]:
+        """(NT, 128) log10 likelihoods of each bucket on the host."""
+        return _run_buckets("pairhmm", buckets, self._phmm_bucket,
+                            self.device)
 
     def _phmm_offload_post(self, jobs, out, off, stats):
         """Score the jobs the lane-tile kernel does not take: the long-read

@@ -23,7 +23,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 # Every kernel source of the port (csrc/<name>.cu).
 KERNELS = ("sw_tile", "sw_long", "sw_strips", "sw_rotor", "sw_stacked",
-           "sw_conveyor", "pairhmm_tile", "pairhmm_long")
+           "sw_conveyor", "sw_xstrip", "pairhmm_tile", "pairhmm_long")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

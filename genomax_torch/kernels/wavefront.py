@@ -4,14 +4,15 @@
 They are the plain references of the CUDA kernels ``csrc/sw_tile.cu`` and
 ``csrc/pairhmm_tile.cu`` (and, further down, of the strip kernels
 ``csrc/sw_long.cu``, ``csrc/sw_strips.cu`` and ``csrc/pairhmm_long.cu``,
-and of the short-pair kernels ``csrc/sw_rotor.cu``, ``csrc/sw_stacked.cu``
-and ``csrc/sw_conveyor.cu``): the CPU paths of the wrappers in
+of the short-pair kernels ``csrc/sw_rotor.cu``, ``csrc/sw_stacked.cu``
+and ``csrc/sw_conveyor.cu``, and of the cross-device strip kernel
+``csrc/sw_xstrip.cu``): the CPU paths of the wrappers in
 ``kernels.sw``, ``kernels.pairhmm``, ``kernels.sw_long``,
 ``kernels.sw_strips``, ``kernels.sw_rotor``, ``kernels.sw_stacked``,
-``kernels.sw_conveyor`` and ``kernels.pairhmm_long`` run them, the tests
-hold them against the JAX package, and ``chip_smoke.py`` holds the
-kernels against them on the card. They keep the JAX formulation as it
-is, so the two can be read side by side:
+``kernels.sw_conveyor``, ``kernels.pairhmm_long`` and ``dist.xsharded``
+run them, the tests hold them against the JAX package, and
+``chip_smoke.py`` holds the kernels against them on the card. They keep
+the JAX formulation as it is, so the two can be read side by side:
 
   * the ``(NXs, L)`` layout: x position on axis 0, one pair per column;
   * the reversed diagonal stream, anchored at A = NDs - NXs: the window of
@@ -435,6 +436,46 @@ def sw_long_forward_dense(sx: torch.Tensor, sy: torch.Tensor, n_diags: int,
     n = min(ny_max, n_diags)
     stream[n_diags - n: n_diags] = sy[anchor - n: anchor]
     return sw_forward_dense(sx, stream, n_diags, cfg)
+
+
+def sw_xstrip_block(sxb: torch.Tensor, slab: torch.Tensor, hD: torch.Tensor,
+                    hQ: torch.Tensor, state, *, w: int, U: int,
+                    cfg: SWConfig = SWConfig()):
+    """Plain version of the cross-device strip kernel
+    (``csrc/sw_xstrip.cu``): one skewed block of U diagonals of one strip
+    of w rows, the step loop of genomax/dist/xsharded.py
+    ``_strip_block_pallas``.
+
+    sxb: (w, L) x codes of the strip; slab: (w+U, L) stream rows, the
+    window of in-block step tt being slab[U-tt : U-tt+w); hD, hQ: (U, L)
+    the left neighbour's last-row D and Q of each step (zeros on the first
+    strip); state: (P1, D1, D1s, Q1s, D2s, mx), six (w, L) int32. Returns
+    (state', bD, bQ): the state after the U steps and this strip's
+    last-row Dn and Qn of each step, (U, L) int32. There are no boundary
+    pins: row 0 takes the halo row where the roll would wrap the last row
+    round.
+    """
+    sxb = sxb.to(torch.int32)
+    slab = slab.to(torch.int32)
+    ge, oge = cfg.gap_extend, cfg.gap_open + cfg.gap_extend
+    match, mismatch = (torch.tensor(v, dtype=torch.int32, device=sxb.device)
+                       for v in (cfg.match, cfg.mismatch))
+    P1, D1, D1s, Q1s, D2s, mx = state
+    bD = torch.empty((U, sxb.shape[1]), dtype=torch.int32, device=sxb.device)
+    bQ = torch.empty_like(bD)
+    for tt in range(U):
+        syw = slab[U - tt: U - tt + w]
+        Pn = torch.maximum(D1, P1 + ge)
+        Qn = torch.maximum(D1s, Q1s + ge)
+        sub = torch.where(syw == sxb, match, mismatch)
+        Dn = torch.maximum(torch.maximum(Pn, Qn) + oge,
+                           torch.clamp_min(D2s + sub, 0))
+        mx = torch.maximum(mx, Dn)
+        bD[tt], bQ[tt] = Dn[w - 1], Qn[w - 1]
+        D1sn, Q1sn = torch.roll(Dn, 1, 0), torch.roll(Qn, 1, 0)
+        D1sn[0], Q1sn[0] = hD[tt], hQ[tt]
+        P1, D1, D1s, Q1s, D2s = Pn, Dn, D1sn, Q1sn, D1s
+    return (P1, D1, D1s, Q1s, D2s, mx), bD, bQ
 
 
 # ---------------------------------------------------------------------------

@@ -5,9 +5,10 @@ long-read kernel. Smith-Waterman: a ragged tile for the long-pair kernel,
 pairs whose y stream passes the same resident limit, ragged buckets
 of 128 rows or more for the strips kernel, short buckets with the
 queue adversaries for the rotor kernel, short buckets with the
-ghost-read adversary for the stacked kernel, and short pairs with the
-queue-leak adversary for the conveyor kernel. Imports no jax and nothing
-of the JAX package."""
+ghost-read adversary for the stacked kernel, short pairs with the
+queue-leak adversary for the conveyor kernel, and the cross-device
+wavefront's cases of tests/test_xsharded.py. Imports no jax and nothing of
+the JAX package."""
 
 import numpy as np
 
@@ -345,3 +346,57 @@ def conveyor_leak_pairs(seed, x_len, y_len):
     same, miss = (SWPair(sx=g[:x_len], sy=g),
                   SWPair(sx=b"A" * x_len, sy=b"T" * y_len))
     return ([same] * 128 + [miss] * 128) * 2
+
+
+def _xs_ragged(rng, n, lo, hi):
+    pairs = []
+    for _ in range(n):
+        a = rng.choice(list(b"ATGC"), int(rng.integers(lo, hi)))
+        b = rng.choice(list(b"ATGC"), int(rng.integers(lo, hi)))
+        a, b = a.astype(np.uint8).tobytes(), b.astype(np.uint8).tobytes()
+        if len(a) > len(b):
+            a, b = b, a
+        pairs.append(SWPair(sx=a, sy=b))
+    return pairs
+
+
+def xshard_cases():
+    """(name, pairs, unroll) of the cross-device wavefront: the cases of
+    tests/test_xsharded.py, from their seeds. Ragged 150-400bp pairs, an
+    identical and a disjoint pair (the largest and the zero score across
+    every strip seam), tiny pairs, unrolls 1, 2, 4 (the pack's anchor
+    round-up) and 64, and a tandem repeat (a halo handed over a block late
+    or from the wrong strip changes its score)."""
+    rng = np.random.default_rng(5)
+    x = rng.choice(list(b"ATGC"), 150).astype(np.uint8).tobytes()
+    junk = rng.choice(list(b"ATGC"), 160).astype(np.uint8).tobytes()
+    s = np.random.default_rng(1).choice(list(b"ATGC"), 300)
+    s = s.astype(np.uint8).tobytes()
+    small = _xs_ragged(np.random.default_rng(77), 6, 100, 260)
+    return [
+        ("ragged", _xs_ragged(np.random.default_rng(31), 16, 150, 400), 16),
+        ("identical_disjoint",
+         [SWPair(sx=s, sy=s), SWPair(sx=b"A" * 250, sy=b"T" * 350)], 16),
+        ("tiny", [SWPair(sx=b"ACGT", sy=b"ACGTACGT"),
+                  SWPair(sx=b"A", sy=b"A")], 8),
+        ("unroll1", small, 1), ("unroll2", small, 2), ("unroll4", small, 4),
+        ("unroll64", _xs_ragged(np.random.default_rng(3), 4, 150, 300), 64),
+        ("tandem", [SWPair(sx=x, sy=x + junk + x)], 16),
+    ]
+
+
+def xstrip_inputs(seed, w, unroll, lanes=128):
+    """Seeded inputs of one block of the cross-device strip kernel, as
+    numpy arrays: x codes (w, lanes) and a stream slab (w+U, lanes) int8
+    over ACGT with pad codes mixed in (1 in x, 0 in the stream), halos
+    hD >= 0 and hQ (U, lanes) int32, and six (w, lanes) int32 state
+    arrays of small signed values."""
+    rng = np.random.default_rng(seed)
+    codes = np.frombuffer(b"ACGT", np.uint8).astype(np.int8)
+    sxb = rng.choice(np.append(codes, 1), (w, lanes)).astype(np.int8)
+    slab = rng.choice(np.append(codes, 0), (w + unroll, lanes)).astype(np.int8)
+    hD = rng.integers(0, 40, (unroll, lanes)).astype(np.int32)
+    hQ = rng.integers(-40, 20, (unroll, lanes)).astype(np.int32)
+    state = tuple(rng.integers(-40, 40, (w, lanes)).astype(np.int32)
+                  for _ in range(6))
+    return sxb, slab, hD, hQ, state

@@ -54,7 +54,10 @@ def test_every_module_imports_without_jax_or_genomax(walked):
     "genomax_torch.kernels.sw_strips", "genomax_torch.kernels.sw_rotor",
     "genomax_torch.kernels.sw_stacked", "genomax_torch.kernels.sw_conveyor",
     "genomax_torch.kernels.pairhmm", "genomax_torch.kernels.pairhmm_long",
-    "genomax_torch.kernels.wavefront", "genomax_torch.cli.main"])
+    "genomax_torch.kernels.wavefront", "genomax_torch.cli.main",
+    "genomax_torch.dist", "genomax_torch.dist.mesh",
+    "genomax_torch.dist.sharded", "genomax_torch.dist.engine",
+    "genomax_torch.dist.xsharded"])
 def test_module_is_part_of_the_walk(walked, name):
     assert name in walked["modules"]
 
@@ -107,7 +110,8 @@ def _imported_roots(path):
 
 
 @pytest.mark.parametrize("rel", ["chip_smoke.py", "tests/_phmm_cases.py",
-                                 "tests/test_torch_kernel.py"])
+                                 "tests/test_torch_kernel.py",
+                                 "tests/_torch_dist_worker.py"])
 def test_script_imports_neither_jax_nor_genomax(rel):
     roots = _imported_roots(os.path.join(REPO, rel))
     assert not roots & {"jax", "jaxlib", "genomax"}

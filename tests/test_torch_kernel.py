@@ -1,6 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions on the card:
 csrc/sw_tile.cu, csrc/sw_long.cu, csrc/sw_strips.cu, csrc/sw_rotor.cu,
-csrc/sw_stacked.cu and csrc/sw_conveyor.cu (int32 scores, exact),
+csrc/sw_stacked.cu, csrc/sw_conveyor.cu and csrc/sw_xstrip.cu (int32
+scores and states, exact; the cross-device ring at K = 1-8 strips on one
+card, and ShardedEngine on a one-rank mesh),
 csrc/pairhmm_tile.cu and
 csrc/pairhmm_long.cu (within 1e-4 in log10, or two fp32 ulps of values
 below -512: nvcc contracts a*b+c into FMAs, the plain version rounds each
@@ -23,7 +25,9 @@ from _phmm_cases import (CONVEYOR_KINDS, conveyor_leak_pairs,
                          conveyor_sw_pairs, long_jobs, long_sw_pairs,
                          phmm_batches, rotor_leak_pairs, rotor_sw_pairs,
                          stacked_ghost_pairs, stacked_sw_pairs,
-                         streamed_batches, streamed_sw_pairs, strips_sw_pairs)
+                         streamed_batches, streamed_sw_pairs, strips_sw_pairs,
+                         xshard_cases, xstrip_inputs)
+from genomax_torch.dist import xsharded
 from genomax_torch.engine.executor import Engine
 from genomax_torch.kernels import (_build, pairhmm, pairhmm_long, sw,
                                    sw_conveyor, sw_long, sw_rotor, sw_stacked,
@@ -36,7 +40,8 @@ from genomax_torch.kernels.wavefront import (phmm_forward_tiles,
                                              sw_long_forward_dense,
                                              sw_rotor_forward_tiles,
                                              sw_stacked_forward_tiles,
-                                             sw_strips_forward_tiles)
+                                             sw_strips_forward_tiles,
+                                             sw_xstrip_block)
 from genomax_torch.pack import (phmm_bucket_to_torch, sw_bucket_to_torch,
                                 sw_rotor_to_torch, sw_stacked_to_torch,
                                 sw_strips_to_torch)
@@ -623,3 +628,87 @@ def test_pairhmm_wrapper_rejects_bad_inputs(device):
     t[1] = t[1].transpose(1, 2).contiguous().transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         pairhmm.pairhmm_forward(*t)
+
+
+@pytest.mark.parametrize("w,U", [(24, 1), (24, 8), (1024, 32), (1032, 8),
+                                 (1032, 64), (5000, 32)])
+@pytest.mark.parametrize("cfg", CFGS, ids=["default", "m2x3o5e2", "m3x1o0e2"])
+def test_sw_xstrip_kernel_equals_plain_version(device, cfg, w, U):
+    sxb, slab, hD, hQ, state = (
+        torch.from_numpy(a).to(device) if not isinstance(a, tuple)
+        else tuple(torch.from_numpy(s).to(device) for s in a)
+        for a in xstrip_inputs(w + U, w, U))
+    want = sw_xstrip_block(sxb, slab, hD, hQ, state, w=w, U=U, cfg=cfg)
+    before = xsharded.launches
+    lane_major = tuple(s.t().contiguous().t() for s in state)
+    for st in (state, lane_major):
+        got = xsharded.strip_block(sxb, slab, hD, hQ, st, w=w, U=U, cfg=cfg)
+        torch.cuda.synchronize()
+        for g, e in zip(got[0] + got[1:], want[0] + want[1:]):
+            assert torch.equal(g, e)
+    # in place, as sw_forward_xsharded updates its state
+    st = tuple(s.clone() for s in lane_major)
+    got = xsharded.strip_block(sxb, slab, hD, hQ, st, w=w, U=U, cfg=cfg,
+                               out=st)
+    torch.cuda.synchronize()
+    for g, e in zip(st, want[0]):
+        assert torch.equal(g, e)
+    assert xsharded.launches - before == 3
+
+
+@pytest.mark.parametrize("K", [1, 2, 4, 8])
+def test_sw_xsharded_ring_on_the_card(device, K):
+    for name, pairs, unroll in xshard_cases():
+        pk = xsharded.pack_sw_xsharded(pairs, K, unroll=unroll)
+        sx = torch.from_numpy(pk.sx).to(device)
+        sy = torch.from_numpy(pk.sy).to(device)
+        kw = dict(n_strips=K, strip_w=pk.strip_w, n_diags=pk.n_diags,
+                  unroll=unroll, anchor=pk.anchor)
+        before = xsharded.launches
+        got = xsharded.sw_forward_xsharded_ring(sx, sy, **kw)
+        plain = xsharded.sw_forward_xsharded_ring(sx, sy, block=sw_xstrip_block,
+                                                  **kw)
+        torch.cuda.synchronize()
+        assert xsharded.launches - before == K * xsharded.n_blocks(
+            pk.n_diags, unroll, K), name
+        assert torch.equal(got, plain), name
+        np.testing.assert_array_equal(got.cpu().numpy()[: len(pairs)],
+                                      native.sw_scores_native(pairs),
+                                      err_msg=name)
+
+
+def test_sw_xstrip_wrapper_rejects_bad_inputs(device):
+    sxb, slab, hD, hQ, state = (
+        torch.from_numpy(a).to(device) if not isinstance(a, tuple)
+        else tuple(torch.from_numpy(s).to(device) for s in a)
+        for a in xstrip_inputs(1, 40, 8))
+    with pytest.raises(TypeError):
+        xsharded.strip_block(sxb.to(torch.int32), slab, hD, hQ, state, w=40,
+                             U=8)
+    with pytest.raises(ValueError, match="shapes"):
+        xsharded.strip_block(sxb, slab[:-1], hD, hQ, state, w=40, U=8)
+    odd = tuple(s[::1, :] for s in state[:5]) + (state[5].t().contiguous().t(),)
+    with pytest.raises(ValueError, match="strides"):
+        xsharded.strip_block(sxb, slab, hD, hQ, odd, w=40, U=8)
+
+
+def test_sharded_engine_xshard_on_the_card(device):
+    from genomax_torch.dist.engine import ShardedEngine
+    from genomax_torch.dist.mesh import make_mesh
+
+    rng = np.random.default_rng(7)
+    abc = np.frombuffer(b"ATGC", np.uint8)
+    pairs = [SWPair(sx=rng.choice(abc, int(rng.integers(10, 30))).tobytes(),
+                    sy=rng.choice(abc, int(rng.integers(30, 60))).tobytes())
+             for _ in range(10)]
+    pairs += [SWPair(sx=rng.choice(abc, 90).tobytes(),
+                     sy=rng.choice(abc, 120).tobytes()),
+              SWPair(sx=rng.choice(abc, 100).tobytes(),
+                     sy=rng.choice(abc, 100).tobytes())]
+    eng = ShardedEngine(make_mesh(1, device="cuda"),
+                        EngineConfig(max_device_len=40, xshard_min_len=64))
+    before = xsharded.launches
+    got = eng.sw_scores(pairs)
+    assert xsharded.launches > before
+    assert eng.last_stats.xsharded_jobs == 2
+    np.testing.assert_array_equal(got, native.sw_scores_native(pairs))
