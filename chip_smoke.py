@@ -13,7 +13,11 @@ order 1, 2, 19, 21, 24, 27, 3, 4, 5, 22, 23, 25, 26, 28, 29, 20, 7-18,
                 csrc/sw_stacked.cu, csrc/sw_conveyor.cu, csrc/sw_xstrip.cu,
                 csrc/pairhmm_tile.cu, csrc/pairhmm_long.cu) from the
                 checkout, one nvcc each, in parallel, and g++-builds the
-                native golden library
+                native golden library; prints ptxas's registers and spills
+                of every kernel instance, and the SASS count of integer
+                arithmetic a cell along one step of csrc/sw_long.cu's and
+                csrc/sw_xstrip.cu's loop at R = 4, 8 and 16 (cuobjdump
+                -sass), which SW_OPS_PER_CELL must not pass
   2. kernel     the lane-tile SW kernel vs its plain PyTorch version on
                 ragged buckets under three scoring configs, exact
   3. goldens    Engine(device="cuda") on the vendored SW goldens, exact
@@ -64,11 +68,16 @@ order 1, 2, 19, 21, 24, 27, 3, 4, 5, 22, 23, 25, 26, 28, 29, 20, 7-18,
                 model on a tile of 128 pairs (x 1,023-4,000bp, y to 5kbp,
                 an identical pair, a tandem repeat across a strip seam, an
                 all-mismatch pair, a one-base pair) under three scoring
-                configs, at strip widths 64 and 1024, exact; the plain
+                configs, packed at strip widths 64 and 1024, the kernel at
+                R = 4, 8 and 16, exact; the plain
                 strip sweep at 1024 and the plain full-height sweep
                 there, and the strip sweep at 64 on a tile a quarter as
                 long (x 300-1,100bp, the same special pairs, 18 strips);
-                kernel vs plain ms on the 4kbp tile
+                on a tile taller than 4,096 rows (24 pairs, x
+                4,200-4,400bp, two sub-strips at every R, a tandem repeat
+                across their seam) the kernel at each R == the plain
+                full-height sweep == native; kernel vs plain ms on the
+                4kbp tile
  15. sw streamed the lane-tile SW kernel on buckets whose stream passes
                 6,144 rows (x 30-600bp planted in y of 6-10kbp): kernel ==
                 plain == native, exact, and kernel vs plain ms on the
@@ -89,9 +98,10 @@ order 1, 2, 19, 21, 24, 27, 3, 4, 5, 22, 23, 25, 26, 28, 29, 20, 7-18,
                 kernel; results in input order, 256 sampled pairs ==
                 native model, the lane-tile, strips and long-pair launch
                 counts move
- 18. sw long time  long-pair kernel ms per 50kbp tile, slope
-                (t(3) - t(1)) / 2, twice, beside phase 16's plain ms on
-                the same tile
+ 18. sw long time  long-pair kernel ms per 50kbp tile at R = 4, 8 and
+                16 in turns (4, 8, 16, 16, 8, 4), slope (t(3) - t(1)) /
+                2, each R's scores == phase 16's, beside phase 16's plain
+                ms on the same tile
  19. sw strips   the strips kernel vs its plain strip sweep, the plain
                 lane-tile sweep and the native model on ragged buckets of
                 136-608 rows (an identical pair, a tandem repeat across
@@ -167,26 +177,37 @@ order 1, 2, 19, 21, 24, 27, 3, 4, 5, 22, 23, 25, 26, 28, 29, 20, 7-18,
                 at 64 slots by one call, == the kernel on every row;
                 beside the rotor's time of phase 23, GCUPS and the bound
  30. xstrip kernel  the cross-device strip kernel vs its plain block on
-                seeded states and halos at w = 24, 1,024, 1,032 and 5,000
-                rows (sub-strip seams) and U = 1, 8, 32 and 64, contiguous
-                and lane-major in place, under three scoring configs, all
-                eight outputs exact; then the K-strip ring (each strip's
+                seeded states and halos at w = 24, 25 (a lane stride of
+                no whole int4: the state moved one int at a time), 1,024,
+                1,032 and 5,000 rows (sub-strip seams) and U = 1, 8, 32
+                and 64, contiguous and lane-major in place, under three
+                scoring configs, all eight outputs exact; at R = 4, 8 and
+                16 on the whole strip and on partial windows (g_lo > 0,
+                g_hi < w), in place: the window == the plain block on the
+                slice, the rows outside bit for bit the input; one block
+                at U = 8,192 (MAX_UNROLL) on 8,000 rows at each R, where
+                the prefetch has no room, exact; then the K-strip ring (each strip's
                 halo handed to the next a block later, in one process) at
                 K = 1, 2, 4 and 8 on the cases of tests/test_xsharded.py
                 and phase 14's 4kbp tile: kernel ring == plain ring ==
-                native model, exact, K * n_blocks launches each
+                native model, exact, K * n_blocks launches each, and the
+                ring windowed to the live rows == the plain ring, one
+                launch a non-empty window
  31. xshard main  initialize_distributed over NCCL at world size 1 (a free
                 localhost port) and ShardedEngine(make_mesh(1, "cuda"),
                 xshard_min_len=40,000) on phase 16's tile: all 128 pairs
                 take the cross-device path, the launch count read around
-                the call is n_blocks, all 128 scores == phase 16's sw_long
+                the call is the non-empty live-row windows' (the forward
+                windowed by the tile's longest y), all 128 scores == phase
+                16's sw_long
                 scores, the identical pair 50,000, four sampled == native;
                 the wall, then pack, copy and forward apart; then phase
                 17's file (== Engine, exact) and phase 9's jobs (within
                 1e-5 of Engine, the same fallbacks) through it
- 32. xstrip time  the kernel on one block at the 50kbp shape (w = 50,008,
-                U = 32), in place, vs its plain block, slope (t(9) - t(1))
-                / 8 in turns, its bound; the kernel and plain rings on the
+ 32. xstrip time  the kernel on one full-window block at the 50kbp shape
+                (w = 50,008, U = 32), in place, at R = 4, 8 and 16 in
+                turns, between two timings of its plain block, slope
+                (t(9) - t(1)) / 8, its bound; the kernel and plain rings on the
                 4kbp tile at K = 1 by one call each; the forward's wall
                 beside phase 18's sw_long time
 
@@ -230,11 +251,11 @@ STACK_LENS = (32, 64)
 # 29's timing (the library default, 64, last) and of the sweep's points.
 CONVEYOR_CHECK_SLOTS, CONVEYOR_SLOTS = (1, 2, 4, 64), (4, 16, 64)
 CONVEYOR_SWEEP_SLOTS = (4, 64)
-# Cross-device strip kernel: phase 30's strip widths (sub-strip seams at
-# 1,024 rows) and block lengths, the ring's strip counts; phase 31's
+# Cross-device strip kernel: phase 30's strip widths (25: a lane-major
+# lane stride of no whole int4; 5,000: two sub-strips) and block lengths, the ring's strip counts; phase 31's
 # xshard_min_len, under which phase 16's 50kbp pairs take the cross-device
 # path and phase 17's pairs (x up to 4kbp) do not.
-XSTRIP_WIDTHS, XSTRIP_UNROLLS = (24, 1024, 1032, 5000), (1, 8, 32, 64)
+XSTRIP_WIDTHS, XSTRIP_UNROLLS = (24, 25, 1024, 1032, 5000), (1, 8, 32, 64)
 XSTRIP_RINGS, XS_MIN_LEN = (1, 2, 4, 8), 40000
 # Published peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet):
 # device memory rate and fp32 rate outside the tensor cores. The int32
@@ -242,13 +263,22 @@ XSTRIP_RINGS, XS_MIN_LEN = (1, 2, 4, 8), 40000
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 SMS, INT32_LANES = 132, 64
-# Operations per real cell, counted from the recurrences as written, with
-# no fused instruction assumed. SW: P and Q two adds and a max each; the
-# substitution a compare, a select and an add; four more maxes (P with Q,
-# the diagonal with 0, those two, the running best). PairHMM: M three
+# Operations per real cell. SW: the fewest integer instructions a cell
+# needs on this card, 7.5: sw_cell.cuh's `sw_cell_dpx_preopen` (the strip
+# kernel's form) is P' and Q' one __viaddmax_s32 each, max(P', Q'), D one
+# __viaddmax_s32_relu, the substitution a compare, a select and an add,
+# and the running best half a three-way max. Phase 1 reads the count as
+# compiled along one step of both redesigned kernels' loops (about 8.5 to
+# 12.5 a cell with the loop's own code) and fails if any falls below it.
+# DPX's own issue rate is assumed to be the int32 rate, not published.
+# (The plain count, with no fused instruction, is 13: P and Q two adds and
+# a max each, compare, select and add, four more maxes.) PairHMM: M three
 # multiplies and two adds, X and Y two multiplies and an add each.
-SW_OPS_PER_CELL = (2 + 1) + (2 + 1) + 3 + 4
+SW_OPS_PER_CELL = 7.5
 PHMM_FLOPS_PER_CELL = (3 + 2) + (2 + 1) + (2 + 1)
+# SASS opcodes of the SW cell's own arithmetic (no moves, loads or stores).
+SW_CELL_OPCODES = ("VIADDMNMX", "VIMNMX", "VIMNMX3", "VIADD", "IMAD.IADD",
+                   "IADD3", "ISETP", "SEL")
 CFGS = [dict(match=1, mismatch=-1, gap_open=-3, gap_extend=-1),
         dict(match=2, mismatch=-3, gap_open=-5, gap_extend=-2),
         dict(match=3, mismatch=-1, gap_open=0, gap_extend=-2)]
@@ -356,6 +386,95 @@ def native_sw(native, pairs, cfg=None, threads=8):
     return out
 
 
+def sass_cell_ops(lib, kernel, dpx_per_cell):
+    """{R: (integer arithmetic instructions a cell, cells a step)} of
+    `kernel` in the library `lib`, read with cuobjdump -sass (the CUDA
+    toolkit's, else the one Triton carries). In each template instance the
+    cell block is the straight-line block with the most DPX add-max
+    instructions and the fewest selects a cell (the unmasked path); from
+    it the count walks one step of the loop, forward branches taken (the
+    code one thread in a warp or a block runs is skipped) except one that
+    jumps past the cell block, the back edge followed round to the cell
+    block again. Along that path it counts the opcodes of SW_CELL_OPCODES
+    (the loop's own counters and tests among them) and the cells (DPX
+    add-max instructions / dpx_per_cell)."""
+    import collections
+    import re
+    import shutil
+
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(exe):
+        import triton
+        exe = os.path.join(os.path.dirname(triton.__file__), "backends",
+                           "nvidia", "bin", "cuobjdump")
+    sass = subprocess.run([exe, "-sass", lib], capture_output=True,
+                          text=True, timeout=120)
+    check(sass.returncode == 0, f"cuobjdump failed: {sass.stderr[-500:]}")
+    ins_re = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
+    bra_re = re.compile(r"BRA (?:!?U?P\w+, )?(0x[0-9a-f]+)")
+    funcs, name = {}, None
+    for line in sass.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            funcs[name] = []
+        elif name and (m := ins_re.search(line)):
+            op = re.sub(r"^@!?U?P\w+\s+", "", m.group(2))
+            t = bra_re.search(op)
+            funcs[name].append((int(m.group(1), 16), op.split()[0],
+                                int(t.group(1), 16) if t else None,
+                                m.group(2).startswith("@")))
+
+    def arith(o):
+        return o.split(".")[0] in SW_CELL_OPCODES or o in SW_CELL_OPCODES
+
+    out = {}
+    for name, ins in funcs.items():
+        m = re.search(kernel + r"ILi(\d+)E", name)
+        if not m:
+            continue
+        index = {a: n for n, (a, _, _, _) in enumerate(ins)}
+        targets = {t for _, _, t, _ in ins if t is not None}
+        blocks, cur = [], []
+        for n, (a, op, _, _) in enumerate(ins):
+            if a in targets and cur:
+                blocks.append(cur)
+                cur = []
+            cur.append(n)
+            if op.startswith(("BRA", "EXIT", "BAR")):
+                blocks.append(cur)
+                cur = []
+        best = None
+        for b in blocks:
+            ops = [ins[n][1] for n in b]
+            cells = sum(o.startswith("VIADDMNMX") for o in ops) // dpx_per_cell
+            if cells < 2:
+                continue
+            key = (ops.count("SEL") / cells, -cells)
+            if best is None or key < best[0]:
+                best = (key, b[0])
+        check(best is not None, f"no DPX cell block in {name}")
+        start = best[1]
+        n, seen, path = start, set(), collections.Counter()
+        while True:
+            check(n not in seen and ins[n][1] != "EXIT",
+                  f"{name}: the step from the cell block does not return")
+            seen.add(n)
+            a, op, t, cond = ins[n]
+            path[op] += 1
+            if t is not None and not (cond and a < ins[start][0] < t):
+                n = index[t]
+            else:
+                n += 1
+            if n == start:
+                break
+        cells = sum(c for o, c in path.items()
+                    if o.startswith("VIADDMNMX")) // dpx_per_cell
+        out[int(m.group(1))] = (
+            sum(c for o, c in path.items() if arith(o)) / cells, cells)
+    return out
+
+
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -434,6 +553,26 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "bytes stack" in line:
                 print(f"  ptxas: {line.strip()}")
+            elif "Compiling entry" in line:
+                print(f"  ptxas: {line.split('for')[0].strip()[-96:]}")
+    # the DPX cell of the two redesigned kernels, instance by instance
+    sass_ops = {}
+    for name, kernel, dpx in (("sw_long", "sw_long_kernel", 2),
+                              ("sw_xstrip", "sw_xstrip_kernel", 3)):
+        path = builds[names.index(name)][0]
+        sass_ops[name] = sass_cell_ops(path, kernel, dpx)
+        check(sorted(sass_ops[name]) == [4, 8, 16],
+              f"{name}: SASS instances {sorted(sass_ops[name])}")
+        check(all(c == r for r, (_, c) in sass_ops[name].items()),
+              f"{name}: cells a step by R {sass_ops[name]}")
+        print(f"phase 1 sass {name}: integer arithmetic a cell along one "
+              "step by R " + ", ".join(
+                  f"R={r}: {n:.2f} over {c} cells" for r, (n, c)
+                  in sorted(sass_ops[name].items())))
+    fewest = min(n for ops in sass_ops.values() for n, _ in ops.values())
+    check(SW_OPS_PER_CELL <= fewest,
+          f"SW_OPS_PER_CELL {SW_OPS_PER_CELL}: a kernel's step takes "
+          f"{fewest} a cell")
 
     # 2. kernel vs plain version on the card
     pairs = ragged_pairs(1)
@@ -1422,8 +1561,9 @@ def main() -> int:
         _, anchor, _ = sw_long._layout(b.ny_max, b.strip_w)
         kw = dict(k_strips=b.n_strips, strip_w=b.strip_w, ny_max=b.ny_max)
 
-        def kernel(cfg):
-            return sw_long.sw_forward_long(*t, cfg=cfg, **kw)
+        def kernel(cfg, r=sw_long.LONG_R):
+            return sw_long.sw_forward_long(*t, cfg=cfg, **kw,
+                                           _rows_per_thread=r)
 
         def plain(cfg):
             return sw_long_forward(*t, b.n_strips, b.strip_w, anchor, cfg)
@@ -1447,38 +1587,62 @@ def main() -> int:
     k64, _, _, b64, _ = sw_long_tile(pairs, 64)
     kdef, pdef, ddef, bdef, tdef = sw_long_tile(pairs, sw_long.STRIP_W)
     ks64, ps64, _, bs64, _ = sw_long_tile(small, 64)
+    # A tile taller than sw_long.MAX_ROWS (5 strips of 1,024: two
+    # sub-strips of 2,560 rows at every R), the tandem repeat across that
+    # seam, held against the plain full-height sweep.
+    tall = cases.long_sw_pairs(9, n_pairs=24, x_lens=(4200, 4400),
+                               y_max=4600, seam=2560)
+    ktall, _, dtall, btall, _ = sw_long_tile(tall, sw_long.STRIP_W)
+    for r in sw_long.ROWS_PER_THREAD:
+        geo = sw_long.geometry(btall.n_strips * btall.strip_w, btall.ny_max,
+                               r)
+        check((geo.n_sub, geo.height) == (2, 2560),
+              f"the tall tile at R = {r}: {geo}")
     for c in CFGS:
         cfg = SWConfig(**c)
         t0 = time.perf_counter()
         want = torch.from_numpy(native_sw(native, pairs, cfg)).to(dev)
         want_small = torch.from_numpy(native_sw(native, small, cfg)).to(dev)
+        want_tall = torch.from_numpy(native_sw(native, tall, cfg)).to(dev)
         t_native = time.perf_counter() - t0
-        got = {"strips of 64": k64(cfg),
-               f"strips of {bdef.strip_w}": kdef(cfg),
-               f"plain, strips of {bdef.strip_w}": pdef(cfg),
+        got = {f"plain, strips of {bdef.strip_w}": pdef(cfg),
                "plain, full height": ddef(cfg),
-               "small tile, strips of 64": ks64(cfg),
-               "small tile, plain, strips of 64": ps64(cfg)}
+               "small tile, plain, strips of 64": ps64(cfg),
+               "tall tile, plain, full height": dtall(cfg)}
+        # the kernel at every R on every pack
+        for r in sw_long.ROWS_PER_THREAD:
+            got[f"R={r}, strips of 64"] = k64(cfg, r)
+            got[f"R={r}, strips of {bdef.strip_w}"] = kdef(cfg, r)
+            got[f"small tile, R={r}, strips of 64"] = ks64(cfg, r)
+            got[f"tall tile, R={r}, strips of {btall.strip_w}"] = ktall(cfg,
+                                                                        r)
         torch.cuda.synchronize()
         for name, g in got.items():
-            ref = want_small if name.startswith("small") else want
-            err = int((g[:n].long() - ref.long()).abs().max())
+            ref = (want_small if name.startswith("small") else
+                   want_tall if name.startswith("tall") else want)
+            m = len(ref)
+            err = int((g[:m].long() - ref.long()).abs().max())
             sl_err = max(sl_err, err)
             check(err == 0, f"long-pair SW ({name}) != native model under "
                             f"{cfg}: max |diff| {err}")
-            check(not bool(g[n:].any()),
+            check(not bool(g[m:].any()),
                   f"long-pair SW ({name}): an empty lane scored")
         check(int(want[n - 4]) == 4000 * cfg.match
-              and int(want_small[n - 4]) == 1100 * cfg.match,
+              and int(want_small[len(small) - 4]) == 1100 * cfg.match
+              and int(want_tall[len(tall) - 4]) == 4400 * cfg.match,
               f"the identical pairs scored {int(want[n - 4])}, "
-              f"{int(want_small[n - 4])}")
+              f"{int(want_small[len(small) - 4])}, "
+              f"{int(want_tall[len(tall) - 4])}")
         print(f"phase 14 sw long kernel == plain == native: {n} pairs (x "
-              f"1,023-4,000bp, y to 5kbp), {b64.n_strips} strips of 64 and "
-              f"{bdef.n_strips} of {bdef.strip_w}, plain at "
+              f"1,023-4,000bp, y to 5kbp), packs of {b64.n_strips} strips "
+              f"of 64 and {bdef.n_strips} of {bdef.strip_w}, plain at "
               f"{bdef.strip_w} and at full height; {len(small)} pairs (x "
               f"300-1,100bp, y to 1.3kbp), {bs64.n_strips} strips of 64, "
-              f"kernel and plain; {cfg}, {len(got)} results exact (native "
-              f"{t_native:.2f} s)")
+              f"kernel and plain; {len(tall)} pairs (x 4,200-4,400bp, y to "
+              f"4.6kbp), {btall.n_strips} strips of {btall.strip_w}, two "
+              f"sub-strips of 2,560 rows, kernel and plain at full height; "
+              f"the kernel at R = {sw_long.ROWS_PER_THREAD}; {cfg}, "
+              f"{len(got)} results exact (native {t_native:.2f} s)")
     cfg = SWConfig()
     k1, p1, f1, k2 = (slope_ms(lambda: kdef(cfg), torch, 3),
                       one_ms(lambda: pdef(cfg), torch),
@@ -1596,11 +1760,14 @@ def main() -> int:
     host = got.cpu().numpy()
     t_d2h = time.perf_counter() - t0
     check(np.array_equal(host, scores), "the staged tile != the engine's")
-    halo_mb = 128 * (b50.n_strips * b50.strip_w + b50.ny_max
-                     + sw_long.HALO_SLACK) * 8 / 1e6
+    geo50 = sw_long.geometry(b50.n_strips * b50.strip_w, b50.ny_max)
+    halo_mb = 128 * geo50.halo_entries * 8 / 1e6
     print(f"phase 16 stages, s: pack {t_pack:.4f}, h2d {t_h2d:.4f}, kernel "
           f"{t_kernel:.4f}, d2h {t_d2h:.4f}; tile {nbytes(*t50) / 1e6:.1f} MB, "
-          f"halo {halo_mb:.1f} MB, {b50.n_strips} strips of {b50.strip_w}")
+          f"halo {halo_mb:.1f} MB; pack of {b50.n_strips} strips of "
+          f"{b50.strip_w}, kernel at R = {sw_long.LONG_R}: "
+          f"{geo50.n_sub} sub-strips of {geo50.height} rows, "
+          f"{geo50.threads} threads")
 
     # 16, kernel vs plain on that tile: every lane against the plain
     # full-height sweep (all 50,176 rows at once over 100,001 diagonals; the
@@ -1659,15 +1826,24 @@ def main() -> int:
     mx_pairs, mx_scores = pairs, scores
 
     # 18. long-pair kernel timing on the 50kbp tile
-    k50 = lambda: sw_long.sw_forward_long(*t50, **kw50)  # noqa: E731
-    k1, k2 = slope_ms(k50, torch, 3), slope_ms(k50, torch, 3)
+    # each R in turns (4, 8, 16, 16, 8, 4), each result == phase 16's
+    sl_r_ms = {r: [] for r in sw_long.ROWS_PER_THREAD}
+    for r in sw_long.ROWS_PER_THREAD + sw_long.ROWS_PER_THREAD[::-1]:
+        k50 = lambda: sw_long.sw_forward_long(  # noqa: E731
+            *t50, **kw50, _rows_per_thread=r)
+        check(torch.equal(k50(), got), f"sw_long at R = {r} != R = "
+                                       f"{sw_long.LONG_R} on the 50kbp tile")
+        sl_r_ms[r].append(slope_ms(k50, torch, 3))
+    k1, k2 = sl_r_ms[sw_long.LONG_R]
     sl_kernel_ms = (k1 + k2) / 2
     cells = LP_PAIRS * LP_LEN * LP_LEN
     sl_bound = bound_ms(nbytes(*t50) + 4 * 128, cells * SW_OPS_PER_CELL,
                         int32_ops)
     print(f"phase 18 sw long timing, tile of {LP_PAIRS} pairs {LP_LEN} x "
-          f"{LP_LEN}: kernel {k1:.3f} / {k2:.3f} ms per call, bound "
-          f"{sl_bound[0]:.4f} ms by {sl_bound[1]}; GCUPS kernel "
+          f"{LP_LEN}, ms per call in turns: " + ", ".join(
+              f"R={r} {a:.3f} / {b:.3f}" for r, (a, b) in sl_r_ms.items())
+          + f"; the default R = {sw_long.LONG_R}: {sl_kernel_ms:.3f} ms, "
+          f"bound {sl_bound[0]:.4f} ms by {sl_bound[1]}; GCUPS kernel "
           f"{cells / sl_kernel_ms / 1e6:.2f}, plain "
           f"{cells / sl_plain_ms / 1e6:.2f} at phase 16's {sl_plain_ms:.1f} "
           f"ms (cells = sum len(sx)*len(sy), {cells})")
@@ -1701,15 +1877,76 @@ def main() -> int:
                         check(err == 0, f"sw_xstrip ({name}) output {i} != "
                                         f"plain at w={w}, U={U} under {cfg}:"
                                         f" max |diff| {err}")
+                # every R on partial windows, in place: the plain block on
+                # the slice (zeros above g_lo > 0, zero halo out below
+                # g_hi < w), the rows outside bit for bit as they were
+                zero = torch.zeros_like(hD)
+                for g_lo, g_hi in ((0, w), (w // 3, w), (0, w // 2 + 1),
+                                   (w // 4, w - w // 5)):
+                    if g_lo >= g_hi:
+                        continue
+                    sl = slice(g_lo, g_hi)
+                    top = (hD, hQ) if g_lo == 0 else (zero, zero)
+                    part = sw_xstrip_block(
+                        sxb[sl], slab[g_lo: g_hi + U], *top,
+                        tuple(a[sl] for a in st), w=g_hi - g_lo, U=U,
+                        cfg=cfg)
+                    for r in xsharded.ROWS_PER_THREAD:
+                        io = tuple(a.t().contiguous().t() for a in st)
+                        _, bD, bQ = xsharded.strip_block(
+                            sxb, slab, hD, hQ, io, w=w, U=U, cfg=cfg, out=io,
+                            rows=(g_lo, g_hi), _rows_per_thread=r)
+                        torch.cuda.synchronize()
+                        ok = all(torch.equal(a[sl], b) and torch.equal(
+                                     a[:g_lo], c[:g_lo]) and torch.equal(
+                                     a[g_hi:], c[g_hi:])
+                                 for a, b, c in zip(io, part[0], st))
+                        ok = ok and all(
+                            torch.equal(a, b if g_hi == w else
+                                        torch.zeros_like(b))
+                            for a, b in zip((bD, bQ), part[1:]))
+                        check(ok, f"sw_xstrip at R = {r}, rows ({g_lo}, "
+                                  f"{g_hi}) != plain on the slice at w={w}, "
+                                  f"U={U} under {cfg}")
         print(f"phase 30 xstrip kernel == plain: w {XSTRIP_WIDTHS} x U "
               f"{XSTRIP_UNROLLS}, contiguous and lane-major in place, {cfg}, "
-              f"8 outputs exact ({time.perf_counter() - t0:.1f} s so far)")
+              f"8 outputs exact; at R = {xsharded.ROWS_PER_THREAD} on the "
+              f"whole strip and partial windows, the window == the plain "
+              f"block on the slice and the rows outside untouched "
+              f"({time.perf_counter() - t0:.1f} s so far)")
+    # the longest block, U = MAX_UNROLL, on two sub-strips: the prefetch of
+    # the next sub-strip's state has no room beside the block's 5U ints,
+    # so the kernel moves the lane-major state by int4 straight from memory
+    w, U = 8000, xsharded.MAX_UNROLL
+    sxb, slab, hD, hQ, st = (
+        torch.from_numpy(a).to(dev) if not isinstance(a, tuple)
+        else tuple(torch.from_numpy(b).to(dev) for b in a)
+        for a in cases.xstrip_inputs(11, w, U))
+    want = sw_xstrip_block(sxb, slab, hD, hQ, st, w=w, U=U)
+    for r in xsharded.ROWS_PER_THREAD:
+        io = tuple(a.t().contiguous().t() for a in st)
+        moves = xsharded._moves([a.data_ptr() for a in io], 1, w,
+                                xsharded._threads(w, r), r, U)
+        check(moves == (True, False), f"U = {U}, R = {r}: moves {moves}")
+        got = xsharded.strip_block(sxb, slab, hD, hQ, io, w=w, U=U, out=io,
+                                   _rows_per_thread=r)
+        torch.cuda.synchronize()
+        for i, (a, b) in enumerate(zip((*got[0], got[1], got[2]),
+                                       (*want[0], want[1], want[2]))):
+            err = int((a.long() - b.long()).abs().max())
+            xs_err = max(xs_err, err)
+            check(err == 0, f"sw_xstrip at U = {U}, R = {r}: output {i} != "
+                            f"plain, max |diff| {err}")
+    print(f"phase 30 xstrip kernel == plain at U = {U} (MAX_UNROLL), w {w}, "
+          f"lane-major in place, no prefetch, R = "
+          f"{xsharded.ROWS_PER_THREAD}, 8 outputs exact "
+          f"({time.perf_counter() - t0:.1f} s so far)")
     ring_cases = cases.xshard_cases() + [
         ("4kbp tile", cases.long_sw_pairs(3), 32)]
     ring_native = {name: native_sw(native, pairs)
                    for name, pairs, _ in ring_cases}
     for K in XSTRIP_RINGS:
-        n_launch = 0
+        n_launch = n_window = 0
         for name, pairs, U in ring_cases:
             pk = xsharded.pack_sw_xsharded(pairs, K, unroll=U)
             sx, sy = (torch.from_numpy(a).to(dev) for a in (pk.sx, pk.sy))
@@ -1731,11 +1968,29 @@ def main() -> int:
                                  ring_native[name])
                   and not bool(got[len(pairs):].any()),
                   f"xstrip ring ({name}, K = {K}) != native model")
+            # windowed to the live rows, as the forward runs
+            ly_max = xsharded.tile_ly_max(pk)
+            live = sum(
+                lo < hi for b in range(xsharded.n_blocks(pk.n_diags, U, K))
+                for k in range(K)
+                for lo, hi in [xsharded.live_rows(
+                    k, b, strip_w=pk.strip_w, unroll=U, ly_max=ly_max)])
+            before = xsharded.launches
+            windowed = xsharded.sw_forward_xsharded_ring(sx, sy, **kw,
+                                                         ly_max=ly_max)
+            nw = xsharded.launches - before
+            torch.cuda.synchronize()
+            check(nw == live and torch.equal(windowed, plain),
+                  f"windowed xstrip ring ({name}, K = {K}): {nw} launches "
+                  f"(want {live} windows), equal to the plain ring: "
+                  f"{torch.equal(windowed, plain)}")
             n_launch += n
+            n_window += nw
         print(f"phase 30 xstrip ring, K = {K}: {len(ring_cases)} cases "
               f"({', '.join(n for n, _, _ in ring_cases)}) == plain ring == "
-              f"native, exact, {n_launch} launches "
-              f"({time.perf_counter() - t0:.1f} s so far)")
+              f"native, exact, {n_launch} launches; windowed to the live "
+              f"rows == plain ring, {n_window} launches (the non-empty "
+              f"windows) ({time.perf_counter() - t0:.1f} s so far)")
 
     # 31. the cross-device path through ShardedEngine on a one-rank NCCL
     # mesh: phase 16's tile, then phase 17's file and phase 9's jobs
@@ -1761,13 +2016,20 @@ def main() -> int:
         stats = xeng.last_stats
         xs_unroll = xeng.cfg.unroll
         xs_blocks = xsharded.n_blocks(2 * LP_LEN + 1, xs_unroll, 1)
+        # the blocks whose live-row window is not empty (ly_max 50,000)
+        xs_windows = [xsharded.live_rows(0, b, strip_w=LP_LEN + 8,
+                                         unroll=xs_unroll, ly_max=LP_LEN)
+                      for b in range(xs_blocks)]
+        xs_live = sum(lo < hi for lo, hi in xs_windows)
+        xs_rows = sum(max(0, hi - lo) for lo, hi in xs_windows)
         check(stats.xsharded_jobs == stats.offloaded_jobs == LP_PAIRS,
               f"xsharded_jobs {stats.xsharded_jobs}, offloaded_jobs "
               f"{stats.offloaded_jobs} of {LP_PAIRS}")
-        check(xs_launches == xs_blocks and sw_long.launches == 0
+        check(xs_launches == xs_live and sw_long.launches == 0
               and sw.launches == 0,
-              f"{xs_launches} xstrip launches (want {xs_blocks}), "
-              f"{sw_long.launches} long-pair, {sw.launches} lane-tile")
+              f"{xs_launches} xstrip launches (want the {xs_live} non-empty "
+              f"windows of {xs_blocks} blocks), {sw_long.launches} "
+              f"long-pair, {sw.launches} lane-tile")
         check(np.array_equal(scores, lp_scores),
               "the cross-device scores != phase 16's sw_long scores")
         check(int(scores[LP_PAIRS // 2]) == LP_LEN,
@@ -1777,7 +2039,10 @@ def main() -> int:
         print(f"phase 31 xshard main path: ShardedEngine on a one-rank NCCL "
               f"mesh (init {t_init:.2f} s), {LP_PAIRS} x {LP_LEN}bp x "
               f"{LP_LEN}bp, xshard_min_len {XS_MIN_LEN}, unroll {xs_unroll}: "
-              f"wall {wall:.3f} s, {xs_launches} xstrip launches, 0 long-pair"
+              f"wall {wall:.3f} s, {xs_launches} xstrip launches of "
+              f"{xs_blocks} blocks (windows of {xs_rows} rows in all, "
+              f"{xs_rows / (xs_blocks * (LP_LEN + 8)):.3f} of the full "
+              f"sweep's), 0 long-pair"
               f", xsharded_jobs {stats.xsharded_jobs}, all {LP_PAIRS} == "
               f"phase 16's sw_long scores, identical pair {LP_LEN}, "
               f"{len(lp_sample)} sampled == native, stats "
@@ -1796,10 +2061,13 @@ def main() -> int:
         t0 = time.perf_counter()
         got = xsharded.sw_forward_xsharded(
             sxs, sys_, mesh=mesh, strip_w=pkx.strip_w, n_diags=pkx.n_diags,
-            unroll=xs_unroll, anchor=pkx.anchor)
+            unroll=xs_unroll, anchor=pkx.anchor,
+            ly_max=xsharded.tile_ly_max(pkx))
         torch.cuda.synchronize()
         t_fwd = time.perf_counter() - t0
-        check(np.array_equal(got.cpu().numpy(), scores),
+        check(np.array_equal(got.cpu().numpy(), scores)
+              and pkx.strip_w == LP_LEN + 8
+              and xsharded.tile_ly_max(pkx) == LP_LEN,
               "the staged forward != the engine's")
         print(f"phase 31 stages, s: pack {t_pack:.4f}, h2d {t_h2d:.4f}, "
               f"forward {t_fwd:.4f} ({pkx.n_diags} diagonals in "
@@ -1848,12 +2116,25 @@ def main() -> int:
         xs_err = max(xs_err, err)
         check(err == 0, f"sw_xstrip != plain on the 50kbp block: {err}")
     pst = tuple(a.contiguous() for a in st)
-    kern = lambda: xsharded.strip_block(  # noqa: E731
-        sxs, slab, zh, zh, st, w=w, U=U, out=st)
     plain_blk = lambda: sw_xstrip_block(  # noqa: E731
         sxs, slab, zh, zh, pst, w=w, U=U)
-    p1, k1, k2, p2 = (slope_ms(plain_blk, torch), slope_ms(kern, torch),
-                      slope_ms(kern, torch), slope_ms(plain_blk, torch))
+    # the kernel at each R in turns (4, 8, 16, 16, 8, 4), the plain block
+    # before and after, each R == the default's on that block
+    xs_r_ms = {r: [] for r in xsharded.ROWS_PER_THREAD}
+    p1 = slope_ms(plain_blk, torch)
+    for r in xsharded.ROWS_PER_THREAD + xsharded.ROWS_PER_THREAD[::-1]:
+        kern = lambda: xsharded.strip_block(  # noqa: E731
+            sxs, slab, zh, zh, st, w=w, U=U, out=st, _rows_per_thread=r)
+        one = xsharded.strip_block(sxs, slab, zh, zh,
+                                   xsharded.new_state(w, dev), w=w, U=U,
+                                   _rows_per_thread=r)
+        check(all(torch.equal(a, b) for a, b in zip(
+            (*one[0], one[1], one[2]), (*got[0], got[1], got[2]))),
+            f"sw_xstrip at R = {r} != R = {xsharded.XSTRIP_R} on the 50kbp "
+            "block")
+        xs_r_ms[r].append(slope_ms(kern, torch))
+    p2 = slope_ms(plain_blk, torch)
+    k1, k2 = xs_r_ms[xsharded.XSTRIP_R]
     xs_kernel_ms, xs_plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
     xs_bound = bound_ms(nbytes(sxs, slab, zh, zh) + 2 * nbytes(*st)
                         + 2 * nbytes(zh), SW_OPS_PER_CELL * w * U * 128,
@@ -1867,13 +2148,17 @@ def main() -> int:
     r4_kernel_ms = one_ms(lambda: xsharded.sw_forward_xsharded_ring(
         sx4, sy4, **kw4), torch)
     cells = LP_PAIRS * LP_LEN * LP_LEN
-    print(f"phase 32 xstrip timing, one block of w {w} rows x U {U} x 128 "
-          f"lanes: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} "
+    print(f"phase 32 xstrip timing, one full-window block of w {w} rows x "
+          f"U {U} x 128 lanes, in place, ms per call in turns: " + ", ".join(
+              f"R={r} {a:.4f} / {b:.4f}" for r, (a, b) in xs_r_ms.items())
+          + f"; the default R = {xsharded.XSTRIP_R}: kernel {k1:.4f} / "
+          f"{k2:.4f} ms, plain {p1:.4f} / {p2:.4f} "
           f"ms per call, bound {xs_bound[0]:.4f} ms by {xs_bound[1]} (bytes "
           f"{(nbytes(sxs, slab, zh, zh) + 2 * nbytes(*st) + 2 * nbytes(zh)) / HBM_BYTES_PER_S * 1e3:.4f}"
           f" ms, operations {SW_OPS_PER_CELL * w * U * 128 / int32_ops * 1e3:.4f}"
-          f" ms); {xs_launches} blocks x {xs_kernel_ms:.4f} ms = "
-          f"{xs_launches * xs_kernel_ms / 1e3:.3f} s of kernel; forward wall "
+          f" ms); {xs_launches} windowed launches, windows of {xs_rows} "
+          f"rows = {xs_rows / w:.1f} full blocks x {xs_kernel_ms:.4f} ms = "
+          f"{xs_rows / w * xs_kernel_ms / 1e3:.3f} s of kernel; forward wall "
           f"{t_fwd:.3f} s ({cells / t_fwd / 1e9:.2f} GCUPS) against phase "
           f"18's sw_long {sl_kernel_ms / 1e3:.3f} s per tile; 4kbp tile "
           f"(K = 1, {xsharded.n_blocks(pk4.n_diags, U, 1)} blocks): kernel "

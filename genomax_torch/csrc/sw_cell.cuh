@@ -1,6 +1,7 @@
 // One cell of the Smith-Waterman (Gotoh, score only) recurrence, shared by
-// the SW kernels of this directory (sw_tile.cu, sw_long.cu, sw_strips.cu,
-// sw_rotor.cu, sw_stacked.cu).
+// the SW kernels of this directory: `sw_cell` (plain integer maxes) by
+// sw_tile.cu, sw_strips.cu, sw_rotor.cu and sw_stacked.cu; the DPX forms
+// `sw_cell_dpx` by sw_long.cu and `sw_cell_dpx_preopen` by sw_xstrip.cu.
 //
 // Cell (p, j) of pair x, y:
 //   P = max(D(p, j-1) + open + extend, P(p, j-1) + extend)    gap along y
@@ -31,4 +32,37 @@ __device__ __forceinline__ int sw_cell(int d_left, int p_left, int d_up,
   const int d = max(max(p, q), max(d_diag + (same ? s.match : s.mismatch), 0));
   best = max(best, d);
   return d;
+}
+
+// The same cell with Hopper's DPX max-plus instructions (sm_90: one
+// instruction each for add-then-max and for a three-way max with 0):
+//   P = __viaddmax_s32(d_left, oge, p_left + ge)  = max(d_left + oge, p_left + ge)
+//   Q = __viaddmax_s32(d_up, oge, q_up + ge)
+//   D = __vimax3_s32_relu(P, Q, d_diag + sub)     = max(P, Q, d_diag + sub, 0)
+// The caller takes the running best with a plain max (or a three-way max
+// over two cells). Bit for bit the function of `sw_cell`.
+__device__ __forceinline__ int sw_cell_dpx(int d_left, int p_left, int d_up,
+                                           int q_up, int d_diag, bool same,
+                                           const SwScoring& s, int& p,
+                                           int& q) {
+  p = __viaddmax_s32(d_left, s.oge, p_left + s.ge);
+  q = __viaddmax_s32(d_up, s.oge, q_up + s.ge);
+  return __vimax3_s32_relu(p, q, d_diag + (same ? s.match : s.mismatch));
+}
+
+// The form of the cross-device strip kernel (sw_xstrip.cu), whose P and Q
+// are kept before the gap open (P' = P - open - extend, Q' likewise):
+//   P' = max(D_left, P'_left + ge)             = __viaddmax_s32(P'_left, ge, D_left)
+//   Q' = max(D_up, Q'_up + ge)                 = __viaddmax_s32(Q'_up, ge, D_up)
+//   D  = max(max(P', Q') + oge, D_diag + sub, 0)
+//      = __viaddmax_s32_relu(max(P', Q'), oge, D_diag + sub)
+__device__ __forceinline__ int sw_cell_dpx_preopen(int d_left, int p_left,
+                                                   int d_up, int q_up,
+                                                   int d_diag, bool same,
+                                                   const SwScoring& s, int& p,
+                                                   int& q) {
+  p = __viaddmax_s32(p_left, s.ge, d_left);
+  q = __viaddmax_s32(q_up, s.ge, d_up);
+  return __viaddmax_s32_relu(max(p, q), s.oge,
+                             d_diag + (same ? s.match : s.mismatch));
 }

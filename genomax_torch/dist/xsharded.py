@@ -14,6 +14,12 @@ the pack reserves on both sides of the codes and whose decay makes them
 inert, as in the JAX package. At the end the ranks take the maximum of their
 strips' best scores.
 
+Given the tile's longest y (``ly_max``), a block sweeps only its live rows
+(``live_rows``): the rows above the block's last diagonal hold zeros and
+keep them, the rows more than ``ly_max`` below its first are done, and a
+block whose window is empty launches nothing and hands on a zero halo.
+``csrc/sw_xstrip.cu`` argues why the scores are the full sweep's.
+
 Each rank holds only its strip of x (``sx[k*w:(k+1)*w]``, the host-sharded
 feed) and the whole stream. ``sw_forward_xsharded_ring`` plays the K ranks'
 hand-off in one process, on one device: it is how K > 1 runs on one card.
@@ -37,14 +43,19 @@ from genomax_torch.pack.bucketing import _reject_pad_codes, _round_up
 # Kernel launches made by strip_block (CUDA tensors only).
 launches = 0
 
-# Rows a CUDA block of the kernel sweeps at once: one thread a row.
-MAX_THREADS = 1024
+# Rows a thread of the kernel keeps in registers (its template argument,
+# the values the build makes) and the default; rows a CUDA block sweeps at
+# once (threads x R).
+ROWS_PER_THREAD = (4, 8, 16)
+XSTRIP_R = 4
+MAX_ROWS = 4096
 WARP = 32
-# Largest block length the kernel's shared memory holds (5 ints a row and
-# 5 a step, at most 227 KB a block).
+# Shared memory a block may take on the card, and the largest block length
+# it holds (5 ints a step, beside 6 ints a warp).
+SMEM_BYTES = 227 * 1024
 MAX_UNROLL = 8192
 
-_ARGTYPES = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 3
+_ARGTYPES = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 8
              + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 4
              + [ctypes.c_void_p])
 
@@ -127,21 +138,53 @@ def slab_start(anchor: int, k: int, b: int, *, strip_w: int, unroll: int,
     return s
 
 
-def _threads(w: int) -> int:
-    """Threads a block: the strip's rows in as few sub-strips of at most
-    1,024 rows as will do, split evenly, rounded up to whole warps."""
-    n_sub = -(-w // MAX_THREADS)
-    return _round_up(-(-w // n_sub), WARP)
+def live_rows(k: int, b: int, *, strip_w: int, unroll: int,
+              ly_max: int) -> tuple[int, int]:
+    """The live-row window [g_lo, g_hi) of block b on rank k (diagonals
+    [(b-k)U, (b-k+1)U)), in the strip's rows: g_lo = max(0, (b-k)U - ly_max
+    - k*w), below which every row is done (its cells lie past every y),
+    and g_hi = min(w, (b-k+1)U - k*w), above which every row is zero and
+    stays zero; both lie in [0, w]. Empty (g_lo >= g_hi) before the
+    strip's fill and after its drain."""
+    w, U = strip_w, unroll
+    return (min(w, max(0, (b - k) * U - ly_max - k * w)),
+            max(0, min(w, (b - k + 1) * U - k * w)))
+
+
+def _threads(rows: int, r: int) -> int:
+    """Threads a block at R = r rows a thread: the window's rows (from g_lo
+    rounded down to 4, where the kernel starts its sub-strips) in as few
+    sub-strips of at most MAX_ROWS as will do, split evenly, rounded up to
+    whole warps."""
+    per_sub = -(-rows // -(-rows // MAX_ROWS))
+    return _round_up(-(-per_sub // r), WARP)
+
+
+def _moves(ptrs, srow: int, slane: int, threads: int, r: int,
+           U: int) -> tuple[bool, bool]:
+    """(vector, prefetch) of a launch: the kernel moves a thread's R rows
+    of state as int4 where the state is lane-major with a lane stride of
+    whole int4 and every array 16-byte aligned (``ptrs``, their data
+    pointers), and also copies the next sub-strip's state into shared
+    memory while one steps where that copy (6 x threads x R ints) fits
+    beside the 5U + 6 a warp. Otherwise the same kernel moves one int at a
+    time."""
+    vector = (srow == 1 and slane % 4 == 0
+              and all(p % 16 == 0 for p in ptrs))
+    smem = 4 * (6 * threads * r + 5 * U + 6 * (threads // WARP))
+    return vector, vector and smem <= SMEM_BYTES
 
 
 def strip_block(sxb: torch.Tensor, slab: torch.Tensor, hD: torch.Tensor,
                 hQ: torch.Tensor, state, *, w: int, U: int,
-                cfg: SWConfig = SWConfig(), out=None):
+                cfg: SWConfig = SWConfig(), out=None, rows=None,
+                _rows_per_thread: int = XSTRIP_R):
     """One skewed block of U diagonals of one strip of w rows: (state', bD,
     bQ), the contract of ``kernels.wavefront.sw_xstrip_block``. CUDA tensors
-    launch ``csrc/sw_xstrip.cu`` on the current stream; CPU tensors take the
-    plain version. There is no other route: a build or launch failure
-    raises.
+    launch ``csrc/sw_xstrip.cu`` on the current stream; CPU tensors take
+    the plain version. There is no other route: a build or launch failure
+    raises. ``_rows_per_thread`` picks the kernel's R among those the build
+    makes, for its tests and timing.
 
     sxb: (w, 128) int8; slab: (w+U, 128) int8; hD, hQ: (U, 128) int32;
     state: six (w, 128) int32 (P1, D1, D1s, Q1s, D2s, mx) at one common
@@ -149,10 +192,23 @@ def strip_block(sxb: torch.Tensor, slab: torch.Tensor, hD: torch.Tensor,
     (128, w)). ``out``: six tensors like state to write the new state into,
     which may be ``state`` itself (the update is then in place); by default
     new ones are allocated with state's strides.
+
+    ``rows=(g_lo, g_hi)`` sweeps only those rows (default: all w): the rows
+    outside keep their state, row g_lo takes zeros as its row above when
+    g_lo > 0 (hD, hQ when g_lo = 0), and bD, bQ are zeros when g_hi < w
+    (this strip's last row when g_hi = w). An empty window launches
+    nothing. ``live_rows`` gives the window that leaves the scores exact.
     """
     if w < 1 or not 1 <= U <= MAX_UNROLL:
         raise ValueError(f"strip_block: w={w}, U={U}: want w >= 1 and "
                          f"1 <= U <= {MAX_UNROLL}")
+    g_lo, g_hi = (0, w) if rows is None else (int(rows[0]), int(rows[1]))
+    if not 0 <= g_lo <= w or not 0 <= g_hi <= w:
+        raise ValueError(f"strip_block: rows=({g_lo}, {g_hi}) outside the "
+                         f"strip's {w} rows")
+    if _rows_per_thread not in ROWS_PER_THREAD:
+        raise ValueError(f"strip_block: rows_per_thread={_rows_per_thread}:"
+                         f" the build makes {ROWS_PER_THREAD}")
     state = tuple(state)
     if len(state) != 6 or (out is not None and len(tuple(out)) != 6):
         raise ValueError("strip_block: state and out hold six tensors")
@@ -170,20 +226,49 @@ def strip_block(sxb: torch.Tensor, slab: torch.Tensor, hD: torch.Tensor,
     if any(t.device != sxb.device for t in tensors):
         raise ValueError("strip_block: every input must lie on one device "
                          f"(got {sorted({str(t.device) for t in tensors})})")
-    if sxb.device.type == "cpu":
-        new, bD, bQ = sw_xstrip_block(sxb, slab, hD, hQ, state, w=w, U=U,
-                                      cfg=cfg)
+    if g_lo >= g_hi:  # nothing live: the state as it is, a zero halo
+        bD = torch.zeros((U, LANES), dtype=torch.int32, device=sxb.device)
         if out is None:
+            return tuple(t.clone() for t in state), bD, bD.clone()
+        for o, i in zip(outs, state):
+            if o is not i:
+                o.copy_(i)
+        return outs, bD, bD.clone()
+    if sxb.device.type == "cpu":
+        return _plain_window(sxb, slab, hD, hQ, state, outs, w, U, g_lo,
+                             g_hi, cfg)
+    return _launch(sxb, slab, hD, hQ, state, outs, w, U, g_lo, g_hi,
+                   _rows_per_thread, cfg)
+
+
+def _plain_window(sxb, slab, hD, hQ, state, outs, w, U, g_lo, g_hi,
+                  cfg: SWConfig):
+    """The plain block on the rows [g_lo, g_hi) of the strip, the rows
+    outside left as they are (strip_block's CPU route)."""
+    if g_lo > 0:
+        hD = hQ = torch.zeros_like(hD)
+    new, bD, bQ = sw_xstrip_block(
+        sxb[g_lo:g_hi], slab[g_lo: g_hi + U], hD, hQ,
+        tuple(t[g_lo:g_hi] for t in state), w=g_hi - g_lo, U=U, cfg=cfg)
+    if g_hi < w:
+        bD, bQ = torch.zeros_like(bD), torch.zeros_like(bQ)
+    if not outs:
+        if (g_lo, g_hi) == (0, w):
             return new, bD, bQ
-        # The new state may hold an input tensor itself (D2s at U = 1),
-        # which the first copies into out = state would overwrite.
-        for o, n in zip(outs, [n.clone() for n in new]):
-            o.copy_(n)
-        return outs, bD, bQ
-    return _launch(sxb, slab, hD, hQ, state, outs, w, U, cfg)
+        outs = tuple(t.clone() for t in state)
+    else:
+        for o, i in zip(outs, state):
+            if o is not i:
+                o.copy_(i)
+    # The new state may hold an input tensor itself (D2s at U = 1), which
+    # the first copies into out = state would overwrite.
+    for o, n in zip(outs, [n.clone() for n in new]):
+        o[g_lo:g_hi] = n
+    return outs, bD, bQ
 
 
-def _launch(sxb, slab, hD, hQ, state, outs, w, U, cfg: SWConfig):
+def _launch(sxb, slab, hD, hQ, state, outs, w, U, g_lo, g_hi, r,
+            cfg: SWConfig):
     global launches
     if not sxb.is_cuda:
         raise ValueError(f"strip_block: device {sxb.device} is neither cpu "
@@ -193,6 +278,9 @@ def _launch(sxb, slab, hD, hQ, state, outs, w, U, cfg: SWConfig):
                          "contiguous")
     if not outs:
         outs = tuple(torch.empty_like(t) for t in state)
+        if (g_lo, g_hi) != (0, w):  # the rows outside keep their state
+            for o, i in zip(outs, state):
+                o.copy_(i)
     strides = {t.stride() for t in state + outs}
     if len(strides) != 1:
         raise ValueError(f"strip_block: the state arrays' strides differ: "
@@ -209,16 +297,25 @@ def _launch(sxb, slab, hD, hQ, state, outs, w, U, cfg: SWConfig):
     launch = _build.load("sw_xstrip", "sw_xstrip_launch", _ARGTYPES)
     bD = torch.empty((U, LANES), dtype=torch.int32, device=sxb.device)
     bQ = torch.empty_like(bD)
+    threads = _threads(g_hi - (g_lo & ~3), r)
+    vector, prefetch = _moves([t.data_ptr() for t in state + outs], srow,
+                              slane, threads, r, U)
     with torch.cuda.device(sxb.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = launch(*(t.data_ptr() for t in (sxb, slab, hD, hQ) + state
                        + outs + (bD, bQ)),
-                     w, U, _threads(w), srow, slane, cfg.match, cfg.mismatch,
+                     w, U, g_lo, g_hi, r, threads, int(vector),
+                     int(prefetch), srow, slane, cfg.match, cfg.mismatch,
                      cfg.gap_open, cfg.gap_extend, stream)
     if err != 0:
         raise RuntimeError(f"sw_xstrip launch failed: cudaError {err}")
     launches += 1
     return outs, bD, bQ
+
+
+def tile_ly_max(pk: SWXPacked) -> int:
+    """The longest y of a packed tile, the ``ly_max`` of ``live_rows``."""
+    return int(pk.ny.max()) - 1
 
 
 def new_state(w: int, device) -> tuple:
@@ -230,8 +327,8 @@ def new_state(w: int, device) -> tuple:
 
 
 def sw_forward_xsharded(sx_strip: torch.Tensor, sy: torch.Tensor, *, mesh,
-                        strip_w: int, n_diags: int, unroll: int = 16,
-                        anchor: int | None = None,
+                        strip_w: int, n_diags: int, ly_max: int,
+                        unroll: int = 16, anchor: int | None = None,
                         cfg: SWConfig = SWConfig()) -> torch.Tensor:
     """(128,) int32 scores of one tile of huge pairs, the same on every
     rank, on the mesh's device.
@@ -242,7 +339,8 @@ def sw_forward_xsharded(sx_strip: torch.Tensor, sy: torch.Tensor, *, mesh,
     whenever the pack's last round-up moved. Before each block, rank k
     posts the send of its previous block's halo to rank k+1 and the receive
     of rank k-1's in one batch, and waits for both before the launch that
-    reads the receive.
+    reads the receive. ``ly_max``, the tile's longest y
+    (``tile_ly_max``), windows each block to its ``live_rows``.
     """
     if anchor is None:
         raise ValueError("pass anchor=SWXPacked.anchor")
@@ -267,7 +365,9 @@ def sw_forward_xsharded(sx_strip: torch.Tensor, sy: torch.Tensor, *, mesh,
         s = slab_start(anchor, k, b, strip_w=w, unroll=U, ndt=ndt)
         state, bD, bQ = strip_block(sx_strip, sy[s: s + w + U], theirs[0],
                                     theirs[1], state, w=w, U=U, cfg=cfg,
-                                    out=state)
+                                    out=state,
+                                    rows=live_rows(k, b, strip_w=w,
+                                                   unroll=U, ly_max=ly_max))
         if K > 1:
             mine = torch.stack((bD, bQ))
     return mesh.all_reduce_max(state[5].amax(dim=0))
@@ -276,6 +376,7 @@ def sw_forward_xsharded(sx_strip: torch.Tensor, sy: torch.Tensor, *, mesh,
 def sw_forward_xsharded_ring(sx: torch.Tensor, sy: torch.Tensor, *,
                              n_strips: int, strip_w: int, n_diags: int,
                              unroll: int = 16, anchor: int | None = None,
+                             ly_max: int | None = None,
                              cfg: SWConfig = SWConfig(),
                              block=strip_block) -> torch.Tensor:
     """``sw_forward_xsharded`` with its K ranks played in one process on
@@ -283,7 +384,11 @@ def sw_forward_xsharded_ring(sx: torch.Tensor, sy: torch.Tensor, *,
     strip k-1's halo of block b-1 (zeros for strip 0 and block 0), as the
     send and receive hand it over between ranks. ``block`` is the per-block
     function: ``strip_block`` (the kernel on a CUDA tensor) or
-    ``kernels.wavefront.sw_xstrip_block`` (the plain version)."""
+    ``kernels.wavefront.sw_xstrip_block`` (the plain version, which sweeps
+    whole strips). With ``ly_max`` each block is windowed to its
+    ``live_rows`` (``block`` must then take ``rows=``), as in the forward;
+    without it, as the plain version needs, every block sweeps its whole
+    strip."""
     if anchor is None:
         raise ValueError("pass anchor=SWXPacked.anchor")
     K, w, U = n_strips, strip_w, unroll
@@ -298,9 +403,11 @@ def sw_forward_xsharded_ring(sx: torch.Tensor, sy: torch.Tensor, *,
         for k in range(K):
             s = slab_start(anchor, k, b, strip_w=w, unroll=U, ndt=sy.shape[0])
             hD, hQ = halos[k - 1] if k else (zero, zero)
+            kw = {} if ly_max is None else {"rows": live_rows(
+                k, b, strip_w=w, unroll=U, ly_max=ly_max)}
             states[k], bD, bQ = block(sx[k * w: (k + 1) * w],
                                       sy[s: s + w + U], hD, hQ, states[k],
-                                      w=w, U=U, cfg=cfg)
+                                      w=w, U=U, cfg=cfg, **kw)
             new.append((bD, bQ))
         halos = new
     return torch.stack([st[5].amax(dim=0) for st in states]).amax(dim=0)
@@ -317,5 +424,6 @@ def sw_scores_xsharded(pairs, *, mesh, unroll: int = 16,
     sy = torch.from_numpy(pk.sy).to(mesh.device)
     scores = sw_forward_xsharded(sx, sy, mesh=mesh, strip_w=w,
                                  n_diags=pk.n_diags, unroll=pk.unroll,
-                                 anchor=pk.anchor, cfg=cfg)
+                                 anchor=pk.anchor, ly_max=tile_ly_max(pk),
+                                 cfg=cfg)
     return scores.cpu().numpy()[: pk.n_valid]

@@ -4,12 +4,13 @@ kernel ``csrc/sw_long.cu`` and the per-tile loop, with the contracts of
 and ``sw_scores_long``).
 
 The engine sends it the pairs whose x is too long for the lane-tile kernel
-(``csrc/sw_tile.cu``, at most 1024 rows): x is cut into K strips of W rows
-that are swept one after another, the last row of a strip handing its D
-and Q over to the next strip through a halo. CUDA tensors launch the
-kernel on the current stream; CPU tensors take the plain version
-(``kernels.wavefront.sw_long_forward``). There is no other route: a build
-or launch failure raises.
+(``csrc/sw_tile.cu``, at most 1024 rows). The pack cuts x into K strips of
+W rows, as the JAX pack does; the kernel walks those K*W rows in sub-strips
+of its own height H = threads x R (``geometry``), one after another, the
+last row of a sub-strip handing its D and Q over to the next through a
+halo. CUDA tensors launch the kernel on the current stream; CPU tensors
+take the plain version (``kernels.wavefront.sw_long_forward``, strips of
+W). There is no other route: a build or launch failure raises.
 """
 
 from __future__ import annotations
@@ -28,17 +29,52 @@ from genomax_torch.pack.bucketing import _full, _reject_pad_codes, _round_up
 
 # Quantum of ny_max and of the layout (genomax.kernels.sw_long.CHUNK).
 CHUNK = 256
-# Rows per strip: one CUDA thread per row, so at most 1024, and whole warps.
+# Rows per strip of the pack (genomax.kernels.sw_long.STRIP_W).
 STRIP_W = 1024
-MAX_STRIP_W = 1024
+# Rows a thread of the kernel keeps in registers (its template argument,
+# the values the build makes), the default, and the most rows a CUDA block
+# sweeps at once (threads x R).
+ROWS_PER_THREAD = (4, 8, 16)
+LONG_R = 8
+MAX_ROWS = 4096
 WARP = 32
-# Halo entries past K*W + ny_max that the kernel's seam prefetch may touch.
-HALO_SLACK = 64
 
 # Kernel launches made by sw_forward_long (CUDA tensors only).
 launches = 0
 
-_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+
+
+@dataclasses.dataclass(frozen=True)
+class Geometry:
+    """How the kernel sweeps a tile of n_rows = K*W pack rows at R rows a
+    thread: ``threads`` a block (whole warps, at most MAX_ROWS / R), so
+    sub-strips of ``height`` = threads * R rows, ``n_sub`` of them; and the
+    halo, ``halo_entries`` (D, Q) int32 pairs a lane, entry j the last row
+    of a sub-strip at column j (1 <= j <= len(y) < ny_max)."""
+
+    threads: int
+    height: int
+    n_sub: int
+    halo_entries: int
+
+
+def geometry(n_rows: int, ny_max: int, r: int = LONG_R) -> Geometry:
+    """The kernel's geometry on a tile of n_rows pack rows whose stream
+    holds ny_max rows of y: the rows in as few sub-strips of at most
+    MAX_ROWS as will do, split evenly, each rounded up to whole warps of R
+    rows a thread."""
+    if r not in ROWS_PER_THREAD:
+        raise ValueError(f"rows_per_thread={r}: the build makes "
+                         f"{ROWS_PER_THREAD}")
+    if n_rows < 1 or ny_max < 1:
+        raise ValueError(f"n_rows={n_rows}, ny_max={ny_max}: want both "
+                         "positive")
+    per_sub = -(-n_rows // -(-n_rows // MAX_ROWS))
+    threads = _round_up(-(-per_sub // r), WARP)
+    height = threads * r
+    return Geometry(threads=threads, height=height,
+                    n_sub=-(-n_rows // height), halo_entries=ny_max)
 
 
 def _layout(ny_max: int, w: int):
@@ -47,7 +83,7 @@ def _layout(ny_max: int, w: int):
     pack equals the JAX pack bit for bit. The stream holds y[k] at row
     anchor - 1 - k of ndt rows. The slack around it was sized for the TPU
     kernel's slab copies; the CUDA kernel reads rows anchor - j for
-    1 <= j <= w + ny_max + 64 and needs only that those exist."""
+    1 <= j < ny_max only."""
     ny_q = _round_up(max(ny_max, 1), CHUNK)
     sweep = -(-(ny_q + 2 * w + 2 * CHUNK) // CHUNK)
     anchor = _round_up(sweep * CHUNK + CHUNK, SUB_Q)
@@ -108,9 +144,12 @@ def pack_sw_long(pairs, strip_w: int = STRIP_W) -> SWLongPacked:
 
 def sw_forward_long(sx: torch.Tensor, sy: torch.Tensor, nx: torch.Tensor,
                     ny: torch.Tensor, *, k_strips: int, strip_w: int,
-                    ny_max: int, cfg: SWConfig = SWConfig()) -> torch.Tensor:
+                    ny_max: int, cfg: SWConfig = SWConfig(),
+                    _rows_per_thread: int = LONG_R) -> torch.Tensor:
     """(128,) int32 scores of one packed tile of long pairs, on the
-    inputs' device.
+    inputs' device, the kernel's sub-strips as ``geometry`` gives them.
+    ``_rows_per_thread`` picks the kernel's R among those the build makes,
+    for its tests and timing.
 
     sx: (K*W, 128) int8 x codes; sy: (NDt, 128) int8 reversed stream
     anchored at ``_layout(ny_max, strip_w)``'s anchor, NDt its ndt.
@@ -118,10 +157,10 @@ def sw_forward_long(sx: torch.Tensor, sy: torch.Tensor, nx: torch.Tensor,
     (``SWLongPacked.nx/ny``): a pair sweeps only its own strips and
     diagonals.
     """
-    if strip_w % WARP or not WARP <= strip_w <= MAX_STRIP_W:
+    if strip_w < SUB_Q or strip_w % SUB_Q:
         raise ValueError(f"sw_forward_long: strip_w={strip_w} must be a "
-                         f"multiple of {WARP} in [{WARP}, {MAX_STRIP_W}] "
-                         "(one CUDA thread per row)")
+                         f"positive multiple of {SUB_Q}, as the pack makes "
+                         "it")
     if k_strips < 1 or ny_max < 1:
         raise ValueError(f"sw_forward_long: k_strips={k_strips}, "
                          f"ny_max={ny_max} must be positive")
@@ -139,12 +178,13 @@ def sw_forward_long(sx: torch.Tensor, sy: torch.Tensor, nx: torch.Tensor,
     if any(t.device != sx.device for t in tensors):
         raise ValueError("sw_forward_long: every input must lie on one "
                          f"device (got {[str(t.device) for t in tensors]})")
+    geo = geometry(kw, ny_max, _rows_per_thread)
     if sx.device.type == "cpu":
         return sw_long_forward(sx, sy, nx, ny, k_strips, strip_w, anchor, cfg)
-    return _launch(sx, sy, nx, ny, k_strips, strip_w, anchor, ny_max, cfg)
+    return _launch(sx, sy, nx, ny, kw, anchor, geo, _rows_per_thread, cfg)
 
 
-def _launch(sx, sy, nx, ny, k_strips, strip_w, anchor, ny_max,
+def _launch(sx, sy, nx, ny, n_rows, anchor, geo: Geometry, r,
             cfg: SWConfig) -> torch.Tensor:
     global launches
     launch = _build.load("sw_long", "sw_long_launch", _ARGTYPES)
@@ -154,15 +194,15 @@ def _launch(sx, sy, nx, ny, k_strips, strip_w, anchor, ny_max,
                          "cpu nor cuda")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("sw_forward_long: every input must be contiguous")
-    nh = k_strips * strip_w + ny_max + HALO_SLACK
-    # (D, Q) of each strip's last row per diagonal, per pair; the kernel
+    nh = geo.halo_entries
+    # (D, Q) of each sub-strip's last row per column, per pair; the kernel
     # reads only entries it has written, so no initial value.
     halo = torch.empty((LANES, nh, 2), dtype=torch.int32, device=sx.device)
     out = torch.empty((LANES,), dtype=torch.int32, device=sx.device)
     with torch.cuda.device(sx.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = launch(*(t.data_ptr() for t in tensors), halo.data_ptr(),
-                     out.data_ptr(), k_strips, strip_w, anchor, nh,
+                     out.data_ptr(), n_rows, r, geo.threads, anchor, nh,
                      cfg.match, cfg.mismatch, cfg.gap_open, cfg.gap_extend,
                      stream)
     if err != 0:

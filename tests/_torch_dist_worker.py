@@ -4,7 +4,9 @@ group on the CPU. Imports no jax and nothing of the JAX package.
 Environment: GX_RANK, GX_WORLD, GX_INIT (the group's file:// init method),
 GX_JOBS (a JSON file of the jobs), GX_OUT (this rank writes GX_OUT.<rank>),
 GX_MODE ("engine": ShardedEngine on the SW and PairHMM jobs and on the
-xshard routing case; "xshard": sw_forward_xsharded on each case).
+xshard routing case; "sw": ShardedEngine on the SW jobs under each
+EngineConfig of jobs["configs"]; "xshard": sw_forward_xsharded on each
+case, windowed to the live rows).
 """
 
 import json
@@ -64,6 +66,14 @@ def main():
                                                 xshard_min_len=64))
         out["xs"] = xeng.sw_scores(_pairs(jobs["xs"])).tolist()
         out["xs_stats"] = _counts(xeng.last_stats)
+    elif os.environ["GX_MODE"] == "sw":
+        from genomax_torch.dist.engine import ShardedEngine
+
+        pairs = _pairs(jobs["sw"])
+        for i, kw in enumerate(jobs["configs"]):
+            eng = ShardedEngine(mesh, EngineConfig(**kw))
+            out[f"sw{i}"] = eng.sw_scores(pairs).tolist()
+            out[f"sw{i}_stats"] = _counts(eng.last_stats)
     else:
         from genomax_torch.dist import xsharded
 
@@ -73,7 +83,8 @@ def main():
             got = xsharded.sw_forward_xsharded(
                 torch.from_numpy(pk.sx[rank * w: (rank + 1) * w]),
                 torch.from_numpy(pk.sy), mesh=mesh, strip_w=w,
-                n_diags=pk.n_diags, unroll=unroll, anchor=pk.anchor)
+                n_diags=pk.n_diags, unroll=unroll, anchor=pk.anchor,
+                ly_max=xsharded.tile_ly_max(pk))
             out[name] = got.tolist()
     with open(f"{os.environ['GX_OUT']}.{rank}", "w") as f:
         json.dump(out, f)

@@ -148,6 +148,53 @@ def test_two_rank_sharded_engine(tmp_path):
     assert r0["xs_stats"]["offloaded_jobs"] == 2
 
 
+def _multi_tile_pairs():
+    """600 pairs of 8-200bp from a numpy seed, y up to 8 bases longer than
+    x (so that the short buckets pass the rotor's period and gate):
+    buckets of one and two tiles, through the strips kernel's, the rotor's
+    and the lane tile's routes."""
+    rng = np.random.default_rng(23)
+    abc = np.frombuffer(b"ATGC", np.uint8)
+    pairs = []
+    for _ in range(600):
+        n = int(rng.integers(8, 201))
+        pairs.append(SWPair(
+            sx=rng.choice(abc, n).tobytes(),
+            sy=rng.choice(abc, min(200, n + int(rng.integers(0, 9))))
+            .tobytes()))
+    return pairs
+
+
+def test_two_rank_sharded_engine_on_multi_tile_buckets(tmp_path):
+    """Two gloo ranks of ShardedEngine on multi-tile buckets (the defaults,
+    which route them to strips, the rotor and the lane tile; the stacked
+    kernel at sw_stack=4; the lane tile alone with strips and the rotor
+    off), both ranks held against the JAX engine and the oracle."""
+    from genomax_torch.kernels.sw_rotor import maybe_prep_rotor
+    from genomax_torch.kernels.sw_strips import maybe_prep_strips
+
+    pairs = _multi_tile_pairs()
+    configs = [{}, {"sw_stack": 4}, {"sw_strips": False, "sw_rotor": False}]
+    cfg = EngineConfig()
+    buckets = pack_sw_pairs(pairs)
+    routes = {"strips" if maybe_prep_strips(cfg, b) is not None else
+              "rotor" if maybe_prep_rotor(cfg, b) is not None else "tile"
+              for b in buckets}
+    assert routes == {"strips", "rotor", "tile"}, routes
+    assert any(b.ndiag_tile.shape[0] >= 2 for b in buckets)
+    r0, r1 = _run_ranks(tmp_path, 2, "sw", {"sw": _rows(pairs),
+                                             "configs": configs})
+    assert r0 == r1  # every rank returns the gathered results
+    want = JaxEngine(JaxEngineConfig(backend="lax")).sw_scores(
+        _jax_pairs(pairs))
+    np.testing.assert_array_equal(want, oracle.sw_scores_pairs(
+        _jax_pairs(pairs)))
+    for i in range(len(configs)):
+        np.testing.assert_array_equal(np.asarray(r0[f"sw{i}"], np.int32),
+                                      want, err_msg=str(configs[i]))
+        assert r0[f"sw{i}_stats"]["n_jobs"] == len(pairs)
+
+
 def test_four_rank_xsharded_forward(tmp_path):
     if len(jax.devices("cpu")) < 4:
         pytest.skip("needs 4 virtual CPU devices (see conftest XLA_FLAGS)")

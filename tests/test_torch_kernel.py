@@ -135,19 +135,46 @@ def test_sw_long_kernel_equals_plain_version(device, cfg, strip_w):
     sx, sy, nx, ny = sw_long.tile_to_torch(b, device)
     kw = dict(k_strips=b.n_strips, strip_w=b.strip_w, ny_max=b.ny_max,
               cfg=cfg)
-    before = sw_long.launches
-    got = sw_long.sw_forward_long(sx, sy, nx, ny, **kw)
-    torch.cuda.synchronize()
-    assert sw_long.launches - before == 1
-    assert got.is_cuda and got.dtype == torch.int32 and got.shape == (128,)
     _, anchor, _ = sw_long._layout(b.ny_max, b.strip_w)
     want = sw_long_forward(sx, sy, nx, ny, b.n_strips, b.strip_w, anchor, cfg)
-    assert torch.equal(got, want)
-    assert torch.equal(got, sw_long_forward_dense(sx, sy, b.n_diags, b.ny_max,
-                                                  anchor, cfg))
-    np.testing.assert_array_equal(got.cpu().numpy()[:len(pairs)],
+    assert torch.equal(want, sw_long_forward_dense(sx, sy, b.n_diags,
+                                                   b.ny_max, anchor, cfg))
+    np.testing.assert_array_equal(want.cpu().numpy()[:len(pairs)],
                                   native.sw_scores_native(pairs, cfg))
-    assert int(got[len(pairs) - 4]) == 900 * cfg.match  # the identical pair
+    assert int(want[len(pairs) - 4]) == 900 * cfg.match  # the identical pair
+    # every R the build makes
+    for r in sw_long.ROWS_PER_THREAD:
+        before = sw_long.launches
+        got = sw_long.sw_forward_long(sx, sy, nx, ny, **kw,
+                                      _rows_per_thread=r)
+        torch.cuda.synchronize()
+        assert sw_long.launches - before == 1
+        assert got.is_cuda and got.dtype == torch.int32
+        assert got.shape == (128,)
+        assert torch.equal(got, want), r
+
+
+@pytest.mark.parametrize("cfg", CFGS, ids=["default", "m2x3o5e2", "m3x1o0e2"])
+def test_sw_long_kernel_seams_at_every_r(device, cfg):
+    """A tile taller than MAX_ROWS (5 strips of 1,024 rows, two sub-strips
+    of 2,560 at every R), with the tandem repeat laid across the sub-strip
+    seam: the kernel at each R == the plain full-height sweep == native."""
+    pairs = long_sw_pairs(9, n_pairs=24, x_lens=(4200, 4400), y_max=4600,
+                          seam=2560)
+    b = sw_long.pack_sw_long(pairs)
+    sx, sy, nx, ny = sw_long.tile_to_torch(b, device)
+    _, anchor, _ = sw_long._layout(b.ny_max, b.strip_w)
+    want = sw_long_forward_dense(sx, sy, b.n_diags, b.ny_max, anchor, cfg)
+    np.testing.assert_array_equal(want.cpu().numpy()[:len(pairs)],
+                                  native.sw_scores_native(pairs, cfg))
+    for r in sw_long.ROWS_PER_THREAD:
+        geo = sw_long.geometry(b.n_strips * b.strip_w, b.ny_max, r)
+        assert (geo.n_sub, geo.height) == (2, 2560), r
+        got = sw_long.sw_forward_long(sx, sy, nx, ny, k_strips=b.n_strips,
+                                      strip_w=b.strip_w, ny_max=b.ny_max,
+                                      cfg=cfg, _rows_per_thread=r)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), r
 
 
 def test_sw_long_scores_tiles_in_input_order(device):
@@ -167,7 +194,9 @@ def test_sw_long_wrapper_rejects_bad_inputs(device):
     with pytest.raises(TypeError):
         sw_long.sw_forward_long(sx.to(torch.int32), sy, nx, ny, **kw)
     with pytest.raises(ValueError, match="strip_w"):
-        sw_long.sw_forward_long(sx, sy, nx, ny, **{**kw, "strip_w": 2048})
+        sw_long.sw_forward_long(sx, sy, nx, ny, **{**kw, "strip_w": 100})
+    with pytest.raises(ValueError, match="rows_per_thread"):
+        sw_long.sw_forward_long(sx, sy, nx, ny, **kw, _rows_per_thread=6)
     with pytest.raises(ValueError, match="one device"):
         sw_long.sw_forward_long(sx, sy, nx.cpu(), ny, **kw)
     wide = torch.ones((2 * sx.shape[0], 128), dtype=torch.int8,
@@ -630,8 +659,21 @@ def test_pairhmm_wrapper_rejects_bad_inputs(device):
         pairhmm.pairhmm_forward(*t)
 
 
-@pytest.mark.parametrize("w,U", [(24, 1), (24, 8), (1024, 32), (1032, 8),
-                                 (1032, 64), (5000, 32)])
+def _lane_major(state, offset=0):
+    """The state lane-major (strides (1, w)), each array `offset` ints into
+    its storage."""
+    out = []
+    for s in state:
+        w = s.shape[0]
+        a = torch.empty(offset + w * 128, dtype=s.dtype,
+                        device=s.device)[offset:].view(128, w).t()
+        a.copy_(s)
+        out.append(a)
+    return tuple(out)
+
+
+@pytest.mark.parametrize("w,U", [(24, 1), (24, 8), (25, 8), (1024, 32),
+                                 (1032, 8), (1032, 64), (5000, 32)])
 @pytest.mark.parametrize("cfg", CFGS, ids=["default", "m2x3o5e2", "m3x1o0e2"])
 def test_sw_xstrip_kernel_equals_plain_version(device, cfg, w, U):
     sxb, slab, hD, hQ, state = (
@@ -640,8 +682,10 @@ def test_sw_xstrip_kernel_equals_plain_version(device, cfg, w, U):
         for a in xstrip_inputs(w + U, w, U))
     want = sw_xstrip_block(sxb, slab, hD, hQ, state, w=w, U=U, cfg=cfg)
     before = xsharded.launches
-    lane_major = tuple(s.t().contiguous().t() for s in state)
-    for st in (state, lane_major):
+    lane_major = _lane_major(state)
+    # contiguous, lane-major, and lane-major off 16-byte alignment (the
+    # kernel's int4 moves give way to one int at a time, as at w = 25)
+    for st in (state, lane_major, _lane_major(state, offset=1)):
         got = xsharded.strip_block(sxb, slab, hD, hQ, st, w=w, U=U, cfg=cfg)
         torch.cuda.synchronize()
         for g, e in zip(got[0] + got[1:], want[0] + want[1:]):
@@ -653,7 +697,57 @@ def test_sw_xstrip_kernel_equals_plain_version(device, cfg, w, U):
     torch.cuda.synchronize()
     for g, e in zip(st, want[0]):
         assert torch.equal(g, e)
-    assert xsharded.launches - before == 3
+    assert xsharded.launches - before == 4
+    # every R the build makes, whole and on partial windows: the window
+    # equals the plain block on the slice (zeros above row g_lo > 0, zero
+    # halo out when g_hi < w) and leaves the rows outside bit for bit
+    zero = torch.zeros_like(hD)
+    for r in xsharded.ROWS_PER_THREAD:
+        for g_lo, g_hi in ((0, w), (0, w // 2 + 1), (w // 3, w),
+                           (w // 4, w - w // 5), (w - 1, w)):
+            if g_lo >= g_hi:
+                continue
+            sl = slice(g_lo, g_hi)
+            top = (hD, hQ) if g_lo == 0 else (zero, zero)
+            part = sw_xstrip_block(sxb[sl], slab[g_lo: g_hi + U], *top,
+                                   tuple(s[sl] for s in state), w=g_hi - g_lo,
+                                   U=U, cfg=cfg)
+            st = tuple(s.clone() for s in lane_major)
+            before = xsharded.launches
+            got = xsharded.strip_block(sxb, slab, hD, hQ, st, w=w, U=U,
+                                       cfg=cfg, out=st, rows=(g_lo, g_hi),
+                                       _rows_per_thread=r)
+            torch.cuda.synchronize()
+            assert xsharded.launches - before == 1
+            for g, e, s in zip(st, part[0], state):
+                assert torch.equal(g[sl], e), (r, g_lo, g_hi)
+                assert torch.equal(g[:g_lo], s[:g_lo])
+                assert torch.equal(g[g_hi:], s[g_hi:])
+            for g, e in zip(got[1:], part[1:]):
+                assert torch.equal(g, e if g_hi == w else torch.zeros_like(e))
+
+
+def test_sw_xstrip_kernel_at_the_longest_block(device):
+    """U = MAX_UNROLL on a strip of two sub-strips (4,096 rows and the
+    rest): the prefetch does not fit beside the block's 5U ints, so the
+    kernel moves the lane-major state by int4 straight from memory; ==
+    plain at every R."""
+    w, U = 8000, xsharded.MAX_UNROLL
+    sxb, slab, hD, hQ, state = (
+        torch.from_numpy(a).to(device) if not isinstance(a, tuple)
+        else tuple(torch.from_numpy(s).to(device) for s in a)
+        for a in xstrip_inputs(11, w, U))
+    want = sw_xstrip_block(sxb, slab, hD, hQ, state, w=w, U=U)
+    for r in xsharded.ROWS_PER_THREAD:
+        st = _lane_major(state)
+        threads = xsharded._threads(w, r)
+        assert xsharded._moves([a.data_ptr() for a in st], 1, w, threads, r,
+                               U) == (True, False)
+        got = xsharded.strip_block(sxb, slab, hD, hQ, st, w=w, U=U, out=st,
+                                   _rows_per_thread=r)
+        torch.cuda.synchronize()
+        for g, e in zip(got[0] + got[1:], want[0] + want[1:]):
+            assert torch.equal(g, e), r
 
 
 @pytest.mark.parametrize("K", [1, 2, 4, 8])
@@ -672,6 +766,19 @@ def test_sw_xsharded_ring_on_the_card(device, K):
         assert xsharded.launches - before == K * xsharded.n_blocks(
             pk.n_diags, unroll, K), name
         assert torch.equal(got, plain), name
+        # windowed to the live rows: only the non-empty windows launch
+        ly_max = xsharded.tile_ly_max(pk)
+        live = sum(
+            lo < hi for b in range(xsharded.n_blocks(pk.n_diags, unroll, K))
+            for k in range(K)
+            for lo, hi in [xsharded.live_rows(k, b, strip_w=pk.strip_w,
+                                              unroll=unroll, ly_max=ly_max)])
+        before = xsharded.launches
+        windowed = xsharded.sw_forward_xsharded_ring(sx, sy, ly_max=ly_max,
+                                                     **kw)
+        torch.cuda.synchronize()
+        assert xsharded.launches - before == live, name
+        assert torch.equal(windowed, plain), name
         np.testing.assert_array_equal(got.cpu().numpy()[: len(pairs)],
                                       native.sw_scores_native(pairs),
                                       err_msg=name)

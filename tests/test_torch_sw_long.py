@@ -77,12 +77,13 @@ def test_layout_equals_jax_layout(ny_max, w):
 
 
 def test_layout_covers_what_the_kernel_reads():
-    """The kernel reads stream rows anchor - j for 1 <= j <= W + ny_max +
-    64 and rows up to anchor + W never; the shared anchor leaves room."""
+    """The kernel reads stream rows anchor - j for 1 <= j < ny_max and halo
+    entries j < ny_max = halo_entries; the shared anchor leaves room."""
     for ny_max, w in [(256, 32), (256, 1024), (50176, 1024)]:
         _, anchor, ndt = torch_long._layout(ny_max, w)
-        assert anchor - (w + ny_max + torch_long.HALO_SLACK) >= 0
-        assert anchor + w <= ndt
+        assert anchor - (ny_max - 1) >= 0 and anchor < ndt
+        for r in torch_long.ROWS_PER_THREAD:
+            assert torch_long.geometry(w, ny_max, r).halo_entries == ny_max
 
 
 @pytest.mark.parametrize("cfg", CFGS, ids=CFG_IDS)
@@ -154,7 +155,7 @@ def _tile(strip_w=64):
     return b, torch_long.tile_to_torch(b, "cpu")
 
 
-@pytest.mark.parametrize("strip_w", [0, 8, 104, 2048])
+@pytest.mark.parametrize("strip_w", [0, -8, 12, 100])
 def test_wrapper_rejects_strip_width(strip_w):
     b, (sx, sy, nx, ny) = _tile()
     with pytest.raises(ValueError, match="strip_w"):
@@ -232,3 +233,57 @@ def test_long_kernel_is_registered_with_the_build():
     assert "sw_long" in _build.KERNELS
     for name in _build.KERNELS:
         assert os.path.exists(os.path.join(_build.CSRC, name + ".cu"))
+
+
+@pytest.mark.parametrize("n_rows,r", [(64, 4), (1024, 8), (4096, 16),
+                                      (4104, 8), (50176, 4), (50176, 8),
+                                      (50176, 16)])
+def test_geometry_covers_the_rows_in_whole_warps(n_rows, r):
+    """The kernel's sub-strips: threads in whole warps, at most 4,096 rows
+    a sub-strip, as few sub-strips as cover the pack's rows, split evenly
+    (no sub-strip a warp's rows short of another), and a halo of ny_max
+    entries a lane."""
+    g = torch_long.geometry(n_rows, 50176, r)
+    assert g.threads % 32 == 0 and g.height == g.threads * r
+    assert g.height <= torch_long.MAX_ROWS
+    assert g.n_sub == -(-n_rows // torch_long.MAX_ROWS)
+    assert g.n_sub * g.height >= n_rows > (g.n_sub - 1) * g.height
+    assert g.n_sub * g.height - n_rows < 32 * r * g.n_sub
+    assert g.halo_entries == 50176
+
+
+@pytest.mark.parametrize("r", torch_long.ROWS_PER_THREAD)
+def test_geometry_caps_the_sub_strip(r):
+    """A tile one strip past MAX_ROWS takes two sub-strips of at most
+    MAX_ROWS rows, and one of MAX_ROWS rows takes one (threads at most
+    MAX_ROWS / R); the build makes R = 4, 8 and 16 and nothing else."""
+    g = torch_long.geometry(torch_long.MAX_ROWS + 8, 512, r)
+    assert g.height <= torch_long.MAX_ROWS and g.n_sub == 2
+    g = torch_long.geometry(torch_long.MAX_ROWS, 512, r)
+    assert (g.height, g.n_sub) == (torch_long.MAX_ROWS, 1)
+    assert g.threads == torch_long.MAX_ROWS // r
+    assert r in (4, 8, 16) and torch_long.LONG_R in torch_long.ROWS_PER_THREAD
+    with pytest.raises(ValueError, match="n_rows"):
+        torch_long.geometry(0, 512, r)
+
+
+@pytest.mark.parametrize("r", [0, 2, 6, 32])
+def test_wrapper_rejects_rows_per_thread(r):
+    b, (sx, sy, nx, ny) = _tile()
+    with pytest.raises(ValueError, match="rows_per_thread"):
+        torch_long.sw_forward_long(sx, sy, nx, ny, k_strips=b.n_strips,
+                                   strip_w=b.strip_w, ny_max=b.ny_max,
+                                   _rows_per_thread=r)
+
+
+def test_plain_takes_any_rows_per_thread_and_cap():
+    """On the CPU R only picks the kernel's geometry (threads, and the
+    sub-strips capped at MAX_ROWS): the plain strip sweep's scores are the
+    same at each."""
+    b, (sx, sy, nx, ny) = _tile()
+    kw = dict(k_strips=b.n_strips, strip_w=b.strip_w, ny_max=b.ny_max)
+    want = torch_long.sw_forward_long(sx, sy, nx, ny, **kw)
+    for r in torch_long.ROWS_PER_THREAD:
+        got = torch_long.sw_forward_long(sx, sy, nx, ny, **kw,
+                                         _rows_per_thread=r)
+        assert torch.equal(got, want)

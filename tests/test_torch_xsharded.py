@@ -6,6 +6,7 @@ states (all eight outputs exact), the K-strip ring at K = 2 and 8 on the
 cases of tests/test_xsharded.py, and the slab bounds of every block."""
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -115,21 +116,23 @@ def test_strip_block_rejects_bad_inputs():
         xsharded.strip_block(sxb, slab, hD, hQ, state, w=16, U=0)
 
 
-def _jax_forward(pairs, K, unroll):
+def _jax_forward(pairs, K, unroll, cfg=None):
     mesh = jax_make_mesh(K, devices=jax.devices("cpu")[:K])
     b = jxs.pack_sw_xsharded(_jax_pairs(pairs), K, unroll=unroll)
     got = jxs.sw_forward_xsharded(
         jnp.asarray(b.sx), jnp.asarray(b.sy), mesh=mesh, strip_w=b.strip_w,
-        n_diags=b.n_diags, unroll=b.unroll, anchor=b.anchor, interpret=True)
+        n_diags=b.n_diags, unroll=b.unroll, anchor=b.anchor,
+        cfg=JaxSWConfig(**(cfg or {})), interpret=True)
     return np.asarray(got)
 
 
-def _ring(pairs, K, unroll):
+def _ring(pairs, K, unroll, cfg=None, windowed=False):
     pk = _pack(pairs, K, unroll)
     got = xsharded.sw_forward_xsharded_ring(
         torch.from_numpy(pk.sx), torch.from_numpy(pk.sy), n_strips=K,
         strip_w=pk.strip_w, n_diags=pk.n_diags, unroll=unroll,
-        anchor=pk.anchor)
+        anchor=pk.anchor, cfg=SWConfig(**(cfg or {})),
+        ly_max=xsharded.tile_ly_max(pk) if windowed else None)
     return got.numpy()
 
 
@@ -210,4 +213,183 @@ def test_forward_requires_the_anchor():
         xsharded.sw_forward_xsharded(
             torch.from_numpy(pk.sx), torch.from_numpy(pk.sy),
             mesh=make_mesh(device="cpu"), strip_w=pk.strip_w,
-            n_diags=pk.n_diags, unroll=8)
+            n_diags=pk.n_diags, unroll=8, ly_max=xsharded.tile_ly_max(pk))
+
+
+def _state(w, offset=0, lane_major=True):
+    """Six (w, 128) int32 arrays, lane-major (strides (1, w)) or
+    contiguous, each starting `offset` ints into its storage."""
+    def one():
+        if not lane_major:
+            return torch.zeros(offset + w * 128, dtype=torch.int32)[
+                offset:].view(w, 128)
+        return torch.zeros(offset + w * 128, dtype=torch.int32)[
+            offset:].view(128, w).t()
+    return tuple(one() for _ in range(6))
+
+
+@pytest.mark.parametrize("w,offset,lane_major,U,want", [
+    (24, 0, True, 32, (True, True)),
+    (1032, 0, True, 64, (True, True)),
+    (25, 0, True, 32, (False, False)),   # lane stride not whole int4
+    (26, 0, True, 32, (False, False)),
+    (24, 1, True, 32, (False, False)),   # arrays not 16-byte aligned
+    (24, 4, True, 32, (True, True)),
+    (24, 0, False, 32, (False, False)),  # contiguous: one int at a time
+    (8000, 0, True, 8192, (True, False)),  # no room for the prefetch
+])
+def test_kernel_moves_follow_the_state_layout(w, offset, lane_major, U,
+                                              want):
+    """The kernel's int4 moves need lane-major state at a lane stride of
+    whole int4 and 16-byte aligned arrays, and its prefetch needs shared
+    memory beside the block's 5U ints; otherwise the same kernel moves one
+    int at a time (a lane-major w = 25 is inside strip_block's contract)."""
+    st = _state(w, offset, lane_major)
+    (srow, slane), = {a.stride() for a in st}
+    r = xsharded.XSTRIP_R
+    threads = xsharded._threads(w, r)
+    assert xsharded._moves([a.data_ptr() for a in st], srow, slane, threads,
+                           r, U) == want
+
+
+def test_block_length_cap_fits_shared_memory():
+    """MAX_UNROLL's 5 ints a step and 6 a warp fit the block's shared
+    memory at the most threads any R launches; strip_block takes U up to
+    MAX_UNROLL and rejects one more."""
+    warps = xsharded.MAX_ROWS // min(xsharded.ROWS_PER_THREAD) // 32
+    assert 4 * (5 * xsharded.MAX_UNROLL + 6 * warps) <= xsharded.SMEM_BYTES
+    assert xsharded.MAX_UNROLL == 8192
+    w, U = 8, xsharded.MAX_UNROLL + 1
+    sxb, slab, hD, hQ, state = (torch.from_numpy(a) if not isinstance(a, tuple)
+                                else tuple(map(torch.from_numpy, a))
+                                for a in xstrip_inputs(3, w, U))
+    with pytest.raises(ValueError, match="U="):
+        xsharded.strip_block(sxb, slab, hD, hQ, state, w=w, U=U)
+
+
+@pytest.mark.parametrize("ci", range(len(CFGS)))
+@pytest.mark.parametrize("K", [1, 2, 4])
+def test_windowed_forward_and_ring_equal_jax_and_oracle(K, ci):
+    """Every block windowed to its live rows (``live_rows``): the ring, and
+    on one rank the forward itself, give the JAX package's forward and the
+    oracle on every case of tests/test_xsharded.py."""
+    if len(jax.devices("cpu")) < K:
+        pytest.skip(f"needs {K} virtual CPU devices (see conftest XLA_FLAGS)")
+    cfg = CFGS[ci]
+    mesh = make_mesh(1, device="cpu")
+    for name, (pairs, unroll) in CASES.items():
+        got = _ring(pairs, K, unroll, cfg, windowed=True)
+        np.testing.assert_array_equal(got, _jax_forward(pairs, K, unroll,
+                                                        cfg), err_msg=name)
+        np.testing.assert_array_equal(
+            got[: len(pairs)],
+            oracle.sw_scores_pairs(_jax_pairs(pairs), JaxSWConfig(**cfg)),
+            err_msg=name)
+        if K == 1:
+            pk = _pack(pairs, 1, unroll)
+            fwd = xsharded.sw_forward_xsharded(
+                torch.from_numpy(pk.sx), torch.from_numpy(pk.sy), mesh=mesh,
+                strip_w=pk.strip_w, n_diags=pk.n_diags, unroll=unroll,
+                anchor=pk.anchor, ly_max=xsharded.tile_ly_max(pk),
+                cfg=SWConfig(**cfg))
+            np.testing.assert_array_equal(fwd.numpy(), got, err_msg=name)
+
+
+@pytest.mark.parametrize("ci", range(len(CFGS)))
+@pytest.mark.parametrize("K", [1, 2, 4])
+def test_full_block_keeps_rows_past_the_window_zero(K, ci):
+    """The exactness of the skip, on the reference's own function: in the
+    full ring of JAX blocks (``_strip_block_pallas``, interpret mode), at
+    every (k, b), the rows at and past ``live_rows``'s upper edge hold
+    zeros in all six state arrays, and the strip's halo is zero when the
+    edge lies inside the strip. A window is never wider than the strip,
+    and at the last block every strip's window is done or nearly."""
+    cfg = CFGS[ci]
+    for name, (pairs, U) in CASES.items():
+        if name not in ("ragged", "identical_disjoint", "tandem", "unroll4"):
+            continue
+        pk = _pack(pairs, K, U)
+        w, ly_max = pk.strip_w, xsharded.tile_ly_max(pk)
+        sx, sy = pk.sx.astype(np.int32), pk.sy.astype(np.int32)
+        zero = np.zeros((U, 128), np.int32)
+        block = jax.jit(functools.partial(
+            jxs._strip_block_pallas, w=w, U=U, cfg=JaxSWConfig(**cfg),
+            interpret=True))
+        states = [tuple(np.zeros((w, 128), np.int32) for _ in range(6))
+                  for _ in range(K)]
+        halos = [(zero, zero)] * K
+        for b in range(xsharded.n_blocks(pk.n_diags, U, K)):
+            new = []
+            for k in range(K):
+                s = xsharded.slab_start(pk.anchor, k, b, strip_w=w, unroll=U,
+                                        ndt=sy.shape[0])
+                hD, hQ = halos[k - 1] if k else (zero, zero)
+                st, bD, bQ = block(sx[k * w: (k + 1) * w],
+                                   sy[s: s + w + U], hD, hQ, states[k])
+                states[k] = tuple(np.asarray(a) for a in st)
+                lo, hi = xsharded.live_rows(k, b, strip_w=w, unroll=U,
+                                            ly_max=ly_max)
+                assert 0 <= lo <= w and 0 <= hi <= w, (name, k, b)
+                for a in states[k]:
+                    assert not a[hi:].any(), (name, k, b, hi)
+                if hi < w:
+                    assert not np.asarray(bD).any()
+                    assert not np.asarray(bQ).any()
+                new.append((np.asarray(bD), np.asarray(bQ)))
+            halos = new
+
+
+@pytest.mark.parametrize("rows", [(0, 40), (0, 1), (0, 23), (9, 40),
+                                  (13, 31), (39, 40), (20, 20)])
+@pytest.mark.parametrize("U", [1, 8])
+def test_strip_block_window_leaves_the_rest_untouched(U, rows):
+    """strip_block(rows=(g_lo, g_hi)) on the CPU: the rows outside the
+    window are bit for bit the input, with ``out`` or without; the window
+    is the plain block on the slice (zeros above g_lo > 0), its halo that
+    block's when g_hi = w and zeros otherwise; where g_lo is 0 the window's
+    rows (and at g_hi = w the halo) equal the full block's; an empty
+    window returns the state and a zero halo."""
+    w = 40
+    sxb, slab, hD, hQ, state = (torch.from_numpy(a) if not isinstance(a, tuple)
+                                else tuple(map(torch.from_numpy, a))
+                                for a in xstrip_inputs(70 + U, w, U))
+    g_lo, g_hi = rows
+    full = sw_xstrip_block(sxb, slab, hD, hQ, state, w=w, U=U)
+    sl = slice(g_lo, g_hi)
+    top = (hD, hQ) if g_lo == 0 else (torch.zeros_like(hD),) * 2
+    part = (sw_xstrip_block(sxb[sl], slab[g_lo: g_hi + U], *top,
+                            tuple(a[sl] for a in state), w=g_hi - g_lo, U=U)
+            if g_lo < g_hi else None)
+    got = xsharded.strip_block(sxb, slab, hD, hQ, state, w=w, U=U, rows=rows)
+    io = tuple(a.t().contiguous().t() for a in state)
+    inplace = xsharded.strip_block(sxb, slab, hD, hQ, io, w=w, U=U,
+                                   rows=rows, out=io)
+    assert all(a is b for a, b in zip(inplace[0], io))
+    for res in (got, inplace):
+        for i, (a, s0, f) in enumerate(zip(res[0], state, full[0])):
+            assert torch.equal(a[:g_lo], s0[:g_lo])
+            assert torch.equal(a[g_hi:], s0[g_hi:])
+            if part is not None:
+                assert torch.equal(a[sl], part[0][i])
+            if g_lo == 0:
+                assert torch.equal(a[:g_hi], f[:g_hi])
+        for j, h in enumerate(res[1:]):
+            if g_hi == w and part is not None:
+                assert torch.equal(h, part[1 + j])
+                if g_lo == 0:
+                    assert torch.equal(h, full[1 + j])
+            else:
+                assert not h.any()
+
+
+def test_live_rows_edges():
+    """The window of block b on rank k: [(b-k)U - ly_max - k*w, (b-k+1)U -
+    k*w) clamped to the strip; empty before the fill and after the drain."""
+    kw = dict(strip_w=100, unroll=8, ly_max=30)
+    assert xsharded.live_rows(0, 0, **kw) == (0, 8)
+    assert xsharded.live_rows(0, 5, **kw) == (10, 48)
+    assert xsharded.live_rows(0, 20, **kw) == (100, 100)
+    assert xsharded.live_rows(1, 12, **kw) == (0, 0)
+    assert xsharded.live_rows(1, 14, **kw) == (0, 12)
+    assert xsharded.live_rows(1, 20, **kw) == (22, 60)
+    assert xsharded.live_rows(2, 0, **kw) == (0, 0)
