@@ -17,7 +17,10 @@ order 1, 2, 19, 21, 24, 27, 3, 4, 5, 22, 23, 25, 26, 28, 29, 20, 7-18,
                 of every kernel instance, and the SASS count of integer
                 arithmetic a cell along one step of csrc/sw_long.cu's and
                 csrc/sw_xstrip.cu's loop at R = 4, 8 and 16 (cuobjdump
-                -sass), which SW_OPS_PER_CELL must not pass
+                -sass), which SW_OPS_PER_CELL must not pass, and of fp32
+                flops a cell (FFMA 2) along one step of
+                csrc/pairhmm_tile.cu's and csrc/pairhmm_long.cu's loop at
+                every R, which must reach PHMM_FLOPS_PER_CELL
   2. kernel     the lane-tile SW kernel vs its plain PyTorch version on
                 ragged buckets under three scoring configs, exact
   3. goldens    Engine(device="cuda") on the vendored SW goldens, exact
@@ -38,7 +41,11 @@ order 1, 2, 19, 21, 24, 27, 3, 4, 5, 22, 23, 25, 26, 28, 29, 20, 7-18,
                 (reads 1-500bp, haplotypes 1-700bp, N runs, a deep-decay
                 pair), bitmask and raw codes, mm_div 1 and 3, and on 151bp
                 reads against 7-10kbp haplotypes (a stream past 6,144
-                rows, timed as in phase 13), within 1e-4
+                rows, timed as in phase 13, the plain version once), within
+                1e-4; then every R the build makes on the ragged buckets a
+                warp holds at it (with 1-30bp reads, small buckets also cut
+                to their rows) and on the deep-decay pairs at every
+                rescale period 1-32 in both code forms
   8. phmm golden Engine(device="cuda").pairhmm_file on test.in and 10s.in
                 within 1e-4 of the fp64 goldens, and the error above -45
                 with the fallback off
@@ -49,12 +56,17 @@ order 1, 2, 19, 21, 24, 27, 3, 4, 5, 22, 23, 25, 26, 28, 29, 20, 7-18,
                 by stage (job list and offload mask, pack, copy,
                 expansion, kernel, copy back, unpack, fallback check),
                 each synchronized
- 10. phmm time   expansion ms, then kernel vs plain ms on the expanded
-                65,536-job bucket, slope as in phase 5, in turns plain,
-                kernel, kernel, plain
+ 10. phmm time   expansion ms, then on the expanded 65,536-job bucket
+                every R at which a warp holds its 160 rows held against
+                the plain result, the plain version's ms (slope as in
+                phase 5, once), and each R's ms in turns (ascending, then
+                descending)
  11. long kernel long-read PairHMM kernel vs its plain version on a tile
                 of 128 jobs (reads 511-1500bp, haplotypes to 2kbp, N runs,
-                a deep-decay pair), mm_div 1 and 3, within 1e-4
+                a deep-decay pair), mm_div 1 and 3, at every R at which a
+                warp holds a strip of 256 rows, within 1e-4; and on reads
+                ending on strip seams (a deep-decay one among them) at
+                strip widths 256 and 24 (9 strips, two rounds)
  12. long main   the engine on 512 jobs (128 reads of 1,000bp, the
                 reference's longest, x 4 haplotypes of 1,200bp, seeded):
                 every read is past the lane-tile kernel's 510bp and takes
@@ -62,8 +74,8 @@ order 1, 2, 19, 21, 24, 27, 3, 4, 5, 22, 23, 25, 26, 28, 29, 20, 7-18,
                 native fp64 model; its launch count is read around this
                 run
  13. long time   long-read kernel vs plain ms on one tile of phase 12,
-                slope (t(3) - t(1)) / 2, in turns plain, kernel, kernel,
-                plain
+                slope (t(3) - t(1)) / 2: the plain version once, then each
+                R in turns (8, 16, 32, 32, 16, 8)
  14. sw long     long-pair SW kernel vs its plain versions and the native
                 model on a tile of 128 pairs (x 1,023-4,000bp, y to 5kbp,
                 an identical pair, a tandem repeat across a strip seam, an
@@ -386,19 +398,10 @@ def native_sw(native, pairs, cfg=None, threads=8):
     return out
 
 
-def sass_cell_ops(lib, kernel, dpx_per_cell):
-    """{R: (integer arithmetic instructions a cell, cells a step)} of
-    `kernel` in the library `lib`, read with cuobjdump -sass (the CUDA
-    toolkit's, else the one Triton carries). In each template instance the
-    cell block is the straight-line block with the most DPX add-max
-    instructions and the fewest selects a cell (the unmasked path); from
-    it the count walks one step of the loop, forward branches taken (the
-    code one thread in a warp or a block runs is skipped) except one that
-    jumps past the cell block, the back edge followed round to the cell
-    block again. Along that path it counts the opcodes of SW_CELL_OPCODES
-    (the loop's own counters and tests among them) and the cells (DPX
-    add-max instructions / dpx_per_cell)."""
-    import collections
+def sass_functions(lib):
+    """{function name: [(address, opcode, branch target or None,
+    predicated)]} of the library `lib`, read with cuobjdump -sass (the CUDA
+    toolkit's, else the one Triton carries)."""
     import re
     import shutil
 
@@ -424,6 +427,115 @@ def sass_cell_ops(lib, kernel, dpx_per_cell):
             funcs[name].append((int(m.group(1), 16), op.split()[0],
                                 int(t.group(1), 16) if t else None,
                                 m.group(2).startswith("@")))
+    return funcs
+
+
+def sass_blocks(ins):
+    """The straight-line blocks of one function's instructions: lists of
+    indices, cut at branch targets and after branches, exits and
+    barriers."""
+    targets = {t for _, _, t, _ in ins if t is not None}
+    blocks, cur = [], []
+    for n, (a, op, _, _) in enumerate(ins):
+        if a in targets and cur:
+            blocks.append(cur)
+            cur = []
+        cur.append(n)
+        if op.startswith(("BRA", "EXIT", "BAR")):
+            blocks.append(cur)
+            cur = []
+    return blocks
+
+
+def sass_phmm_flops(lib, kernel):
+    """{(R, variant): (fp32 flops a cell along one step, cells on the
+    path)} of the PairHMM `kernel` in `lib`, variant the bitmask flag of
+    the lane-tile kernel's instances (None for the long-read kernel's).
+    In each instance the walk starts from the straight-line block with the
+    most FFMAs on a loop that takes no vote and no barrier (the cells of
+    the step loop, one step or as many as the compiler unrolled; a
+    rescale block's last step and its votes lie on the outer loop) and
+    takes the shortest path from its end round that loop back to it, so
+    that every branch a step may skip (the stream chunk, the first
+    diagonal) is skipped and predicated code is counted. Along it FADD
+    and FMUL count 1, FFMA 2; the cells are its FFMAs over 3, a cell's
+    three fused multiply-adds."""
+    import collections
+    import re
+
+    flop = {"FADD": 1, "FMUL": 1, "FFMA": 2}
+    out = {}
+    for name, ins in sass_functions(lib).items():
+        m = re.search(kernel + r"ILi(\d+)E(?:Lb([01])E)?", name)
+        if not m:
+            continue
+        r = int(m.group(1))
+        variant = None if m.group(2) is None else int(m.group(2))
+        index = {a: n for n, (a, _, _, _) in enumerate(ins)}
+
+        def succ(n):
+            _, op, t, cond = ins[n]
+            ends = op.startswith(("EXIT", "RET")) or t is not None
+            nxt = [n + 1] if (cond or not ends) and n + 1 < len(ins) else []
+            return nxt + ([index[t]] if t is not None and t in index else [])
+
+        def cycle(block):
+            """The shortest path from the block's end back to its start,
+            the block included; None if it lies on no loop."""
+            first, last = block[0], block[-1]
+            prev, todo = {n: last for n in succ(last)}, collections.deque(
+                succ(last))
+            while todo and first not in prev:
+                n = todo.popleft()
+                for q in succ(n):
+                    if q not in prev:
+                        prev[q] = n
+                        todo.append(q)
+            if first not in prev:
+                return None
+            path, n = list(block), prev[first]
+            while n != last:
+                path.append(n)
+                n = prev[n]
+            return path
+
+        def op(n):
+            return ins[n][1].split(".")[0]
+
+        best = None
+        for b in sass_blocks(ins):
+            ffma = sum(op(n) == "FFMA" for n in b)
+            if ffma >= 3 and (best is None or ffma > best[0]):
+                path = cycle(b)
+                if path is not None and not any(
+                        op(n) in ("VOTE", "BAR") for n in path):
+                    best = (ffma, path)
+        check(best is not None, f"{name}: no FFMA block on a loop")
+        path = best[1]
+        ffma = sum(op(n) == "FFMA" for n in path)
+        check(ffma % 3 == 0 and ffma // 3 % r == 0,
+              f"{name}: {ffma} FFMAs on one step's path, not 3 x R cells")
+        out[(r, variant)] = (sum(flop.get(op(n), 0) for n in path)
+                             / (ffma // 3), ffma // 3)
+    return out
+
+
+def sass_cell_ops(lib, kernel, dpx_per_cell):
+    """{R: (integer arithmetic instructions a cell, cells a step)} of
+    `kernel` in the library `lib`, read with cuobjdump -sass (the CUDA
+    toolkit's, else the one Triton carries). In each template instance the
+    cell block is the straight-line block with the most DPX add-max
+    instructions and the fewest selects a cell (the unmasked path); from
+    it the count walks one step of the loop, forward branches taken (the
+    code one thread in a warp or a block runs is skipped) except one that
+    jumps past the cell block, the back edge followed round to the cell
+    block again. Along that path it counts the opcodes of SW_CELL_OPCODES
+    (the loop's own counters and tests among them) and the cells (DPX
+    add-max instructions / dpx_per_cell)."""
+    import collections
+    import re
+
+    funcs = sass_functions(lib)
 
     def arith(o):
         return o.split(".")[0] in SW_CELL_OPCODES or o in SW_CELL_OPCODES
@@ -434,18 +546,8 @@ def sass_cell_ops(lib, kernel, dpx_per_cell):
         if not m:
             continue
         index = {a: n for n, (a, _, _, _) in enumerate(ins)}
-        targets = {t for _, _, t, _ in ins if t is not None}
-        blocks, cur = [], []
-        for n, (a, op, _, _) in enumerate(ins):
-            if a in targets and cur:
-                blocks.append(cur)
-                cur = []
-            cur.append(n)
-            if op.startswith(("BRA", "EXIT", "BAR")):
-                blocks.append(cur)
-                cur = []
         best = None
-        for b in blocks:
+        for b in sass_blocks(ins):
             ops = [ins[n][1] for n in b]
             cells = sum(o.startswith("VIADDMNMX") for o in ops) // dpx_per_cell
             if cells < 2:
@@ -497,7 +599,8 @@ def main() -> int:
     import numpy as np
 
     from genomax_torch import native
-    from genomax_torch.config import EngineConfig, PairHMMConfig, SWConfig
+    from genomax_torch.config import (RESCALE_PERIODS, EngineConfig,
+                                      PairHMMConfig, SWConfig)
     from genomax_torch.dist import xsharded
     from genomax_torch.dist.engine import ShardedEngine
     from genomax_torch.dist.mesh import initialize_distributed, make_mesh
@@ -523,6 +626,7 @@ def main() -> int:
                                     sw_rotor_to_torch, sw_stacked_to_torch,
                                     sw_strips_to_torch, unpack_scores)
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     clk = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=clocks.max.sm",
                           "--format=csv,noheader,nounits"],
@@ -572,6 +676,28 @@ def main() -> int:
     fewest = min(n for ops in sass_ops.values() for n, _ in ops.values())
     check(SW_OPS_PER_CELL <= fewest,
           f"SW_OPS_PER_CELL {SW_OPS_PER_CELL}: a kernel's step takes "
+          f"{fewest} a cell")
+    # the PairHMM cell of the two redesigned kernels, instance by instance
+    phmm_flops = {}
+    for name, kernel, want in (
+            ("pairhmm_tile", "pairhmm_tile_kernel",
+             [(r, b) for r in pairhmm.TILE_R for b in (0, 1)]),
+            ("pairhmm_long", "pairhmm_long_kernel",
+             [(r, None) for r in pairhmm_long.LONG_R])):
+        flops = sass_phmm_flops(builds[names.index(name)][0], kernel)
+        check(sorted(flops, key=str) == sorted(want, key=str),
+              f"{name}: SASS instances {sorted(flops, key=str)}")
+        phmm_flops[name] = flops
+        print(f"phase 1 sass {name}: fp32 flops a cell along one step of the "
+              "loop (FFMA 2) by R" + ("" if name == "pairhmm_long" else
+                                      " (raw / bitmask codes)") + ": " +
+              ", ".join(f"R={r}: " + " / ".join(
+                  f"{flops[(r, v)][0]:.2f} over {flops[(r, v)][1]} cells"
+                  for v in ((None,) if name == "pairhmm_long" else (0, 1)))
+                  for r in sorted({r for r, _ in want})))
+    fewest = min(f for fl in phmm_flops.values() for f, _ in fl.values())
+    check(PHMM_FLOPS_PER_CELL <= fewest,
+          f"PHMM_FLOPS_PER_CELL {PHMM_FLOPS_PER_CELL}: a PairHMM step takes "
           f"{fewest} a cell")
 
     # 2. kernel vs plain version on the card
@@ -1286,6 +1412,7 @@ def main() -> int:
 
     # 7. PairHMM kernel vs plain version on the card
     ph_err = 0.0
+    ph_cases = []  # (bucket, tensors, plain result, mm_div, period)
     for alphabet, gatk, period in ((b"ACGT", False, 32), (b"ACGT", True, 32),
                                    (b"ACGTX", False, 8), (b"ACGTX", True, 32),
                                    (None, False, 32)):
@@ -1309,6 +1436,8 @@ def main() -> int:
                                      torch.from_numpy(b.rl > 0).to(dev),
                                      torch))
             nt, nds = max(nt, b.meta.shape[0]), max(nds, b.nds)
+            if alphabet is not None and period == 32:
+                ph_cases.append((b, t, want, cfg.mm_div, period))
         ph_err = max(ph_err, err)
         check(err <= PH_TOL, f"PairHMM kernel vs plain: {err} > {PH_TOL}")
         check(alphabet is not None or nds > 6144,
@@ -1322,17 +1451,72 @@ def main() -> int:
               f"{err:.3g}")
     # the streamed case's bucket (the last one packed): kernel vs plain ms
     bm = b.bitmask_codes
-    st_k = lambda: pairhmm.pairhmm_forward(*t, bitmask=bm)  # noqa: E731
-    st_p = lambda: phmm_forward_tiles(*t, 32, 1.0, bm)  # noqa: E731
-    p1, k1, k2, p2 = (slope_ms(st_p, torch, 3), slope_ms(st_k, torch, 3),
-                      slope_ms(st_k, torch, 3), slope_ms(st_p, torch, 3))
+    st_t = t
+    st_k = lambda: pairhmm.pairhmm_forward(*st_t, bitmask=bm)  # noqa: E731
+    st_p = lambda: phmm_forward_tiles(*st_t, 32, 1.0, bm)  # noqa: E731
+    p1, k1, k2 = (slope_ms(st_p, torch, 3), slope_ms(st_k, torch, 3),
+                  slope_ms(st_k, torch, 3))
     st_bound = bound_ms(nbytes(*t) + 4 * b.rl.size,
                         int((b.rl.astype(np.int64) * b.hl).sum())
                         * PHMM_FLOPS_PER_CELL, FP32_FLOPS)
     print(f"phase 7 streamed timing, bucket {tuple(t[0].shape)} stream "
           f"{tuple(t[7].shape)}: kernel {k1:.3f} / {k2:.3f} ms, plain "
-          f"{p1:.3f} / {p2:.3f} ms per call, bound {st_bound[0]:.4f} ms by "
+          f"{p1:.3f} ms per call, bound {st_bound[0]:.4f} ms by "
           f"{st_bound[1]}")
+    # every R the build makes, on the ragged buckets above whose rows a warp
+    # holds at that R (bitmask codes at mm_div 1, raw at 3; with short reads,
+    # and each bucket also cut to its rows, so that every R meets buckets)
+    # and on the deep-decay pairs at every rescale period in both code forms
+    def tight(b, t, cases_out, mm_div, period):
+        cut, n = cases.tight_rows(t, b.rl)
+        if n < b.nxs <= 136:  # the buckets whose cut a smaller R takes
+            cases_out.append((b, cut, n, phmm_forward_tiles(
+                *cut, period, mm_div, b.bitmask_codes), mm_div, period))
+
+    ragged = []
+    for b, t, want, mm_div, period in ph_cases:
+        ragged.append((b, t, b.nxs, want, mm_div, period))
+        tight(b, t, ragged, mm_div, period)
+    for alphabet, mm_div in ((b"ACGT", 1.0), (b"ACGTX", 3.0)):
+        sbs, _ = pack_pairhmm_batches(cases.short_phmm_batches(6, alphabet),
+                                      byte_quals=True, factored=True,
+                                      bitmask_codes=True)
+        for b in sbs:
+            t = phmm_bucket_to_torch(b, dev)
+            ragged.append((b, t, b.nxs, phmm_forward_tiles(
+                *t, 32, mm_div, b.bitmask_codes), mm_div, 32))
+            tight(b, t, ragged, mm_div, 32)
+    deep = []
+    for bitmask, mm_div in ((True, 1.0), (False, 3.0)):
+        for batch in cases.deep_decay_batches():
+            (b,), _ = pack_pairhmm_batches([batch], byte_quals=True,
+                                           factored=True,
+                                           bitmask_codes=bitmask)
+            t, n = cases.tight_rows(phmm_bucket_to_torch(b, dev), b.rl)
+            for period in RESCALE_PERIODS:
+                deep.append((b, t, n, phmm_forward_tiles(
+                    *t, period, mm_div, b.bitmask_codes), mm_div, period))
+    for r in pairhmm.TILE_R:
+        err, n_run = 0.0, [0, 0]
+        for kind, group in enumerate((ragged, deep)):
+            for b, t, nxs, want, mm_div, period in group:
+                if -(-nxs // r) > pairhmm.WARP:
+                    continue
+                got = pairhmm.pairhmm_forward(*t, rescale_period=period,
+                                              mm_div=mm_div,
+                                              bitmask=b.bitmask_codes,
+                                              _rows_per_thread=r)
+                err = max(err, log10_err(
+                    got, want, torch.from_numpy(b.rl > 0).to(dev), torch))
+                n_run[kind] += 1
+        ph_err = max(ph_err, err)
+        check(err <= PH_TOL, f"PairHMM kernel at R = {r} vs plain: {err}")
+        check(n_run[0] and n_run[1] >= 2 * len(RESCALE_PERIODS),
+              f"R = {r}: {n_run} ragged and deep-decay buckets")
+        print(f"phase 7 phmm kernel at R = {r} vs plain: {n_run[0]} ragged "
+              f"buckets of up to {pairhmm.WARP * r} rows, {n_run[1]} "
+              f"deep-decay buckets (periods {RESCALE_PERIODS}, bitmask and "
+              f"raw codes), max |dlog10| {err:.3g}")
 
     # 8. PairHMM engine on the vendored goldens
     gold = os.path.join(REPO, "tests", "golden")
@@ -1438,35 +1622,64 @@ def main() -> int:
     err = log10_err(got, want, torch.from_numpy(b.rl > 0).to(dev), torch)
     ph_err = max(ph_err, err)
     check(err <= PH_TOL, f"PairHMM kernel vs plain on the 65k bucket: {err}")
-    kernel = lambda: pairhmm.pairhmm_forward(  # noqa: E731
-        *t, rescale_period=period, mm_div=mm_div, bitmask=bm)
+    # every R at which a warp holds the bucket's rows, each held against
+    # the plain result, then timed in turns (R ascending, then descending)
+    # after one plain slope
+    rs = [r for r in pairhmm.TILE_R if -(-b.nxs // r) <= pairhmm.WARP]
+    ph_r = pairhmm.default_rows_per_thread(b.nxs)
+    for r in rs:
+        got_r = pairhmm.pairhmm_forward(*t, rescale_period=period,
+                                        mm_div=mm_div, bitmask=bm,
+                                        _rows_per_thread=r)
+        err = max(err, log10_err(got_r, want,
+                                 torch.from_numpy(b.rl > 0).to(dev), torch))
+    ph_err = max(ph_err, err)
+    check(err <= PH_TOL, f"PairHMM kernel at every R on the 65k bucket: {err}")
+
+    def kernel_at(r):
+        return lambda: pairhmm.pairhmm_forward(
+            *t, rescale_period=period, mm_div=mm_div, bitmask=bm,
+            _rows_per_thread=r)
+
     plain = lambda: phmm_forward_tiles(*t, period, mm_div, bm)  # noqa: E731
-    p1, k1, k2, p2 = (slope_ms(plain, torch), slope_ms(kernel, torch),
-                      slope_ms(kernel, torch), slope_ms(plain, torch))
-    ph_kernel_ms, ph_plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    ph_plain_ms = slope_ms(plain, torch)
+    times = {r: [] for r in rs}
+    for r in rs + rs[::-1]:
+        times[r].append(slope_ms(kernel_at(r), torch))
+    ph_kernel_ms = sum(times[ph_r]) / 2
     cells = stats.dp_cells  # phase 9's bucket: sum rl*hl
     ph_bound = bound_ms(nbytes(*t, got), cells * PHMM_FLOPS_PER_CELL,
                         FP32_FLOPS)
+    ph_times = {r: sum(v) / 2 for r, v in times.items()}
     print(f"phase 10 phmm timing, bucket {tuple(t[0].shape)} stream "
-          f"{tuple(t[7].shape)}: expansion {expand_ms:.3f} ms; kernel "
-          f"{k1:.3f} / {k2:.3f} ms, plain {p1:.3f} / {p2:.3f} ms per call, "
-          f"bound {ph_bound[0]:.4f} ms by {ph_bound[1]}; "
+          f"{tuple(t[7].shape)}: expansion {expand_ms:.3f} ms; kernel by R "
+          "(threads a pair), ms per call in turns: " + ", ".join(
+              f"R={r} (G={-(-b.nxs // r)}) {v[0]:.3f} / {v[1]:.3f}"
+              for r, v in times.items())
+          + f"; default R={ph_r} {ph_kernel_ms:.3f} ms, plain "
+          f"{ph_plain_ms:.3f} ms per call, bound {ph_bound[0]:.4f} ms by "
+          f"{ph_bound[1]} ({100 * ph_bound[0] / ph_kernel_ms:.1f}% of it); "
           f"GCUPS kernel {cells / ph_kernel_ms / 1e6:.2f}, plain "
           f"{cells / ph_plain_ms / 1e6:.2f} (cells = sum rl*hl, {cells}); "
-          f"max |dlog10| {err:.3g}")
+          f"max |dlog10| over every R {err:.3g}")
+    print(f"phase 10 phmm fastest R: {min(ph_times, key=ph_times.get)} "
+          f"({min(ph_times.values()):.3f} ms); default R={ph_r}")
 
     # 11. the long-read kernel vs its plain version on the card
     def long_tile(jobs):
-        arrays, st = pairhmm_long.pack_pairhmm_long(jobs)
+        return long_tile_w(jobs, pairhmm_long.STRIP_W)
+
+    def long_tile_w(jobs, strip_w):
+        arrays, st = pairhmm_long.pack_pairhmm_long(jobs, strip_w=strip_w)
         st = dict(st)
         t = {k: torch.from_numpy(a).to(dev) for k, a in arrays.items()}
         sweep, anchor, _ = pairhmm_long.long_layout(st["ny_max"],
                                                     st["strip_w"])
         valid = torch.from_numpy(arrays["meta"][0] > 0).to(dev)
 
-        def kernel(unroll, mm_div):
+        def kernel(unroll, mm_div, r=None):
             return pairhmm_long.pairhmm_long_forward(
-                **t, **st, unroll=unroll, mm_div=mm_div)
+                **t, **st, unroll=unroll, mm_div=mm_div, _rows_per_thread=r)
 
         def plain(unroll, mm_div):
             return phmm_long_forward(*t.values(), st["k_strips"],
@@ -1478,19 +1691,53 @@ def main() -> int:
     lr_err = 0.0
     jobs = cases.long_jobs(5)
     kernel, plain, valid, st = long_tile(jobs)
+    lr_rs = [r for r in pairhmm_long.LONG_R
+             if -(-st["strip_w"] // r) <= pairhmm_long.WARP]
     for gatk, unroll in ((False, 16), (True, 8)):
         mm_div = PairHMMConfig(gatk_emission=gatk).mm_div
-        got, want = kernel(unroll, mm_div), plain(unroll, mm_div)
-        torch.cuda.synchronize()
-        err = log10_err(got, want, valid, torch)
+        want = plain(unroll, mm_div)
+        errs = []
+        for r in lr_rs:  # every R at which a warp holds a strip
+            got = kernel(unroll, mm_div, r)
+            torch.cuda.synchronize()
+            errs.append(log10_err(got, want, valid, torch))
+        err = max(errs)
         lr_err = max(lr_err, err)
         check(err <= PH_TOL, f"long-read kernel vs plain: {err} > {PH_TOL}")
         print(f"phase 11 long kernel vs plain: {len(jobs)} jobs (reads "
               f"511-1500bp, "
               f"haplotypes to 2kbp), {st['k_strips']} strips of "
               f"{st['strip_w']} rows, unroll {unroll}, mm_div {mm_div:g}, "
-              f"max |dlog10| {err:.3g}, "
-              f"{int(torch.isfinite(want).sum())} finite")
+              "max |dlog10| by R " + ", ".join(
+                  f"R={r} {e:.3g}" for r, e in zip(lr_rs, errs))
+              + f", {int(torch.isfinite(want).sum())} finite")
+    # reads ending on a strip seam (the strip after the owner only
+    # rescales) and a deep-decay pair among them, at the engine's strip
+    # width and at 24 rows (9 strips: the block sweeps them in two rounds,
+    # the seam between rounds through global memory)
+    for strip_w, read_lens in ((256, (300, 1000)), (24, (30, 200))):
+        # long_jobs' last pair, a 700bp deep-decay one, would take the
+        # plain strip sweep at 24 rows through 30 strips; the seam jobs
+        # hold a deep-decay pair of their own
+        jobs = cases.long_seam_jobs(3, strip_w) + cases.long_jobs(
+            8, n_jobs=13, read_lens=read_lens,
+            hap_max=read_lens[1] + 100)[:-1]
+        kernel, plain, valid, st = long_tile_w(jobs, strip_w)
+        rs = [r for r in pairhmm_long.LONG_R
+              if -(-strip_w // r) <= pairhmm_long.WARP]
+        for unroll, mm_div in ((16, 1.0), (4, 3.0)):
+            want = plain(unroll, mm_div)
+            errs = [log10_err(kernel(unroll, mm_div, r), want, valid, torch)
+                    for r in rs]
+            lr_err = max(lr_err, *errs)
+            check(max(errs) <= PH_TOL,
+                  f"long-read kernel vs plain on seam reads: {errs}")
+            print(f"phase 11 long kernel vs plain, reads ending on strip "
+                  f"seams: {len(jobs)} jobs, {st['k_strips']} strips of "
+                  f"{strip_w} rows, unroll {unroll}, mm_div {mm_div:g}, max "
+                  "|dlog10| by R " + ", ".join(
+                      f"R={r} {e:.3g}" for r, e in zip(rs, errs))
+                  + f", {int(torch.isfinite(want).sum())} finite")
 
     # 12. the long-read path through the engine
     batch = generate_pairhmm_batch(LR_READS, LR_HAPS, read_len=LR_READ_LEN,
@@ -1534,25 +1781,32 @@ def main() -> int:
     kernel, plain, valid, st = long_tile(
         [(rd, hp) for rd in batch.reads[:128 // LR_HAPS]
          for hp in batch.haplotypes])
-    got, want = kernel(16, 1.0), plain(16, 1.0)
-    err = log10_err(got, want, valid, torch)
+    want = plain(16, 1.0)
+    err = max(log10_err(kernel(16, 1.0, r), want, valid, torch)
+              for r in lr_rs)
     lr_err = max(lr_err, err)
     check(err <= PH_TOL, f"long-read kernel vs plain on the tile: {err}")
-    p1, k1, k2, p2 = (slope_ms(lambda: plain(16, 1.0), torch, 3),
-                      slope_ms(lambda: kernel(16, 1.0), torch, 3),
-                      slope_ms(lambda: kernel(16, 1.0), torch, 3),
-                      slope_ms(lambda: plain(16, 1.0), torch, 3))
-    lr_kernel_ms, lr_plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    lr_plain_ms = slope_ms(lambda: plain(16, 1.0), torch, 3)
+    times = {r: [] for r in lr_rs}
+    for r in lr_rs + lr_rs[::-1]:
+        times[r].append(slope_ms(lambda: kernel(16, 1.0, r), torch, 3))
+    lr_r = pairhmm_long.long_geometry(st["k_strips"], st["strip_w"],
+                                      st["ny_max"]).rows_per_thread
+    lr_kernel_ms = sum(times[lr_r]) / 2
     cells = LR_READ_LEN * LR_HAP_LEN * 128
     lr_bound = bound_ms(st["bytes"] + 4 * 128, cells * PHMM_FLOPS_PER_CELL,
                         FP32_FLOPS)
     print(f"phase 13 long timing, tile of 128 jobs {LR_READ_LEN} x "
-          f"{LR_HAP_LEN}, {st['k_strips']} strips: kernel {k1:.3f} / "
-          f"{k2:.3f} ms, plain {p1:.3f} / {p2:.3f} ms per call, bound "
-          f"{lr_bound[0]:.4f} ms by {lr_bound[1]}; GCUPS "
-          f"kernel {cells / lr_kernel_ms / 1e6:.2f}, plain "
+          f"{LR_HAP_LEN}, {st['k_strips']} strips: kernel by R (threads a "
+          "strip), ms per call in turns: " + ", ".join(
+              f"R={r} ({-(-st['strip_w'] // r)}) {v[0]:.3f} / {v[1]:.3f}"
+              for r, v in times.items())
+          + f"; default R={lr_r} {lr_kernel_ms:.3f} ms, plain "
+          f"{lr_plain_ms:.3f} ms per call, bound {lr_bound[0]:.4f} ms by "
+          f"{lr_bound[1]} ({100 * lr_bound[0] / lr_kernel_ms:.2f}% of it); "
+          f"GCUPS kernel {cells / lr_kernel_ms / 1e6:.2f}, plain "
           f"{cells / lr_plain_ms / 1e6:.2f} (cells = sum rl*hl, {cells}); "
-          f"max |dlog10| {err:.3g}")
+          f"max |dlog10| over every R {err:.3g}")
 
     # 14. the long-pair SW kernel vs its plain version and the native model
     def sw_long_tile(pairs, strip_w):
@@ -2214,6 +2468,7 @@ def main() -> int:
         entry("pairhmm_long", "pairhmm_long.cu",
               "genomax/kernels/pairhmm_long.py:130", lr_launches, lr_err,
               lr_kernel_ms, lr_plain_ms, lr_bound)]}))
+    print(f"phase 6 elapsed: {time.perf_counter() - t_start:.1f} s")
     print(f"phase 6 card: {smi.stdout.strip()}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

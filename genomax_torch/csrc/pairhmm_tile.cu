@@ -2,69 +2,76 @@
 // for Hopper (sm_90a).
 //
 // Replaces: genomax/kernels/pairhmm_pallas.py `_kernel` (wrapper
-// `pairhmm_forward_pallas`), the resident lane-tile PairHMM wavefront.
-// Same inputs and output: rchar (NT, NXs, 128) int8 read codes with row i
-// holding base i-1; qr, mmv, gapm, qi, qd, qg (NT, NXs, 128) fp32, exactly
-// 0 at pad rows; hap (NT, NDs, 128) int8 reversed haplotype stream with
-// H[k] at row A-1-k, A = NDs - NXs (pads 0); meta (NT, 8, 128) int32, row
-// 0 read_len, row 1 hap_len; ndiag_tile (NT,) int32; out (NT, 128) fp32,
-// slot-major: log10 of the forward likelihood relative to the 2^120
-// initial constant.
+// `pairhmm_forward_pallas`), the resident lane-tile PairHMM wavefront, and
+// its `_kernel_streamed` (the stream is read from global memory at any
+// length). Same inputs and output: rchar (NT, NXs, 128) int8 read codes
+// with row i holding base i-1; qr, mmv, gapm, qi, qd, qg (NT, NXs, 128)
+// fp32, exactly 0 at pad rows; hap (NT, NDs, 128) int8 reversed haplotype
+// stream with H[k] at row A-1-k, A = NDs - NXs (pads 0); meta (NT, 8, 128)
+// int32, row 0 read_len, row 1 hap_len; ndiag_tile (NT,) int32; out (NT,
+// 128) fp32, slot-major: log10 of the forward likelihood relative to the
+// 2^120 initial constant.
 //
-// Design: one block per pair (slot t*128 + l), one thread per read row i,
-// one __syncthreads per anti-diagonal, as the SW kernel (sw_tile.cu). At
-// diagonal d thread i scores cell (i, j = d - i) against H[j-1], read from
-// the stream at row A - d + i. Its own M and Y at d-1 stay in registers;
-// the row above hands over its M, X and Y at d-1 through a ping-pong pair
-// of shared-memory rows, and its values at d-2 are the ones this thread
-// read one step earlier. Row 0 is the boundary: M = X = 0 and Y = 2^120 /
-// max(hl, 1), which its own recurrence keeps (pm = 0, qd = 0, qg := 1), and
-// it hands over zeros for diagonal -1. There is no circular roll, so the
-// TPU kernel's wrapped bottom row becomes an explicit zero for thread 0.
+// Design: a group of G <= 32 threads of one warp a pair, R read rows a
+// thread in registers (R a template argument, G*R >= NXs), floor(32/G)
+// pairs a warp, each with its own shuffle segment and vote mask, 8 warps of
+// neighbouring lanes of one tile a block. The rows are placed so that the
+// read's last row rl is the last row of the group's last thread: thread g
+// holds rows r0 + g*R .. r0 + g*R + R-1, r0 = rl - G*R + 1 <= -1. Rows
+// below 0 carry no read (zero constants, zero state) and stay 0; row 0 is
+// the boundary (M = X = 0, Y = 2^120 / max(hl, 1)); rows past rl are not
+// swept, because nothing they hold reaches a cell the result or a rescale
+// reads. A row keeps its M, X, Y of diagonal d-1 and T, the row above's
+// transition sum for diagonal d (phmm_cell.cuh). In a step a thread
+// updates its rows bottom up, so that row k reads row k-1's values at d-1
+// before they are overwritten; its first row takes the row above from the
+// previous thread by __shfl_up_sync at the top of the step. There is no
+// shared memory and no block barrier: a warp never waits for another.
+//
+// The haplotype code travels down the rows: cell (i, j) at diagonal d
+// compares H[j-1], which (i-1, j) compared at d-1, so row k takes row k-1's
+// code of the previous step and the group's first row reads the stream,
+// the code of stream row A - d + r0. The warp loads those codes a chunk of
+// C = 32 / pairs steps ahead, one lane a code, and hands one out a step by
+// a shuffle. Each row starts with the code it would have had at diagonal
+// -1 (stream row A + 1 + r, clamped into the stream: a clamped code only
+// ever reaches a column past A, where no cell is read).
 //
 // The scaling scheme is the TPU kernel's, step for step: blocks of
 // rescale_period diagonals; after each block the accumulator folds its
-// block partial (acc += accb * cmul), the block checks the peak of the
-// live window against 2^40 and multiplies every carried value by 2^80
-// where it fell below, and the accumulator follows that scale while it is
-// small and freezes after (cmul, acc_log). The JAX masks v0/v1/v2 are
-// written for the rolled layout; mapped onto cells they admit
-//   v0: diagonal d, rows <= rl, 0 <= j <= hl, max(M, Y);
-//   v1: diagonal d, rows <= rl, 1 <= j <= hl+1, max(M, X, Y);
-//   v2: diagonal d-1 of the row above, rows 1..rl+1, 0 <= d-1-i <= hl,
-//       max(M, X, Y),
-// and "peak in (0, 2^40)" is "some admitted value > 0 and none >= 2^40",
-// two __syncthreads_or reductions. The accumulator is one scalar on thread
-// rl, summed in increasing j as the reference sums. Each block sweeps its
-// own pair's rl+hl+1 diagonals rounded up to the period (capped by the
-// tile's count, which is what the TPU kernel sweeps): past them a pair
-// neither accumulates nor rescales, so the extra diagonals change nothing.
+// block partial (acc += accb * cmul), the pair checks the peak of the live
+// window against 2^40 (the masks v0/v1/v2 of phmm_cell.cuh, v2 evaluated
+// at the top of the block's last step on the values of d-1) by two warp
+// votes over its segment, and multiplies every carried value by 2^80 where
+// it fell below (T by taking Ts, phmm_cell.cuh), the accumulator following
+// that scale while it is small and freezing after (cmul, acc_log). The
+// values a thread takes from the row above are read after the rescale, so
+// each is scaled exactly once.
+// The accumulator is one scalar on the group's last thread, summed in
+// increasing j as the reference sums. A warp runs its pairs' longest sweep;
+// past its own rl+hl+1 diagonals rounded up to the period (capped by the
+// tile's count, what the TPU kernel sweeps) a pair neither accumulates nor
+// rescales, so the extra steps change nothing.
 //
-// Bound on this card: the per-diagonal block barrier and the shared-memory
-// hand-over. A cell costs about 15 fp32 operations, one stream byte and
-// three shared loads and stores; blocks of 160 threads (151bp reads) keep
-// few warps per barrier, and a pair's sweep runs rl+hl diagonals with half
-// of its threads idle in the wavefront's triangles. A warp per pair with
-// register shuffles (gpuPairHMM), the stream in shared memory and fused
-// expansion are the levers for a later change.
+// Bound on this card: fp32 issue. A cell is 11 flops (4 multiplies, 3
+// fused multiply-adds, 1 add) plus its match test, select and code move;
+// a step adds 5 shuffles a thread. At 151bp x 300bp a pair is one warp of
+// 32 threads x 5 rows sweeping 480 diagonals, 92% of its rows live.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "phmm_cell.cuh"
+
 namespace {
 
-constexpr int kLanes = 128;                 // pairs per packed tile
-constexpr float kTrigger = 0x1p40f;         // rescale below this peak
-constexpr float kFactor = 0x1p80f;          // by this factor
-constexpr float kInvFactor = 0x1p-80f;
-constexpr float kInit = 0x1p120f;           // the initial constant
-// log10(2^80) and log10(2^120), rounded to fp32 as the JAX constants are.
-constexpr float kRescaleLog10 = static_cast<float>(80 * 0.30102999566398120);
-constexpr float kInitLog10 = static_cast<float>(120 * 0.30102999566398120);
-constexpr int kCodeN = 'N';
-constexpr int kBitmaskN = 15;
+constexpr int kLanes = 128;    // pairs per packed tile
+constexpr int kWarp = 32;
+constexpr int kMaxWarps = 8;   // warps a block
+constexpr unsigned kFull = 0xffffffffu;
 
-__global__ void __launch_bounds__(512)
+template <int R, bool kBitmask>
+__global__ void __launch_bounds__(kMaxWarps * kWarp)
 pairhmm_tile_kernel(const int8_t* __restrict__ rchar,
                     const float* __restrict__ qr_in,
                     const float* __restrict__ mmv_in,
@@ -76,145 +83,230 @@ pairhmm_tile_kernel(const int8_t* __restrict__ rchar,
                     const int32_t* __restrict__ meta,
                     const int32_t* __restrict__ ndiag_tile,
                     float* __restrict__ out, int nxs, int nds, int period,
-                    float inv_div, int bitmask) {
-  extern __shared__ float smem[];  // [2][3][nxs]: M, X, Y of each row at
-                                   // the even / odd diagonal
+                    float inv_div, int G, int P) {
+  const int lanes_per_block = (blockDim.x / kWarp) * P;
+  const int blocks_per_tile = (kLanes + lanes_per_block - 1) / lanes_per_block;
+  const int t = blockIdx.x / blocks_per_tile;
+  const int wl = threadIdx.x % kWarp;
+  const int l0 = (blockIdx.x % blocks_per_tile) * lanes_per_block +
+                 threadIdx.x / kWarp * P;  // the warp's first lane
+  const int p = wl / G;                    // pair of this thread in the warp
+  const int g = wl - p * G;                // thread in the pair's group
+  const int l = l0 + p;
+  const bool active = p < P && l < kLanes;
+  const unsigned segmask =
+      G == kWarp ? kFull : ((1u << G) - 1u) << min(p * G, kWarp - 1);
 
-  const int slot = blockIdx.x;
-  const int t = slot / kLanes;
-  const int l = slot % kLanes;
-  const int i = threadIdx.x;
-  const int rl = meta[(t * 8 + 0) * kLanes + l];
-  const int hl = meta[(t * 8 + 1) * kLanes + l];
+  int rl = 0, hl = 0, steps = 0;
+  if (active) {
+    rl = meta[(t * 8 + 0) * kLanes + l];
+    hl = meta[(t * 8 + 1) * kLanes + l];
+    const int nd = ndiag_tile[t];
+    steps = min((rl + hl + 1 + period - 1) / period,
+                (nd + period - 1) / period) * period;
+  }
+  const int steps_warp = __reduce_max_sync(kFull, steps);
+  if (steps_warp == 0) return;  // no pair in this warp; no barrier to miss
   const int anchor = nds - nxs;
+  const int acc_last = min(rl + hl, steps - 1);
+  const int need_last = min(rl + hl + 1, steps - 1);
+  const int r0 = rl - G * R + 1;  // row of the group's first position
+  const int rb = r0 + g * R;      // row of this thread's first position
+  const int8_t* const hs = hap + static_cast<size_t>(t) * nds * kLanes;
 
-  // Row constants with the three folds of phmm_make_consts.
-  const size_t at = (static_cast<size_t>(t) * nxs + i) * kLanes + l;
-  const int code = rchar[at];
-  const float qr = qr_in[at];
-  const float mmv = mmv_in[at];
-  const float gapm = gapm_in[at];
-  const float qi = qi_in[at];
-  const float qd = qd_in[at];
-  const float qg = i == 0 ? 1.0f : qg_in[at];
-  const bool dead = i == 0 || i > rl;
-  const bool read_n = code == (bitmask ? kBitmaskN : kCodeN);
-  const float pm = dead ? 0.0f : 1.0f - qr;
-  const float qx = dead ? 0.0f : (read_n ? 1.0f - qr : qr * inv_div);
-  const int8_t* hs = hap + static_cast<size_t>(t) * nds * kLanes + l;
-
-  // Own values at d-1 (Y of row 0 is the boundary constant) and the row
-  // above's at d-2; accumulator state on thread rl.
-  float m = 0.0f, x = 0.0f;
-  float y = i == 0 ? kInit / static_cast<float>(max(hl, 1)) : 0.0f;
-  float am = 0.0f, ax = 0.0f, ay = 0.0f;
-  float fs = 1.0f;  // rescale factor still owed by the shared row
-  float acc = 0.0f, accb = 0.0f, cmul = 1.0f, acc_log = 0.0f;
-
-  float* odd = smem + 3 * nxs;  // diagonal -1: all zeros
-  odd[i] = 0.0f;
-  odd[nxs + i] = 0.0f;
-  odd[2 * nxs + i] = 0.0f;
-
-  const int nd_pair = rl + hl + 1;
-  const int steps = min((nd_pair + period - 1) / period,
-                        (ndiag_tile[t] + period - 1) / period) * period;
-  __syncthreads();
-
-  for (int d = 0; d < steps; ++d) {
-    const float* rd = smem + 3 * nxs * ((d + 1) & 1);  // diagonal d-1
-    float nm = 0.0f, nx = 0.0f, ny = 0.0f;             // row above at d-1
-    if (i > 0) {
-      nm = rd[i - 1] * fs;
-      nx = rd[nxs + i - 1] * fs;
-      ny = rd[2 * nxs + i - 1] * fs;
+  PhmmRow c[R];
+  int hc[R];                 // haplotype code each row compares
+  float M[R], X[R], Y[R], T[R];
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    const int r = rb + k;
+    if (active && r >= 0 && r < nxs) {
+      const size_t at = (static_cast<size_t>(t) * nxs + r) * kLanes + l;
+      c[k] = phmm_row(rchar[at], qr_in[at], mmv_in[at], gapm_in[at],
+                      qi_in[at], qd_in[at], qg_in[at], r, rl, inv_div,
+                      kBitmask);
+    } else {
+      c[k] = phmm_row_zero();
     }
-    fs = 1.0f;
-    const int hc = __ldg(hs + static_cast<size_t>(anchor - d + i) * kLanes);
-    const bool match = bitmask ? (code & hc) != 0
-                               : (code == hc || hc == kCodeN);
-    const float p = match ? pm : qx;
-    const float mn = p * (mmv * am + gapm * (ax + ay));
-    const float xn = nm * qi + nx * qg;
-    const float yn = m * qd + y * qg;
-    if (i == rl && d <= rl + hl) accb += mn + xn;
-    float* wr = smem + 3 * nxs * (d & 1);
-    wr[i] = mn;
-    wr[nxs + i] = xn;
-    wr[2 * nxs + i] = yn;
-    am = nm;
-    ax = nx;
-    ay = ny;
-    m = mn;
-    x = xn;
-    y = yn;
-    __syncthreads();
+    const int row = min(max(anchor + 1 + r, 0), nds - 1);
+    hc[k] = active ? hs[static_cast<size_t>(row) * kLanes + l] : 0;
+    M[k] = X[k] = Y[k] = T[k] = 0.0f;
+  }
+  const float y0 = kPhmmInit / static_cast<float>(max(hl, 1));
 
-    if ((d + 1) % period == 0) {
-      const int c = d - i;
-      bool big = false, pos = false;
-      auto admit = [&](bool in, float v) {
-        if (in) {
-          big |= v >= kTrigger;
-          pos |= v > 0.0f;
-        }
-      };
-      admit(i <= rl && c >= 0 && c <= hl, fmaxf(m, y));
-      admit(i <= rl && c >= 1 && c <= hl + 1, fmaxf(fmaxf(m, x), y));
-      admit(i >= 1 && i - 1 <= rl && c - 1 >= 0 && c - 1 <= hl,
-            fmaxf(fmaxf(am, ax), ay));
-      const bool any_big = __syncthreads_or(big);
-      const bool any_pos = __syncthreads_or(pos);
-      const bool need = d <= nd_pair && any_pos && !any_big;
-      if (i == rl) {
-        acc += accb * cmul;
-        accb = 0.0f;
-        const bool follow = need && acc < kTrigger;
-        if (follow) {
-          acc *= kFactor;
-          acc_log -= kRescaleLog10;
-        } else if (need) {
-          cmul *= kInvFactor;
-        }
+  // The first row's stream codes: lane wl loads pair wl / C's code for step
+  // (chunk base) + wl % C, one chunk ahead.
+  const int C = kWarp / P;
+  const int lp = min(wl / C, P - 1);
+  const int r0_lp = __shfl_sync(kFull, r0, lp * G);
+  const bool ld = wl / C < P && l0 + lp < kLanes;
+  auto load_code = [&](int e) -> int {
+    if (!ld) return 0;
+    const int row = max(anchor - e + r0_lp, 0);
+    return hs[static_cast<size_t>(row) * kLanes + l0 + lp];
+  };
+  int cur = load_code(wl % C), nxt = load_code(C + wl % C), ci = 0;
+
+  float accb = 0.0f, acc = 0.0f, cmul = 1.0f, acc_log = 0.0f;
+  bool big = false, pos = false;
+  float Ts[R];
+  // One step at diagonal d; a block's last one (`last`) also takes v2 on
+  // the values of d-1 and forms Ts.
+  auto step = [&](const int d, const bool last) {
+    // The row above this thread's first row at d-1, and the code it took.
+    float aM = __shfl_up_sync(kFull, M[R - 1], 1);
+    float aX = __shfl_up_sync(kFull, X[R - 1], 1);
+    float aY = __shfl_up_sync(kFull, Y[R - 1], 1);
+    int ac = __shfl_up_sync(kFull, hc[R - 1], 1);
+    const int sc = __shfl_sync(kFull, cur, (p * C + ci) & (kWarp - 1));
+    if (g == 0) {
+      aM = aX = aY = 0.0f;
+      ac = sc;
+    }
+    if (++ci == C) {
+      ci = 0;
+      cur = nxt;
+      nxt = load_code(d + 1 + C + wl % C);
+    }
+    if (last) {
+#pragma unroll
+      for (int k = 0; k < R; ++k)
+        phmm_admit_v2(true, d - (rb + k), hl, M[k], X[k], Y[k], big, pos);
+    }
+#pragma unroll
+    for (int k = R - 1; k > 0; --k) hc[k] = hc[k - 1];
+    hc[0] = ac;
+    if (last) {
+#pragma unroll
+      for (int k = R - 1; k > 0; --k) {
+        phmm_cell_end(c[k], phmm_match<kBitmask>(c[k].code, hc[k]), M[k - 1],
+                      X[k - 1], Y[k - 1], M[k], X[k], Y[k], T[k], Ts[k]);
       }
-      if (need && i > 0) {
-        m *= kFactor;
-        x *= kFactor;
-        y *= kFactor;
-        am *= kFactor;
-        ax *= kFactor;
-        ay *= kFactor;
-        fs = kFactor;
+      phmm_cell_end(c[0], phmm_match<kBitmask>(c[0].code, hc[0]), aM, aX, aY,
+                    M[0], X[0], Y[0], T[0], Ts[0]);
+    } else {
+#pragma unroll
+      for (int k = R - 1; k > 0; --k) {
+        phmm_cell(c[k], phmm_match<kBitmask>(c[k].code, hc[k]), M[k - 1],
+                  X[k - 1], Y[k - 1], M[k], X[k], Y[k], T[k]);
+      }
+      phmm_cell(c[0], phmm_match<kBitmask>(c[0].code, hc[0]), aM, aX, aY,
+                M[0], X[0], Y[0], T[0]);
+    }
+    if (g == G - 1 && d <= acc_last) accb += M[R - 1] + X[R - 1];
+  };
+
+  for (int d0 = 0; d0 < steps_warp; d0 += period) {
+    big = pos = false;
+    for (int tt = 0; tt < period - 1; ++tt) {
+      step(d0 + tt, false);
+      if (d0 + tt == 0) {  // row 0's Y: 0 as the row below saw it at d = -1
+#pragma unroll
+        for (int k = 0; k < R; ++k)
+          if (rb + k == 0) Y[k] = y0;
+      }
+    }
+    const int d = d0 + period - 1;  // the block's last diagonal
+    step(d, true);
+    if (d == 0) {
+#pragma unroll
+      for (int k = 0; k < R; ++k)
+        if (rb + k == 0) Y[k] = y0;
+    }
+
+    // Rescale after the block.
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      phmm_admit_v0(true, d - (rb + k), hl, M[k], Y[k], big, pos);
+      phmm_admit_v1(true, d - (rb + k), hl, M[k], X[k], Y[k], big, pos);
+    }
+    const bool any_big = (__ballot_sync(kFull, big) & segmask) != 0;
+    const bool any_pos = (__ballot_sync(kFull, pos) & segmask) != 0;
+    const bool need = d <= need_last && any_pos && !any_big;
+    acc += accb * cmul;
+    accb = 0.0f;
+    const bool follow = need && acc < kPhmmTrigger;
+    if (follow) {
+      acc *= kPhmmFactor;
+      acc_log -= kPhmmRescaleLog10;
+    } else if (need) {
+      cmul *= kPhmmInvFactor;
+    }
+    if (need) {
+#pragma unroll
+      for (int k = 0; k < R; ++k) {
+        M[k] *= kPhmmFactor;
+        X[k] *= kPhmmFactor;
+        Y[k] *= kPhmmFactor;
+        T[k] = Ts[k];
       }
     }
   }
-  if (i == rl) out[slot] = log10f(acc) + acc_log - kInitLog10;
+  if (active && g == G - 1)
+    out[t * kLanes + l] = log10f(acc) + acc_log - kPhmmInitLog10;
+}
+
+template <int R, bool kBitmask>
+int launch(const void* rchar, const void* const* q, const void* hap,
+           const void* meta, const void* ndiag_tile, void* out, int nt,
+           int nxs, int nds, int period, float inv_div, int G, int warps,
+           cudaStream_t stream) {
+  const int P = kWarp / G;
+  const int lanes_per_block = warps * P;
+  const int blocks = nt * ((kLanes + lanes_per_block - 1) / lanes_per_block);
+  pairhmm_tile_kernel<R, kBitmask><<<blocks, warps * kWarp, 0, stream>>>(
+      static_cast<const int8_t*>(rchar), static_cast<const float*>(q[0]),
+      static_cast<const float*>(q[1]), static_cast<const float*>(q[2]),
+      static_cast<const float*>(q[3]), static_cast<const float*>(q[4]),
+      static_cast<const float*>(q[5]), static_cast<const int8_t*>(hap),
+      static_cast<const int32_t*>(meta),
+      static_cast<const int32_t*>(ndiag_tile), static_cast<float*>(out), nxs,
+      nds, period, inv_div, G, P);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Launches the kernel on `stream` and returns cudaGetLastError(): a launch
-// the device refuses (too many threads, too much shared memory) reports
-// here and nowhere else. The caller allocates `out` and checks shapes:
-// 2 <= nxs <= 512, nds > nxs, rescale_period one of 1, 2, 4, 8, 16, 32,
-// and A = nds - nxs >= every pair's rl + hl + 1 + 32 (the pack's slack).
+// Launches the kernel on `stream` and returns cudaGetLastError(), or
+// cudaErrorInvalidValue for an R the build does not make or a geometry
+// outside the kernel's: 1 <= group <= 32, group * R >= nxs, 1 <= warps <=
+// 8. The caller allocates `out` and checks shapes: 2 <= nxs <= 512,
+// nds > nxs, rescale_period one of 1, 2, 4, 8, 16, 32, every pair's rl <=
+// nxs - 2 and A = nds - nxs >= rl + hl + 1 + 32 (the pack's slack).
 extern "C" int pairhmm_tile_launch(
     const void* rchar, const void* qr, const void* mmv, const void* gapm,
     const void* qi, const void* qd, const void* qg, const void* hap,
     const void* meta, const void* ndiag_tile, void* out, int nt, int nxs,
-    int nds, int rescale_period, float mm_div, int bitmask, void* stream) {
+    int nds, int rescale_period, float mm_div, int bitmask,
+    int rows_per_thread, int group, int warps, void* stream) {
+  if (group < 1 || group > kWarp || group * rows_per_thread < nxs ||
+      warps < 1 || warps > kMaxWarps)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (nt <= 0) return 0;
   // 1/mm_div rounded once from double, as the JAX constant fold does.
   const float inv_div = static_cast<float>(1.0 / static_cast<double>(mm_div));
-  const size_t smem = 6 * static_cast<size_t>(nxs) * sizeof(float);
-  pairhmm_tile_kernel<<<nt * kLanes, nxs, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(rchar), static_cast<const float*>(qr),
-      static_cast<const float*>(mmv), static_cast<const float*>(gapm),
-      static_cast<const float*>(qi), static_cast<const float*>(qd),
-      static_cast<const float*>(qg), static_cast<const int8_t*>(hap),
-      static_cast<const int32_t*>(meta),
-      static_cast<const int32_t*>(ndiag_tile), static_cast<float*>(out), nxs,
-      nds, rescale_period, inv_div, bitmask);
-  return static_cast<int>(cudaGetLastError());
+  const void* q[6] = {qr, mmv, gapm, qi, qd, qg};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool bm = bitmask != 0;
+#define GX_TILE_R(RR)                                                      \
+  case RR:                                                                \
+    return bm ? launch<RR, true>(rchar, q, hap, meta, ndiag_tile, out, nt, \
+                                 nxs, nds, rescale_period, inv_div, group, \
+                                 warps, s)                                 \
+              : launch<RR, false>(rchar, q, hap, meta, ndiag_tile, out, nt,\
+                                  nxs, nds, rescale_period, inv_div, group,\
+                                  warps, s);
+  switch (rows_per_thread) {
+    GX_TILE_R(1)
+    GX_TILE_R(2)
+    GX_TILE_R(4)
+    GX_TILE_R(5)
+    GX_TILE_R(6)
+    GX_TILE_R(8)
+    GX_TILE_R(10)
+    GX_TILE_R(16)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef GX_TILE_R
 }

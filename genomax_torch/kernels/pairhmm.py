@@ -2,14 +2,17 @@
 ``csrc/pairhmm_tile.cu``, with the contract of
 ``genomax.kernels.pairhmm_pallas.pairhmm_forward_pallas``.
 
-CUDA tensors launch the kernel on the current stream; CPU tensors take the
-plain version (``kernels.wavefront.phmm_forward_tiles``). There is no other
-route: a build or launch failure raises.
+The kernel keeps R read rows a thread in registers and sweeps a pair with a
+group of G <= 32 threads of one warp (``tile_geometry``). CUDA tensors
+launch the kernel on the current stream; CPU tensors take the plain version
+(``kernels.wavefront.phmm_forward_tiles``). There is no other route: a
+build or launch failure raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -18,16 +21,69 @@ from genomax_torch.kernels import _build
 from genomax_torch.kernels.wavefront import phmm_forward_tiles
 from genomax_torch.layout import LANES
 
+# Rows a thread of the kernel keeps in registers (its template argument,
+# the values the build makes), the warp width and the warps of a block.
+TILE_R = (1, 2, 4, 5, 6, 8, 10, 16)
+WARP = 32
+TILE_WARPS = 8
+
 # Kernel launches made by pairhmm_forward (CUDA tensors only).
 launches = 0
 
 _ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_float]
-             + [ctypes.c_int] + [ctypes.c_void_p])
+             + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+
+
+@dataclasses.dataclass(frozen=True)
+class TileGeometry:
+    """How the kernel sweeps a bucket of NXs rows: ``rows_per_thread`` (R)
+    rows a thread, a ``group`` of G threads a pair (G * R >= NXs, G <= 32),
+    ``pairs_per_warp`` = 32 // G pairs a warp, ``warps`` a block, so
+    ``lanes_per_block`` neighbouring lanes of one tile a block and
+    ``blocks_per_tile`` blocks a tile of 128 lanes."""
+
+    rows_per_thread: int
+    group: int
+    pairs_per_warp: int
+    warps: int
+    lanes_per_block: int
+    blocks_per_tile: int
+
+
+def default_rows_per_thread(nxs: int) -> int:
+    """R the wrappers take when the caller names none: the fewest rows a
+    thread with which one warp holds a pair of NXs rows."""
+    for r in TILE_R:
+        if -(-nxs // r) <= WARP:
+            return r
+    raise ValueError(f"NXs={nxs}: no R in {TILE_R} fits a pair in a warp")
+
+
+def tile_geometry(nxs: int, r: int | None = None) -> TileGeometry:
+    """The kernel's geometry on a bucket of NXs rows at R rows a thread
+    (the default's when r is None). Raises ValueError for an R the build
+    does not make, or one with which a pair needs more than a warp."""
+    if not 2 <= nxs <= MAX_PHMM_ROWS:
+        raise ValueError(f"NXs={nxs} must lie in [2, {MAX_PHMM_ROWS}]")
+    if r is None:
+        r = default_rows_per_thread(nxs)
+    if r not in TILE_R:
+        raise ValueError(f"rows_per_thread={r}: the build makes {TILE_R}")
+    g = -(-nxs // r)
+    if g > WARP:
+        raise ValueError(f"rows_per_thread={r}: NXs={nxs} needs {g} threads "
+                         f"a pair, more than a warp of {WARP}")
+    p = WARP // g
+    lanes = TILE_WARPS * p
+    return TileGeometry(rows_per_thread=r, group=g, pairs_per_warp=p,
+                        warps=TILE_WARPS, lanes_per_block=lanes,
+                        blocks_per_tile=-(-LANES // lanes))
 
 
 def pairhmm_forward(rchar, qr, mmv, gapm, qi, qd, qg, hap, meta, ndiag_tile,
                     rescale_period: int = 32, mm_div: float = 1.0,
-                    bitmask: bool = False) -> torch.Tensor:
+                    bitmask: bool = False, *,
+                    _rows_per_thread: int | None = None) -> torch.Tensor:
     """log10 likelihoods of a packed PairHMM bucket.
 
     rchar: (NT, NXs, 128) int8 read codes, row i holding base i-1; qr, mmv,
@@ -37,17 +93,21 @@ def pairhmm_forward(rchar, qr, mmv, gapm, qi, qd, qg, hap, meta, ndiag_tile,
     row 0 read_len, row 1 hap_len; ndiag_tile: (NT,) int32. mm_div 3 is
     the GATK mismatch emission; bitmask: the codes are the pack's one-hot
     match bitmasks. Returns (NT, 128) fp32, slot-major, relative to the
-    reference's constant, on the inputs' device.
+    reference's constant, on the inputs' device. ``_rows_per_thread``
+    picks the kernel's R (a test and timing hook; ``tile_geometry``); an
+    R the build does not make raises on every device.
     """
+    if _rows_per_thread is not None and rchar.dim() == 3:
+        tile_geometry(rchar.shape[1], _rows_per_thread)
     if rchar.device.type == "cpu":
         return phmm_forward_tiles(rchar, qr, mmv, gapm, qi, qd, qg, hap, meta,
                                   ndiag_tile, rescale_period, mm_div, bitmask)
     return _launch(rchar, (qr, mmv, gapm, qi, qd, qg), hap, meta, ndiag_tile,
-                   rescale_period, mm_div, bitmask)
+                   rescale_period, mm_div, bitmask, _rows_per_thread)
 
 
 def _launch(rchar, quals, hap, meta, ndiag_tile, rescale_period, mm_div,
-            bitmask) -> torch.Tensor:
+            bitmask, rows_per_thread) -> torch.Tensor:
     global launches
     launch = _build.load("pairhmm_tile", "pairhmm_tile_launch", _ARGTYPES)
     tensors = (rchar, *quals, hap, meta, ndiag_tile)
@@ -78,6 +138,7 @@ def _launch(rchar, quals, hap, meta, ndiag_tile, rescale_period, mm_div,
     if rescale_period not in RESCALE_PERIODS:
         raise ValueError(f"pairhmm_forward: rescale_period={rescale_period} "
                          f"not in {RESCALE_PERIODS}")
+    geo = tile_geometry(nxs, rows_per_thread)
     out = torch.empty((nt, LANES), dtype=torch.float32, device=rchar.device)
     if nt == 0:
         return out
@@ -85,7 +146,7 @@ def _launch(rchar, quals, hap, meta, ndiag_tile, rescale_period, mm_div,
         stream = torch.cuda.current_stream().cuda_stream
         err = launch(*(t.data_ptr() for t in tensors), out.data_ptr(), nt, nxs,
                      nds, rescale_period, float(mm_div), int(bool(bitmask)),
-                     stream)
+                     geo.rows_per_thread, geo.group, geo.warps, stream)
     if err != 0:
         raise RuntimeError(f"pairhmm_tile launch failed: cudaError {err}")
     launches += 1

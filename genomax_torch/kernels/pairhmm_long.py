@@ -4,38 +4,83 @@
 ``pairhmm_forward_pallas_long`` and ``pairhmm_long``).
 
 The engine sends it the jobs whose reads are too long for the lane-tile
-kernel (``csrc/pairhmm_tile.cu``, at most 512 rows). CUDA tensors launch
-the kernel on the current stream; CPU tensors take the plain version
-(``kernels.wavefront.phmm_long_forward``). There is no other route: a
-build or launch failure raises.
+kernel (``csrc/pairhmm_tile.cu``, at most 512 rows). The kernel sweeps a
+job's strips at once, one warp a strip with R rows a thread
+(``long_geometry``). CUDA tensors launch the kernel on the current stream;
+CPU tensors take the plain version (``kernels.wavefront.phmm_long_forward``).
+There is no other route: a build or launch failure raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import numpy as np
 import torch
 
 from genomax_torch.io.phred import phred_to_error_prob
 from genomax_torch.kernels import _build
-from genomax_torch.kernels.wavefront import (LONG_CHUNK, phmm_long_forward,
-                                             phmm_long_halo_rows)
+from genomax_torch.kernels.wavefront import LONG_CHUNK, phmm_long_forward
 from genomax_torch.layout import LANES, PAD_STREAM, PAD_X, SUB_Q
 from genomax_torch.pack.bucketing import (_full, _reject_bad_read,
                                           _reject_pad_codes, _round_up)
 
-# Rows per strip (genomax.kernels.pairhmm_long.STRIP_W): one CUDA thread
-# per row, so at most 1024.
+# Rows per strip (genomax.kernels.pairhmm_long.STRIP_W): one warp of the
+# kernel a strip, at most 32 threads x 32 rows.
 STRIP_W = 256
 # Diagonals per rescale block, the default of the JAX engine's call.
 UNROLL = 16
+# Rows a thread of the kernel keeps in registers (its template argument,
+# the values the build makes), the warp width and the most strips a block
+# sweeps at once.
+LONG_R = (1, 2, 4, 8, 16, 32)
+WARP = 32
+LONG_WARPS = 8
 
 # Kernel launches made by pairhmm_long_forward (CUDA tensors only).
 launches = 0
 
-_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float]
-             + [ctypes.c_void_p])
+_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float]
+             + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+
+
+@dataclasses.dataclass(frozen=True)
+class LongGeometry:
+    """How the kernel sweeps a tile of K strips of W rows: ``rows_per_thread``
+    (R) rows a thread, ``threads_per_strip`` = ceil(W / R) <= 32 threads of
+    the strip's warp, ``warps`` = min(K, 8) strips at once, and
+    ``halo_rows`` diagonals of the global seam between rounds of strips (0
+    when one round holds every strip)."""
+
+    rows_per_thread: int
+    threads_per_strip: int
+    warps: int
+    halo_rows: int
+
+
+def long_geometry(k_strips: int, strip_w: int, ny_max: int,
+                  r: int | None = None) -> LongGeometry:
+    """The kernel's geometry on a tile of k_strips strips of strip_w rows
+    whose haplotypes need ny_max stream rows, at R rows a thread (by
+    default the fewest with which one warp holds a strip). Raises
+    ValueError for an R the build does not make or a strip a warp cannot
+    hold."""
+    if not 1 <= strip_w <= WARP * LONG_R[-1]:
+        raise ValueError(f"strip_w={strip_w}: one warp a strip, at most "
+                         f"{WARP} threads x {LONG_R[-1]} rows")
+    if r is None:
+        r = next(r for r in LONG_R if -(-strip_w // r) <= WARP)
+    if r not in LONG_R:
+        raise ValueError(f"rows_per_thread={r}: the build makes {LONG_R}")
+    ts = -(-strip_w // r)
+    if ts > WARP:
+        raise ValueError(f"rows_per_thread={r}: strip_w={strip_w} needs "
+                         f"{ts} threads a strip, more than a warp")
+    warps = min(k_strips, LONG_WARPS)
+    halo = k_strips * strip_w + ny_max + 2 * WARP if k_strips > warps else 0
+    return LongGeometry(rows_per_thread=r, threads_per_strip=ts, warps=warps,
+                        halo_rows=halo)
 
 
 def long_layout(ny_max: int, w: int):
@@ -90,14 +135,19 @@ def pack_pairhmm_long(jobs, phred_offset: float = 33.0,
 
 def pairhmm_long_forward(rchar, qual, hap, meta, *, k_strips: int,
                          strip_w: int, ny_max: int, unroll: int = UNROLL,
-                         mm_div: float = 1.0) -> torch.Tensor:
+                         mm_div: float = 1.0,
+                         _rows_per_thread: int | None = None) -> torch.Tensor:
     """(128,) fp32 log10 likelihoods of one packed tile of long jobs, on
     the inputs' device (the arrays and statics of ``pack_pairhmm_long``).
     ``unroll`` is the rescale block in diagonals; mm_div 3 is the GATK
-    mismatch emission."""
+    mismatch emission. ``_rows_per_thread`` picks the kernel's R (a test
+    and timing hook; ``long_geometry``); an R the build does not make
+    raises on every device."""
     if LONG_CHUNK % unroll or unroll > 32:
         raise ValueError(f"unroll={unroll} must divide {LONG_CHUNK} and be "
                          "<= 32")
+    if _rows_per_thread is not None:
+        long_geometry(k_strips, strip_w, ny_max, _rows_per_thread)
     sweep, anchor, ndt = long_layout(ny_max, strip_w)
     kw = k_strips * strip_w
     want = ((kw, LANES), (6 * kw, LANES), (ndt, LANES), (8, LANES))
@@ -107,12 +157,12 @@ def pairhmm_long_forward(rchar, qual, hap, meta, *, k_strips: int,
     if rchar.device.type == "cpu":
         return phmm_long_forward(rchar, qual, hap, meta, k_strips, strip_w,
                                  anchor, sweep, unroll, mm_div)
-    return _launch(rchar, qual, hap, meta, k_strips, strip_w, anchor, sweep,
-                   unroll, mm_div)
+    return _launch(rchar, qual, hap, meta, k_strips, strip_w, ny_max, anchor,
+                   ndt, unroll, mm_div, _rows_per_thread)
 
 
-def _launch(rchar, qual, hap, meta, k_strips, strip_w, anchor, sweep,
-            unroll, mm_div) -> torch.Tensor:
+def _launch(rchar, qual, hap, meta, k_strips, strip_w, ny_max, anchor, ndt,
+            unroll, mm_div, rows_per_thread) -> torch.Tensor:
     global launches
     launch = _build.load("pairhmm_long", "pairhmm_long_launch", _ARGTYPES)
     tensors = (rchar, qual, hap, meta)
@@ -126,17 +176,19 @@ def _launch(rchar, qual, hap, meta, k_strips, strip_w, anchor, sweep,
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("pairhmm_long_forward: every input must be "
                          "contiguous")
-    if not 1 <= strip_w <= 1024:
-        raise ValueError(f"pairhmm_long_forward: strip_w={strip_w}: one CUDA "
-                         "thread per row, at most 1024")
-    halo = torch.zeros((4, phmm_long_halo_rows(k_strips, strip_w, sweep),
-                        LANES), dtype=torch.float32, device=rchar.device)
+    try:
+        geo = long_geometry(k_strips, strip_w, ny_max, rows_per_thread)
+    except ValueError as e:
+        raise ValueError(f"pairhmm_long_forward: {e}") from None
+    halo = torch.empty((4, max(geo.halo_rows, 1), LANES),
+                       dtype=torch.float32, device=rchar.device)
     out = torch.empty((LANES,), dtype=torch.float32, device=rchar.device)
     with torch.cuda.device(rchar.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = launch(*(t.data_ptr() for t in tensors), halo.data_ptr(),
-                     out.data_ptr(), k_strips, strip_w, anchor, sweep,
-                     unroll, float(mm_div), stream)
+                     out.data_ptr(), k_strips, strip_w, anchor, ndt,
+                     halo.shape[1], unroll, float(mm_div),
+                     geo.rows_per_thread, geo.warps, stream)
     if err != 0:
         raise RuntimeError(f"pairhmm_long launch failed: cudaError {err}")
     launches += 1

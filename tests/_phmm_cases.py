@@ -1,8 +1,9 @@
 """Seeded cases shared by chip_smoke.py and the port's kernel tests.
-PairHMM: ragged batches for the lane-tile kernel, a bucket whose haplotype
-stream is longer than the JAX engine's resident limit, and jobs for the
-long-read kernel. Smith-Waterman: a ragged tile for the long-pair kernel,
-pairs whose y stream passes the same resident limit, ragged buckets
+PairHMM: ragged batches and deep-decay pairs for the lane-tile kernel, a
+bucket whose haplotype stream is longer than the JAX engine's resident
+limit, and jobs for the long-read kernel, some ending on a strip seam.
+Smith-Waterman: a ragged tile for the long-pair kernel, pairs whose y
+stream passes the same resident limit, ragged buckets
 of 128 rows or more for the strips kernel, short buckets with the
 queue adversaries for the rotor kernel, short buckets with the
 ghost-read adversary for the stacked kernel, short pairs with the
@@ -14,11 +15,11 @@ import numpy as np
 
 from genomax_torch.io.formats import PairHMMBatch, PairHMMRead, SWPair
 
-def phmm_batches(seed, alphabet=b"ACGT", n_batches=12):
+def phmm_batches(seed, alphabet=b"ACGT", n_batches=12, max_read=500):
     """Ragged PairHMM batches: haplotypes of 1-700bp, variants of one
-    locus, and reads of 1-500bp, most drawn from the locus with errors and
-    some unrelated; N runs in reads and haplotypes; one all-mismatch
-    deep-decay pair."""
+    locus, and reads of 1-`max_read`bp, most drawn from the locus with
+    errors and some unrelated; N runs in reads and haplotypes; one
+    all-mismatch deep-decay pair."""
     rng = np.random.default_rng(seed)
     abc = np.frombuffer(alphabet, np.uint8)
 
@@ -42,7 +43,7 @@ def phmm_batches(seed, alphabet=b"ACGT", n_batches=12):
                 for _ in range(int(rng.integers(1, 9)))]
         reads = []
         for _ in range(int(rng.integers(1, 40))):
-            n = int(rng.integers(1, 501))
+            n = int(rng.integers(1, max_read + 1))
             if rng.random() < 0.8:
                 a = int(rng.integers(0, max(1, len(locus) - n + 1)))
                 bases = noisy(locus[a: a + n], 0.005)
@@ -58,6 +59,44 @@ def phmm_batches(seed, alphabet=b"ACGT", n_batches=12):
         bases=b"A" * 60, base_q=q, ins_q=q, del_q=q, gcp_q=q)],
         haplotypes=[b"C" * 70]))
     return out
+
+
+def short_phmm_batches(seed, alphabet=b"ACGT"):
+    """Ragged batches of reads of 1-30bp (without phmm_batches' 60bp
+    deep-decay pair): cut to their rows (tight_rows), a bucket a warp holds
+    at one row a thread."""
+    return phmm_batches(seed, alphabet, 3, max_read=30)[:-1]
+
+
+def deep_decay_batches():
+    """All-mismatch pairs in Q40 (A reads against C haplotypes) of 28bp and
+    60bp, one a batch: every value decays by about 2^-13 a row, so a pair
+    rescales at every period and its window can underflow inside one
+    block. Packed one batch at a time and cut to their rows (tight_rows),
+    buckets of 32 and 64 rows, so every R of the lane-tile kernel meets
+    one."""
+    out = []
+    for n, h in ((28, 40), (60, 70)):
+        q = bytes([73] * n)
+        out.append(PairHMMBatch(reads=[PairHMMRead(
+            bases=b"A" * n, base_q=q, ins_q=q, del_q=q, gcp_q=q)],
+            haplotypes=[b"C" * h]))
+    return out
+
+
+def tight_rows(tensors, rl):
+    """A packed bucket's tensors (phmm_bucket_to_torch's ten) cut to the
+    fewest rows a multiple of 8 that hold its longest read (rl + 2), the
+    stream kept at its anchor; the pack's padding ladder starts at 64
+    rows, so this is how a bucket of 8-56 rows is made. Returns the
+    tensors and the row count."""
+    rchar, *planes, hap, meta, ndiag = tensors
+    nxs = rchar.shape[1]
+    n = min(nxs, -(-(int(rl.max()) + 2) // 8) * 8)
+    anchor = hap.shape[1] - nxs
+    return ([rchar[:, :n].contiguous()]
+            + [q[:, :n].contiguous() for q in planes]
+            + [hap[:, :anchor + n].contiguous(), meta, ndiag]), n
 
 
 def _read(rng, bases, lo=10, hi=41):
@@ -122,6 +161,28 @@ def long_jobs(seed, n_jobs=128, read_lens=(511, 1500), hap_max=2000):
     jobs.append((_read(rng, same, 40, 41), same.tobytes()))
     jobs.append((_read(rng, np.full(700, ord("A"), np.uint8), 40, 41),
                  b"C" * 760))
+    return jobs
+
+
+def long_seam_jobs(seed, strip_w=256):
+    """Long-read jobs whose reads end on a strip seam (the last row of strip
+    k, so strip k+1 runs with no live row of its own and only rescales):
+    one strip (W - 1 bases), two and three strips, the three-strip read an
+    all-mismatch deep-decay pair; and a read of one base past the seam."""
+    rng = np.random.default_rng(seed)
+    abc = np.frombuffer(b"ACGT", np.uint8)
+    jobs = []
+    for k in (1, 2):
+        h = rng.choice(abc, k * strip_w + 150)
+        a = int(rng.integers(0, 100))
+        jobs.append((_read(rng, _noisy(rng, h[a:a + k * strip_w - 1], 0.01,
+                                       abc)), h.tobytes()))
+    n = 3 * strip_w - 1
+    jobs.append((_read(rng, np.full(n, ord("A"), np.uint8), 40, 41),
+                 b"C" * (n + 60)))
+    h = rng.choice(abc, 2 * strip_w + 200)
+    jobs.append((_read(rng, _noisy(rng, h[50:50 + 2 * strip_w], 0.01, abc)),
+                 h.tobytes()))
     return jobs
 
 

@@ -22,11 +22,12 @@ from genomax_torch.pack.bucketing import (pack_pairhmm_batches,
                                           pack_sw_pairs, unpack_scores)
 
 from _phmm_cases import (CONVEYOR_KINDS, conveyor_leak_pairs,
-                         conveyor_sw_pairs, long_jobs, long_sw_pairs,
-                         phmm_batches, rotor_leak_pairs, rotor_sw_pairs,
+                         conveyor_sw_pairs, deep_decay_batches, long_jobs,
+                         long_seam_jobs, long_sw_pairs, phmm_batches,
+                         rotor_leak_pairs, rotor_sw_pairs, short_phmm_batches,
                          stacked_ghost_pairs, stacked_sw_pairs,
                          streamed_batches, streamed_sw_pairs, strips_sw_pairs,
-                         xshard_cases, xstrip_inputs)
+                         tight_rows, xshard_cases, xstrip_inputs)
 from genomax_torch.dist import xsharded
 from genomax_torch.engine.executor import Engine
 from genomax_torch.kernels import (_build, pairhmm, pairhmm_long, sw,
@@ -610,6 +611,68 @@ def _pairhmm_buckets_close(buckets, device, mm_div, period):
     assert pairhmm.launches - before == len(buckets)
 
 
+# Plain results on the card, shared by the R variants of one case.
+_PLAIN = {}
+
+
+def _pairhmm_close_at_r(case, groups, device, mm_div, period, r, bitmask):
+    """Every bucket of each group of batches (packed a group at a time), as
+    packed and cut to its rows (tight_rows), whose rows fit a warp at R
+    rows a thread: the kernel at R against the plain version; at least one
+    bucket."""
+    buckets = [b for g in groups for b in pack_pairhmm_batches(
+        g, byte_quals=True, factored=True, bitmask_codes=bitmask)[0]]
+    ran = 0
+    for i, b in enumerate(buckets):
+        full = phmm_bucket_to_torch(b, device)
+        for j, (t, nxs) in enumerate(((full, b.nxs),
+                                      tight_rows(full, b.rl))):
+            if -(-nxs // r) > pairhmm.WARP:
+                with pytest.raises(ValueError, match="more than a warp"):
+                    pairhmm.tile_geometry(nxs, r)
+                continue
+            before = pairhmm.launches
+            got = pairhmm.pairhmm_forward(*t, rescale_period=period,
+                                          mm_div=mm_div,
+                                          bitmask=b.bitmask_codes,
+                                          _rows_per_thread=r)
+            torch.cuda.synchronize()
+            assert pairhmm.launches == before + 1
+            key = (case, bitmask, i, j, period, mm_div)
+            if key not in _PLAIN:
+                _PLAIN[key] = phmm_forward_tiles(*t, period, mm_div,
+                                                 b.bitmask_codes)
+            _assert_log10_close(got, _PLAIN[key],
+                                torch.from_numpy(b.rl > 0).to(device))
+            ran += 1
+    assert ran
+
+
+@pytest.mark.parametrize("codes", ["bitmask", "bytes-gatk"])
+@pytest.mark.parametrize("r", pairhmm.TILE_R)
+def test_pairhmm_kernel_every_r_close_to_plain_version(device, r, codes):
+    """Ragged buckets of reads of 1-500bp at every R the build makes (each
+    on the buckets whose rows a warp holds at that R), bitmask codes with
+    mm_div 1 and raw codes with mm_div 3."""
+    bitmask = codes == "bitmask"
+    alphabet, gatk = (b"ACGT", False) if bitmask else (b"ACGTX", True)
+    groups = [phmm_batches(5, alphabet), short_phmm_batches(6, alphabet)]
+    _pairhmm_close_at_r(codes, groups, device,
+                        PairHMMConfig(gatk_emission=gatk).mm_div, 32, r,
+                        bitmask)
+
+
+@pytest.mark.parametrize("period", [1, 2, 4, 8, 16, 32])
+@pytest.mark.parametrize("r", pairhmm.TILE_R)
+def test_pairhmm_kernel_every_r_deep_decay(device, r, period):
+    """The all-mismatch deep-decay pairs at every R and rescale period, in
+    bitmask codes (mm_div 1) and raw codes (mm_div 3): a rescale applied
+    twice or missed, or a T scaled in place of its inputs, moves them."""
+    groups = [[b] for b in deep_decay_batches()]
+    _pairhmm_close_at_r("deep", groups, device, 1.0, period, r, True)
+    _pairhmm_close_at_r("deep", groups, device, 3.0, period, r, False)
+
+
 @pytest.mark.parametrize("strip_w,unroll,gatk", [
     (256, 16, False), (256, 8, True), (96, 32, False)],
     ids=["w256-u16", "w256-u8-gatk", "w96-u32"])
@@ -629,6 +692,36 @@ def test_pairhmm_long_kernel_close_to_plain_version(device, strip_w, unroll,
                              anchor, sweep, unroll, mm_div)
     _assert_log10_close(got, want, torch.from_numpy(arrays["meta"][0] > 0)
                         .to(device))
+
+
+@pytest.mark.parametrize("strip_w,r", [(256, 8), (256, 16), (256, 32),
+                                       (96, 4), (96, 8), (24, 1), (40, 2),
+                                       (512, 16), (1024, 32)])
+def test_pairhmm_long_kernel_every_r_close_to_plain_version(device, strip_w,
+                                                            r):
+    """Reads ending on a strip seam (one, two and three strips, the last a
+    deep-decay pair) and ragged reads at every R the build makes: up to
+    1,500bp at strip widths of 256 rows and more, 30-300bp below (over 8
+    strips, so the block sweeps them in rounds with the global seam)."""
+    if strip_w >= 256:
+        jobs = long_seam_jobs(3, strip_w) + long_jobs(
+            8, n_jobs=24, read_lens=(300, 1500), hap_max=1600)
+    else:
+        jobs = long_seam_jobs(3, strip_w) + long_jobs(
+            8, n_jobs=24, read_lens=(30, 300), hap_max=400)
+    arrays, st = pairhmm_long.pack_pairhmm_long(jobs, strip_w=strip_w)
+    t = {k: torch.from_numpy(a).to(device) for k, a in arrays.items()}
+    sweep, anchor, _ = pairhmm_long.long_layout(st["ny_max"], st["strip_w"])
+    valid = torch.from_numpy(arrays["meta"][0] > 0).to(device)
+    for unroll, mm_div in ((16, 1.0), (4, 3.0)):
+        before = pairhmm_long.launches
+        got = pairhmm_long.pairhmm_long_forward(
+            **t, **st, unroll=unroll, mm_div=mm_div, _rows_per_thread=r)
+        torch.cuda.synchronize()
+        assert pairhmm_long.launches - before == 1
+        want = phmm_long_forward(*t.values(), st["k_strips"], st["strip_w"],
+                                 anchor, sweep, unroll, mm_div)
+        _assert_log10_close(got, want, valid)
 
 
 def test_pairhmm_long_wrapper_rejects_bad_inputs(device):
