@@ -6,8 +6,8 @@ Run from the repository root on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 Phases (one line each; any failure exits non-zero). They run in the
-order 1, 2, 19, 21, 24, 27, 3, 4, 5, 22, 23, 25, 26, 28, 29, 20, 7-18,
-30-32, 6:
+order 1, 2, 19, 21, 24, 27, 3, 4, 5, 33, 22, 23, 25, 26, 28, 29, 20,
+7-18, 30-32, 6:
   1. build      nvcc-builds the nine kernels (csrc/sw_tile.cu,
                 csrc/sw_long.cu, csrc/sw_strips.cu, csrc/sw_rotor.cu,
                 csrc/sw_stacked.cu, csrc/sw_conveyor.cu, csrc/sw_xstrip.cu,
@@ -15,14 +15,19 @@ order 1, 2, 19, 21, 24, 27, 3, 4, 5, 22, 23, 25, 26, 28, 29, 20, 7-18,
                 checkout, one nvcc each, in parallel, and g++-builds the
                 native golden library; prints ptxas's registers and spills
                 of every kernel instance, and the SASS count of integer
-                arithmetic a cell along one step of csrc/sw_long.cu's and
-                csrc/sw_xstrip.cu's loop at R = 4, 8 and 16 (cuobjdump
-                -sass), which SW_OPS_PER_CELL must not pass, and of fp32
+                arithmetic a cell along one step of the loop of every
+                instance of csrc/sw_long.cu and csrc/sw_xstrip.cu (R = 4,
+                8, 16), csrc/sw_strips.cu and csrc/sw_tile.cu (R = 2, 3,
+                4, 5, 6, 8; the lane tile's warp and block forms)
+                (cuobjdump -sass), which SW_OPS_PER_CELL must not pass,
+                and of fp32
                 flops a cell (FFMA 2) along one step of
                 csrc/pairhmm_tile.cu's and csrc/pairhmm_long.cu's loop at
                 every R, which must reach PHMM_FLOPS_PER_CELL
-  2. kernel     the lane-tile SW kernel vs its plain PyTorch version on
-                ragged buckets under three scoring configs, exact
+  2. kernel     the lane-tile SW kernel at its default R and at every R
+                the build makes vs its plain PyTorch version on ragged
+                buckets (one warp a pair, and past 32R rows a block of
+                warps) under three scoring configs, exact
   3. goldens    Engine(device="cuda") on the vendored SW goldens, exact
   4. main path  the engine on 25,000 pairs of 512bp random DNA + '\\n'
                 (seeded), twice: with sw_strips on (the bucket of 520 rows
@@ -30,12 +35,14 @@ order 1, 2, 19, 21, 24, 27, 3, 4, 5, 22, 23, 25, 26, 28, 29, 20, 7-18,
                 for each the wall and both kernels' launch counts read
                 around the run, 512 sampled pairs held against the native
                 golden model; the two runs equal on all 25,000 pairs
-  5. timing     on phase 4's bucket: the lane-tile kernel vs its plain
-                version and the strips kernel vs the lane-tile kernel, ms
-                per call by CUDA events, slope (t(9) - t(1)) / 8, in turns
-                plain, lane tile, strips, strips, lane tile, plain; the
-                plain strip sweep of the same bucket timed by one call and
-                held against the strips kernel on all 28,672 lanes, exact
+  5. timing     on phase 4's bucket: the lane-tile and the strips kernels
+                at every R, each == the plain version on all 28,672 lanes,
+                ms per call by CUDA events, slope (t(9) - t(1)) / 8, in
+                turns: plain, the lane tile and strips at each R
+                ascending, then descending, plain; the default R's ms are
+                the kernels'; the plain strip sweep of the same bucket
+                timed by one call and held against the strips kernel on
+                all 28,672 lanes, exact
   6. card       the card's name and power limit from nvidia-smi
   7. phmm kernel PairHMM kernel vs its plain version on ragged batches
                 (reads 1-500bp, haplotypes 1-700bp, N runs, a deep-decay
@@ -91,9 +98,9 @@ order 1, 2, 19, 21, 24, 27, 3, 4, 5, 22, 23, 25, 26, 28, 29, 20, 7-18,
                 full-height sweep == native; kernel vs plain ms on the
                 4kbp tile
  15. sw streamed the lane-tile SW kernel on buckets whose stream passes
-                6,144 rows (x 30-600bp planted in y of 6-10kbp): kernel ==
-                plain == native, exact, and kernel vs plain ms on the
-                largest bucket
+                6,144 rows (x 30-600bp planted in y of 6-10kbp): kernel at
+                every R == plain == native, exact, and kernel (default R)
+                vs plain ms on the largest bucket
  16. sw long main  the engine on one tile of 128 pairs of 50,000bp x
                 50,000bp random DNA (seeded), one pair identical (score
                 50,000): all 128 leave the lane-tile kernel for the
@@ -119,14 +126,15 @@ order 1, 2, 19, 21, 24, 27, 3, 4, 5, 22, 23, 25, 26, 28, 29, 20, 7-18,
                 136-608 rows (an identical pair, a tandem repeat across
                 seams, an all-mismatch pair, a one-base y, an empty y)
                 under three scoring configs, at the router's strip width
-                and at 88 rows (every last strip re-padded), exact; the
-                plain strip sweep at both widths under the default config,
-                and at 88 on the first bucket under the other two
- 20. sw sweep    kernel GCUPS of the lane-tile and the strips kernels on
-                4,096 pairs of 32, 64, 128, 256, 512 and 1,000bp (slope
-                (t(5) - t(1)) / 4, in turns), the strips kernel at each
-                strip width of 32-256 rows there, the rotor kernel at
-                rotor_max_slots 1-32 at 32, 64 and 128bp, the stacked
+                and at 88 rows (every last strip re-padded), the kernel at
+                its default R and at every R, exact; the plain strip sweep
+                at both widths under the default config, and at 88 on the
+                first bucket under the other two
+ 20. sw sweep    kernel GCUPS of the lane-tile and the strips kernels
+                at their default R on 4,096 pairs of 32, 64, 128, 256, 512
+                and 1,000bp (slope (t(5) - t(1)) / 4, in turns), the
+                rotor kernel at rotor_max_slots 1-32 at 32, 64 and
+                128bp, the stacked
                 kernel at sw_stack 2, 4 and 8 at 32 and 64bp, the
                 conveyor kernel at max_slots 4 and 64 at 32, 64 and
                 128bp, and which kernel the router sends each point to;
@@ -216,6 +224,15 @@ order 1, 2, 19, 21, 24, 27, 3, 4, 5, 22, 23, 25, 26, 28, 29, 20, 7-18,
                 the wall, then pack, copy and forward apart; then phase
                 17's file (== Engine, exact) and phase 9's jobs (within
                 1e-5 of Engine, the same fallbacks) through it
+ 33. default route  the engine on 25,000 pairs of x 100bp + '\n'
+                against y 300bp + '\n' (seeded; one bucket of 104 rows
+                that strips, the rotor and the stacked kernel decline) at
+                the default EngineConfig: the four short-pair kernels'
+                launch counts read around the run (the lane tile's only),
+                512 sampled pairs == native model; then the bucket's
+                lane-tile kernel at every R == its plain version on every
+                lane, and each R's ms beside the plain version's, slope
+                (t(9) - t(1)) / 8, in turns
  32. xstrip time  the kernel on one full-window block at the 50kbp shape
                 (w = 50,008, U = 32), in place, at R = 4, 8 and 16 in
                 turns, between two timings of its plain block, slope
@@ -254,6 +271,9 @@ SWEEP_PAIRS, SWEEP_LENS = 4096, (32, 64, 128, 256, 512, 1000)
 ROTOR_LENS, ROTOR_SLOTS = (32, 64, 128), (1, 2, 4, 8, 16, 32)
 # Rotor main path: bench.py's short-pair point, 25,000 x 64bp + '\n'.
 RT_PAIRS, RT_LEN = 25000, 64
+# The lane tile's default route: short reads against reference windows
+# longer than the rotor's period, 25,000 x (100bp + '\n', 300bp + '\n').
+DR_PAIRS, DR_X_LEN, DR_Y_LEN = 25000, 100, 300
 # Stacked SW: the stack depths of the main path and the sweep (sw_stack),
 # the x lengths of phase 24's buckets (8-96 rows), and the kernel's
 # threads a block (stack * rows).
@@ -523,10 +543,16 @@ def sass_phmm_flops(lib, kernel):
 def sass_cell_ops(lib, kernel, dpx_per_cell):
     """{R: (integer arithmetic instructions a cell, cells a step)} of
     `kernel` in the library `lib`, read with cuobjdump -sass (the CUDA
-    toolkit's, else the one Triton carries). In each template instance the
-    cell block is the straight-line block with the most DPX add-max
-    instructions and the fewest selects a cell (the unmasked path); from
-    it the count walks one step of the loop, forward branches taken (the
+    toolkit's, else the one Triton carries); {(R, form): ...} where the
+    kernel has a second template argument, a bool (sw_tile.cu's block
+    form). In each template instance the
+    cell block is the straight-line block with the fewest selects a cell
+    and then the most DPX add-max instructions (the unmasked path), of
+    the blocks of two cells or more, or of one where the compiler hoisted
+    the rest of the step out of every block; from
+    it (a loop head on a tie; the next where a walk does not come back)
+    the count walks one step of the loop, or the steps the compiler
+    unrolled into one turn, forward branches taken (the
     code one thread in a warp or a block runs is skipped) except one that
     jumps past the cell block, the back edge followed round to the cell
     block again. Along that path it counts the opcodes of SW_CELL_OPCODES
@@ -542,38 +568,52 @@ def sass_cell_ops(lib, kernel, dpx_per_cell):
 
     out = {}
     for name, ins in funcs.items():
-        m = re.search(kernel + r"ILi(\d+)E", name)
+        m = re.search(kernel + r"ILi(\d+)E(?:Lb([01])E)?", name)
         if not m:
             continue
+        inst = int(m.group(1)) if m.group(2) is None else (
+            int(m.group(1)), int(m.group(2)))
         index = {a: n for n, (a, _, _, _) in enumerate(ins)}
-        best = None
-        for b in sass_blocks(ins):
-            ops = [ins[n][1] for n in b]
-            cells = sum(o.startswith("VIADDMNMX") for o in ops) // dpx_per_cell
-            if cells < 2:
-                continue
-            key = (ops.count("SEL") / cells, -cells)
-            if best is None or key < best[0]:
-                best = (key, b[0])
-        check(best is not None, f"no DPX cell block in {name}")
-        start = best[1]
-        n, seen, path = start, set(), collections.Counter()
-        while True:
-            check(n not in seen and ins[n][1] != "EXIT",
-                  f"{name}: the step from the cell block does not return")
-            seen.add(n)
-            a, op, t, cond = ins[n]
-            path[op] += 1
-            if t is not None and not (cond and a < ins[start][0] < t):
-                n = index[t]
-            else:
-                n += 1
-            if n == start:
+        heads = {t for a, _, t, _ in ins if t is not None and t <= a}
+        found = []
+        for least in (2, 1):  # a block of one cell where none holds two
+            for b in sass_blocks(ins):
+                ops = [ins[n][1] for n in b]
+                cells = sum(o.startswith("VIADDMNMX")
+                            for o in ops) // dpx_per_cell
+                if cells >= least:
+                    found.append(((ops.count("SEL") / cells, -cells,
+                                   ins[b[0]][0] not in heads), b[0]))
+            if found:
                 break
+        check(bool(found), f"no DPX cell block in {name}")
+
+        def walk(start):
+            """The path round the loop from `start`, or None where it does
+            not come back."""
+            n, seen, path = start, set(), collections.Counter()
+            while True:
+                if n in seen or ins[n][1] == "EXIT":
+                    return None
+                seen.add(n)
+                a, op, t, cond = ins[n]
+                path[op] += 1
+                if t is not None and not (cond and a < ins[start][0] < t):
+                    n = index[t]
+                else:
+                    n += 1
+                if n == start:
+                    return path
+
+        # the best block (a loop head on a tie) whose step comes back
+        path = next((p for p in (walk(st) for _, st in sorted(found))
+                     if p is not None), None)
+        check(path is not None,
+              f"{name}: the step from the cell block does not return")
         cells = sum(c for o, c in path.items()
                     if o.startswith("VIADDMNMX")) // dpx_per_cell
-        out[int(m.group(1))] = (
-            sum(c for o, c in path.items() if arith(o)) / cells, cells)
+        out[inst] = (sum(c for o, c in path.items() if arith(o)) / cells,
+                     cells)
     return out
 
 
@@ -659,19 +699,26 @@ def main() -> int:
                 print(f"  ptxas: {line.strip()}")
             elif "Compiling entry" in line:
                 print(f"  ptxas: {line.split('for')[0].strip()[-96:]}")
-    # the DPX cell of the two redesigned kernels, instance by instance
+    # the DPX cell of the four kernels that take it, instance by instance
+    # (sw_tile's keys (R, block form))
     sass_ops = {}
-    for name, kernel, dpx in (("sw_long", "sw_long_kernel", 2),
-                              ("sw_xstrip", "sw_xstrip_kernel", 3)):
+    for name, kernel, dpx, want in (
+            ("sw_long", "sw_long_kernel", 2, sw_long.ROWS_PER_THREAD),
+            ("sw_xstrip", "sw_xstrip_kernel", 3, xsharded.ROWS_PER_THREAD),
+            ("sw_strips", "sw_strips_kernel", 2, sw_strips.ROWS_PER_THREAD),
+            ("sw_tile", "sw_tile_kernel", 2,
+             [(r, b) for r in sw.ROWS_PER_THREAD for b in (0, 1)])):
         path = builds[names.index(name)][0]
         sass_ops[name] = sass_cell_ops(path, kernel, dpx)
-        check(sorted(sass_ops[name]) == [4, 8, 16],
+        check(sorted(sass_ops[name]) == sorted(want),
               f"{name}: SASS instances {sorted(sass_ops[name])}")
-        check(all(c == r for r, (_, c) in sass_ops[name].items()),
+        check(all(c % (k if isinstance(k, int) else k[0]) == 0
+                  for k, (_, c) in sass_ops[name].items()),
               f"{name}: cells a step by R {sass_ops[name]}")
         print(f"phase 1 sass {name}: integer arithmetic a cell along one "
-              "step by R " + ", ".join(
-                  f"R={r}: {n:.2f} over {c} cells" for r, (n, c)
+              "step by R" + (" (warp / block form)" if name == "sw_tile"
+                             else "") + " " + ", ".join(
+                  f"R={k}: {n:.2f} over {c} cells" for k, (n, c)
                   in sorted(sass_ops[name].items())))
     fewest = min(n for ops in sass_ops.values() for n, _ in ops.values())
     check(SW_OPS_PER_CELL <= fewest,
@@ -708,19 +755,23 @@ def main() -> int:
         results = []
         for b in buckets:
             sx, sy, nd = sw_bucket_to_torch(b, dev)
-            got = sw.sw_forward(sx, sy, nd, cfg)
             want = sw_forward_tiles(sx, sy, nd, cfg)
-            torch.cuda.synchronize()
-            err = int((got.long() - want.long()).abs().max())
-            max_err = max(max_err, err)
-            check(err == 0, f"kernel != plain on bucket {tuple(sx.shape)} "
-                            f"under {cfg}: max |diff| {err}")
+            for r in (None, *sw.ROWS_PER_THREAD):  # the default, every R
+                got = sw.sw_forward(sx, sy, nd, cfg, _rows_per_thread=r)
+                torch.cuda.synchronize()
+                err = int((got.long() - want.long()).abs().max())
+                max_err = max(max_err, err)
+                check(err == 0, f"kernel (R={r}) != plain on bucket "
+                                f"{tuple(sx.shape)} under {cfg}: max |diff| "
+                                f"{err}")
             results.append(got.cpu().numpy())
         scores = unpack_scores(buckets, results, len(pairs))
         check(np.array_equal(scores, native.sw_scores_native(pairs, cfg)),
               f"kernel != native model under {cfg}")
         print(f"phase 2 kernel == plain: {len(pairs)} ragged pairs, "
-              f"{len(buckets)} buckets, {cfg}, max_abs_err 0")
+              f"{len(buckets)} buckets of {min(b.sx.shape[1] for b in buckets)}"
+              f"-{max(b.sx.shape[1] for b in buckets)} rows, at the default "
+              f"R and R = {sw.ROWS_PER_THREAD}, {cfg}, max_abs_err 0")
 
     # 19. the strips kernel vs its plain versions and the native model
     def strips_inputs(b, strip_w=None):
@@ -746,8 +797,9 @@ def main() -> int:
                           or st["k_strips"] * 88 != b.sx.shape[1],
                           f"strips of 88 fill {b.sx.shape[1]} rows")
                     widths.add(st["strip_w"])
-                    got = {"kernel": sw_strips.sw_forward_strips(
-                        *t, ny_max=ny_max, cfg=cfg, **st)}
+                    got = {f"kernel R={r}": sw_strips.sw_forward_strips(
+                        *t, ny_max=ny_max, cfg=cfg, **st, _rows_per_thread=r)
+                        for r in (None, *sw_strips.ROWS_PER_THREAD)}
                     if ci == 0 or (strip_w == 88 and i == big[0]):
                         got["plain strip sweep"] = sw_strips_forward_tiles(
                             *t, cfg=cfg, **st)
@@ -767,7 +819,8 @@ def main() -> int:
               f"pairs, {len(big)} buckets of "
               f"{min(buckets[i].sx.shape[1] for i in big)}-"
               f"{max(buckets[i].sx.shape[1] for i in big)} rows, strip widths "
-              f"{sorted(widths)}, {cfg}, max_abs_err 0 "
+              f"{sorted(widths)}, the kernel at the default R and R = "
+              f"{sw_strips.ROWS_PER_THREAD}, {cfg}, max_abs_err 0 "
               f"({time.perf_counter() - t0:.1f} s so far)")
 
     # 21. the rotor kernel vs its plain versions and the native model
@@ -1003,7 +1056,7 @@ def main() -> int:
     launches, strips_launches = main[False][1], main[True][2]
     print(f"phase 4 sw_strips on == off on all {N_PAIRS} pairs")
 
-    # 5. timing on the full-width bucket
+    # 5. timing on the full-width bucket: both kernels at every R in turns
     (b,) = pack_sw_pairs(pairs)
     sx, sy, nd = sw_bucket_to_torch(b, dev)
     cfg = SWConfig()
@@ -1013,16 +1066,32 @@ def main() -> int:
     max_err = max(max_err, err)
     check(err == 0, f"kernel != plain on the 25k bucket: {err}")
     ts4, st4, ny4 = strips_inputs(b)
-    kernel = lambda: sw.sw_forward(sx, sy, nd, cfg)  # noqa: E731
+    tile_r = sw.tile_geometry(sx.shape[1]).rows_per_thread
+    strips_r = sw_strips.geometry(st4["k_strips"] * st4["strip_w"],
+                                  ny4).rows_per_thread
+    timed = {("lane tile", r): (lambda r=r: sw.sw_forward(
+        sx, sy, nd, cfg, _rows_per_thread=r)) for r in sw.ROWS_PER_THREAD}
+    timed.update({("strips", r): (lambda r=r: sw_strips.sw_forward_strips(
+        *ts4, ny_max=ny4, cfg=cfg, **st4, _rows_per_thread=r))
+        for r in sw_strips.ROWS_PER_THREAD})
+    for key, fn in timed.items():
+        err = int((fn().long() - want.long()).abs().max())
+        check(err == 0, f"{key} != plain on the 25k bucket: {err}")
     plain = lambda: sw_forward_tiles(sx, sy, nd, cfg)  # noqa: E731
-    strips = lambda: sw_strips.sw_forward_strips(  # noqa: E731
-        *ts4, ny_max=ny4, cfg=cfg, **st4)
-    p1, k1, s1, s2, k2, p2 = (
-        slope_ms(plain, torch), slope_ms(kernel, torch),
-        slope_ms(strips, torch), slope_ms(strips, torch),
-        slope_ms(kernel, torch), slope_ms(plain, torch))
+    by_r = {key: [] for key in timed}
+    p1 = slope_ms(plain, torch)
+    for key in list(timed) + list(timed)[::-1]:
+        by_r[key].append(slope_ms(timed[key], torch))
+    p2 = slope_ms(plain, torch)
+    k1, k2 = by_r[("lane tile", tile_r)]
+    s1, s2 = by_r[("strips", strips_r)]
     kernel_ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
     strips_ms = (s1 + s2) / 2
+    tile_ms_by_r = {r: sum(by_r[("lane tile", r)]) / 2
+                    for r in sw.ROWS_PER_THREAD}
+    strips_ms_by_r = {r: sum(by_r[("strips", r)]) / 2
+                      for r in sw_strips.ROWS_PER_THREAD}
+    strips = timed[("strips", strips_r)]
     cells = int(((b.nx - 1).astype(np.int64) * (b.ny - 1)).sum())
     sw_bound = bound_ms(nbytes(sx, sy, nd, got), cells * SW_OPS_PER_CELL,
                         int32_ops)
@@ -1037,21 +1106,94 @@ def main() -> int:
                     f"{err}")
     strips_bound = bound_ms(nbytes(*ts4, got4), cells * SW_OPS_PER_CELL,
                             int32_ops)
+    for name, geo_r, ms_by in (("lane tile", tile_r, tile_ms_by_r),
+                               ("strips", strips_r, strips_ms_by_r)):
+        print(f"phase 5 {name} by R (ms, in turns ascending then "
+              f"descending; the default R = {geo_r}): " + ", ".join(
+                  f"R={r}: {by_r[(name, r)][0]:.3f} / {by_r[(name, r)][1]:.3f}"
+                  for r in sorted(ms_by)) + f"; fastest R = "
+              f"{min(ms_by, key=ms_by.get)}, every R == plain on all "
+              f"{want.numel()} lanes")
     print(f"phase 5 timing, bucket {tuple(sx.shape)} stream "
-          f"{tuple(sy.shape)}: kernel {k1:.3f} / {k2:.3f} ms, plain "
+          f"{tuple(sy.shape)}: kernel (R = {tile_r}, "
+          f"{sw.tile_geometry(sx.shape[1]).warps} warps a pair) "
+          f"{k1:.3f} / {k2:.3f} ms, plain "
           f"{p1:.3f} / {p2:.3f} ms per call, bound {sw_bound[0]:.4f} ms by "
           f"{sw_bound[1]}; GCUPS kernel "
           f"{cells / kernel_ms / 1e6:.2f}, plain {cells / plain_ms / 1e6:.2f} "
           f"(cells = sum (nx-1)(ny-1) = len(sx) * len(sy) with the '\\n', "
           f"{cells})")
     print(f"phase 5 strips timing, same bucket, {st4['k_strips']} strips of "
-          f"{st4['strip_w']} rows: strips kernel {s1:.3f} / {s2:.3f} ms per "
+          f"{st4['strip_w']} rows, sub-strips of {32 * strips_r} rows (R = "
+          f"{strips_r}): strips kernel {s1:.3f} / {s2:.3f} ms per "
           f"call ({cells / strips_ms / 1e6:.2f} GCUPS, "
           f"{kernel_ms / strips_ms:.2f}x the lane-tile kernel's "
           f"{kernel_ms:.3f}), plain strip sweep "
           f"{strips_plain_ms:.1f} ms (one call), == kernel on all "
           f"{got4.numel()} lanes; bound {strips_bound[0]:.4f} ms by "
           f"{strips_bound[1]}")
+
+    # 33. the lane-tile kernel where the default router sends it
+    rng = np.random.default_rng(SEED + 9)
+    pairs = [SWPair(sx=random_dna(rng, DR_X_LEN) + b"\n",
+                    sy=random_dna(rng, DR_Y_LEN) + b"\n")
+             for _ in range(DR_PAIRS)]
+    sample = np.random.default_rng(SEED + 10).choice(DR_PAIRS, 512,
+                                                     replace=False)
+    ref = native.sw_scores_native([pairs[i] for i in sample])
+    e33 = Engine(device="cuda")
+    sw.launches = sw_strips.launches = sw_rotor.launches = 0
+    sw_stacked.launches = 0
+    t0 = time.perf_counter()
+    scores = e33.sw_scores(pairs)
+    wall = time.perf_counter() - t0
+    n = {"lane tile": sw.launches, "strips": sw_strips.launches,
+         "rotor": sw_rotor.launches, "stacked": sw_stacked.launches}
+    check(n["lane tile"] == e33.last_stats.buckets >= 1
+          and n["strips"] == n["rotor"] == n["stacked"] == 0,
+          f"phase 33: launches {n}, want the lane tile's only")
+    dr_launches = n["lane tile"]
+    check(np.array_equal(scores[sample], ref),
+          "phase 33: engine != native model on the sampled pairs")
+    print(f"phase 33 default route: {DR_PAIRS} x ({DR_X_LEN}bp+'\\n', "
+          f"{DR_Y_LEN}bp+'\\n') through Engine(device=cuda) at the default "
+          f"EngineConfig, engine wall {wall:.3f} s, launches {n}, "
+          f"{len(sample)} sampled pairs == native model")
+    (b,) = pack_sw_pairs(pairs)
+    t = sw_bucket_to_torch(b, dev)
+    dr_geo = sw.tile_geometry(b.sx.shape[1])
+    want = sw_forward_tiles(*t)
+    timed = {r: (lambda r=r: sw.sw_forward(*t, _rows_per_thread=r))
+             for r in sw.ROWS_PER_THREAD}
+    for r, fn in timed.items():
+        err = int((fn().long() - want.long()).abs().max())
+        max_err = max(max_err, err)
+        check(err == 0, f"phase 33: kernel at R={r} != plain: {err}")
+    check(np.array_equal(unpack_scores([b], [want.cpu().numpy()],
+                                       DR_PAIRS), scores),
+          "phase 33: the plain version != the engine's scores")
+    plain = lambda: sw_forward_tiles(*t)  # noqa: E731
+    p1 = slope_ms(plain, torch)
+    by_r = {r: [] for r in timed}
+    for r in list(timed) + list(timed)[::-1]:
+        by_r[r].append(slope_ms(timed[r], torch))
+    p2 = slope_ms(plain, torch)
+    dr_ms = sum(by_r[dr_geo.rows_per_thread]) / 2
+    dr_plain_ms = (p1 + p2) / 2
+    dr_cells = int(((b.nx - 1).astype(np.int64) * (b.ny - 1)).sum())
+    dr_bound = bound_ms(nbytes(*t, want), dr_cells * SW_OPS_PER_CELL,
+                        int32_ops)
+    print(f"phase 33 default route timing, bucket {tuple(t[0].shape)} "
+          f"stream {tuple(t[1].shape)}, R = {dr_geo.rows_per_thread} "
+          f"({dr_geo.warps} warp a pair, {dr_geo.pairs} pairs a block): "
+          f"kernel {by_r[dr_geo.rows_per_thread][0]:.4f} / "
+          f"{by_r[dr_geo.rows_per_thread][1]:.4f} ms "
+          f"({dr_cells / dr_ms / 1e6:.2f} GCUPS), plain {p1:.3f} / "
+          f"{p2:.3f} ms, == kernel on all {want.numel()} lanes at every R; "
+          f"by R (ms, in turns) " + ", ".join(
+              f"R={r}: {v[0]:.4f} / {v[1]:.4f}" for r, v in by_r.items())
+          + f"; bound {dr_bound[0]:.4f} ms by {dr_bound[1]} (cells "
+          f"{dr_cells})")
 
     # 22. the rotor's main path: 25,000 x 64bp + '\n', one bucket of 72
     # rows, with sw_rotor on and off, at strips_min_nxs 72 (strips first
@@ -1318,9 +1460,9 @@ def main() -> int:
           f"{conveyor_ms / rotor_ms:.2f}x it; bound {conveyor_bound[0]:.4f} "
           f"ms by {conveyor_bound[1]}")
 
-    # 20. both SW kernels across lengths, kernel only: the lane-tile
-    # kernel, then the strips kernel at the router's width and at each
-    # width of 32-256 rows below the bucket's
+    # 20. both SW kernels across lengths, kernel only, each at its
+    # default R: the lane-tile kernel, then the strips kernel (the pack's
+    # strip width no longer shapes it, so no width sweep)
     rng = np.random.default_rng(SEED + 6)
     for length in SWEEP_LENS:
         sp = [SWPair(sx=random_dna(rng, length), sy=random_dna(rng, length))
@@ -1336,16 +1478,6 @@ def main() -> int:
         a1, b1, b2, a2 = (slope_ms(fk, torch, 5), slope_ms(fs, torch, 5),
                           slope_ms(fs, torch, 5), slope_ms(fk, torch, 5))
         c = SWEEP_PAIRS * length * length
-        widths = []
-        for strip_w in (32, 64, 96, 128, 256):
-            if strip_w >= bs.sx.shape[1]:
-                break
-            tw, stx, nyx = strips_inputs(bs, strip_w)
-            fw = lambda: sw_strips.sw_forward_strips(  # noqa: E731
-                *tw, ny_max=nyx, **stx)
-            check(torch.equal(fw(), ref),
-                  f"strips at W={strip_w} differ at {length}bp")
-            widths.append(f"{strip_w}: {slope_ms(fw, torch, 5):.3f}")
         # the rotor at each queue depth, in turns with itself, beside the
         # lane tile and strips of this point
         # the stacked kernel at each depth, in turns with itself
@@ -1398,12 +1530,14 @@ def main() -> int:
             conveyor = [f"conveyor (T {cst['period']}) by max_slots "
                         + "; ".join(conveyor)]
         dflt = EngineConfig()
+        r_tile = sw.tile_geometry(bs.sx.shape[1]).rows_per_thread
+        r_strips = sw_strips.geometry(stw["k_strips"] * stw["strip_w"],
+                                      nyw).rows_per_thread
         print(f"phase 20 sw sweep {length}bp: {SWEEP_PAIRS} pairs, bucket "
-              f"{tuple(t[0].shape)}; lane tile {a1:.3f} / {a2:.3f} ms = "
-              f"{c / ((a1 + a2) / 2) / 1e6:.2f} GCUPS; strips at the "
-              f"router's width ({stw['k_strips']} x {stw['strip_w']} rows) "
-              f"{b1:.3f} / {b2:.3f} ms = {c / ((b1 + b2) / 2) / 1e6:.2f} "
-              f"GCUPS; by strip width (ms) {', '.join(widths)}; "
+              f"{tuple(t[0].shape)}; lane tile (R = {r_tile}) {a1:.3f} / "
+              f"{a2:.3f} ms = {c / ((a1 + a2) / 2) / 1e6:.2f} GCUPS; strips "
+              f"(R = {r_strips}) {b1:.3f} / {b2:.3f} ms = "
+              f"{c / ((b1 + b2) / 2) / 1e6:.2f} GCUPS; "
               + "".join(r + "; " for r in rotor + stacked + conveyor)
               + f"the default router sends it to the {routed_to(dflt, bs)} "
               f"kernel (sw_rotor {dflt.sw_rotor}, rotor_max_slots "
@@ -1923,13 +2057,14 @@ def main() -> int:
     results, cfg = [], SWConfig()
     for b in buckets:
         sx, sy, nd = sw_bucket_to_torch(b, dev)
-        got = sw.sw_forward(sx, sy, nd, cfg)
         want = sw_forward_tiles(sx, sy, nd, cfg)
-        torch.cuda.synchronize()
-        err = int((got.long() - want.long()).abs().max())
-        max_err = max(max_err, err)
-        check(err == 0, f"kernel != plain on streamed bucket "
-                        f"{tuple(sy.shape)}: max |diff| {err}")
+        for r in (*sw.ROWS_PER_THREAD, None):  # every R, then the default
+            got = sw.sw_forward(sx, sy, nd, cfg, _rows_per_thread=r)
+            torch.cuda.synchronize()
+            err = int((got.long() - want.long()).abs().max())
+            max_err = max(max_err, err)
+            check(err == 0, f"kernel (R={r}) != plain on streamed bucket "
+                            f"{tuple(sy.shape)}: max |diff| {err}")
         results.append(got.cpu().numpy())
     check(np.array_equal(unpack_scores(buckets, results, len(pairs)),
                          native_sw(native, pairs, cfg)),
@@ -1946,8 +2081,10 @@ def main() -> int:
     print(f"phase 15 sw streamed: {len(pairs)} pairs (x 30-600bp in y "
           f"6-10kbp), {len(buckets)} buckets, streams of "
           f"{min(b.sy.shape[1] for b in buckets)}-"
-          f"{max(b.sy.shape[1] for b in buckets)} rows, kernel == plain == "
-          f"native exact; bucket {tuple(sx.shape)} stream {tuple(sy.shape)}: "
+          f"{max(b.sy.shape[1] for b in buckets)} rows, kernel at every R == "
+          f"plain == native exact; bucket {tuple(sx.shape)} stream "
+          f"{tuple(sy.shape)} at R = "
+          f"{sw.tile_geometry(sx.shape[1]).rows_per_thread}: "
           f"kernel {k1:.3f} / {k2:.3f} ms, plain {p1:.3f} / {p2:.3f} ms per "
           f"call, bound {ss_bound[0]:.4f} ms by {ss_bound[1]}; GCUPS kernel "
           f"{cells / ((k1 + k2) / 2) / 1e6:.2f} (cells {cells})")
@@ -2428,27 +2565,39 @@ def main() -> int:
           f"nvidia-smi failed: {smi.stderr.strip()}")
     check("jax" not in sys.modules, "jax was imported")
 
-    def entry(name, source, replaces, n_launches, err, ms, plain_ms, bound):
+    def entry(name, source, replaces, n_launches, err, ms, plain_ms, bound,
+              **more):
         return {"name": name, "route": "cuda",
                 "source": f"genomax_torch/csrc/{source}",
                 "replaces": replaces, "launches": n_launches,
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound[0], "bound_by": bound[1],
-                "library_ms": None}  # no one PyTorch call computes either
+                "library_ms": None,  # no one PyTorch call computes either
+                **more}
 
     # Each row at the shape its main path gives the kernel, kernel and
     # plain alike; sw_long's plain version is the full-height sweep. The
     # lane-tile kernel's launches are phase 4's sw_strips=False run's, the
-    # strips kernel's the sw_strips=True run's, the rotor's phase 22's
+    # strips kernel's the sw_strips=True run's (both with the default R,
+    # the ms of every R in ms_by_r; the lane tile's default route, phase
+    # 33, beside it), the rotor's phase 22's
     # first run that the predicates send to it, the stacked kernel's (at
     # S = 4, as its times) phase 25's sw_stack=4 run's, the conveyor's (at
     # the library default of 64 slots, as its times) phase 28's.
     print(json.dumps({"kernels": [
         entry("sw_tile", "sw_tile.cu", "genomax/kernels/sw_pallas.py:42",
-              launches, max_err, kernel_ms, plain_ms, sw_bound),
+              launches, max_err, kernel_ms, plain_ms, sw_bound,
+              rows_per_thread=tile_r, ms_by_r=tile_ms_by_r,
+              default_route={
+                  "shape": [DR_PAIRS, DR_X_LEN, DR_Y_LEN],
+                  "rows_per_thread": dr_geo.rows_per_thread,
+                  "launches": dr_launches, "ms": dr_ms,
+                  "plain_ms": dr_plain_ms, "bound_ms": dr_bound[0],
+                  "bound_by": dr_bound[1]}),
         entry("sw_strips", "sw_strips.cu", "genomax/kernels/sw_strips.py:68",
               strips_launches, strips_err, strips_ms, strips_plain_ms,
-              strips_bound),
+              strips_bound, rows_per_thread=strips_r,
+              ms_by_r=strips_ms_by_r),
         entry("sw_rotor", "sw_rotor.cu", "genomax/kernels/sw_rotor.py:141",
               rotor_launches, rotor_err, rotor_ms, rotor_plain_ms,
               rotor_bound),

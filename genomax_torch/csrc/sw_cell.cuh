@@ -1,7 +1,8 @@
 // One cell of the Smith-Waterman (Gotoh, score only) recurrence, shared by
 // the SW kernels of this directory: `sw_cell` (plain integer maxes) by
-// sw_tile.cu, sw_strips.cu, sw_rotor.cu and sw_stacked.cu; the DPX forms
-// `sw_cell_dpx` by sw_long.cu and `sw_cell_dpx_preopen` by sw_xstrip.cu.
+// sw_rotor.cu and sw_stacked.cu; the DPX forms `sw_cell_dpx` by
+// sw_long.cu and, through sw_rows.cuh's step, sw_tile.cu and
+// sw_strips.cu, and `sw_cell_dpx_preopen` by sw_xstrip.cu.
 //
 // Cell (p, j) of pair x, y:
 //   P = max(D(p, j-1) + open + extend, P(p, j-1) + extend)    gap along y

@@ -9,210 +9,250 @@
 // anchor - j, where anchor = NDs - NXs of the bucket before its x was
 // re-padded to K*W rows (pads 0); nx, ny (NT*128,) int32 matrix
 // dimensions len + 1 (1 on empty slots); out (NT, 128) int32, slot-major,
-// the largest D of each pair's matrix.
+// the largest D of each pair's matrix. The pack's strip width W does not
+// shape the kernel: it walks the pack's K*W rows in sub-strips of its own
+// height H.
 //
-// Design: one block per pair (slot t*128 + l), W = blockDim.x rows per
-// strip, the K strips swept one after another inside the block: the sweep
-// of the long-pair kernel (sw_long.cu) at the scale of a bucket. Within a
-// strip, thread r owns row p = k*W + r, keeps its D and P of diagonal d-1
-// in registers, takes D, Q and the y code of the row above from ping-pong
-// rows in shared memory (one __syncthreads per diagonal) and hands its
-// own down. Strip k sweeps only the diagonals [kW + 1,
-// min(kW + W - 1, len x) + len y], and a pair stops at its own last strip,
-// so the triangles of the lane-tile kernel (sw_tile.cu: every row of the
-// bucket over the tile's whole diagonal count) shrink to a band W wide.
+// Design: one warp per pair (slot), several pairs a block and no block
+// barrier. A sub-strip is H = 32 * R rows (R = 2, 3, 4, 5, 6, 8, a
+// template argument): sub-strip s holds rows [1 + s*H, 1 + s*H + H) (row
+// 0 is the first-column boundary and is not swept), lane t rows
+// 1 + s*H + t*R .. + R - 1 in registers (sw_rows.cuh's step: the row
+// above by __shfl_up_sync, the y code travelling down the rows, the DPX
+// cell). The sub-strips run one after another in the warp, each over its
+// live diagonals only, [row0 + 1, min(row0 + H - 1, len x) + len y], and a
+// pair stops at its own last live sub-strip, so the triangles of the
+// lane-tile kernel (every row over the tile's whole diagonal count)
+// shrink to bands H wide.
 //
-// The pair's y codes are staged in shared memory once (ycode[j] = y[j-1]);
-// row 0 of a strip reads them there, so inside the sweep no thread reads
-// device memory, but for its x code once a strip.
+// The warp stages its pair's y codes in shared memory once (ycode[j] =
+// y[j-1], 1 <= j <= len y); lane 0 hands its first row the code of
+// column j from there, so inside the sweep the warp reads device memory
+// only for its x codes, once a sub-strip.
 //
-// The seam lives in shared memory: a ring of R = ny_max entries holding
-// D and Q of the strip's last row, entry e (diagonal e) in slot e mod R.
-// Thread W-1 writes entry d after the barrier of diagonal d. Thread 0
-// (row kW) needs entry d-1 at diagonal d: it reads entry d during diagonal
-// d, before that barrier, and keeps it for d+1; its diagonal neighbour,
-// entry d-2, is the value it used one step earlier. One ring serves every
-// strip without a race:
-//  - within a strip, entry e is read (during diagonal e) before the same
-//    strip writes it (after the barrier of e), so a read sees the
-//    previous strip's value;
-//  - a live cell (kW, j) reads entry kW + j - 1 <= kW + len y - 1, and the
-//    strip writes entries from kW + 1 on; a write of entry e' lands on the
-//    slot of a later read e only if R divides e - e', but
-//    e - e' <= len y - 2 < R;
-//  - strip k-1 writes its entries in order up to kW - 1 + len y, and the
-//    last R of them, which the ring keeps, cover the len y entries
-//    kW .. kW + len y - 1 that strip k reads for live cells;
-//  - the __syncthreads that opens each strip orders it after the last.
-// Reads for dead cells may see anything, and a dead cell uses nothing, so
-// the ring needs no initial value. The TPU kernel's two zeroed halo slots
-// and its pad-decay argument (sw_strips.py:14-23) have no part here.
+// The seam between sub-strips is a ring of ny_max (D, Q) entries per warp
+// in shared memory, entry j the previous sub-strip's last row at column
+// j. With kH the first row of a sub-strip: its lane 0 reads the entry of
+// column j for row kH, which needs it on diagonal kH + j (the warp loads
+// it one step ahead, on kH + j - 1, every lane at the same address, and
+// lane 0 keeps it); its lane 31 overwrites that entry from
+// row kH + H - 1 on diagonal kH + H - 1 + j, live cells only, for the
+// next sub-strip. One ring serves every sub-strip without a race:
+//  - within a sub-strip the read of entry j comes H steps before its
+//    overwrite, and a __syncwarp ends every step, so the read is ordered
+//    before the write;
+//  - a live first-row cell (kH, j) has j <= len y, and the previous
+//    sub-strip's last row is live (it lies above kH <= len x), so that
+//    sub-strip wrote every entry 1 .. len y on its own diagonals, before
+//    it ended (a __syncwarp ends its last step);
+//  - entries past len y are never read: lane 0 takes the boundary there.
+// The ring needs no initial value: the first sub-strip reads none of it
+// (its row above is the first-column boundary). The TPU kernel's two
+// zeroed halo slots and its pad-decay argument (sw_strips.py:14-23) have
+// no part here.
 //
-// Boundaries are written out, as in sw_long.cu: a cell is live iff
+// Masks are written out, as in sw_long.cu: a cell is live iff
 // 1 <= p <= len x and 1 <= j <= len y; every other cell is D = 0,
-// P = Q = kSwNeg. Strip 0's row above is the first-column boundary.
+// P = Q = kSwNeg. A sub-strip is swept in three loops, each the same
+// for every lane of the warp: the start triangle (masked), the diagonals
+// on which every cell of the warp is live (row0 + H <= d <= row0 + len y,
+// on a sub-strip whose last row is live; no masks) and the end triangle
+// (masked; the whole of the pair's last sub-strip where its last row is
+// dead).
 //
-// Shared memory per block (strips_smem_bytes): 6W int32 (ping-pong D, Q
-// and y code) + 8R bytes (the ring) + R bytes of y codes rounded up to 16.
-// Past 48 KB the launch raises the kernel's dynamic limit with
-// cudaFuncSetAttribute; kernels/sw_strips.py derives the same sum and
-// declines a bucket past the card's 227 KB a block.
+// Shared memory per pair (strips_pair_bytes): 8 * ny_max bytes of ring
+// and ny_max bytes of y codes rounded up to 16; a block of P pairs takes
+// P times that. Past 48 KB the launch raises the kernel's dynamic limit
+// with cudaFuncSetAttribute; kernels/sw_strips.py derives the same sum,
+// picks P and declines a bucket whose one pair passes the card's 227 KB
+// a block.
 //
-// Bound on this card: the per-diagonal block barrier and the shared-memory
-// round trip of each step, as in the other SW kernels; a cell costs about
-// a dozen integer operations and reads nothing from device memory. A step
-// also has a fixed part per block (the barrier, thread 0's seam read and
-// y code, thread W-1's seam write), so wider strips pay on long pairs,
-// and blocks of one warp (W = 32) cap an SM at 32 warps;
-// kernels/sw_strips.pick_strip_w weighs both. Several rows per thread in
-// registers, warp shuffles in place of the shared rows, and DPX max-plus
-// intrinsics are the levers for a later change.
+// Bound on this card: operations. A cell costs sw_cell_dpx's five
+// integer instructions, the substitution's compare and select, the
+// diagonal's add and half a running max, and the moves of the rows'
+// diagonal neighbour and y code; a step adds a fixed part for the warp
+// (three shuffles, the two shared loads, lane 31's ring store, the loop),
+// which R rows a thread spread over R cells. A pair's last sub-strip
+// sweeps all of y however few rows it holds, which favours the R whose
+// H leaves no short last sub-strip (kernels/sw_strips.geometry).
+// Occupancy is set by the ring's shared memory on long y.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "sw_cell.cuh"
+#include <type_traits>
+
+#include "sw_rows.cuh"
 
 namespace {
 
 constexpr int kLanes = 128;        // pairs per packed tile
+constexpr int kMaxPairs = 8;       // warps (pairs) a block
 constexpr int kNeg = kSwNeg;       // -inf of P and Q (sw_cell.cuh)
+constexpr int kPadX = 1;           // the pack's x pad code
 
-size_t strips_smem_bytes(int w, int ring) {
-  return 6 * static_cast<size_t>(w) * sizeof(int32_t) +
-         static_cast<size_t>(ring) * sizeof(int2) +
+__host__ __device__ size_t strips_pair_bytes(int ring) {
+  return static_cast<size_t>(ring) * sizeof(int2) +
          ((static_cast<size_t>(ring) + 15) / 16) * 16;
 }
 
-__global__ void __launch_bounds__(1024)
+template <int R>
+__global__ void __launch_bounds__(kMaxPairs * 32)
 sw_strips_kernel(const int8_t* __restrict__ sx, const int8_t* __restrict__ sy,
                  const int32_t* __restrict__ nx,
                  const int32_t* __restrict__ ny, int32_t* __restrict__ out,
-                 int k_strips, int nds, int anchor, int ring, int match,
-                 int mismatch, int gap_open, int gap_extend) {
+                 int n_slots, int n_rows, int nds, int anchor, int ring,
+                 SwScoring sc) {
+  constexpr int H = 32 * R;
   extern __shared__ int4 smem4[];  // 16-byte aligned
-  const int w = blockDim.x;
-  int32_t* const dsh = reinterpret_cast<int32_t*>(smem4);  // [2][w] D
-  int32_t* const qsh = dsh + 2 * w;                        // [2][w] Q
-  int32_t* const ysh = dsh + 4 * w;                        // [2][w] y code
-  int2* const halo = reinterpret_cast<int2*>(dsh + 6 * w);  // [ring]
-  int8_t* const ycode = reinterpret_cast<int8_t*>(halo + ring);  // [ring]
-  __shared__ int32_t block_best;
+  const int lane = threadIdx.x & 31;
+  const int wp = threadIdx.x >> 5;
+  const int slot = blockIdx.x * (blockDim.x >> 5) + wp;
+  if (slot >= n_slots) return;  // the whole warp: no barrier follows
+  int2* const seam = reinterpret_cast<int2*>(
+      reinterpret_cast<char*>(smem4) + wp * strips_pair_bytes(ring));
+  int8_t* const ycode = reinterpret_cast<int8_t*>(seam + ring);
 
-  const int slot = blockIdx.x;
   const int t = slot / kLanes;
   const int l = slot % kLanes;
-  const int r = threadIdx.x;
   const int lx = nx[slot] - 1;  // len(x)
   const int ly = ny[slot] - 1;  // len(y)
-  const SwScoring sc{match, mismatch, gap_open + gap_extend, gap_extend};
-  const int8_t* const xs =
-      sx + static_cast<size_t>(t) * k_strips * w * kLanes + l;
-  const int8_t* const ys = sy + static_cast<size_t>(t) * nds * kLanes + l;
-
-  // A slot whose lengths break the launch contract (the ring or the
-  // strips too short for it) scores -1, below any score, and touches no
-  // memory; the wrapper checks the contract on the host where it can.
-  if (ly >= ring || lx >= k_strips * w || ly > anchor) {
-    if (r == 0) out[slot] = -1;
+  // A slot whose lengths break the launch contract (the ring or the rows
+  // too short for it) scores -1, below any score, and touches no memory;
+  // the wrapper checks the contract on the host where it can.
+  if (ly >= ring || lx >= n_rows || ly > anchor) {
+    if (lane == 0) out[slot] = -1;
     return;
   }
-  if (r == 0) block_best = 0;
-  for (int j = 1 + r; j <= ly; j += w)
+  const int8_t* const xs =
+      sx + static_cast<size_t>(t) * n_rows * kLanes + l;
+  const int8_t* const ys = sy + static_cast<size_t>(t) * nds * kLanes + l;
+  for (int j = 1 + lane; j <= ly; j += 32)
     ycode[j] = ys[static_cast<size_t>(anchor - j) * kLanes];
+  __syncwarp();
 
   int best = 0;
-  // Strip k holds rows [kW, kW + W); it has a live row iff kW <= len x.
-  // The bounds are the same for every thread of the block.
-  const bool any_live = lx > 0 && ly > 0;
-  for (int k = 0; any_live && k < k_strips && k * w <= lx; ++k) {
-    const int row0 = k * w;
-    const int p = row0 + r;
-    const int xc = xs[static_cast<size_t>(p) * kLanes];
-    const bool row_live = p >= 1 && p <= lx;
-    const int d_start = row0 + 1;                     // row0's cell j = 1
-    const int d_end = min(row0 + w - 1, lx) + ly;     // last live diagonal
+  SwRows<R> rows;
+  // Sub-strip s holds rows [row0, row0 + H), row0 = 1 + s*H; it has a
+  // live row iff row0 <= len x. The bounds are the same for every lane.
+  for (int row0 = 1; ly > 0 && row0 <= lx; row0 += H) {
+    const int pf = row0 + lane * R;  // this lane's first row
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+      rows.X[i] = pf + i < n_rows ? xs[static_cast<size_t>(pf + i) * kLanes]
+                                  : kPadX;
+    rows.reset();
+    const int p_last = row0 + H - 1;  // the sub-strip's last row
+    const bool last_live = p_last <= lx;
+    const int d_end = min(p_last, lx) + ly;  // last live diagonal
+    // Diagonals on which every cell of the warp is live: the last row's
+    // j >= 1 and the first row's j <= len y, every row live.
+    const int fast_lo = row0 + H;
+    const int fast_hi = last_live ? row0 + ly : -1;
 
-    // Diagonal d_start - 1: every cell of the strip is first-column
-    // boundary or above it.
-    __syncthreads();  // the y codes; the previous strip's reads and writes
-    const int ib = ((d_start - 1) & 1) * w;
-    dsh[ib + r] = 0;
-    qsh[ib + r] = kNeg;
-    ysh[ib + r] = 0;
-    int rd = (d_start - 1) % ring;   // slot of the entry thread 0 read last
-    int wr = d_start % ring;         // slot thread W-1 writes next
-    int2 above = make_int2(0, kNeg);  // row0-1's D and Q at d-1 (thread 0)
-    if (r == 0 && k > 0) above = halo[rd];
-    int d1 = 0;      // D of (p, j-1)
-    int p1 = kNeg;   // P of (p, j-1)
-    int up2 = 0;     // D of (p-1, j-1), the diagonal neighbour
-    __syncthreads();
-
-    for (int d = d_start; d <= d_end; ++d) {
-      const int rb = ((d - 1) & 1) * w;
-      int up_d, up_q, yc;
-      if (r > 0) {
-        up_d = dsh[rb + r - 1];   // D of (p-1, j) at d-1
-        up_q = qsh[rb + r - 1];   // Q of (p-1, j) at d-1
-        yc = ysh[rb + r - 1];     // y[j-1], as (p-1, j) used it at d-1
-      } else {
-        up_d = above.x;
-        up_q = above.y;
-        const int j0 = d - row0;
-        yc = j0 <= ly ? ycode[j0] : 0;
-        if (++rd == ring) rd = 0;
-        if (k > 0) above = halo[rd];  // entry d, for diagonal d+1
+    // The row above row0 at column 1, for diagonal row0 + 1.
+    int aD = 0, aQ = kNeg, aY = 0;
+    if (lane == 0) {
+      if (row0 > 1) {  // the ring holds the row above
+        const int2 h = seam[1];
+        aD = h.x;
+        aQ = h.y;
       }
-      const int j = d - p;
-      int dn = 0, pn = kNeg, qn = kNeg;
-      if (row_live && j >= 1 && j <= ly)
-        dn = sw_cell(d1, p1, up_d, up_q, up2, xc == yc, sc, pn, qn, best);
-      const int wb = (d & 1) * w;
-      dsh[wb + r] = dn;
-      qsh[wb + r] = qn;
-      ysh[wb + r] = yc;
-      d1 = dn;
-      p1 = pn;
-      up2 = up_d;
-      __syncthreads();
-      if (r == w - 1) halo[wr] = make_int2(dn, qn);
-      if (++wr == ring) wr = 0;
+      aY = ycode[1];
     }
+    // Diagonals d_lo .. d_hi, masked or not. Every lane loads the entry
+    // and the code of column j1 = d + 1 - row0 (the same address: a
+    // broadcast, no branch; clamped to len y) for the row above row0 at
+    // diagonal d + 1, and lane 0 keeps them, or the boundary past len y
+    // and on the first sub-strip.
+    auto sweep = [&](auto masked, int d_lo, int d_hi) {
+      for (int d = d_lo; d <= d_hi; ++d) {
+        const int j1 = d + 1 - row0;
+        const int jc = min(j1, ly);
+        const int2 h = seam[jc];
+        const int hy = ycode[jc];
+        rows.template step<decltype(masked)::value>(d, pf, aD, aQ, aY, lx,
+                                                     ly, sc, best);
+        rows.hand_down(aD, aQ, aY);
+        // The seam, live cells only: the last row's column d - p_last.
+        if (lane == 31 &&
+            (!decltype(masked)::value ||
+             (last_live && static_cast<unsigned>(d - p_last - 1) <
+                               static_cast<unsigned>(ly))))
+          seam[d - p_last] = make_int2(rows.D[R - 1], rows.Q[R - 1]);
+        if (lane == 0) {
+          const bool in = j1 <= ly, above = in && row0 > 1;
+          aD = above ? h.x : 0;
+          aQ = above ? h.y : kNeg;
+          aY = in ? hy : 0;
+        }
+        __syncwarp();
+      }
+    };
+    // The start triangle, the band where every cell of the warp is live
+    // (no masks), the end triangle.
+    const int d_start = row0 + 1;
+    sweep(std::true_type{}, d_start, min(fast_lo - 1, d_end));
+    sweep(std::false_type{}, fast_lo, fast_hi);
+    sweep(std::true_type{}, max(fast_lo, fast_hi + 1), d_end);
   }
-  __syncthreads();
-  atomicMax(&block_best, best);
-  __syncthreads();
-  if (r == 0) out[slot] = block_best;
+  best = __reduce_max_sync(kSwFullMask, best);
+  if (lane == 0) out[slot] = best;
+}
+
+template <int R>
+int launch(const void* sx, const void* sy, const void* nx, const void* ny,
+           void* out, int nt, int n_rows, int pairs, int nds, int anchor,
+           int ring, SwScoring sc, cudaStream_t stream) {
+  const int n_slots = nt * kLanes;
+  const size_t smem = pairs * strips_pair_bytes(ring);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        sw_strips_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  sw_strips_kernel<R><<<(n_slots + pairs - 1) / pairs, pairs * 32, smem,
+                        stream>>>(
+      static_cast<const int8_t*>(sx), static_cast<const int8_t*>(sy),
+      static_cast<const int32_t*>(nx), static_cast<const int32_t*>(ny),
+      static_cast<int32_t*>(out), n_slots, n_rows, nds, anchor, ring, sc);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Launches the kernel on `stream` and returns the first CUDA error (0 on
 // success): raising the dynamic shared-memory limit, or the launch that
-// cudaGetLastError() reports. The caller allocates `out` (nt * 128 int32)
-// and checks shapes: sx (nt, k_strips*w, 128), sy (nt, nds, 128),
-// nx, ny (nt*128); 1 <= w <= 1024; ring >= every ny; every nx <= k_strips*w;
-// ny <= anchor and anchor + w <= nds (the pack's anchor with W <= NXs).
+// cudaGetLastError() reports; cudaErrorInvalidValue for an R the build
+// does not make or a block of other than 1-8 pairs. The caller allocates
+// `out` (nt * 128 int32) and checks shapes: sx (nt, n_rows, 128), sy (nt,
+// nds, 128), nx, ny (nt*128); ring >= every ny; every nx <= n_rows;
+// ny <= anchor < nds; and picks R (`rows_per_thread`) and `pairs`.
 extern "C" int sw_strips_launch(const void* sx, const void* sy,
                                 const void* nx, const void* ny, void* out,
-                                int nt, int k_strips, int w, int nds,
-                                int anchor, int ring, int match,
-                                int mismatch, int gap_open, int gap_extend,
-                                void* stream) {
+                                int nt, int n_rows, int rows_per_thread,
+                                int pairs, int nds, int anchor, int ring,
+                                int match, int mismatch, int gap_open,
+                                int gap_extend, void* stream) {
   if (nt <= 0) return 0;
-  const size_t smem = strips_smem_bytes(w, ring);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        sw_strips_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
+  if (pairs < 1 || pairs > kMaxPairs)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const SwScoring sc{match, mismatch, gap_open + gap_extend, gap_extend};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (rows_per_thread) {
+#define GENOMAX_STRIPS_CASE(r)                                             \
+  case r:                                                                  \
+    return launch<r>(sx, sy, nx, ny, out, nt, n_rows, pairs, nds, anchor, \
+                     ring, sc, s);
+    GENOMAX_STRIPS_CASE(2)
+    GENOMAX_STRIPS_CASE(3)
+    GENOMAX_STRIPS_CASE(4)
+    GENOMAX_STRIPS_CASE(5)
+    GENOMAX_STRIPS_CASE(6)
+    GENOMAX_STRIPS_CASE(8)
+#undef GENOMAX_STRIPS_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  sw_strips_kernel<<<nt * kLanes, w, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(sx), static_cast<const int8_t*>(sy),
-      static_cast<const int32_t*>(nx), static_cast<const int32_t*>(ny),
-      static_cast<int32_t*>(out), k_strips, nds, anchor, ring, match,
-      mismatch, gap_open, gap_extend);
-  return static_cast<int>(cudaGetLastError());
 }

@@ -4,7 +4,8 @@ bucket whose haplotype stream is longer than the JAX engine's resident
 limit, and jobs for the long-read kernel, some ending on a strip seam.
 Smith-Waterman: a ragged tile for the long-pair kernel, pairs whose y
 stream passes the same resident limit, ragged buckets
-of 128 rows or more for the strips kernel, short buckets with the
+of 128 rows or more for the strips kernel, pairs ending on and next to
+the sub-strip seams of the lane-tile and strips kernels, short buckets with the
 queue adversaries for the rotor kernel, short buckets with the
 ghost-read adversary for the stacked kernel, short pairs with the
 queue-leak adversary for the conveyor kernel, and the cross-device
@@ -263,6 +264,32 @@ def strips_sw_pairs(seed, n_pairs=300, x_lens=(126, 1000), y_extra=300):
     pairs.append(SWPair(sx=same[:300], sy=b"G"))
     pairs.append(SWPair(sx=same[:400], sy=b""))
     pairs.append(SWPair(sx=b"T", sy=b"T"))
+    return pairs
+
+
+def height_sw_pairs(seed, heights, max_len=270, y_lens=(40, 300)):
+    """Pairs whose x ends on or next to a seam of every sub-strip height
+    H in `heights` (len x in kH - 1, kH, kH + 1 below max_len: the last
+    row of the kernels' sub-strip k, rows 1 + kH .. start the next), y of
+    y_lens bases, then a tandem repeat whose copies straddle the seams, an
+    identical pair of 257 bases, an all-mismatch pair, a one-base y and an
+    empty y (in that order, last)."""
+    rng = np.random.default_rng(seed)
+    abc = np.frombuffer(b"ACGT", np.uint8)
+
+    def dna(n):
+        return rng.choice(abc, n).tobytes()
+
+    lens = sorted({k * h + e for h in heights for k in (1, 2, 3)
+                   for e in (-1, 0, 1) if k * h + 1 < max_len})
+    pairs = [SWPair(sx=dna(n), sy=dna(int(rng.integers(y_lens[0],
+                                                        y_lens[1] + 1))))
+             for n in lens]
+    unit = dna(70)
+    pairs.append(SWPair(sx=dna(37) + unit * 3, sy=unit + dna(41) + unit * 3))
+    same = dna(257)
+    pairs += [SWPair(sx=same, sy=same), SWPair(sx=b"A" * 200, sy=b"C" * 250),
+              SWPair(sx=same[:150], sy=b"G"), SWPair(sx=same[:120], sy=b"")]
     return pairs
 
 

@@ -22,7 +22,8 @@ from genomax_torch.pack.bucketing import (pack_pairhmm_batches,
                                           pack_sw_pairs, unpack_scores)
 
 from _phmm_cases import (CONVEYOR_KINDS, conveyor_leak_pairs,
-                         conveyor_sw_pairs, deep_decay_batches, long_jobs,
+                         conveyor_sw_pairs, deep_decay_batches,
+                         height_sw_pairs, long_jobs,
                          long_seam_jobs, long_sw_pairs, phmm_batches,
                          rotor_leak_pairs, rotor_sw_pairs, short_phmm_batches,
                          stacked_ghost_pairs, stacked_sw_pairs,
@@ -122,6 +123,79 @@ def test_kernel_streamed_bucket_equals_plain_version(device):
         results.append(got.cpu().numpy())
     np.testing.assert_array_equal(unpack_scores(buckets, results, len(pairs)),
                                   native.sw_scores_native(pairs))
+
+
+def _seam_buckets(seed):
+    """Ragged pairs of up to 700bp and pairs ending on and next to the
+    sub-strip seams of every R, with a tandem repeat across the seams, an
+    identical pair, an all-mismatch pair, a one-base y and an empty y:
+    buckets of one warp a pair at every R and, past 32 R rows, of a block
+    of warps."""
+    heights = [32 * r for r in sw.ROWS_PER_THREAD]
+    pairs = _ragged_pairs(11, n=80) + height_sw_pairs(12, heights,
+                                                      max_len=600)
+    return pairs, pack_sw_pairs(pairs)
+
+
+@pytest.mark.parametrize("cfg", CFGS, ids=["default", "m2x3o5e2", "m3x1o0e2"])
+def test_sw_tile_kernel_every_r_equals_plain_version(device, cfg):
+    """The lane-tile kernel at every R the build makes == its plain version
+    on every bucket of _seam_buckets (8-608 rows), exact, one launch a
+    bucket; the scores == native."""
+    pairs, buckets = _seam_buckets(4)
+    assert max(b.sx.shape[1] for b in buckets) > 32 * max(sw.ROWS_PER_THREAD)
+    want = [sw_forward_tiles(*sw_bucket_to_torch(b, device), cfg)
+            for b in buckets]
+    for r in sw.ROWS_PER_THREAD:
+        before = sw.launches
+        for b, w in zip(buckets, want):
+            got = sw.sw_forward(*sw_bucket_to_torch(b, device), cfg,
+                                _rows_per_thread=r)
+            torch.cuda.synchronize()
+            assert got.dtype == torch.int32
+            assert torch.equal(got, w), (r, b.sx.shape)
+        assert sw.launches - before == len(buckets)
+    scores = unpack_scores(buckets, [w.cpu().numpy() for w in want],
+                           len(pairs))
+    np.testing.assert_array_equal(scores, native.sw_scores_native(pairs, cfg))
+    assert scores[-4] == 257 * cfg.match and scores[-3] == 0
+
+
+def test_sw_tile_kernel_every_r_streamed_bucket(device):
+    """Streams past 6,144 rows (x 30-600bp in y of 6-10kbp): every R ==
+    the plain version, exact."""
+    pairs = streamed_sw_pairs(6, n_pairs=60)
+    buckets = pack_sw_pairs(pairs)
+    assert min(b.sy.shape[1] for b in buckets) > 6144
+    for b in buckets:
+        t = sw_bucket_to_torch(b, device)
+        want = sw_forward_tiles(*t)
+        for r in sw.ROWS_PER_THREAD:
+            got = sw.sw_forward(*t, _rows_per_thread=r)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (r, b.sx.shape)
+
+
+@pytest.mark.parametrize("strip_w", [None, 88], ids=["router", "w88"])
+@pytest.mark.parametrize("cfg", CFGS, ids=["default", "m2x3o5e2", "m3x1o0e2"])
+def test_sw_strips_kernel_every_r_equals_plain_version(device, cfg, strip_w):
+    """The strips kernel at every R the build makes == the plain lane-tile
+    sweep on every bucket of _seam_buckets of 88 rows or more, at the
+    router's strip width (one strip) and at 88 rows (re-padded strips that
+    the sub-strips cut across), exact, one launch a bucket."""
+    pairs, buckets = _seam_buckets(5)
+    big = [b for b in buckets if b.sx.shape[1] >= 88]
+    assert len(big) >= 4
+    for b in big:
+        want = sw_forward_tiles(*sw_bucket_to_torch(b, device), cfg)
+        t, st = _strips_inputs(b, device, strip_w)
+        for r in sw_strips.ROWS_PER_THREAD:
+            before = sw_strips.launches
+            got = sw_strips.sw_forward_strips(*t, cfg=cfg, **st,
+                                              _rows_per_thread=r)
+            torch.cuda.synchronize()
+            assert sw_strips.launches - before == 1
+            assert torch.equal(got, want), (r, b.sx.shape, st)
 
 
 @pytest.mark.parametrize("strip_w", [64, 1024], ids=["w64", "w1024"])

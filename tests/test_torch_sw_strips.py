@@ -31,8 +31,10 @@ from genomax_torch.kernels import _build
 from genomax_torch.kernels import sw_strips as torch_strips
 from genomax_torch.kernels.wavefront import (sw_forward_tiles,
                                              sw_strips_forward_tiles)
+from genomax_torch.layout import PAD_STREAM, PAD_X
 from genomax_torch.pack import (pack_sw_pairs, sw_strips_to_torch,
                                 unpack_scores)
+from _phmm_cases import height_sw_pairs
 from _torch_cpu import one_torch_thread  # noqa: F401
 
 # The scorings of tests/test_pallas_interpret.py's strips cases.
@@ -160,14 +162,14 @@ def test_router_declines_what_shared_memory_cannot_hold():
     memory holds goes to the lane-tile kernel; so it does in the JAX
     engine, past its stream gate."""
     b = _bucket(np.random.default_rng(4), 200, 26000, n=1)
-    assert torch_strips.smem_bytes(32, 26001) > torch_strips.MAX_SMEM_BYTES
+    assert torch_strips.smem_bytes(26001) > torch_strips.MAX_SMEM_BYTES
     assert torch_strips.maybe_prep_strips(EngineConfig(), b) is None
     assert jax_strips.maybe_prep_strips(JaxEngineConfig(), b) is None
 
 
 @pytest.mark.parametrize("nxs,nyt,want", [
-    (32, 40, None), (33, 40, None), (40, 40, 32), (136, 129, 32),
-    (520, 514, 96), (1008, 1001, 128), (136, 2001, 32)])
+    (32, 40, None), (33, 40, None), (40, 40, 40), (136, 129, 136),
+    (520, 514, 520), (1008, 1001, 1008), (136, 2001, 136)])
 def test_pick_strip_w(nxs, nyt, want):
     assert torch_strips.pick_strip_w(nxs, nyt) == want
 
@@ -326,3 +328,134 @@ def test_build_key_covers_the_included_header(monkeypatch, tmp_path):
         assert (_build.key(name) != k) == name.startswith("sw_"), name
     assert set(keys) <= set(_build.KERNELS)
     assert os.path.exists(csrc / "sw_strips.cu")
+
+
+# (K*W rows, ny_max) -> (R, pairs a block) of the kernel's default pick:
+# phase 19's and 20's buckets, phase 4's 520 rows (R = 3, the fastest
+# there on one H100), a long y that leaves an SM one pair's ring a block,
+# and the longest y one pair holds.
+@pytest.mark.parametrize("n_rows,ny_max,r,pairs", [
+    (88, 91, 3, 8), (144, 145, 2, 8), (136, 2001, 5, 6), (264, 300, 3, 8),
+    (520, 514, 3, 8), (608, 600, 2, 7), (1008, 1001, 4, 5),
+    (520, 20000, 6, 1), (1024, 25798, 8, 1)])
+def test_geometry_picks_r_and_pairs(n_rows, ny_max, r, pairs):
+    geo = torch_strips.geometry(n_rows, ny_max)
+    assert (geo.rows_per_thread, geo.pairs) == (r, pairs)
+    assert geo.smem == pairs * torch_strips.smem_bytes(ny_max)
+    assert geo.smem <= torch_strips.MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("r", torch_strips.ROWS_PER_THREAD)
+def test_geometry_at_every_built_r_within_shared_memory(r):
+    for n_rows, ny_max in [(34, 2), (520, 514), (1024, 1025), (200, 25798)]:
+        geo = torch_strips.geometry(n_rows, ny_max, r)
+        assert geo.rows_per_thread == r
+        assert 1 <= geo.pairs <= torch_strips.PAIRS_PER_BLOCK
+        assert geo.smem <= torch_strips.MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("bad", [dict(r=7), dict(r=16), dict(ny_max=25827)],
+                         ids=["r7", "r16", "ring-past-smem"])
+def test_geometry_rejects(bad):
+    with pytest.raises(ValueError):
+        torch_strips.geometry(520, bad.get("ny_max", 514), bad.get("r"))
+    t, st = _inputs()
+    if "r" in bad:
+        with pytest.raises(ValueError, match="rows_per_thread"):
+            torch_strips.sw_forward_strips(*t, **st,
+                                           _rows_per_thread=bad["r"])
+
+
+def _old_router_takes(nxs, nyt):
+    """The strips predicate of the one-thread-a-row kernel this one
+    replaced: a strip width of 32-1,024 rows that paid against the lane
+    tile, and 6W int32 + 8 ny + ny rounded to 16 bytes within 227 KB less
+    256."""
+    tile_steps = -(-nxs // 32) * 32 * (nxs + nyt - 1)
+    best, bw = None, None
+    for w in range(32, min(1024, nxs - 1) + 1, 32):
+        k = -(-nxs // w)
+        cost = k * (w + nyt) * (w + 32)
+        if k * w * (w + nyt) < tile_steps and (best is None or cost < best):
+            best, bw = cost, w
+    return (bw is not None
+            and 24 * bw + 8 * nyt + -(-nyt // 16) * 16 <= 232448 - 256)
+
+
+def test_every_bucket_the_old_router_took_is_still_taken():
+    """Over bucket heights of 2-1,024 rows and longest y of 1-26,000
+    columns, every (NXs, nyt) the old predicate took, the new one takes
+    (a strip width and one pair's ring within shared memory)."""
+    taken = 0
+    for nxs in (2, 33, 34, 40, 72, 136, 144, 520, 1008, 1024):
+        for nyt in (2, 100, 1001, 10000, 20000, 25000, 25700, 25713, 25714,
+                    25798, 25799, 26000):
+            if _old_router_takes(nxs, nyt):
+                taken += 1
+                assert torch_strips.pick_strip_w(nxs, nyt) is not None
+                assert (torch_strips.smem_bytes(nyt)
+                        <= torch_strips.MAX_SMEM_BYTES), (nxs, nyt)
+    assert taken > 40
+
+
+@pytest.fixture(scope="module")
+def jax_height_case():
+    """height_sw_pairs' buckets of 72 rows or more, each prepared by the JAX
+    prep at its own strip width and scored once by the JAX strips kernel
+    in interpret mode."""
+    pairs = height_sw_pairs(
+        21, [32 * r for r in torch_strips.ROWS_PER_THREAD])
+    jcfg = JaxSWConfig(**CFGS[2])
+    out = []
+    for b in pack_sw_pairs(pairs):
+        if b.sx.shape[1] < 72:
+            continue
+        prep = jax_strips.prep_bucket_strips(b)
+        (sx, sy, ndt, nyt), st = prep
+        want = np.asarray(jax_strips.sw_forward_pallas_strips(
+            sx, sy, ndt, nyt, cfg=jcfg, unroll=8, interpret=True, **st))
+        out.append((b, prep, want))
+    return out
+
+
+@pytest.mark.parametrize("r", torch_strips.ROWS_PER_THREAD)
+def test_plain_sweep_at_every_kernel_height_equals_jax_strips(
+        jax_height_case, r):
+    """The pack's K*W rows, made at the JAX strip width, re-cut into strips
+    of the kernel's sub-strip height H = 32R (the rows padded with PAD_X to
+    whole strips of H, the stream with PAD_STREAM rows that only dead cells
+    read): the plain strip sweep == the JAX strips kernel in interpret mode,
+    slot by slot, so the pack's W does not shape the result. Heights that
+    do not divide K*W and pairs ending on and next to a seam included."""
+    h = 32 * r
+    cfg = SWConfig(**CFGS[2])
+    assert len(jax_height_case) >= 2
+    cut = 0
+    for b, ((sx, sy, _, nyt), st), want in jax_height_case:
+        kw = sx.shape[1]
+        k = -(-kw // h)
+        cut += k * h != kw
+        sx = np.concatenate([sx, np.full((sx.shape[0], k * h - kw, 128),
+                                         PAD_X, sx.dtype)], axis=1)
+        sy = np.concatenate([sy, np.full((sy.shape[0], max(0, h - (
+            sy.shape[1] - st["anchor"])), 128), PAD_STREAM, sy.dtype)],
+            axis=1)
+        got = sw_strips_forward_tiles(
+            *(torch.from_numpy(a) for a in (sx, sy, b.nx, b.ny)),
+            k_strips=k, strip_w=h, anchor=st["anchor"], cfg=cfg)
+        np.testing.assert_array_equal(got.numpy(), want)
+    assert cut >= 1
+
+
+def test_build_key_covers_the_rows_header(monkeypatch, tmp_path):
+    """sw_rows.cuh, the R-rows step that sw_tile.cu and sw_strips.cu
+    include: an edit to it alone gives those two new keys and no other
+    kernel a new one."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", str(csrc))
+    keys = {n: _build.key(n) for n in _build.KERNELS}
+    with open(csrc / "sw_rows.cuh", "ab") as f:
+        f.write(b"// edited\n")
+    changed = {n for n, k in keys.items() if _build.key(n) != k}
+    assert changed == {"sw_tile", "sw_strips"}
