@@ -18,8 +18,10 @@ order 1, 2, 19, 21, 24, 27, 3, 4, 5, 33, 22, 23, 25, 26, 28, 29, 20,
                 arithmetic a cell along one step of the loop of every
                 instance of csrc/sw_long.cu and csrc/sw_xstrip.cu (R = 4,
                 8, 16), csrc/sw_strips.cu and csrc/sw_tile.cu (R = 2, 3,
-                4, 5, 6, 8; the lane tile's warp and block forms)
-                (cuobjdump -sass), which SW_OPS_PER_CELL must not pass,
+                4, 5, 6, 8; the lane tile's warp and block forms),
+                csrc/sw_rotor.cu (every G and C) and csrc/sw_stacked.cu
+                (R = 2-16) (cuobjdump -sass), which SW_OPS_PER_CELL must
+                not pass,
                 and of fp32
                 flops a cell (FFMA 2) along one step of
                 csrc/pairhmm_tile.cu's and csrc/pairhmm_long.cu's loop at
@@ -135,19 +137,22 @@ order 1, 2, 19, 21, 24, 27, 3, 4, 5, 33, 22, 23, 25, 26, 28, 29, 20,
                 and 1,000bp (slope (t(5) - t(1)) / 4, in turns), the
                 rotor kernel at rotor_max_slots 1-32 at 32, 64 and
                 128bp, the stacked
-                kernel at sw_stack 2, 4 and 8 at 32 and 64bp, the
-                conveyor kernel at max_slots 4 and 64 at 32, 64 and
-                128bp, and which kernel the router sends each point to;
-                no plain calls
+                kernel at sw_stack 2, 4 and 8 at 32 and 64bp (each at its
+                default geometry), the conveyor kernel at max_slots 4 and
+                64 at 32, 64 and 128bp, and which kernel the router
+                sends each point to; no plain calls
  21. sw rotor    the rotor kernel (both wrappers) vs its plain rotor sweep,
                 the plain lane-tile sweep and the native model on ragged
-                buckets of 32-135bp at periods 40, 48, 64, 80 and 136 (the
-                unrolls 8, 24, 32, 16, 8), an identical pair at the
+                buckets of 5-135bp at periods 8, 40, 48, 64, 80 and 136
+                (the unrolls 8, 8, 24, 32, 16, 8), an identical pair at the
                 period's edge, an all-mismatch pair, a one-base y and a
                 one-base pair, queues 2 and up to 32 deep, under three
-                scoring configs; and on the queue-leak adversary (tiles of
+                scoring configs, at its default geometry and at every
+                (G, C) the build makes that holds the period (all of them
+                at T = 8); and on the queue-leak adversary (tiles of
                 identical and of all-mismatch pairs in turns, at T = 64
-                and 72), where every all-mismatch pair scores 0; exact
+                and 72) at each, where every all-mismatch pair scores 0;
+                exact
  22. rotor main  the engine on 25,000 pairs of 64bp random DNA + '\n'
                 (seeded; one bucket of 72 rows, T = 72): with sw_rotor on
                 and off, at strips_min_nxs 72 and 73 and at the defaults;
@@ -156,26 +161,30 @@ order 1, 2, 19, 21, 24, 27, 3, 4, 5, 33, 22, 23, 25, 26, 28, 29, 20,
                 sampled pairs == native model; all runs equal on all
                 25,000 pairs
  23. rotor time  on phase 22's bucket: the rotor kernel at the default
-                rotor_max_slots vs its plain version, the strips kernel and
-                the lane-tile kernel, slope (t(9) - t(1)) / 8, in turns;
-                the plain rotor sweep == the kernel on every lane
+                rotor_max_slots at every geometry that holds T = 72 vs its
+                plain version, the strips kernel and the lane-tile kernel,
+                slope (t(9) - t(1)) / 8, in turns; the plain rotor sweep
+                == the kernel on every lane at each; then the default
+                geometry at rotor_max_slots 2, 4, 8 and 16, in turns
  24. sw stacked  the stacked kernel vs its plain stacked sweep, the plain
                 lane-tile sweep and the native model on ragged buckets of
                 8-96 rows and five tiles (an identical pair, an
                 all-mismatch pair, a one-base y, a one-base pair) stacked
-                2, 3 and 4 deep and as deep as 1,024 threads allow (pad
-                tiles, which must score 0), under three scoring configs;
-                and on the directed ghost-read adversary (256 pairs,
-                S = 2, region 1's x region 0's stream), where every pair
-                scores 0; exact
+                2, 3 and 4 deep and as deep as 1,024 rows allow (pad
+                tiles, which must score 0), under three scoring configs,
+                at its default R and at every R the build makes at which a
+                region fits a warp; and on the directed ghost-read
+                adversary (256 pairs, S = 2, region 1's x region 0's
+                stream) at each, where every pair scores 0; exact
  25. stacked main  the engine on phase 22's pairs with sw_stack 2, 4 and
                 8: one stacked launch and no other each (the rotor
                 bypassed), 512 sampled pairs == native model, all 25,000
                 == the default route's, the wall of each run
  26. stacked time  on phase 22's bucket: the stacked kernel at S = 2, 4
-                and 8 vs its plain version, the rotor and the lane-tile
-                kernel, slope (t(9) - t(1)) / 8, in turns; the plain
-                stacked sweep == the kernel on every lane
+                and 8, each at every R at which a region fits a warp, vs
+                its plain version, the rotor and the lane-tile kernel,
+                slope (t(9) - t(1)) / 8, in turns; the plain stacked sweep
+                == the kernel on every lane at each
  27. sw conveyor the conveyor kernel vs its plain conveyor sweep and the
                 native model on ragged short pairs, y past the window
                 (T > nxs) and x longer than y (each with an identical, an
@@ -246,6 +255,7 @@ repository, it exits non-zero and prints no result. It imports no jax.
 """
 
 import concurrent.futures
+import dataclasses
 import json
 import os
 import socket
@@ -269,15 +279,20 @@ MX_PAIRS, MX_X_LENS = 2000, (20, 4000)
 # depths (rotor_max_slots).
 SWEEP_PAIRS, SWEEP_LENS = 4096, (32, 64, 128, 256, 512, 1000)
 ROTOR_LENS, ROTOR_SLOTS = (32, 64, 128), (1, 2, 4, 8, 16, 32)
+# Phase 21's x lengths (periods 8-136: at T = 8 every (G, C) the build
+# makes holds the period) and phase 23's queue depths on the 64bp bucket.
+ROTOR_CHECK_LENS = (7, 39, 47, 63, 79, 135)
+ROTOR_MAIN_SLOTS = (2, 4, 8, 16)
 # Rotor main path: bench.py's short-pair point, 25,000 x 64bp + '\n'.
 RT_PAIRS, RT_LEN = 25000, 64
 # The lane tile's default route: short reads against reference windows
 # longer than the rotor's period, 25,000 x (100bp + '\n', 300bp + '\n').
 DR_PAIRS, DR_X_LEN, DR_Y_LEN = 25000, 100, 300
 # Stacked SW: the stack depths of the main path and the sweep (sw_stack),
-# the x lengths of phase 24's buckets (8-96 rows), and the kernel's
-# threads a block (stack * rows).
-STACKS, STACK_MAX_X, MAX_THREADS = (2, 4, 8), (6, 14, 30, 46, 62, 70, 94), 1024
+# the x lengths of phase 24's buckets (8-96 rows), and the most rows a
+# stack takes (stack * rows, the TPU kernel's limit, kept).
+STACKS, STACK_MAX_X = (2, 4, 8), (6, 14, 30, 46, 62, 70, 94)
+MAX_STACK_ROWS = 1024
 STACK_LENS = (32, 64)
 # Conveyor SW: the queue depths (max_slots) of phase 27's checks, of phase
 # 29's timing (the library default, 64, last) and of the sweep's points.
@@ -300,8 +315,9 @@ SMS, INT32_LANES = 132, 64
 # kernel's form) is P' and Q' one __viaddmax_s32 each, max(P', Q'), D one
 # __viaddmax_s32_relu, the substitution a compare, a select and an add,
 # and the running best half a three-way max. Phase 1 reads the count as
-# compiled along one step of both redesigned kernels' loops (about 8.5 to
-# 12.5 a cell with the loop's own code) and fails if any falls below it.
+# compiled along one step of the loops of the six kernels with the DPX
+# cell (about 8.5 to 20 a cell with the loop's own code) and fails if
+# any falls below it.
 # DPX's own issue rate is assumed to be the int32 rate, not published.
 # (The plain count, with no fused instruction, is 13: P and Q two adds and
 # a max each, compare, select and add, four more maxes.) PairHMM: M three
@@ -543,9 +559,9 @@ def sass_phmm_flops(lib, kernel):
 def sass_cell_ops(lib, kernel, dpx_per_cell):
     """{R: (integer arithmetic instructions a cell, cells a step)} of
     `kernel` in the library `lib`, read with cuobjdump -sass (the CUDA
-    toolkit's, else the one Triton carries); {(R, form): ...} where the
-    kernel has a second template argument, a bool (sw_tile.cu's block
-    form). In each template instance the
+    toolkit's, else the one Triton carries); {(first, second): ...} where
+    the kernel has a second template argument (sw_tile.cu's block form,
+    a bool; sw_rotor.cu's (G, C)). In each template instance the
     cell block is the straight-line block with the fewest selects a cell
     and then the most DPX add-max instructions (the unmasked path), of
     the blocks of two cells or more, or of one where the compiler hoisted
@@ -568,11 +584,11 @@ def sass_cell_ops(lib, kernel, dpx_per_cell):
 
     out = {}
     for name, ins in funcs.items():
-        m = re.search(kernel + r"ILi(\d+)E(?:Lb([01])E)?", name)
+        m = re.search(kernel + r"I((?:L[ib]\d+E)+)E", name)
         if not m:
             continue
-        inst = int(m.group(1)) if m.group(2) is None else (
-            int(m.group(1)), int(m.group(2)))
+        args = [int(v) for v in re.findall(r"L[ib](\d+)E", m.group(1))]
+        inst = args[0] if len(args) == 1 else tuple(args)
         index = {a: n for n, (a, _, _, _) in enumerate(ins)}
         heads = {t for a, _, t, _ in ins if t is not None and t <= a}
         found = []
@@ -699,26 +715,34 @@ def main() -> int:
                 print(f"  ptxas: {line.strip()}")
             elif "Compiling entry" in line:
                 print(f"  ptxas: {line.split('for')[0].strip()[-96:]}")
-    # the DPX cell of the four kernels that take it, instance by instance
-    # (sw_tile's keys (R, block form))
+    # the DPX cell of the six kernels that take it, instance by instance
+    # (sw_tile's keys (R, block form), sw_rotor's (G, C)); a step holds a
+    # whole number of R cells (C for the rotor)
     sass_ops = {}
-    for name, kernel, dpx, want in (
-            ("sw_long", "sw_long_kernel", 2, sw_long.ROWS_PER_THREAD),
-            ("sw_xstrip", "sw_xstrip_kernel", 3, xsharded.ROWS_PER_THREAD),
-            ("sw_strips", "sw_strips_kernel", 2, sw_strips.ROWS_PER_THREAD),
+    for name, kernel, dpx, want, per, label in (
+            ("sw_long", "sw_long_kernel", 2, sw_long.ROWS_PER_THREAD, None,
+             "R"),
+            ("sw_xstrip", "sw_xstrip_kernel", 3, xsharded.ROWS_PER_THREAD,
+             None, "R"),
+            ("sw_strips", "sw_strips_kernel", 2, sw_strips.ROWS_PER_THREAD,
+             None, "R"),
             ("sw_tile", "sw_tile_kernel", 2,
-             [(r, b) for r in sw.ROWS_PER_THREAD for b in (0, 1)])):
+             [(r, b) for r in sw.ROWS_PER_THREAD for b in (0, 1)], 0,
+             "R (warp / block form)"),
+            ("sw_rotor", "sw_rotor_kernel", 2, sw_rotor.GEOMETRIES, 1,
+             "(G, C)"),
+            ("sw_stacked", "sw_stacked_kernel", 2,
+             sw_stacked.ROWS_PER_THREAD, None, "R")):
         path = builds[names.index(name)][0]
         sass_ops[name] = sass_cell_ops(path, kernel, dpx)
         check(sorted(sass_ops[name]) == sorted(want),
               f"{name}: SASS instances {sorted(sass_ops[name])}")
-        check(all(c % (k if isinstance(k, int) else k[0]) == 0
+        check(all(c % (k if per is None else k[per]) == 0
                   for k, (_, c) in sass_ops[name].items()),
-              f"{name}: cells a step by R {sass_ops[name]}")
+              f"{name}: cells a step by {label} {sass_ops[name]}")
         print(f"phase 1 sass {name}: integer arithmetic a cell along one "
-              "step by R" + (" (warp / block form)" if name == "sw_tile"
-                             else "") + " " + ", ".join(
-                  f"R={k}: {n:.2f} over {c} cells" for k, (n, c)
+              f"step by {label} " + ", ".join(
+                  f"{k}: {n:.2f} over {c} cells" for k, (n, c)
                   in sorted(sass_ops[name].items())))
     fewest = min(n for ops in sass_ops.values() for n, _ in ops.values())
     check(SW_OPS_PER_CELL <= fewest,
@@ -836,11 +860,15 @@ def main() -> int:
         p = st["n_slots"]
         return full.view(-1, -(-p // 8) * 8, 128)[:, :p].reshape(-1, 128)
 
-    rotor_err, t0 = 0, time.perf_counter()
+    def rotor_fits(T):
+        """Every geometry (G, C) the build makes whose segments hold T."""
+        return [g for g in sw_rotor.GEOMETRIES if (32 // g[0]) * g[1] >= T - 1]
+
+    rotor_err, rotor_geos, t0 = 0, set(), time.perf_counter()
     for ci, c in enumerate(CFGS):
         cfg = SWConfig(**c)
-        periods, n_buckets, n_pairs = set(), 0, 0
-        for length in (39, 47, 63, 79, 135):
+        periods, n_buckets, n_pairs, n_runs = set(), 0, 0, 0
+        for length in ROTOR_CHECK_LENS:
             pairs = cases.rotor_sw_pairs(10 + length, length)
             buckets = pack_sw_pairs(pairs)
             for max_slots in (2, 32):
@@ -848,24 +876,31 @@ def main() -> int:
                 for b in buckets:
                     (x, y), st = rotor_inputs(b, max_slots)
                     periods.add((st["period"], st["unroll"]))
-                    got = sw_rotor.sw_forward_rotor_bucket(x, y, cfg=cfg,
-                                                           **st)
-                    full = sw_rotor.sw_forward_rotor(x, y, cfg=cfg, **st)
                     plain = sw_rotor_forward_tiles(x, y, cfg=cfg, **st)
                     n = -(-b.n_valid // 128)
                     tiles = sw_forward_tiles(*sw_bucket_to_torch(b, dev),
                                              cfg)[:n]
-                    torch.cuda.synchronize()
-                    for name, g, w in (("kernel", full, plain),
-                                       ("bucket wrapper", got,
-                                        p_rows(plain, st)),
-                                       ("lane tile", got[:n], tiles)):
-                        err = int((g.long() - w.long()).abs().max())
-                        rotor_err = max(rotor_err, err)
-                        check(err == 0, f"rotor {name} != plain on bucket "
-                                        f"{tuple(b.sx.shape)}, {st}, {cfg}:"
-                                        f" max |diff| {err}")
-                    results.append(got.cpu().numpy())
+                    # the default geometry first, then every one that fits
+                    for geo in (None, *rotor_fits(st["period"])):
+                        got = sw_rotor.sw_forward_rotor_bucket(
+                            x, y, cfg=cfg, _geometry=geo, **st)
+                        full = sw_rotor.sw_forward_rotor(
+                            x, y, cfg=cfg, _geometry=geo, **st)
+                        torch.cuda.synchronize()
+                        for name, g, w in (("kernel", full, plain),
+                                           ("bucket wrapper", got,
+                                            p_rows(plain, st)),
+                                           ("lane tile", got[:n], tiles)):
+                            err = int((g.long() - w.long()).abs().max())
+                            rotor_err = max(rotor_err, err)
+                            check(err == 0, f"rotor {name} != plain on "
+                                            f"bucket {tuple(b.sx.shape)}, "
+                                            f"{st}, geometry {geo}, {cfg}: "
+                                            f"max |diff| {err}")
+                        if geo is None:
+                            results.append(got.cpu().numpy())
+                        rotor_geos.add(geo)
+                        n_runs += 2
                 check(np.array_equal(unpack_scores(buckets, results,
                                                    len(pairs)),
                                      native_sw(native, pairs, cfg)),
@@ -874,27 +909,36 @@ def main() -> int:
                 n_buckets += len(buckets)
             n_pairs += len(pairs)
         # the queue-leak adversary: identical and all-mismatch tiles in
-        # turns, queued two deep
+        # turns, queued two deep, at every geometry that holds the period
         for length in (63, 71):
             (b,) = pack_sw_pairs(cases.rotor_leak_pairs(ci, length))
             (x, y), st = rotor_inputs(b, 2)
             check(st["n_slots"] == 2, f"leak queues {st}")
-            got = sw_rotor.sw_forward_rotor_bucket(x, y, cfg=cfg, **st)
             plain = p_rows(sw_rotor_forward_tiles(x, y, cfg=cfg, **st), st)
-            err = int((got.long() - plain.long()).abs().max())
-            rotor_err = max(rotor_err, err)
-            check(err == 0 and bool((got[0::2] == length * cfg.match).all())
-                  and not bool(got[1::2].any()),
-                  f"rotor queue leak at T={st['period']} under {cfg}: max "
-                  f"|diff| {err}, identical {got[0::2].unique().tolist()}, "
-                  f"all-mismatch {got[1::2].unique().tolist()}")
+            for geo in (None, *rotor_fits(st["period"])):
+                got = sw_rotor.sw_forward_rotor_bucket(x, y, cfg=cfg,
+                                                       _geometry=geo, **st)
+                err = int((got.long() - plain.long()).abs().max())
+                rotor_err = max(rotor_err, err)
+                check(err == 0 and bool((got[0::2] == length * cfg.match)
+                                        .all())
+                      and not bool(got[1::2].any()),
+                      f"rotor queue leak at T={st['period']}, geometry "
+                      f"{geo} under {cfg}: max |diff| {err}, identical "
+                      f"{got[0::2].unique().tolist()}, all-mismatch "
+                      f"{got[1::2].unique().tolist()}")
+                n_runs += 1
         check({u for _, u in periods} == {8, 16, 24, 32},
               f"rotor unrolls {sorted(periods)}")
+        check(rotor_geos >= {None, *sw_rotor.GEOMETRIES},
+              f"rotor geometries run: {sorted(rotor_geos, key=str)}")
         print(f"phase 21 sw rotor kernel == plain == native: {n_pairs} pairs "
-              f"of 32-135bp, {n_buckets} bucket preps at (period, unroll) "
+              f"of 7-135bp, {n_buckets} bucket preps at (period, unroll) "
               f"{sorted(periods)}, queues 2 and up to 32 deep, both "
-              f"wrappers; queue leak at T = 64 and 72 (all-mismatch pairs "
-              f"0); {cfg}, max_abs_err 0 "
+              f"wrappers, at the default geometry and every (G, C) of "
+              f"{len(sw_rotor.GEOMETRIES)} that holds the period "
+              f"({n_runs} launches); queue leak at T = 64 and 72 at each "
+              f"(all-mismatch pairs 0); {cfg}, max_abs_err 0 "
               f"({time.perf_counter() - t0:.1f} s so far)")
 
     # 24. the stacked kernel vs its plain versions and the native model
@@ -903,48 +947,70 @@ def main() -> int:
         check(prep is not None, f"bucket {b.sx.shape} does not stack {stack}")
         return sw_stacked_to_torch(prep, dev), prep[1]
 
-    stacked_err, t0 = 0, time.perf_counter()
+    def stacked_fits(h):
+        """Every R the build makes at which a region of h rows fits a
+        warp."""
+        return [r for r in sw_stacked.ROWS_PER_THREAD
+                if -(-(h - 1) // r) <= 32]
+
+    stacked_err, stacked_rs, t0 = 0, set(), time.perf_counter()
     for c in CFGS:
         cfg = SWConfig(**c)
-        n_pairs, shapes = 0, []
+        n_pairs, shapes, n_runs = 0, [], 0
         for max_x in STACK_MAX_X:
             pairs = cases.stacked_sw_pairs(max_x, max_x)
             (b,) = pack_sw_pairs(pairs)
             h, nt = b.sx.shape[1], b.sx.shape[0]
             tiles = sw_forward_tiles(*sw_bucket_to_torch(b, dev), cfg)
             want = native_sw(native, pairs, cfg)
-            for stack in (2, 3, 4, MAX_THREADS // h):
+            for stack in (2, 3, 4, MAX_STACK_ROWS // h):
                 t, st = stacked_inputs(b, stack)
-                got = sw_stacked.sw_forward_stacked(*t, cfg=cfg, **st)
                 plain = sw_stacked_forward_tiles(*t, cfg=cfg, **st)
-                torch.cuda.synchronize()
-                for name, g, w in (("plain stacked sweep", got, plain),
-                                   ("plain lane-tile sweep", got[:nt],
-                                    tiles)):
-                    err = int((g.long() - w.long()).abs().max())
-                    stacked_err = max(stacked_err, err)
-                    check(err == 0, f"stacked kernel != {name} on bucket "
-                                    f"{tuple(b.sx.shape)} at S={stack}, "
-                                    f"{cfg}: max |diff| {err}")
-                check(not bool(got[nt:].any()),
-                      f"a pad tile scored at S={stack}, h={h}")
-                got = unpack_scores([b], [got.cpu().numpy()], len(pairs))
-                check(np.array_equal(got, want),
-                      f"stacked kernel != native model at h={h}, "
-                      f"S={stack}, {cfg}")
-            shapes.append(f"{h} rows at S 2/3/4/{MAX_THREADS // h}")
+                for r in (None, *stacked_fits(h)):
+                    got = sw_stacked.sw_forward_stacked(
+                        *t, cfg=cfg, _rows_per_thread=r, **st)
+                    torch.cuda.synchronize()
+                    for name, g, w in (("plain stacked sweep", got, plain),
+                                       ("plain lane-tile sweep", got[:nt],
+                                        tiles)):
+                        err = int((g.long() - w.long()).abs().max())
+                        stacked_err = max(stacked_err, err)
+                        check(err == 0, f"stacked kernel != {name} on "
+                                        f"bucket {tuple(b.sx.shape)} at "
+                                        f"S={stack}, R={r}, {cfg}: max "
+                                        f"|diff| {err}")
+                    check(not bool(got[nt:].any()),
+                          f"a pad tile scored at S={stack}, h={h}, R={r}")
+                    stacked_rs.add(r)
+                    n_runs += 1
+                    if r is None:
+                        got = unpack_scores([b], [got.cpu().numpy()],
+                                            len(pairs))
+                        check(np.array_equal(got, want),
+                              f"stacked kernel != native model at h={h}, "
+                              f"S={stack}, {cfg}")
+            shapes.append(f"{h} rows at S 2/3/4/{MAX_STACK_ROWS // h}")
             n_pairs += len(pairs)
-        # the directed ghost-read adversary: every pair scores 0
+        # the directed ghost-read adversary: every pair scores 0, at
+        # every R
         pairs = cases.stacked_ghost_pairs(47)
         (b,) = pack_sw_pairs(pairs)
         t, st = stacked_inputs(b, 2)
-        got = sw_stacked.sw_forward_stacked(*t, cfg=cfg, **st)
-        check(b.sx.shape[0] == 2 and not bool(got.any()),
-              f"ghost reads under {cfg}: scores {got.unique().tolist()}")
+        for r in (None, *stacked_fits(st["h"])):
+            got = sw_stacked.sw_forward_stacked(*t, cfg=cfg,
+                                                _rows_per_thread=r, **st)
+            check(b.sx.shape[0] == 2 and not bool(got.any()),
+                  f"ghost reads at R={r} under {cfg}: scores "
+                  f"{got.unique().tolist()}")
+            n_runs += 1
+        check(stacked_rs >= {None, *sw_stacked.ROWS_PER_THREAD},
+              f"stacked R run: {sorted(stacked_rs, key=str)}")
         print(f"phase 24 sw stacked kernel == plain == lane tile == native: "
               f"{n_pairs} pairs in buckets of {', '.join(shapes)} (5 tiles, "
-              f"pad tiles at S 2, 3, 4); ghost-read adversary (256 pairs, "
-              f"S 2) all 0; {cfg}, max_abs_err 0 "
+              f"pad tiles at S 2, 3, 4), at the default R and every R of "
+              f"{sw_stacked.ROWS_PER_THREAD} at which a region fits a warp "
+              f"({n_runs} launches); ghost-read adversary (256 pairs, S 2) "
+              f"all 0 at each; {cfg}, max_abs_err 0 "
               f"({time.perf_counter() - t0:.1f} s so far)")
 
     # 27. the conveyor kernel vs its plain version and the native model
@@ -1252,14 +1318,21 @@ def main() -> int:
           f"no run of phase 22 took the rotor: {runs}")
     print(f"phase 22 all {len(runs)} runs equal on all {RT_PAIRS} pairs")
 
-    # 23. rotor timing on phase 22's bucket, at the default queue depth
+    # 23. rotor timing on phase 22's bucket: at the default queue depth
+    # every geometry that holds its period, beside the plain sweep, strips
+    # and the lane tile, in turns; then the default geometry at each
+    # queue depth of ROTOR_MAIN_SLOTS, in turns
     rprep = sw_rotor.maybe_prep_rotor(EngineConfig(sw_rotor=True), rb)
     rx, ry = sw_rotor_to_torch(rprep, dev)
     rst, cfg = rprep[1], SWConfig()
     rt = sw_bucket_to_torch(rb, dev)
     ts22, st22, ny22 = strips_inputs(rb)
+    rotor_geo = sw_rotor.geometry(rst["period"], rx.shape[0] * 128)
+    rgeos = rotor_fits(rst["period"])
     f_rotor = lambda: sw_rotor.sw_forward_rotor_bucket(  # noqa: E731
         rx, ry, cfg=cfg, **rst)
+    f_geo = {g: (lambda g=g: sw_rotor.sw_forward_rotor_bucket(
+        rx, ry, cfg=cfg, _geometry=g, **rst)) for g in rgeos}
     f_plain = lambda: sw_rotor_forward_tiles(  # noqa: E731
         rx, ry, cfg=cfg, **rst)
     f_strips = lambda: sw_strips.sw_forward_strips(  # noqa: E731
@@ -1267,32 +1340,68 @@ def main() -> int:
     f_tile = lambda: sw.sw_forward(*rt, cfg)  # noqa: E731
     got = f_rotor()
     n_live = -(-rb.n_valid // 128)
-    for name, w in (("plain", p_rows(f_plain(), rst)),
-                    ("strips", f_strips()[:n_live]),
-                    ("lane tile", f_tile()[:n_live])):
+    for name, w in ([("plain", p_rows(f_plain(), rst)),
+                     ("strips", f_strips()[:n_live]),
+                     ("lane tile", f_tile()[:n_live])]
+                    + [(f"geometry {g}", f()) for g, f in f_geo.items()]):
         err = int((got[:len(w)].long() - w.long()).abs().max())
         rotor_err = max(rotor_err, err)
         check(err == 0, f"rotor != {name} on the 64bp bucket: {err}")
-    rp1, r1, s1, k1, k2, s2, r2, rp2 = (
-        slope_ms(f_plain, torch), slope_ms(f_rotor, torch),
-        slope_ms(f_strips, torch), slope_ms(f_tile, torch),
-        slope_ms(f_tile, torch), slope_ms(f_strips, torch),
-        slope_ms(f_rotor, torch), slope_ms(f_plain, torch))
+    order = [f_plain, *f_geo.values(), f_strips, f_tile]
+    times = [slope_ms(f, torch) for f in order + order[::-1]]
+    pairs_ms = list(zip(times[:len(order)], times[len(order):][::-1]))
+    (rp1, rp2), (s1, s2), (k1, k2) = (pairs_ms[0], pairs_ms[-2],
+                                      pairs_ms[-1])
+    rotor_ms_by_geo = {f"G{g}C{c}": list(ab)
+                       for (g, c), ab in zip(rgeos, pairs_ms[1:-2])}
+    dkey = f"G{rotor_geo.queues_per_warp}C{rotor_geo.cols}"
+    r1, r2 = rotor_ms_by_geo[dkey]
     rotor_ms, rotor_plain_ms = (r1 + r2) / 2, (rp1 + rp2) / 2
     rt_cells = int(((rb.nx - 1).astype(np.int64) * (rb.ny - 1)).sum())
     rotor_bound = bound_ms(nbytes(rx, ry, got), rt_cells * SW_OPS_PER_CELL,
                            int32_ops)
+    fastest = min(rotor_ms_by_geo, key=lambda k: sum(rotor_ms_by_geo[k]))
     print(f"phase 23 rotor timing, bucket {tuple(rt[0].shape)} as "
           f"{rx.shape[0]} rotor tiles x {rst['n_slots']} slots, T "
           f"{rst['period']} (rotor_max_slots "
-          f"{EngineConfig().rotor_max_slots}): rotor {r1:.4f} / {r2:.4f} ms "
-          f"({rt_cells / rotor_ms / 1e6:.2f} GCUPS), plain rotor sweep "
-          f"{rp1:.3f} / {rp2:.3f} ms, strips {s1:.4f} / {s2:.4f} ms "
-          f"({rt_cells / ((s1 + s2) / 2) / 1e6:.2f} GCUPS), lane tile "
-          f"{k1:.4f} / {k2:.4f} ms ({rt_cells / ((k1 + k2) / 2) / 1e6:.2f} "
-          f"GCUPS); rotor {(s1 + s2) / 2 / rotor_ms:.2f}x strips; bound "
-          f"{rotor_bound[0]:.4f} ms by {rotor_bound[1]} (cells {rt_cells}); "
-          f"kernel == plain == strips == lane tile on every live lane")
+          f"{EngineConfig().rotor_max_slots}), default geometry {dkey} "
+          f"({rotor_geo.warps_per_block} warps a block): rotor {r1:.4f} / "
+          f"{r2:.4f} ms ({rt_cells / rotor_ms / 1e6:.2f} GCUPS), plain "
+          f"rotor sweep {rp1:.3f} / {rp2:.3f} ms, strips {s1:.4f} / "
+          f"{s2:.4f} ms ({rt_cells / ((s1 + s2) / 2) / 1e6:.2f} GCUPS), "
+          f"lane tile {k1:.4f} / {k2:.4f} ms "
+          f"({rt_cells / ((k1 + k2) / 2) / 1e6:.2f} GCUPS); rotor "
+          f"{(s1 + s2) / 2 / rotor_ms:.2f}x strips, "
+          f"{(k1 + k2) / 2 / rotor_ms:.2f}x the lane tile; by geometry "
+          f"(ms, in turns) " + ", ".join(
+              f"{k}: {a:.4f} / {b:.4f}" for k, (a, b)
+              in rotor_ms_by_geo.items())
+          + f"; fastest {fastest}; bound {rotor_bound[0]:.4f} ms by "
+          f"{rotor_bound[1]} (cells {rt_cells}); kernel == plain == strips "
+          f"== lane tile on every live lane at every geometry")
+    f_slots = {}
+    for slots in ROTOR_MAIN_SLOTS:
+        sp_ = sw_rotor.maybe_prep_rotor(
+            EngineConfig(sw_rotor=True, rotor_max_slots=slots), rb)
+        sxy = sw_rotor_to_torch(sp_, dev)
+        f = (lambda sxy=sxy, st=sp_[1]: sw_rotor.sw_forward_rotor_bucket(
+            *sxy, cfg=cfg, **st))
+        check(torch.equal(f()[:n_live], got[:n_live]),
+              f"rotor at {slots} slots differs on the 64bp bucket")
+        f_slots[slots] = (f, sxy[0].shape[0], sp_[1]["n_slots"],
+                          sw_rotor.geometry(sp_[1]["period"],
+                                            sxy[0].shape[0] * 128))
+    times = [slope_ms(f_slots[k][0], torch)
+             for k in ROTOR_MAIN_SLOTS + ROTOR_MAIN_SLOTS[::-1]]
+    n_sl = len(ROTOR_MAIN_SLOTS)
+    rotor_ms_by_slots = {k: (times[i], times[2 * n_sl - 1 - i])
+                         for i, k in enumerate(ROTOR_MAIN_SLOTS)}
+    print("phase 23 rotor by rotor_max_slots on the same bucket (ms, in "
+          "turns): " + "; ".join(
+              f"{k} ({f_slots[k][1]} tiles x {f_slots[k][2]}, "
+              f"G{f_slots[k][3].queues_per_warp}C{f_slots[k][3].cols}): "
+              f"{a:.4f} / {b:.4f}" for k, (a, b)
+              in rotor_ms_by_slots.items()) + "; each == the default's")
 
     # 25. the stacked route on phase 22's pairs: sw_stack 2, 4 and 8 send
     # the bucket to the stacked kernel and bypass the rotor
@@ -1325,53 +1434,66 @@ def main() -> int:
               f"default route on all {RT_PAIRS} pairs, "
               f"stats {json.dumps(e25.last_stats.as_dict())}")
 
-    # 26. stacked timing on phase 22's bucket at S = 2, 4, 8, beside its
-    # plain version, the rotor and the lane tile, in turns
+    # 26. stacked timing on phase 22's bucket at S = 2, 4, 8, each at
+    # every R at which a region fits a warp, beside its plain version,
+    # the rotor and the lane tile, in turns
     f_stk, f_stp, stk_in = {}, {}, {}
     for stack in STACKS:
         t, st = stacked_inputs(rb, stack)
-        stk_in[stack] = (t, st)
-        f_stk[stack] = (lambda t=t, st=st: sw_stacked.sw_forward_stacked(
-            *t, **st))
+        stk_in[stack] = (t, st, sw_stacked.geometry(stack, st["h"]))
         f_stp[stack] = (lambda t=t, st=st: sw_stacked_forward_tiles(
             *t, **st))
-        got = f_stk[stack]()
-        for name, w in (("plain", f_stp[stack]()),
-                        ("lane tile", f_tile()[:n_live])):
-            err = int((got[:len(w)].long() - w.long()).abs().max())
+        want = f_stp[stack]()
+        check(torch.equal(want[:n_live], f_tile()[:n_live]),
+              f"plain stacked (S={stack}) != lane tile on the 64bp bucket")
+        for r in (None, *stacked_fits(st["h"])):
+            f = (lambda t=t, st=st, r=r: sw_stacked.sw_forward_stacked(
+                *t, _rows_per_thread=r, **st))
+            err = int((f().long() - want.long()).abs().max())
             stacked_err = max(stacked_err, err)
-            check(err == 0, f"stacked (S={stack}) != {name} on the 64bp "
-                            f"bucket: {err}")
-    order = ([f_stp[k] for k in STACKS] + [f_stk[k] for k in STACKS]
+            check(err == 0, f"stacked (S={stack}, R={r}) != plain on the "
+                            f"64bp bucket: {err}")
+            if r is not None:
+                f_stk[(stack, r)] = f
+    order = ([f_stp[k] for k in STACKS] + list(f_stk.values())
              + [f_rotor, f_tile])
     times = [slope_ms(f, torch) for f in order + order[::-1]]
     half = len(order)
     pairs_ms = [(a, b) for a, b in zip(times[:half], times[half:][::-1])]
     n_s = len(STACKS)
     stp_ms = {k: pairs_ms[i] for i, k in enumerate(STACKS)}
-    stk_ms = {k: pairs_ms[n_s + i] for i, k in enumerate(STACKS)}
+    stk_by = {k: pairs_ms[n_s + i] for i, k in enumerate(f_stk)}
+    stk_ms = {k: stk_by[(k, stk_in[k][2].rows_per_thread)] for k in STACKS}
     r26, k26 = pairs_ms[-2], pairs_ms[-1]
 
     def mean(ab):
         return (ab[0] + ab[1]) / 2
 
     stacked_ms, stacked_plain_ms = mean(stk_ms[4]), mean(stp_ms[4])
-    best = min(mean(v) for v in stk_ms.values())
-    stacked_bound = bound_ms(nbytes(*stk_in[4][0], f_stk[4]()),
+    stacked_ms_by_geo = {f"S{k}R{r}": list(v) for (k, r), v in stk_by.items()}
+    best = min(stk_by, key=lambda k: mean(stk_by[k]))
+    r4 = stk_in[4][2].rows_per_thread
+    stacked_bound = bound_ms(nbytes(*stk_in[4][0], f_stk[(4, r4)]()),
                              rt_cells * SW_OPS_PER_CELL, int32_ops)
     print(f"phase 26 stacked timing, bucket {tuple(rt[0].shape)}: "
           + "; ".join(
-              f"S={k} ({stk_in[k][0][0].shape[0]} stacked tiles x "
-              f"{k * stk_in[k][1]['h']} threads) kernel {stk_ms[k][0]:.4f} / "
-              f"{stk_ms[k][1]:.4f} ms ({rt_cells / mean(stk_ms[k]) / 1e6:.2f}"
-              f" GCUPS), plain {stp_ms[k][0]:.3f} / {stp_ms[k][1]:.3f} ms"
+              f"S={k} ({stk_in[k][0][0].shape[0]} stacked tiles, default R "
+              f"{stk_in[k][2].rows_per_thread}, "
+              f"{stk_in[k][2].warps_per_stack} warp(s) a stack) kernel "
+              f"{stk_ms[k][0]:.4f} / {stk_ms[k][1]:.4f} ms "
+              f"({rt_cells / mean(stk_ms[k]) / 1e6:.2f} GCUPS), plain "
+              f"{stp_ms[k][0]:.3f} / {stp_ms[k][1]:.3f} ms"
               for k in STACKS)
+          + "; by S and R (ms, in turns) " + ", ".join(
+              f"{k}: {a:.4f} / {b:.4f}" for k, (a, b)
+              in stacked_ms_by_geo.items())
           + f"; rotor {r26[0]:.4f} / {r26[1]:.4f} ms, lane tile "
-          f"{k26[0]:.4f} / {k26[1]:.4f} ms in the same turns; best stacked "
-          f"{best:.4f} ms = {best / mean(r26):.2f}x the rotor, "
-          f"{best / mean(k26):.2f}x the lane tile; bound at S=4 "
-          f"{stacked_bound[0]:.4f} ms by {stacked_bound[1]}; kernel == plain "
-          f"== lane tile on every live lane")
+          f"{k26[0]:.4f} / {k26[1]:.4f} ms in the same turns; fastest "
+          f"S{best[0]}R{best[1]} {mean(stk_by[best]):.4f} ms = "
+          f"{mean(stk_by[best]) / mean(r26):.2f}x the rotor, "
+          f"{mean(stk_by[best]) / mean(k26):.2f}x the lane tile; bound at "
+          f"S=4 {stacked_bound[0]:.4f} ms by {stacked_bound[1]}; kernel == "
+          f"plain == lane tile on every live lane at every R")
 
     # 28. the conveyor's library entry on phase 22's pairs: one launch, the
     # engine's scores; then its stages apart, each synchronized
@@ -2581,8 +2703,11 @@ def main() -> int:
     # strips kernel's the sw_strips=True run's (both with the default R,
     # the ms of every R in ms_by_r; the lane tile's default route, phase
     # 33, beside it), the rotor's phase 22's
-    # first run that the predicates send to it, the stacked kernel's (at
-    # S = 4, as its times) phase 25's sw_stack=4 run's, the conveyor's (at
+    # first run that the predicates send to it (its default geometry's ms,
+    # every geometry's and queue depth's in ms_by_geometry and
+    # ms_by_slots), the stacked kernel's (at S = 4 and its default R, as
+    # its times; every S and R in ms_by_geometry) phase 25's sw_stack=4
+    # run's, the conveyor's (at
     # the library default of 64 slots, as its times) phase 28's.
     print(json.dumps({"kernels": [
         entry("sw_tile", "sw_tile.cu", "genomax/kernels/sw_pallas.py:42",
@@ -2600,10 +2725,15 @@ def main() -> int:
               ms_by_r=strips_ms_by_r),
         entry("sw_rotor", "sw_rotor.cu", "genomax/kernels/sw_rotor.py:141",
               rotor_launches, rotor_err, rotor_ms, rotor_plain_ms,
-              rotor_bound),
+              rotor_bound, geometry=dataclasses.asdict(rotor_geo),
+              ms_by_geometry=rotor_ms_by_geo,
+              ms_by_slots={str(k): list(v)
+                           for k, v in rotor_ms_by_slots.items()}),
         entry("sw_stacked", "sw_stacked.cu",
               "genomax/kernels/sw_stacked.py:63", stacked_launches[4],
-              stacked_err, stacked_ms, stacked_plain_ms, stacked_bound),
+              stacked_err, stacked_ms, stacked_plain_ms, stacked_bound,
+              geometry={"stack": 4, **dataclasses.asdict(stk_in[4][2])},
+              ms_by_geometry=stacked_ms_by_geo),
         entry("sw_conveyor", "sw_conveyor.cu",
               "genomax/kernels/sw_conveyor.py:135", conveyor_launches,
               conveyor_err, conveyor_ms, conveyor_plain_ms, conveyor_bound),

@@ -17,8 +17,9 @@ MAX_KERNEL_ROWS = 1024
 # The PairHMM kernel runs one thread per read row; the engine sends it reads
 # under max_device_len // 2 (csrc/pairhmm_tile.cu).
 MAX_PHMM_ROWS = MAX_KERNEL_ROWS // 2
-# The rotor kernel runs one warp per queue, each lane holding up to five
-# columns of the period (csrc/sw_rotor.cu): periods up to 32 * 5.
+# The rotor kernel's segments hold up to 32 * 5 columns of the period
+# (csrc/sw_rotor.cu: one queue a warp, five columns a lane): periods up
+# to 160.
 MAX_ROTOR_PERIOD = 160
 # Rescale periods the packs reserve stream slack for (layout.MAX_UNROLL =
 # 32 rows past every pair's last diagonal).
@@ -92,30 +93,31 @@ class EngineConfig:
     # sweeps only each strip's live diagonals; the rest, and the buckets it
     # declines, go to the rotor (below) or the lane-tile kernel
     # (csrc/sw_tile.cu). Measured on one NVIDIA H100 80GB HBM3 at 700.00 W
-    # (chip_smoke.py phases 5, 20): on the 25,000 x 512bp bucket (224
-    # tiles x 520 rows) the strips kernel takes 16.93-17.03 ms against the
-    # lane-tile kernel's 46.20-46.24, and it wins 1.54-3.05x from 64bp (72
-    # rows) to 1,000bp. The rotor (below) beats it about twice over on the
-    # short buckets up to 136 rows, so strips start at 144 rows, the first
-    # bucket past 136 (the JAX engine's floor of 128 is a TPU number).
+    # (chip_smoke.py phases 5, 20 and 23): on the 25,000 x 512bp bucket (224
+    # tiles x 520 rows) the strips kernel takes 6.58-6.60 ms against the
+    # lane-tile kernel's 10.50, and it wins from 256bp (264 rows) to
+    # 1,000bp; the rotor (below) takes the short buckets from it, 0.088-
+    # 0.093 ms against 0.32 at 72 rows and 0.088-0.098 against 0.103-0.111
+    # at 136 rows (4,096 x 128bp), in two runs, so strips start at 144
+    # rows, the first bucket past 136 (the JAX engine's floor of 128 is a
+    # TPU number).
     sw_strips: bool = True
     strips_min_nxs: int = 144
     # Sublane-stacked SW for short pairs (kernels/sw_stacked.py,
     # csrc/sw_stacked.cu): with sw_stack >= 2, a bucket of at most
     # stack_max_nxs rows that strips declines stacks sw_stack tiles deep,
     # and the rotor is bypassed (the JAX engine's order: an explicit
-    # opt-in). A block of the kernel scores sw_stack pairs of one lane, a
-    # thread a row, so one barrier a diagonal serves sw_stack pairs; it
-    # holds sw_stack * stack_max_nxs <= 1,024 threads. 0 or 1 disables,
-    # the default, as in genomax.config. Measured on one NVIDIA H100 80GB
-    # HBM3 at 700.00 W (chip_smoke.py phases 20 and 26, two runs): on the
-    # 25,000 x 64bp bucket (224 tiles x 72 rows) the stacked kernel takes
-    # 0.654 / 0.649 ms at S = 4 (0.662 / 0.652 at 2, 0.703 / 0.693 at 8)
-    # against the rotor's 0.256 / 0.258 and the lane tile's 0.876 / 0.880;
-    # on 4,096 pairs its best S runs 121 / 119 GCUPS at 32bp and 131 / 129
-    # at 64bp against the rotor's 177 / 103 and 332 / 342 at 4 slots. It
-    # beats the lane tile everywhere and the rotor only at 32bp in one run,
-    # where a kernel takes 0.03-0.05 ms, so sw_stack stays 0.
+    # opt-in). The kernel packs a stack's regions side by side in warps'
+    # rows; a stack holds sw_stack * stack_max_nxs <= 1,024 rows, the TPU
+    # kernel's limit. 0 or 1 disables, the default, as in genomax.config.
+    # Measured on one NVIDIA H100 80GB HBM3 at 700.00 W (chip_smoke.py
+    # phases 20 and 26, two runs): on the 25,000 x 64bp bucket (224 tiles x
+    # 72 rows) the stacked kernel takes 0.122-0.127 ms at S = 4
+    # (0.133-0.141 at 2, 0.130-0.134 at 8) against the rotor's 0.088-0.093
+    # and the lane tile's 0.226-0.237; on 4,096 pairs of 64bp it took
+    # 0.031-0.034 ms in one run and 0.061-0.065 in the other, against the
+    # rotor's 0.041-0.043. It beats the lane tile everywhere and never the
+    # rotor on the 25,000-pair bucket, so sw_stack stays 0.
     sw_stack: int = 0
     stack_max_nxs: int = 96
     # Column-stationary rotor for short pairs (kernels/sw_rotor.py,
@@ -125,15 +127,12 @@ class EngineConfig:
     # rotor_max_slots pairs a queue at most; the rest take the lane-tile
     # kernel. The knobs, the period of 136 and the order of the routers are
     # genomax.config's. Measured on one NVIDIA H100 80GB HBM3 at 700.00 W
-    # (chip_smoke.py phases 20 and 23, two runs): on 4,096 pairs the rotor
-    # at 4 slots runs 178 / 113 GCUPS at 32bp (T = 40) against the lane
-    # tile's 95 / 85, 325 / 308 at 64bp (T = 72) against strips' 164 / 171,
-    # 481 / 480 at 128bp (T = 136) against strips' 227 / 226; on the 25,000
-    # x 64bp bucket 0.259 / 0.256 ms against strips' 0.528 / 0.533 ms. At
-    # each point every run of the rotor beats every run of the other
-    # kernel. Four slots is the best depth or within 2% of it at every
-    # point: deeper queues leave the card too few warps (32 slots give 128
-    # at 4,096 pairs), shallower ones sweep more pad steps.
+    # (chip_smoke.py phases 20 and 23, two runs): on the 25,000 x 64bp
+    # bucket the rotor takes 0.105-0.108 ms at 2 slots, 0.088-0.093 at 4,
+    # 0.117-0.120 at 8 and 0.165-0.169 at 16, against strips' 0.32 and the
+    # lane tile's 0.23; on 4,096 pairs of 128bp 2 slots beat 4 in both runs
+    # (0.072-0.074 against 0.088-0.098 ms), at 64bp in one run of two.
+    # Four slots stay: the fastest on the 25,000-pair bucket.
     sw_rotor: bool = True
     rotor_max_period: int = 136
     rotor_max_slots: int = 4
@@ -165,8 +164,8 @@ class EngineConfig:
                 and self.sw_stack * self.stack_max_nxs > MAX_KERNEL_ROWS):
             raise ValueError(
                 f"sw_stack={self.sw_stack} x stack_max_nxs="
-                f"{self.stack_max_nxs} rows: the stacked kernel runs a "
-                f"thread a row and takes at most {MAX_KERNEL_ROWS} a block")
+                f"{self.stack_max_nxs} rows: the stacked kernel takes at "
+                f"most {MAX_KERNEL_ROWS} rows a stack")
         if self.strips_min_nxs < 1:
             raise ValueError(f"strips_min_nxs={self.strips_min_nxs}: want a "
                              "positive row count")

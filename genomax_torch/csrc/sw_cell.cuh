@@ -1,8 +1,8 @@
 // One cell of the Smith-Waterman (Gotoh, score only) recurrence, shared by
-// the SW kernels of this directory: `sw_cell` (plain integer maxes) by
-// sw_rotor.cu and sw_stacked.cu; the DPX forms `sw_cell_dpx` by
-// sw_long.cu and, through sw_rows.cuh's step, sw_tile.cu and
-// sw_strips.cu, and `sw_cell_dpx_preopen` by sw_xstrip.cu.
+// the SW kernels of this directory in Hopper's DPX form: `sw_cell_dpx` by
+// sw_long.cu, sw_rotor.cu and, through sw_rows.cuh's step, sw_tile.cu,
+// sw_strips.cu and sw_stacked.cu; `sw_cell_dpx_preopen` by sw_xstrip.cu
+// (sw_conveyor.cu has its own cell).
 //
 // Cell (p, j) of pair x, y:
 //   P = max(D(p, j-1) + open + extend, P(p, j-1) + extend)    gap along y
@@ -23,25 +23,13 @@ struct SwScoring {
   int match, mismatch, oge, ge;  // oge = gap_open + gap_extend
 };
 
-// Returns D of the cell and writes its P and Q; raises best to D.
-__device__ __forceinline__ int sw_cell(int d_left, int p_left, int d_up,
-                                       int q_up, int d_diag, bool same,
-                                       const SwScoring& s, int& p, int& q,
-                                       int& best) {
-  p = max(d_left + s.oge, p_left + s.ge);
-  q = max(d_up + s.oge, q_up + s.ge);
-  const int d = max(max(p, q), max(d_diag + (same ? s.match : s.mismatch), 0));
-  best = max(best, d);
-  return d;
-}
-
-// The same cell with Hopper's DPX max-plus instructions (sm_90: one
+// The cell with Hopper's DPX max-plus instructions (sm_90: one
 // instruction each for add-then-max and for a three-way max with 0):
 //   P = __viaddmax_s32(d_left, oge, p_left + ge)  = max(d_left + oge, p_left + ge)
 //   Q = __viaddmax_s32(d_up, oge, q_up + ge)
 //   D = __vimax3_s32_relu(P, Q, d_diag + sub)     = max(P, Q, d_diag + sub, 0)
 // The caller takes the running best with a plain max (or a three-way max
-// over two cells). Bit for bit the function of `sw_cell`.
+// over two cells).
 __device__ __forceinline__ int sw_cell_dpx(int d_left, int p_left, int d_up,
                                            int q_up, int d_diag, bool same,
                                            const SwScoring& s, int& p,

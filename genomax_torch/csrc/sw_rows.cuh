@@ -1,5 +1,5 @@
 // The step of a warp that keeps R consecutive x rows a thread in
-// registers, shared by sw_tile.cu and sw_strips.cu.
+// registers, shared by sw_tile.cu, sw_strips.cu and sw_stacked.cu.
 //
 // A warp sweeps a sub-strip of H = 32 * R rows along its anti-diagonals d
 // (cell (p, j) lies on d = p + j), one step a diagonal. Lane t owns rows

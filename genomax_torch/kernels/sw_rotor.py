@@ -32,13 +32,87 @@ from genomax_torch.layout import LANES, PAD_STREAM, PAD_X
 from genomax_torch.pack.bucketing import _reject_pad_codes, _round_up
 
 UNROLLS = (8, 16, 24, 32)
+WARP = 32
+# The kernel's geometries (its template arguments, the ones the build
+# makes): G queues a warp, each a segment of 32 / G lanes, and C columns
+# a lane, 1 .. MAX_COLS[G] (periods up to 32 * 5 = 160 at G = 1).
+QUEUES_PER_WARP = (1, 2, 4)
+MAX_COLS = {1: 5, 2: 10, 4: 10}
+GEOMETRIES = tuple((g, c) for g in QUEUES_PER_WARP
+                   for c in range(1, MAX_COLS[g] + 1))
+# Streaming multiprocessors and warp schedulers of an H100 SXM, the most
+# warps a block; a warp step's fixed part (the stream and hand-over
+# shuffles, the boundary, the wrap's moves) and the latency of one step
+# of a lone warp less its columns, in columns: the weights of geometry's
+# cost, fitted on one H100 to the 25,000 x 64bp bucket (T = 72) and to
+# 4,096 and 25,000 pairs of 128bp (T = 136), each at 2, 4, 8 and 16 queue
+# slots (chip_smoke.py phases 20 and 23 time it).
+SMS, SCHEDULERS = 132, 132 * 4
+MAX_WARPS_PER_BLOCK = 4
+STEP_CELLS, LATENCY_CELLS = 3, 10
 
 # Kernel launches made by sw_forward_rotor and sw_forward_rotor_bucket
 # (CUDA tensors only).
 launches = 0
 
-_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 11
+_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 14
              + [ctypes.c_void_p])
+
+
+@dataclasses.dataclass(frozen=True)
+class RotorGeometry:
+    """How the kernel sweeps a rotor bucket: ``queues_per_warp`` (G)
+    queues a warp of 32 / G lanes each, ``cols`` (C) columns a lane, and
+    ``warps_per_block`` independent warps a block."""
+
+    queues_per_warp: int
+    cols: int
+    warps_per_block: int
+
+
+def geometry(period: int, n_queues: int, queues_per_warp: int | None = None,
+             cols: int | None = None) -> RotorGeometry:
+    """The kernel's geometry for ``n_queues`` queues (128 a rotor tile) of
+    period T. With G and C None it takes, of the G the build makes, the
+    one whose step costs least: each G at the fewest columns a lane that
+    hold T - 1 (C = ceil((T-1) / (32 / G))), a warp step of C cells and a
+    fixed part times the warps each scheduler runs (ceil(n_queues / G)
+    warps over 528 schedulers), or where that is less the latency of a
+    step, which grows with C; the smallest G on a tie. So a bucket that
+    fills the card packs queues into warps, and one that does not runs
+    fewer queues a warp. Given G and C, it checks them. Blocks take up to
+    four warps, fewer where that leaves an SM idle. Raises ValueError for
+    a geometry the build does not make or one whose segment cannot hold
+    the period."""
+    if not 2 <= period <= MAX_ROTOR_PERIOD or n_queues < 1:
+        raise ValueError(f"period={period}, n_queues={n_queues}: want a "
+                         f"period in [2, {MAX_ROTOR_PERIOD}] and a queue")
+    if (queues_per_warp is None) != (cols is None):
+        raise ValueError("give both queues_per_warp and cols, or neither")
+
+    def fewest(g):
+        return -(-(period - 1) // (WARP // g))
+
+    def cost(g, c):
+        warps = -(-n_queues // g)
+        return max(-(-warps // SCHEDULERS) * (c + STEP_CELLS),
+                   LATENCY_CELLS + c)
+
+    if queues_per_warp is None:
+        queues_per_warp = min(
+            (g for g in QUEUES_PER_WARP if fewest(g) <= MAX_COLS[g]),
+            key=lambda g: (cost(g, fewest(g)), g))
+        cols = fewest(queues_per_warp)
+    if (queues_per_warp, cols) not in GEOMETRIES:
+        raise ValueError(f"geometry (queues_per_warp={queues_per_warp}, "
+                         f"cols={cols}): the build makes {GEOMETRIES}")
+    if (WARP // queues_per_warp) * cols < period - 1:
+        raise ValueError(f"geometry ({queues_per_warp}, {cols}): "
+                         f"{WARP // queues_per_warp} lanes x {cols} columns "
+                         f"cannot hold period {period}")
+    warps = -(-n_queues // queues_per_warp)
+    return RotorGeometry(queues_per_warp, cols,
+                         max(1, min(MAX_WARPS_PER_BLOCK, warps // SMS)))
 
 
 @dataclasses.dataclass
@@ -249,35 +323,45 @@ def _check(name, xrev, ybuf, period, n_slots, anchor, unroll):
 
 def sw_forward_rotor(xrev: torch.Tensor, ybuf: torch.Tensor, *, period: int,
                      n_slots: int, anchor: int, unroll: int = 8,
-                     cfg: SWConfig = SWConfig()) -> torch.Tensor:
+                     cfg: SWConfig = SWConfig(),
+                     _geometry: tuple[int, int] | None = None
+                     ) -> torch.Tensor:
     """(NT * P8, 128) int32 scores, P8 = round_up(P, 8), on the inputs'
     device: row q of a tile's block is queue slot q's score, rows P..P8-1
     are 0 (``sw_forward_pallas_rotor``'s shape).
 
     xrev (NT, NB, 128) and ybuf (NT, NY, 128) int8 as ``pack_sw_rotor``
     and ``prep_bucket_rotor`` lay them out. ``unroll`` sets only the
-    buffers' slack (NB, NY) and must divide ``period``."""
+    buffers' slack (NB, NY) and must divide ``period``. ``_geometry``
+    picks the kernel's (G, C) among those the build makes (``geometry``'s
+    choice when None), for its tests and timing; one the build does not
+    make, or that cannot hold the period, raises on every device."""
     _check("sw_forward_rotor", xrev, ybuf, period, n_slots, anchor, unroll)
+    _check_geometry(period, _geometry)
     if xrev.device.type == "cpu":
         return sw_rotor_forward_tiles(xrev, ybuf, period=period,
                                       n_slots=n_slots, anchor=anchor,
                                       unroll=unroll, cfg=cfg)
     p8 = _round_up(n_slots, 8)
     return _launch(xrev, ybuf, period, n_slots, anchor, p8, cfg,
-                   "sw_forward_rotor").reshape(-1, LANES)
+                   "sw_forward_rotor", _geometry).reshape(-1, LANES)
 
 
 def sw_forward_rotor_bucket(xrev: torch.Tensor, ybuf: torch.Tensor, *,
                             period: int, n_slots: int, anchor: int,
                             unroll: int = 8,
-                            cfg: SWConfig = SWConfig()) -> torch.Tensor:
+                            cfg: SWConfig = SWConfig(),
+                            _geometry: tuple[int, int] | None = None
+                            ) -> torch.Tensor:
     """The engine's wrapper: (NT * P, 128) int32 scores in bucket tile
     order (``prep_bucket_rotor``): the P8 -> P row compaction of
     ``sw_forward_pallas_rotor_bucket``. Rows past the bucket's live tiles
     are pad queues that ``unpack_scores`` never reads. On the card the
-    kernel writes this order directly."""
+    kernel writes this order directly. ``_geometry`` as in
+    ``sw_forward_rotor``."""
     _check("sw_forward_rotor_bucket", xrev, ybuf, period, n_slots, anchor,
            unroll)
+    _check_geometry(period, _geometry)
     if xrev.device.type == "cpu":
         out = sw_rotor_forward_tiles(xrev, ybuf, period=period,
                                      n_slots=n_slots, anchor=anchor,
@@ -285,13 +369,21 @@ def sw_forward_rotor_bucket(xrev: torch.Tensor, ybuf: torch.Tensor, *,
         p8 = _round_up(n_slots, 8)
         return out.view(-1, p8, LANES)[:, :n_slots].reshape(-1, LANES)
     return _launch(xrev, ybuf, period, n_slots, anchor, n_slots, cfg,
-                   "sw_forward_rotor_bucket").reshape(-1, LANES)
+                   "sw_forward_rotor_bucket", _geometry).reshape(-1, LANES)
+
+
+def _check_geometry(period, geo):
+    """A (G, C) hook the build makes and whose segment holds the period;
+    raises ValueError otherwise."""
+    if geo is not None:
+        geometry(period, 1, *geo)
 
 
 def _launch(xrev, ybuf, period, n_slots, anchor, out_rows, cfg: SWConfig,
-            name) -> torch.Tensor:
-    """Launch csrc/sw_rotor.cu: out_rows rows a tile, slot q in row q and
-    rows n_slots.. zero."""
+            name, geo=None) -> torch.Tensor:
+    """Launch csrc/sw_rotor.cu at ``geometry``'s choice, or at (G, C) =
+    ``geo``: out_rows rows a tile, slot q in row q and rows n_slots..
+    zero."""
     global launches
     launch = _build.load("sw_rotor", "sw_rotor_launch", _ARGTYPES)
     if not xrev.is_cuda:
@@ -299,6 +391,7 @@ def _launch(xrev, ybuf, period, n_slots, anchor, out_rows, cfg: SWConfig,
                          "cuda")
     xrev, ybuf = xrev.contiguous(), ybuf.contiguous()
     nt = xrev.shape[0]
+    g = geometry(period, max(1, nt * LANES), *(geo or ()))
     alloc = torch.zeros if out_rows > n_slots else torch.empty
     out = alloc((nt, out_rows, LANES), dtype=torch.int32, device=xrev.device)
     if nt == 0:
@@ -307,8 +400,9 @@ def _launch(xrev, ybuf, period, n_slots, anchor, out_rows, cfg: SWConfig,
         stream = torch.cuda.current_stream().cuda_stream
         err = launch(xrev.data_ptr(), ybuf.data_ptr(), out.data_ptr(), nt,
                      xrev.shape[1], ybuf.shape[1], period, n_slots, anchor,
-                     out_rows, cfg.match, cfg.mismatch, cfg.gap_open,
-                     cfg.gap_extend, stream)
+                     out_rows, g.queues_per_warp, g.cols, g.warps_per_block,
+                     cfg.match, cfg.mismatch, cfg.gap_open, cfg.gap_extend,
+                     stream)
     if err != 0:
         raise RuntimeError(f"sw_rotor launch failed: cudaError {err}")
     launches += 1

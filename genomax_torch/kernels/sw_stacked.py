@@ -8,7 +8,9 @@ routing predicate and the wrapper of the hand-written CUDA kernel
 A packed bucket of h rows re-stacks S tiles deep: bucket tile t*S + q
 becomes region q (rows [q*h, (q+1)*h)) of stacked tile t, its stream
 copied to the staggered anchor a0 + q*h, so one window of S*h rows hands
-every region its own stream at every diagonal. The flat output row
+every region its own stream at every diagonal. The kernel packs the
+regions into warps' rows, R rows a thread (``geometry``). The flat output
+row
 t*S + q is bucket tile t*S + q, so ``unpack_scores`` needs no change; the
 pad tiles that round the tile count up to S sit at the end of that order,
 past ``n_valid``. The engine sends a bucket here when
@@ -23,6 +25,7 @@ loop length) has no counterpart.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import numpy as np
 import torch
@@ -33,10 +36,64 @@ from genomax_torch.kernels.wavefront import sw_stacked_forward_tiles
 from genomax_torch.layout import LANES, PAD_STREAM
 from genomax_torch.pack.bucketing import pad_tiles_to
 
+# Rows a thread of the kernel keeps in registers (its template argument,
+# the values the build makes): 16 lets a warp hold a region of h <= 512
+# rows, the tallest that stack >= 2 and stack * h <= 1,024 allow.
+ROWS_PER_THREAD = (2, 3, 4, 5, 6, 8, 9, 10, 12, 16)
+WARP = 32
+# A warp step's fixed part (the hand-over's shuffles, the stream shuffle,
+# the loop) in cells: the weight of geometry's cost.
+STEP_CELLS = 2
+
 # Kernel launches made by sw_forward_stacked (CUDA tensors only).
 launches = 0
 
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+
+
+@dataclasses.dataclass(frozen=True)
+class StackedGeometry:
+    """How the kernel sweeps a stack of ``stack`` regions of h rows: R
+    rows a thread, a region's rows 1 .. h-1 on ``lanes_per_region``
+    consecutive lanes of one warp, ``regions_per_warp`` regions side by
+    side in a warp and ``warps_per_stack`` warps a stack."""
+
+    rows_per_thread: int
+    lanes_per_region: int
+    regions_per_warp: int
+    warps_per_stack: int
+
+
+def geometry(stack: int, h: int, r: int | None = None) -> StackedGeometry:
+    """The kernel's geometry for a stack of ``stack`` regions of h rows.
+    r None picks, of the R the build makes, the one whose stack costs
+    least: W warps of R cells and a fixed part a step, W = ceil(stack /
+    floor(32 / ceil((h-1) / R))); the smallest R on a tie. At h = 72 and
+    stack 4 that is one warp at R = 9 (4 regions of 8 lanes). Raises
+    ValueError for an R the build does not make or at which a region's
+    rows pass a warp."""
+    if stack < 2 or h < 1 or stack * h > MAX_KERNEL_ROWS:
+        raise ValueError(f"stack={stack} regions of h={h} rows; want "
+                         f"stack >= 2, h >= 1 and stack*h <= "
+                         f"{MAX_KERNEL_ROWS}")
+    if r is not None and r not in ROWS_PER_THREAD:
+        raise ValueError(f"rows_per_thread={r}: the build makes "
+                         f"{ROWS_PER_THREAD}")
+
+    def lanes(r):
+        return max(1, -(-(h - 1) // r))
+
+    def shape(r):
+        per_warp = min(stack, WARP // lanes(r))
+        return per_warp, -(-stack // per_warp)
+
+    if r is None:
+        r = min((r for r in ROWS_PER_THREAD if lanes(r) <= WARP),
+                key=lambda r: (shape(r)[1] * (r + STEP_CELLS), r))
+    if lanes(r) > WARP:
+        raise ValueError(f"h={h} at R={r}: a region takes {lanes(r)} lanes, "
+                         f"past a warp's {WARP}")
+    return StackedGeometry(r, lanes(r), *shape(r))
 
 
 def prep_bucket_stacked(bucket, stack: int):
@@ -103,19 +160,25 @@ def run_bucket_stacked(bucket, stack: int, cfg: SWConfig = SWConfig(), *,
 
 
 def sw_forward_stacked(sx: torch.Tensor, sy: torch.Tensor, ndt: torch.Tensor,
-                       *, stack: int, h: int,
-                       cfg: SWConfig = SWConfig()) -> torch.Tensor:
+                       *, stack: int, h: int, cfg: SWConfig = SWConfig(),
+                       _rows_per_thread: int | None = None) -> torch.Tensor:
     """(NT*stack, 128) int32 scores on the inputs' device, row t*stack + q
     region q of stacked tile t (``sw_forward_pallas_stacked``'s output).
 
     sx (NT, stack*h, 128) int8, sy (NT, a0 + stack*h, 128) int8 with
     a0 >= h, ndt (NT,) int32 <= a0, as ``prep_bucket_stacked`` lays them
     out. Raises before any sweep or launch on a call outside that
-    contract, or past the kernel's 1,024 threads a block (stack*h)."""
+    contract, or past the TPU kernel's limit of 1,024 rows a stack
+    (stack*h), which the kernel keeps. ``_rows_per_thread`` picks the
+    kernel's R among those the build makes (``geometry``'s choice when
+    None), for its tests and timing; one the build does not make, or at
+    which a region passes a warp, raises on every device."""
     if stack < 2 or h < 1 or stack * h > MAX_KERNEL_ROWS:
         raise ValueError(f"sw_forward_stacked: stack={stack} regions of "
                          f"h={h} rows; want stack >= 2, h >= 1 and stack*h "
-                         f"<= {MAX_KERNEL_ROWS} (threads in a block)")
+                         f"<= {MAX_KERNEL_ROWS} (the rows of a stack)")
+    if _rows_per_thread is not None:
+        geometry(stack, h, _rows_per_thread)
     if (sx.dtype, sy.dtype, ndt.dtype) != (torch.int8, torch.int8,
                                            torch.int32):
         raise TypeError(f"sw_forward_stacked: dtypes {sx.dtype}, {sy.dtype}, "
@@ -137,11 +200,12 @@ def sw_forward_stacked(sx: torch.Tensor, sy: torch.Tensor, ndt: torch.Tensor,
     if sx.device.type == "cpu":
         return sw_stacked_forward_tiles(sx, sy, ndt, stack=stack, h=h,
                                         cfg=cfg)
-    return _launch(sx, sy, ndt, stack, h, cfg)
+    return _launch(sx, sy, ndt, stack, h, cfg, _rows_per_thread)
 
 
-def _launch(sx, sy, ndt, stack, h, cfg: SWConfig) -> torch.Tensor:
-    """Launch csrc/sw_stacked.cu on checked inputs."""
+def _launch(sx, sy, ndt, stack, h, cfg: SWConfig, r=None) -> torch.Tensor:
+    """Launch csrc/sw_stacked.cu on checked inputs, at ``geometry``'s R or
+    at ``r``."""
     global launches
     launch = _build.load("sw_stacked", "sw_stacked_launch", _ARGTYPES)
     if not sx.is_cuda:
@@ -149,6 +213,7 @@ def _launch(sx, sy, ndt, stack, h, cfg: SWConfig) -> torch.Tensor:
                          "cpu nor cuda")
     sx, sy, ndt = sx.contiguous(), sy.contiguous(), ndt.contiguous()
     nt = sx.shape[0]
+    geo = geometry(stack, h, r)
     out = torch.empty((nt * stack, LANES), dtype=torch.int32,
                       device=sx.device)
     if nt == 0:
@@ -156,7 +221,8 @@ def _launch(sx, sy, ndt, stack, h, cfg: SWConfig) -> torch.Tensor:
     with torch.cuda.device(sx.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = launch(sx.data_ptr(), sy.data_ptr(), ndt.data_ptr(),
-                     out.data_ptr(), nt, stack, h, sy.shape[1], cfg.match,
+                     out.data_ptr(), nt, stack, h, sy.shape[1],
+                     geo.rows_per_thread, geo.regions_per_warp, cfg.match,
                      cfg.mismatch, cfg.gap_open, cfg.gap_extend, stream)
     if err != 0:
         raise RuntimeError(f"sw_stacked launch failed: cudaError {err}")

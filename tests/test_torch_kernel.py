@@ -417,6 +417,51 @@ def test_sw_rotor_kernel_holds_the_queue_leak(device, cfg, length):
     assert not bool(got[1::2].any())
 
 
+@pytest.mark.parametrize("length", [7, 15, 39, 63, 71, 135])
+@pytest.mark.parametrize("cfg", CFGS, ids=["default", "m2x3o5e2", "m3x1o0e2"])
+def test_sw_rotor_kernel_every_geometry_equals_plain_version(device, cfg,
+                                                             length):
+    """Ragged short buckets at periods 8-136, queued three deep: the kernel
+    at every geometry (G, C) the build makes whose segments hold the
+    period == the plain rotor sweep, both wrappers, exact, one launch a
+    call; and the queue-leak adversary at T = 64 and 72 at each of its
+    geometries, every all-mismatch pair 0."""
+    pairs = rotor_sw_pairs(9, length, n_pairs=300)
+    n_runs = 0
+    before = sw_rotor.launches
+    for b in pack_sw_pairs(pairs):
+        prep = _rotor_prep(b, 3)
+        x, y = sw_rotor_to_torch(prep, device)
+        st = prep[1]
+        plain = sw_rotor_forward_tiles(x, y, cfg=cfg, **st)
+        p, p8 = st["n_slots"], -(-st["n_slots"] // 8) * 8
+        for geo in sw_rotor.GEOMETRIES:
+            if (32 // geo[0]) * geo[1] < st["period"] - 1:
+                continue
+            full = sw_rotor.sw_forward_rotor(x, y, cfg=cfg, **st,
+                                             _geometry=geo)
+            got = sw_rotor.sw_forward_rotor_bucket(x, y, cfg=cfg, **st,
+                                                   _geometry=geo)
+            torch.cuda.synchronize()
+            assert torch.equal(full, plain), (geo, st)
+            assert torch.equal(got, plain.view(-1, p8, 128)[:, :p].reshape(
+                -1, 128)), (geo, st)
+            n_runs += 2
+    assert n_runs and sw_rotor.launches - before == n_runs
+    if length in (63, 71):
+        (b,) = pack_sw_pairs(rotor_leak_pairs(5, length))
+        prep = _rotor_prep(b, 2)
+        x, y = sw_rotor_to_torch(prep, device)
+        for geo in sw_rotor.GEOMETRIES:
+            if (32 // geo[0]) * geo[1] < prep[1]["period"] - 1:
+                continue
+            got = sw_rotor.sw_forward_rotor_bucket(x, y, cfg=cfg, **prep[1],
+                                                   _geometry=geo)
+            torch.cuda.synchronize()
+            assert bool((got[0::2] == length * cfg.match).all()), geo
+            assert not bool(got[1::2].any()), geo
+
+
 def test_sw_rotor_out_of_contract(device):
     """The wrappers raise before any launch on a period past 160 or one
     the unroll does not divide; a launch whose buffers are too short for
@@ -510,6 +555,38 @@ def test_sw_stacked_kernel_reads_no_ghosts(device, cfg):
     got = sw_stacked.sw_forward_stacked(*t, cfg=cfg, **st)
     torch.cuda.synchronize()
     assert got.shape == (2, 128) and not bool(got.any())
+
+
+@pytest.mark.parametrize("max_x", [6, 30, 62, 70, 94])
+@pytest.mark.parametrize("cfg", CFGS, ids=["default", "m2x3o5e2", "m3x1o0e2"])
+def test_sw_stacked_kernel_every_r_equals_plain_version(device, cfg, max_x):
+    """The buckets of test_sw_stacked_kernel_equals_plain_version stacked
+    2, 3, 4, 8 deep and as deep as 1,024 rows allow: the kernel at every R
+    the build makes at which a region fits a warp == the plain stacked
+    sweep, exact, one launch a call; the ghost-read adversary at every R
+    scores 0."""
+    (b,) = pack_sw_pairs(stacked_sw_pairs(max_x, max_x))
+    h = b.sx.shape[1]
+    n_runs, before = 0, sw_stacked.launches
+    for stack in sorted({2, 3, 4, min(8, 1024 // h), 1024 // h}):
+        t, st = _stacked(b, stack, device)
+        want = sw_stacked_forward_tiles(*t, cfg=cfg, **st)
+        for r in sw_stacked.ROWS_PER_THREAD:
+            if -(-(h - 1) // r) > 32:
+                continue
+            got = sw_stacked.sw_forward_stacked(*t, cfg=cfg, **st,
+                                                _rows_per_thread=r)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (stack, h, r)
+            n_runs += 1
+    assert sw_stacked.launches - before == n_runs
+    (b,) = pack_sw_pairs(stacked_ghost_pairs(47))
+    t, st = _stacked(b, 2, device)
+    for r in sw_stacked.ROWS_PER_THREAD:
+        got = sw_stacked.sw_forward_stacked(*t, cfg=cfg, **st,
+                                            _rows_per_thread=r)
+        torch.cuda.synchronize()
+        assert not bool(got.any()), r
 
 
 def test_sw_stacked_out_of_contract(device):

@@ -438,3 +438,73 @@ def test_unpack_scores_reads_bucket_tile_order():
             *sw_rotor_to_torch(prep, "cpu"), **prep[1]).numpy())
     np.testing.assert_array_equal(unpack_scores(buckets, res, len(pairs)),
                                   native.sw_scores_native(pairs))
+
+
+# The kernel's geometry: G queues a warp and C columns a lane
+# (kernels/sw_rotor.geometry). No card needed.
+
+@pytest.mark.parametrize("period", list(range(8, 161, 8)))
+@pytest.mark.parametrize("n_queues", [128, 1024, 6272])
+def test_geometry_holds_every_router_period(period, n_queues):
+    """At every period the router produces and a bucket of one rotor tile,
+    of eight, and the 25,000 x 64bp bucket's 49 at four slots: a
+    geometry the build makes, at the fewest columns a lane with which its
+    segments hold the period's T - 1 columns, a block of 1-4 warps."""
+    g = torch_rotor.geometry(period, n_queues)
+    lanes = 32 // g.queues_per_warp
+    assert (g.queues_per_warp, g.cols) in torch_rotor.GEOMETRIES
+    assert lanes * g.cols >= period - 1 > lanes * (g.cols - 1)
+    assert 1 <= g.warps_per_block <= torch_rotor.MAX_WARPS_PER_BLOCK
+
+
+@pytest.mark.parametrize("period,n_queues,want", [
+    (72, 6272, (4, 9, 4)), (72, 128, (1, 3, 1)), (136, 6272, (2, 9, 4)),
+    (72, 1664, (2, 5, 4)), (40, 1024, (1, 2, 4)), (8, 12544, (4, 1, 4))],
+    ids=["main-path", "one-tile", "T136", "T72-16-slots", "T40-eight-tiles",
+         "T8"])
+def test_geometry_choices(period, n_queues, want):
+    """The picker packs queues into warps where the bucket fills the
+    card's schedulers (the 64bp bucket at 4 slots: G = 4, C = 9, the
+    fastest there) and fewer queues a warp where it does not (at 16
+    slots, 13 rotor tiles: G = 2, C = 5, the fastest there; one rotor
+    tile: a queue a warp)."""
+    g = torch_rotor.geometry(period, n_queues)
+    assert (g.queues_per_warp, g.cols, g.warps_per_block) == want
+
+
+@pytest.mark.parametrize("geo", [(1, 6), (8, 1), (3, 4), (2, 11), (2, 0)],
+                         ids=["G1-C6", "G8", "G3", "G2-C11", "C0"])
+def test_geometry_refuses_what_the_build_does_not_make(geo):
+    with pytest.raises(ValueError, match="build makes"):
+        torch_rotor.geometry(72, 6272, *geo)
+
+
+@pytest.mark.parametrize("period,geo", [(72, (2, 4)), (40, (4, 4)),
+                                        (160, (1, 4))])
+def test_geometry_refuses_a_segment_short_of_the_period(period, geo):
+    with pytest.raises(ValueError, match="cannot hold"):
+        torch_rotor.geometry(period, 128, *geo)
+
+
+@pytest.mark.parametrize("wrapper", ["sw_forward_rotor",
+                                     "sw_forward_rotor_bucket"])
+@pytest.mark.parametrize("geo,match", [((1, 6), "build makes"),
+                                       ((4, 7), "cannot hold")],
+                         ids=["unbuilt", "short"])
+def test_geometry_hook_raises_on_every_device(wrapper, geo, match):
+    """The private _geometry= hook raises before any sweep for a
+    geometry the build does not make or that cannot hold the period (T =
+    64 here), on the CPU as on the card."""
+    t, st = _inputs()
+    assert st["period"] == 64
+    with pytest.raises(ValueError, match=match):
+        getattr(torch_rotor, wrapper)(*t, **st, _geometry=geo)
+
+
+def test_geometry_hook_on_the_cpu_takes_the_plain_version():
+    """On the CPU a geometry the build makes changes nothing: the plain
+    sweep, equal to the call without it."""
+    t, st = _inputs()
+    want = torch_rotor.sw_forward_rotor_bucket(*t, **st)
+    got = torch_rotor.sw_forward_rotor_bucket(*t, **st, _geometry=(2, 4))
+    assert torch.equal(got, want)

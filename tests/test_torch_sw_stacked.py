@@ -371,3 +371,57 @@ def test_wrapper_rejects_dtypes_devices_and_shapes():
                                          **st)
     with pytest.raises(ValueError, match="diagonals"):
         torch_stacked.sw_forward_stacked(x, y[:, : 3 * st["h"]], nd, **st)
+
+
+# The kernel's geometry: R rows a thread, the regions a warp holds and
+# the warps a stack (kernels/sw_stacked.geometry). No card needed.
+
+@pytest.mark.parametrize("h", list(range(8, 97, 8)))
+@pytest.mark.parametrize("stack", [2, 3, 4, 5, 6, 7, 8])
+def test_geometry_at_router_heights(stack, h):
+    """At every bucket height up to stack_max_nxs (96) and stack 2-8: an
+    R the build makes, a region's rows 1 .. h-1 on lanes of one warp,
+    the warp's regions within its 32 lanes, every region in a warp."""
+    g = torch_stacked.geometry(stack, h)
+    assert g.rows_per_thread in torch_stacked.ROWS_PER_THREAD
+    assert g.lanes_per_region == -(-(h - 1) // g.rows_per_thread) <= 32
+    assert g.regions_per_warp * g.lanes_per_region <= 32
+    assert g.regions_per_warp * g.warps_per_stack >= stack
+    assert (g.regions_per_warp - 1) * g.warps_per_stack < stack
+
+
+@pytest.mark.parametrize("stack,h,want", [
+    (4, 72, (9, 8, 4, 1)), (2, 72, (5, 15, 2, 1)), (8, 72, (9, 8, 4, 2)),
+    (2, 512, (16, 32, 1, 2)), (128, 8, (8, 1, 32, 4))],
+    ids=["main-S4", "main-S2", "main-S8", "tallest", "deepest"])
+def test_geometry_choices(stack, h, want):
+    """The main path's stacks fill one warp's rows (S = 4: four regions of
+    8 lanes at R = 9) or two; the contract's extremes still fit."""
+    g = torch_stacked.geometry(stack, h)
+    assert (g.rows_per_thread, g.lanes_per_region, g.regions_per_warp,
+            g.warps_per_stack) == want
+
+
+@pytest.mark.parametrize("stack,h,r,match", [
+    (4, 72, 7, "build makes"), (4, 72, 1, "build makes"),
+    (2, 512, 8, "past a warp"), (2, 96, 2, "past a warp")],
+    ids=["R7", "R1", "h512-R8", "h96-R2"])
+def test_geometry_refuses_what_the_build_does_not_make(stack, h, r, match):
+    with pytest.raises(ValueError, match=match):
+        torch_stacked.geometry(stack, h, r)
+
+
+@pytest.mark.parametrize("r", [7, 11, 32])
+def test_rows_per_thread_hook_raises_on_every_device(r):
+    """The private _rows_per_thread= hook raises before any sweep for an R
+    the build does not make, on the CPU as on the card."""
+    t, st = _inputs()
+    with pytest.raises(ValueError, match="build makes"):
+        torch_stacked.sw_forward_stacked(*t, **st, _rows_per_thread=r)
+
+
+def test_rows_per_thread_hook_on_the_cpu_takes_the_plain_version():
+    t, st = _inputs()
+    want = torch_stacked.sw_forward_stacked(*t, **st)
+    got = torch_stacked.sw_forward_stacked(*t, **st, _rows_per_thread=16)
+    assert torch.equal(got, want)

@@ -448,9 +448,9 @@ def test_plain_sweep_at_every_kernel_height_equals_jax_strips(
 
 
 def test_build_key_covers_the_rows_header(monkeypatch, tmp_path):
-    """sw_rows.cuh, the R-rows step that sw_tile.cu and sw_strips.cu
-    include: an edit to it alone gives those two new keys and no other
-    kernel a new one."""
+    """sw_rows.cuh, the R-rows step that sw_tile.cu, sw_strips.cu and
+    sw_stacked.cu include: an edit to it alone gives those three new keys
+    and no other kernel a new one."""
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", str(csrc))
@@ -458,4 +458,4 @@ def test_build_key_covers_the_rows_header(monkeypatch, tmp_path):
     with open(csrc / "sw_rows.cuh", "ab") as f:
         f.write(b"// edited\n")
     changed = {n for n, k in keys.items() if _build.key(n) != k}
-    assert changed == {"sw_tile", "sw_strips"}
+    assert changed == {"sw_tile", "sw_strips", "sw_stacked"}
