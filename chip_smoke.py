@@ -19,9 +19,10 @@ order 1, 2, 19, 21, 24, 27, 3, 4, 5, 33, 22, 23, 25, 26, 28, 29, 20,
                 instance of csrc/sw_long.cu and csrc/sw_xstrip.cu (R = 4,
                 8, 16), csrc/sw_strips.cu and csrc/sw_tile.cu (R = 2, 3,
                 4, 5, 6, 8; the lane tile's warp and block forms),
-                csrc/sw_rotor.cu (every G and C) and csrc/sw_stacked.cu
-                (R = 2-16) (cuobjdump -sass), which SW_OPS_PER_CELL must
-                not pass,
+                csrc/sw_rotor.cu (every G and C), csrc/sw_stacked.cu
+                (R = 2-16) and csrc/sw_conveyor.cu (every G and R, and
+                the block form) (cuobjdump -sass), which SW_OPS_PER_CELL
+                must not pass,
                 and of fp32
                 flops a cell (FFMA 2) along one step of
                 csrc/pairhmm_tile.cu's and csrc/pairhmm_long.cu's loop at
@@ -188,12 +189,16 @@ order 1, 2, 19, 21, 24, 27, 3, 4, 5, 33, 22, 23, 25, 26, 28, 29, 20,
  27. sw conveyor the conveyor kernel vs its plain conveyor sweep and the
                 native model on ragged short pairs, y past the window
                 (T > nxs) and x longer than y (each with an identical, an
-                all-mismatch and one-base pairs, half without '\\n'), and
-                on the queue-leak adversary (maximum-scoring and
-                all-mismatch pairs in turns in every lane's queue, at
-                T = nxs and T > nxs, where every all-mismatch pair scores
-                0), at max_slots 1, 2, 4 and 64, under three scoring
-                configs; rows P..P8-1 are 0; exact
+                all-mismatch and one-base pairs, half without '\\n'), x
+                of at most 5 bases (a window of 8 rows), and on the
+                queue-leak adversary (maximum-scoring and all-mismatch
+                pairs in turns in every lane's queue, at T = nxs and
+                T > nxs, where every all-mismatch pair scores 0), at
+                max_slots 1, 2, 4 and 64, and on windows past one warp
+                (x to 700 and 1,022 bases, nxs 704 and 1,024, queues two
+                deep), under three scoring configs, at the default
+                geometry and at every (G, R, W) the build makes that holds
+                the window; rows P..P8-1 are 0; exact
  28. conveyor main  the library entry sw_scores_conveyor(device="cuda")
                 on phase 22's 25,000 x 64bp pairs at its default 64 slots:
                 one conveyor launch (the count read around the call), all
@@ -201,10 +206,16 @@ order 1, 2, 19, 21, 24, 27, 3, 4, 5, 33, 22, 23, 25, 26, 28, 29, 20,
                 native model; the wall, then pack, copy, kernel and
                 copy back with unpack apart (three runs)
  29. conveyor time  on phase 22's pairs packed at max_slots 4, 16 and 64:
-                the kernel, slope (t(9) - t(1)) / 8, in turns, each
-                depth's scores == the engine's; the plain conveyor sweep
-                at 64 slots by one call, == the kernel on every row;
-                beside the rotor's time of phase 23, GCUPS and the bound
+                the kernel at its default geometry, slope (t(9) - t(1)) /
+                8, in turns, each depth's scores == the engine's; at each
+                depth in turns, each == the default on every row: at 4
+                slots every geometry that holds the window, at 16 and 64
+                G = 1, 2, 4 at their fewest rows (the warp forms that
+                geometry() weighs); the block geometries on phase 27's
+                1,024-row window, in turns; the
+                plain conveyor sweep at 64 slots by one call, == the
+                kernel on every row; beside the rotor's time of phase 23,
+                GCUPS and the bound
  30. xstrip kernel  the cross-device strip kernel vs its plain block on
                 seeded states and halos at w = 24, 25 (a lane stride of
                 no whole int4: the state moved one int at a time), 1,024,
@@ -298,6 +309,9 @@ STACK_LENS = (32, 64)
 # 29's timing (the library default, 64, last) and of the sweep's points.
 CONVEYOR_CHECK_SLOTS, CONVEYOR_SLOTS = (1, 2, 4, 64), (4, 16, 64)
 CONVEYOR_SWEEP_SLOTS = (4, 64)
+# The conveyor's windows past one warp (phase 27): x up to 700 and 1,022
+# bases (nxs 704 and 1,024), queued two deep.
+CONVEYOR_TALL_X, CONVEYOR_TALL_SLOTS = (700, 1022), (2,)
 # Cross-device strip kernel: phase 30's strip widths (25: a lane-major
 # lane stride of no whole int4; 5,000: two sub-strips) and block lengths, the ring's strip counts; phase 31's
 # xshard_min_len, under which phase 16's 50kbp pairs take the cross-device
@@ -646,7 +660,12 @@ def bound_ms(n_bytes, ops, ops_per_s):
             "bytes" if by_bytes >= by_ops else "operations")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="On-card smoke run of "
+                                 "genomax_torch (see the module docstring).")
+    ap.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -715,9 +734,10 @@ def main() -> int:
                 print(f"  ptxas: {line.strip()}")
             elif "Compiling entry" in line:
                 print(f"  ptxas: {line.split('for')[0].strip()[-96:]}")
-    # the DPX cell of the six kernels that take it, instance by instance
-    # (sw_tile's keys (R, block form), sw_rotor's (G, C)); a step holds a
-    # whole number of R cells (C for the rotor)
+    # the DPX cell of the seven kernels that take it, instance by instance
+    # (sw_tile's keys (R, block form), sw_rotor's (G, C), sw_conveyor's (G,
+    # R, block form)); a step holds a whole number of R cells (C for the
+    # rotor)
     sass_ops = {}
     for name, kernel, dpx, want, per, label in (
             ("sw_long", "sw_long_kernel", 2, sw_long.ROWS_PER_THREAD, None,
@@ -732,7 +752,11 @@ def main() -> int:
             ("sw_rotor", "sw_rotor_kernel", 2, sw_rotor.GEOMETRIES, 1,
              "(G, C)"),
             ("sw_stacked", "sw_stacked_kernel", 2,
-             sw_stacked.ROWS_PER_THREAD, None, "R")):
+             sw_stacked.ROWS_PER_THREAD, None, "R"),
+            ("sw_conveyor", "sw_conveyor_kernel", 3,
+             sorted({(g, r, int(w > 1))
+                     for g, r, w in sw_conveyor.GEOMETRIES}), 1,
+             "(G, R, block form)")):
         path = builds[names.index(name)][0]
         sass_ops[name] = sass_cell_ops(path, kernel, dpx)
         check(sorted(sass_ops[name]) == sorted(want),
@@ -1030,23 +1054,39 @@ def main() -> int:
                       for kind in cases.CONVEYOR_KINDS}
     conveyor_cases["leak"] = cases.conveyor_leak_pairs(31, 45, 45)
     conveyor_cases["leak, T > nxs"] = cases.conveyor_leak_pairs(32, 20, 45)
-    conveyor_err, t0 = 0, time.perf_counter()
+    for x_max in CONVEYOR_TALL_X:
+        conveyor_cases[f"tall, x to {x_max}bp"] = cases.conveyor_tall_pairs(
+            36, x_max)
+    conveyor_err, conveyor_geos, t0 = 0, set(), time.perf_counter()
     for c in CFGS:
         cfg = SWConfig(**c)
-        geoms = set()
+        geoms, n_runs = set(), 0
         for name, pairs in conveyor_cases.items():
             want = native_sw(native, pairs, cfg)
-            for max_slots in CONVEYOR_CHECK_SLOTS:
+            tall = name.startswith("tall")
+            for max_slots in (CONVEYOR_TALL_SLOTS if tall
+                              else CONVEYOR_CHECK_SLOTS):
                 b, t, st = conveyor_inputs(pairs, max_slots)
                 geoms.add((st["nxs"], st["period"], st["n_slots"]))
-                got = sw_conveyor.sw_forward_conveyor(*t, cfg=cfg, **st)
+                check(tall == (sw_conveyor.geometry(
+                    st["nxs"], 128).warps_per_queue > 1),
+                      f"{name}: the default geometry's form at {st}")
                 plain = conveyor_plain(t, st, cfg)
-                torch.cuda.synchronize()
-                err = int((got.long() - plain.long()).abs().max())
-                conveyor_err = max(conveyor_err, err)
-                check(err == 0, f"conveyor kernel != plain on {name} at "
-                                f"max_slots {max_slots}, {st}, {cfg}: max "
-                                f"|diff| {err}")
+                # the default geometry, then every one that holds the window
+                for geo in (None, *sw_conveyor.geometries_holding(st["nxs"])):
+                    g = sw_conveyor.sw_forward_conveyor(*t, cfg=cfg, **st,
+                                                        _geometry=geo)
+                    torch.cuda.synchronize()
+                    err = int((g.long() - plain.long()).abs().max())
+                    conveyor_err = max(conveyor_err, err)
+                    check(err == 0, f"conveyor kernel (geometry {geo}) != "
+                                    f"plain on {name} at max_slots "
+                                    f"{max_slots}, {st}, {cfg}: max |diff| "
+                                    f"{err}")
+                    if geo is None:
+                        got = g
+                    conveyor_geos.add(geo)
+                    n_runs += 1
                 p8 = -(-st["n_slots"] // 8) * 8
                 check(not bool(got.view(-1, p8, 128)[:, st["n_slots"]:]
                                .any()),
@@ -1064,14 +1104,21 @@ def main() -> int:
                           f"{max_slots}, {cfg}: all-mismatch pairs score "
                           f"{np.unique(scores[miss]).tolist()}")
         check(any(T > nxs for nxs, T, _ in geoms)
-              and any(p >= 2 for _, _, p in geoms),
+              and any(T == nxs for nxs, T, _ in geoms)
+              and any(p >= 2 for _, _, p in geoms)
+              and max(nxs for nxs, _, _ in geoms) == 1024,
               f"conveyor geometries (nxs, T, P) {sorted(geoms)}")
+        check(conveyor_geos >= {None, *sw_conveyor.GEOMETRIES},
+              f"conveyor geometries run: {sorted(conveyor_geos, key=str)}")
         shown = ", ".join(f"{k} ({len(v)} pairs)"
                           for k, v in conveyor_cases.items())
         print(f"phase 27 sw conveyor kernel == plain == native: {shown} "
-              f"at max_slots {CONVEYOR_CHECK_SLOTS}, (nxs, T, P) "
-              f"{sorted(geoms)}; rows past P 0, all-mismatch pairs of the "
-              f"leak 0; {cfg}, max_abs_err 0 "
+              f"at max_slots {CONVEYOR_CHECK_SLOTS} (the tall ones at "
+              f"{CONVEYOR_TALL_SLOTS}), (nxs, T, P) {sorted(geoms)}, at the "
+              f"default geometry and every (G, R, W) of "
+              f"{len(sw_conveyor.GEOMETRIES)} that holds the window "
+              f"({n_runs} launches); rows past P 0, all-mismatch pairs of "
+              f"the leak 0; {cfg}, max_abs_err 0 "
               f"({time.perf_counter() - t0:.1f} s so far)")
 
     # 3. engine on the vendored goldens
@@ -1537,23 +1584,67 @@ def main() -> int:
           + "; ".join(f"pack {a:.4f}, h2d {b_:.4f}, kernel {k:.4f}, d2h + "
                       f"unpack {u:.4f}" for a, b_, k, u in stages))
 
-    # 29. conveyor timing on that pack at max_slots 4, 16, 64, in turns,
-    # beside the plain conveyor sweep at 64 (one call) and the rotor
+    # 29. conveyor timing on that pack: the default geometry at max_slots
+    # 4, 16, 64 in turns; at 4 slots every geometry that holds the window,
+    # at 16 and 64 the warp forms geometry() weighs (each G at its fewest
+    # rows), each depth's in turns; the block geometries on the tall
+    # window; the plain conveyor sweep at 64 (one call) and the rotor
+    # beside them
+    def in_turns(fns):
+        """Each function's slope, forwards then backwards: {key: [a, b]}."""
+        order = list(fns.values())
+        times = [slope_ms(f, torch) for f in order + order[::-1]]
+        return {k: [times[i], times[-1 - i]] for i, k in enumerate(fns)}
+
+    def fewest_rows(nxs):
+        """G = 1, 2, 4, each at the fewest rows a lane that hold nxs rows:
+        the warp forms geometry() weighs."""
+        hold = [g for g in sw_conveyor.geometries_holding(nxs) if g[2] == 1]
+        return [min((g for g in hold if g[0] == q), key=lambda g: g[1])
+                for q in sw_conveyor.QUEUES_PER_WARP
+                if any(g[0] == q for g in hold)]
+
     f_conv, conv_in = {}, {}
     for slots in CONVEYOR_SLOTS:
         b, t, st = conveyor_inputs(pairs, slots)
         conv_in[slots] = (b, t, st)
         f_conv[slots] = (lambda t=t, st=st: sw_conveyor.sw_forward_conveyor(
             *t, **st))
-        got = sw_conveyor.unpack_conveyor(b, f_conv[slots]().cpu().numpy(),
-                                          RT_PAIRS)
-        check(np.array_equal(got, rt_scores),
+        check(np.array_equal(sw_conveyor.unpack_conveyor(
+            b, f_conv[slots]().cpu().numpy(), RT_PAIRS), rt_scores),
               f"the conveyor at max_slots {slots} != the engine's scores")
-    order = [f_conv[k] for k in CONVEYOR_SLOTS]
-    times = [slope_ms(f, torch) for f in order + order[::-1]]
-    n_c = len(CONVEYOR_SLOTS)
-    conv_ms = {k: (times[i], times[2 * n_c - 1 - i])
-               for i, k in enumerate(CONVEYOR_SLOTS)}
+    conv_ms = in_turns(f_conv)
+
+    def by_geometry(t, st, geos, where):
+        """{(G, R, W): function} of the kernel at each geometry, each
+        checked == the default geometry on every row."""
+        want = sw_conveyor.sw_forward_conveyor(*t, **st)
+        fns = {}
+        for geo in geos:
+            fns[geo] = (lambda geo=geo: sw_conveyor.sw_forward_conveyor(
+                *t, **st, _geometry=geo))
+            check(torch.equal(fns[geo](), want),
+                  f"conveyor geometry {geo} != the default {where}")
+        return fns
+
+    def geo_name(g):
+        return "G{}R{}W{}".format(*g)
+
+    conveyor_ms_by_geo = {}
+    for slots in CONVEYOR_SLOTS:
+        _, t, st = conv_in[slots]
+        geos = (sw_conveyor.geometries_holding(st["nxs"]) if slots == 4
+                else fewest_rows(st["nxs"]))
+        conveyor_ms_by_geo[str(slots)] = {
+            geo_name(g): v for g, v in in_turns(by_geometry(
+                t, st, geos, f"at max_slots {slots}")).items()}
+    # the tallest window of phase 27 (nxs 1,024, one tile two deep) at
+    # each block geometry that holds it
+    bt, tt, stt = conveyor_inputs(conveyor_cases["tall, x to 1022bp"],
+                                  CONVEYOR_TALL_SLOTS[0])
+    tall_ms_by_geo = {geo_name(g): v for g, v in in_turns(by_geometry(
+        tt, stt, sw_conveyor.geometries_holding(stt["nxs"]),
+        "on the tall window")).items()}
     b64, t64, st64 = conv_in[64]
     got = f_conv[64]()
     want = []
@@ -1564,21 +1655,37 @@ def main() -> int:
     check(err == 0, f"conveyor kernel != plain conveyor sweep on the 64bp "
                     f"pack at max_slots 64: max |diff| {err}")
     conveyor_ms = mean(conv_ms[64])
+    conveyor_geo = sw_conveyor.geometry(st64["nxs"],
+                                        t64[0].shape[0] * 128)
     conveyor_bound = bound_ms(nbytes(*t64, got), rt_cells * SW_OPS_PER_CELL,
                               int32_ops)
     shown = []
     for k in CONVEYOR_SLOTS:
         nt_k, st = conv_in[k][0].sched.shape[0], conv_in[k][2]
-        steps = (st["n_slots"] + 1) * st["period"] + sw_conveyor.UNROLL
+        steps = (st["n_slots"] + 1) * st["period"]
+        geo = sw_conveyor.geometry(st["nxs"], nt_k * 128)
+        by = conveyor_ms_by_geo[str(k)]
         shown.append(f"max_slots {k} ({nt_k} tiles x {st['n_slots']} slots "
-                     f"= {nt_k * 128} queues of {steps} steps) kernel "
+                     f"= {nt_k * 128} queues of {steps} steps, "
+                     f"{geo_name(dataclasses.astuple(geo)[:3])}) kernel "
                      f"{conv_ms[k][0]:.4f} / {conv_ms[k][1]:.4f} ms "
-                     f"({rt_cells / mean(conv_ms[k]) / 1e6:.2f} GCUPS)")
+                     f"({rt_cells / mean(conv_ms[k]) / 1e6:.2f} GCUPS); by "
+                     f"geometry (ms, in turns) " + ", ".join(
+                         f"{g}: {a:.4f} / {b_:.4f}" for g, (a, b_)
+                         in by.items())
+                     + f", fastest {min(by, key=lambda g: sum(by[g]))}")
+    tall_geo = sw_conveyor.geometry(stt["nxs"], bt.sched.shape[0] * 128)
     print(f"phase 29 conveyor timing, phase 22's {RT_PAIRS} x {RT_LEN}bp "
           f"pairs (cells {rt_cells}): " + "; ".join(shown)
-          + f"; plain conveyor sweep at max_slots 64 {conveyor_plain_ms:.1f} "
-          f"ms (one call, {steps} steps), == kernel on every row; rotor "
-          f"(phase 23) {rotor_ms:.4f} ms, the conveyor at 64 slots "
+          + f"; on the tall window (nxs {stt['nxs']}, T "
+          f"{stt['period']}, {bt.sched.shape[0] * 128} queues x "
+          f"{stt['n_slots']}, default "
+          f"{geo_name(dataclasses.astuple(tall_geo)[:3])}) " + ", ".join(
+              f"{k}: {a:.4f} / {b_:.4f}" for k, (a, b_)
+              in tall_ms_by_geo.items())
+          + f" ms; plain conveyor sweep at max_slots 64 "
+          f"{conveyor_plain_ms:.1f} ms (one call), == kernel on every row; "
+          f"rotor (phase 23) {rotor_ms:.4f} ms, the conveyor at 64 slots "
           f"{conveyor_ms / rotor_ms:.2f}x it; bound {conveyor_bound[0]:.4f} "
           f"ms by {conveyor_bound[1]}")
 
@@ -1646,8 +1753,12 @@ def main() -> int:
                     cb, fc().cpu().numpy(), len(sp)), want),
                       f"conveyor at {slots} slots differs at {length}bp")
                 c1, c2 = slope_ms(fc, torch, 5), slope_ms(fc, torch, 5)
+                cg = sw_conveyor.geometry(cst["nxs"],
+                                          cb.sched.shape[0] * 128)
                 conveyor.append(f"{slots} ({cb.sched.shape[0]} x "
-                                f"{cst['n_slots']}): {c1:.4f} / {c2:.4f} ms "
+                                f"{cst['n_slots']}, G{cg.queues_per_warp}"
+                                f"R{cg.rows}W{cg.warps_per_queue}): "
+                                f"{c1:.4f} / {c2:.4f} ms "
                                 f"= {c / ((c1 + c2) / 2) / 1e6:.2f} GCUPS")
             conveyor = [f"conveyor (T {cst['period']}) by max_slots "
                         + "; ".join(conveyor)]
@@ -2708,7 +2819,10 @@ def main() -> int:
     # ms_by_slots), the stacked kernel's (at S = 4 and its default R, as
     # its times; every S and R in ms_by_geometry) phase 25's sw_stack=4
     # run's, the conveyor's (at
-    # the library default of 64 slots, as its times) phase 28's.
+    # the library default of 64 slots and its default geometry, as its
+    # times; each depth's in ms_by_slots, each depth's geometries' in
+    # ms_by_geometry, the tall window's in tall_ms_by_geometry) phase
+    # 28's.
     print(json.dumps({"kernels": [
         entry("sw_tile", "sw_tile.cu", "genomax/kernels/sw_pallas.py:42",
               launches, max_err, kernel_ms, plain_ms, sw_bound,
@@ -2736,7 +2850,11 @@ def main() -> int:
               ms_by_geometry=stacked_ms_by_geo),
         entry("sw_conveyor", "sw_conveyor.cu",
               "genomax/kernels/sw_conveyor.py:135", conveyor_launches,
-              conveyor_err, conveyor_ms, conveyor_plain_ms, conveyor_bound),
+              conveyor_err, conveyor_ms, conveyor_plain_ms, conveyor_bound,
+              geometry=dataclasses.asdict(conveyor_geo),
+              ms_by_slots={str(k): list(v) for k, v in conv_ms.items()},
+              ms_by_geometry=conveyor_ms_by_geo,
+              tall_ms_by_geometry=tall_ms_by_geo),
         entry("sw_long", "sw_long.cu", "genomax/kernels/sw_long.py:126",
               lp_launches, sl_err, sl_kernel_ms, sl_plain_ms, sl_bound),
         entry("sw_xstrip", "sw_xstrip.cu", "genomax/dist/xsharded.py:72",

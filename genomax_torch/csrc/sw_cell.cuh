@@ -2,7 +2,7 @@
 // the SW kernels of this directory in Hopper's DPX form: `sw_cell_dpx` by
 // sw_long.cu, sw_rotor.cu and, through sw_rows.cuh's step, sw_tile.cu,
 // sw_strips.cu and sw_stacked.cu; `sw_cell_dpx_preopen` by sw_xstrip.cu
-// (sw_conveyor.cu has its own cell).
+// and sw_conveyor.cu.
 //
 // Cell (p, j) of pair x, y:
 //   P = max(D(p, j-1) + open + extend, P(p, j-1) + extend)    gap along y
@@ -39,8 +39,9 @@ __device__ __forceinline__ int sw_cell_dpx(int d_left, int p_left, int d_up,
   return __vimax3_s32_relu(p, q, d_diag + (same ? s.match : s.mismatch));
 }
 
-// The form of the cross-device strip kernel (sw_xstrip.cu), whose P and Q
-// are kept before the gap open (P' = P - open - extend, Q' likewise):
+// The form of the cross-device strip and conveyor kernels (sw_xstrip.cu,
+// sw_conveyor.cu), whose P and Q are kept before the gap open (P' = P -
+// open - extend, Q' likewise):
 //   P' = max(D_left, P'_left + ge)             = __viaddmax_s32(P'_left, ge, D_left)
 //   Q' = max(D_up, Q'_up + ge)                 = __viaddmax_s32(Q'_up, ge, D_up)
 //   D  = max(max(P', Q') + oge, D_diag + sub, 0)

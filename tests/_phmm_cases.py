@@ -8,8 +8,8 @@ of 128 rows or more for the strips kernel, pairs ending on and next to
 the sub-strip seams of the lane-tile and strips kernels, short buckets with the
 queue adversaries for the rotor kernel, short buckets with the
 ghost-read adversary for the stacked kernel, short pairs with the
-queue-leak adversary for the conveyor kernel, and the cross-device
-wavefront's cases of tests/test_xsharded.py. Imports no jax and nothing of
+queue-leak adversary and windows past one warp for the conveyor kernel,
+and the cross-device wavefront's cases of tests/test_xsharded.py. Imports no jax and nothing of
 the JAX package."""
 
 import numpy as np
@@ -382,9 +382,10 @@ def stacked_ghost_pairs(seed):
 
 
 # Lengths of x and y in the conveyor's kinds: ragged short pairs, y past the
-# window (T > nxs), and x longer than y.
+# window (T > nxs), x longer than y, and x of at most 5 bases and a '\n' (a
+# window of 8 rows, which one lane of 8 rows holds).
 CONVEYOR_KINDS = {"ragged": ((5, 50), (5, 50)), "long-y": ((5, 19), (60, 99)),
-                  "long-x": ((30, 60), (5, 25))}
+                  "long-x": ((30, 60), (5, 25)), "tiny": ((1, 5), (1, 20))}
 
 
 def conveyor_sw_pairs(seed, kind, n_pairs=300):
@@ -417,6 +418,32 @@ def conveyor_sw_pairs(seed, kind, n_pairs=300):
               SWPair(sx=b"G", sy=b"G"),
               SWPair(sx=b"T", sy=rng.choice(abc, yhi).tobytes()),
               SWPair(sx=rng.choice(abc, xhi).tobytes(), sy=b"A")]
+    return pairs
+
+
+def conveyor_tall_pairs(seed, x_max, n_pairs=160):
+    """Pairs whose window is past one warp's 512 rows, for the conveyor
+    kernel's block form: x of 600 .. x_max bases (the last pair exactly
+    x_max, so nxs = round_up(x_max + 2, 8): 1,024 at x_max 1,022), y of
+    600-1,000 bases with x planted in it with errors on two pairs in three,
+    an identical pair and an all-mismatch pair. 160 pairs queue two slots
+    deep in one tile at max_slots 2."""
+    rng = np.random.default_rng(seed)
+    abc = np.frombuffer(b"ACGT", np.uint8)
+    pairs = []
+    for k in range(n_pairs - 3):
+        x = rng.choice(abc, int(rng.integers(600, x_max + 1)))
+        y = rng.choice(abc, int(rng.integers(600, 1001)))
+        if k % 3:
+            n = min(len(x), len(y))
+            a = int(rng.integers(0, len(y) - n + 1))
+            b = int(rng.integers(0, len(x) - n + 1))
+            y[a: a + n] = _noisy(rng, x[b: b + n], 0.05, abc)
+        pairs.append(SWPair(sx=x.tobytes(), sy=y.tobytes()))
+    same = rng.choice(abc, 600).tobytes()
+    pairs += [SWPair(sx=same, sy=same), SWPair(sx=b"A" * 600, sy=b"C" * 800),
+              SWPair(sx=rng.choice(abc, x_max).tobytes(),
+                     sy=rng.choice(abc, 1000).tobytes())]
     return pairs
 
 

@@ -22,7 +22,8 @@ from genomax_torch.pack.bucketing import (pack_pairhmm_batches,
                                           pack_sw_pairs, unpack_scores)
 
 from _phmm_cases import (CONVEYOR_KINDS, conveyor_leak_pairs,
-                         conveyor_sw_pairs, deep_decay_batches,
+                         conveyor_sw_pairs, conveyor_tall_pairs,
+                         deep_decay_batches,
                          height_sw_pairs, long_jobs,
                          long_seam_jobs, long_sw_pairs, phmm_batches,
                          rotor_leak_pairs, rotor_sw_pairs, short_phmm_batches,
@@ -640,46 +641,91 @@ def _conveyor(pairs, max_slots, device):
                       a0=b.a0)
 
 
+def _conveyor_geometries(nxs):
+    """The default geometry (None) and every (G, R, W) the build makes
+    whose lanes hold a window of nxs rows."""
+    return [None, *sw_conveyor.geometries_holding(nxs)]
+
+
 @pytest.mark.parametrize("max_slots", [1, 2, 4, 64])
 @pytest.mark.parametrize("cfg", CFGS, ids=["default", "m2x3o5e2", "m3x1o0e2"])
 def test_sw_conveyor_kernel_equals_plain_version(device, cfg, max_slots):
-    """Ragged short pairs, y past the window (T > nxs) and x longer than
-    y, each with an identical pair, an all-mismatch pair, one-base pairs
-    and pairs without a '\\n', queued one to three slots deep: kernel ==
-    plain conveyor sweep on every row (rows P..P8-1 are 0) == native."""
-    before = sw_conveyor.launches
+    """Ragged short pairs, y past the window (T > nxs, and past the lanes'
+    rows at the fewest rows a lane) and x longer than y, each with an
+    identical pair, an all-mismatch pair, one-base pairs and pairs without
+    a '\\n', queued one to three slots deep: the kernel at its default
+    geometry and at every (G, R, W) the build makes that holds the window
+    (the block form among them) == plain conveyor sweep on every row (rows
+    P..P8-1 are 0) == native."""
+    before, runs, past_lanes = sw_conveyor.launches, 0, False
     for i, kind in enumerate(CONVEYOR_KINDS):
         pairs = conveyor_sw_pairs(40 + i, kind)
         b, t, st = _conveyor(pairs, max_slots, device)
-        got = sw_conveyor.sw_forward_conveyor(*t, cfg=cfg, **st)
-        torch.cuda.synchronize()
-        assert got.is_cuda and got.dtype == torch.int32
-        assert torch.equal(got, sw_conveyor_forward_tiles(
-            *t, cfg=cfg, unroll=sw_conveyor.UNROLL, **st))
+        want = sw_conveyor_forward_tiles(*t, cfg=cfg,
+                                         unroll=sw_conveyor.UNROLL, **st)
         p8 = -(-b.n_slots // 8) * 8
-        assert not bool(got.view(-1, p8, 128)[:, b.n_slots:].any())
+        for geo in _conveyor_geometries(b.nxs):
+            got = sw_conveyor.sw_forward_conveyor(*t, cfg=cfg, **st,
+                                                  _geometry=geo)
+            torch.cuda.synchronize()
+            assert got.is_cuda and got.dtype == torch.int32
+            assert torch.equal(got, want), (kind, geo)
+            assert not bool(got.view(-1, p8, 128)[:, b.n_slots:].any())
+            past_lanes |= geo is not None and (
+                (32 // geo[0]) * geo[1] * geo[2] < b.period - 1)
+            runs += 1
         np.testing.assert_array_equal(
             sw_conveyor.unpack_conveyor(b, got.cpu().numpy(), len(pairs)),
             native.sw_scores_native(pairs, cfg))
-    assert sw_conveyor.launches - before == len(CONVEYOR_KINDS)
+    assert past_lanes
+    assert sw_conveyor.launches - before == runs
 
 
 @pytest.mark.parametrize("x_len", [45, 20])
 @pytest.mark.parametrize("cfg", CFGS, ids=["default", "m2x3o5e2", "m3x1o0e2"])
 def test_sw_conveyor_kernel_holds_the_queue_leak(device, cfg, x_len):
     """Maximum-scoring and all-mismatch pairs in turns in every lane's
-    queue, at T = nxs = 48 and at T = 48 > nxs = 24: every all-mismatch
-    pair scores exactly 0, every other x_len * match."""
+    queue, at T = nxs = 48 and at T = 48 > nxs = 24, at the default
+    geometry and every one that holds the window: every all-mismatch pair
+    scores exactly 0, every other x_len * match."""
     pairs = conveyor_leak_pairs(33, x_len, 45)
     b, t, st = _conveyor(pairs, 4, device)
-    assert b.n_slots == 4
-    got = sw_conveyor.sw_forward_conveyor(*t, cfg=cfg, **st)
-    torch.cuda.synchronize()
-    assert torch.equal(got, sw_conveyor_forward_tiles(
-        *t, cfg=cfg, unroll=sw_conveyor.UNROLL, **st))
-    slots = got.view(8, 128)
-    assert bool((slots[0::2][:2] == x_len * cfg.match).all())
-    assert not bool(slots[1::2].any())
+    assert b.n_slots == 4 and (b.period == b.nxs) == (x_len == 45)
+    want = sw_conveyor_forward_tiles(*t, cfg=cfg, unroll=sw_conveyor.UNROLL,
+                                     **st)
+    for geo in _conveyor_geometries(b.nxs):
+        got = sw_conveyor.sw_forward_conveyor(*t, cfg=cfg, **st,
+                                              _geometry=geo)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), geo
+        slots = got.view(8, 128)
+        assert bool((slots[0::2][:2] == x_len * cfg.match).all()), geo
+        assert not bool(slots[1::2].any()), geo
+
+
+@pytest.mark.parametrize("x_max", [700, 1022], ids=["nxs704", "nxs1024"])
+@pytest.mark.parametrize("cfg", CFGS, ids=["default", "m2x3o5e2", "m3x1o0e2"])
+def test_sw_conveyor_kernel_tall_window(device, cfg, x_max):
+    """Windows past one warp's 512 rows (x of 600 .. x_max bases, queues
+    two deep): the default geometry takes the block form, and it and every
+    block geometry that holds the window == the plain conveyor sweep on
+    every row == native."""
+    pairs = conveyor_tall_pairs(35, x_max)
+    b, t, st = _conveyor(pairs, 2, device)
+    assert b.nxs > 512 and b.n_slots == 2
+    assert sw_conveyor.geometry(b.nxs, 128).warps_per_queue > 1
+    want = sw_conveyor_forward_tiles(*t, cfg=cfg, unroll=sw_conveyor.UNROLL,
+                                     **st)
+    geos = _conveyor_geometries(b.nxs)
+    assert len(geos) >= 2 and all(g[2] > 1 for g in geos[1:])
+    for geo in geos:
+        got = sw_conveyor.sw_forward_conveyor(*t, cfg=cfg, **st,
+                                              _geometry=geo)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), geo
+    np.testing.assert_array_equal(
+        sw_conveyor.unpack_conveyor(b, got.cpu().numpy(), len(pairs)),
+        native.sw_scores_native(pairs, cfg))
 
 
 def test_sw_conveyor_out_of_contract(device):
