@@ -7,7 +7,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 Phases (one line each; any failure exits non-zero). They run in the
 order 1, 2, 19, 21, 24, 27, 3, 4, 5, 33, 22, 23, 25, 26, 28, 29, 20,
-7-18, 30-32, 6:
+7-18, 30-32, 34, 35, 6:
   1. build      nvcc-builds the nine kernels (csrc/sw_tile.cu,
                 csrc/sw_long.cu, csrc/sw_strips.cu, csrc/sw_rotor.cu,
                 csrc/sw_stacked.cu, csrc/sw_conveyor.cu, csrc/sw_xstrip.cu,
@@ -40,9 +40,10 @@ order 1, 2, 19, 21, 24, 27, 3, 4, 5, 33, 22, 23, 25, 26, 28, 29, 20,
                 golden model; the two runs equal on all 25,000 pairs
   5. timing     on phase 4's bucket: the lane-tile and the strips kernels
                 at every R, each == the plain version on all 28,672 lanes,
-                ms per call by CUDA events, slope (t(9) - t(1)) / 8, in
-                turns: plain, the lane tile and strips at each R
-                ascending, then descending, plain; the default R's ms are
+                ms per call by CUDA events, slope (t(9) - t(1)) / 8 (the
+                plain version by one call), in turns: plain, the lane
+                tile and strips at each R ascending, then descending,
+                plain; the default R's ms are
                 the kernels'; the plain strip sweep of the same bucket
                 timed by one call and held against the strips kernel on
                 all 28,672 lanes, exact
@@ -51,7 +52,7 @@ order 1, 2, 19, 21, 24, 27, 3, 4, 5, 33, 22, 23, 25, 26, 28, 29, 20,
                 (reads 1-500bp, haplotypes 1-700bp, N runs, a deep-decay
                 pair), bitmask and raw codes, mm_div 1 and 3, and on 151bp
                 reads against 7-10kbp haplotypes (a stream past 6,144
-                rows, timed as in phase 13, the plain version once), within
+                rows, timed as in phase 13), within
                 1e-4; then every R the build makes on the ragged buckets a
                 warp holds at it (with 1-30bp reads, small buckets also cut
                 to their rows) and on the deep-decay pairs at every
@@ -62,15 +63,16 @@ order 1, 2, 19, 21, 24, 27, 3, 4, 5, 33, 22, 23, 25, 26, 28, 29, 20,
   9. phmm main   the engine on 65,536 GATK-shaped jobs (8,192 reads of
                 151bp x 8 haplotypes of 300bp, seeded), 256 sampled jobs
                 held against the native fp64 model; the kernel's launch
-                count is read around this run; then the same jobs stage
-                by stage (job list and offload mask, pack, copy,
-                expansion, kernel, copy back, unpack, fallback check),
-                each synchronized
+                count is read around this run; then three more runs of
+                the engine, each with its stages (job list, offload mask,
+                pack, run, unpack, offload, fallback; inside the run the
+                copy with the expansion, and the launch) and the cyclic
+                garbage collector's pauses timed inside it, beside its
+                wall; the stages must sum to within 10% of the wall
  10. phmm time   expansion ms, then on the expanded 65,536-job bucket
                 every R at which a warp holds its 160 rows held against
-                the plain result, the plain version's ms (slope as in
-                phase 5, once), and each R's ms in turns (ascending, then
-                descending)
+                the plain result, the plain version's ms (one call), and
+                each R's ms in turns (ascending, then descending)
  11. long kernel long-read PairHMM kernel vs its plain version on a tile
                 of 128 jobs (reads 511-1500bp, haplotypes to 2kbp, N runs,
                 a deep-decay pair), mm_div 1 and 3, at every R at which a
@@ -84,8 +86,8 @@ order 1, 2, 19, 21, 24, 27, 3, 4, 5, 33, 22, 23, 25, 26, 28, 29, 20,
                 native fp64 model; its launch count is read around this
                 run
  13. long time   long-read kernel vs plain ms on one tile of phase 12,
-                slope (t(3) - t(1)) / 2: the plain version once, then each
-                R in turns (8, 16, 32, 32, 16, 8)
+                slope (t(3) - t(1)) / 2 (the plain version by one call,
+                first), then each R in turns (8, 16, 32, 32, 16, 8)
  14. sw long     long-pair SW kernel vs its plain versions and the native
                 model on a tile of 128 pairs (x 1,023-4,000bp, y to 5kbp,
                 an identical pair, a tandem repeat across a strip seam, an
@@ -102,8 +104,9 @@ order 1, 2, 19, 21, 24, 27, 3, 4, 5, 33, 22, 23, 25, 26, 28, 29, 20,
                 4kbp tile
  15. sw streamed the lane-tile SW kernel on buckets whose stream passes
                 6,144 rows (x 30-600bp planted in y of 6-10kbp): kernel at
-                every R == plain == native, exact, and kernel (default R)
-                vs plain ms on the largest bucket
+                every R == plain == native, exact, and kernel (default R,
+                slope (t(3) - t(1)) / 2) vs plain (one call) ms on the
+                largest bucket, in turns
  16. sw long main  the engine on one tile of 128 pairs of 50,000bp x
                 50,000bp random DNA (seeded), one pair identical (score
                 50,000): all 128 leave the lane-tile kernel for the
@@ -259,6 +262,30 @@ order 1, 2, 19, 21, 24, 27, 3, 4, 5, 33, 22, 23, 25, 26, 28, 29, 20,
                 (t(9) - t(1)) / 8, its bound; the kernel and plain rings on the
                 4kbp tile at K = 1 by one call each; the forward's wall
                 beside phase 18's sw_long time
+ 34. stream     Engine.sw_scores_stream on bench.py's 100,000 x 512bp
+                pairs (seed 0; the first 25,000 are phase 4's) at chunks
+                of 65,536 and 25,000, == Engine.sw_scores on all 100,000
+                pairs, 512 sampled == native model; on phase 4's pairs at
+                6,250 (== phase 4's scores); on phase 22's at 6,250, where
+                the rotor is the only kernel launched, once a chunk; and
+                Engine.pairhmm_stream on phase 9's jobs regrouped as 128
+                batches of 64 reads x 8 haplotypes (the same flat job
+                order) at 32, within 1e-6 of Engine.pairhmm on the 128
+                batches, with the same fallbacks; each point's walls in
+                turns (unchunked, each chunk size, backwards, unchunked),
+                each run's pack_s (the stream's wait for its worker),
+                exec_s and stages as in phase 9, summing to its wall
+ 35. cli        python -m genomax_torch in process (one subprocess):
+                generate (the defaults), then sw, sw --chunk 128 and a
+                subprocess's sw --chunk 100 print the same scores ==
+                native; pairhmm 10s.in one-shot, --chunk 16, --chunk 2
+                and --resume write the same 3,550 values (within 1e-6;
+                1e-4 of the golden), and after a run cut by hand after 3
+                batches (a torn line past them) --resume completes the
+                same file; --profile on sw_small.in leaves a trace that
+                names a port kernel; --devices 1 --xshard 64 --unroll 8
+                gives the scores of the run without --xshard, through the
+                cross-device kernel
 
 Then one JSON line describing each kernel, the card line, and, last,
 {"ok": true, "device": {...}}. Without a CUDA device, or outside the
@@ -266,12 +293,16 @@ repository, it exits non-zero and prints no result. It imports no jax.
 """
 
 import concurrent.futures
+import contextlib
 import dataclasses
+import gc
+import io
 import json
 import os
 import socket
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -660,6 +691,360 @@ def bound_ms(n_bytes, ops, ops_per_s):
             "bytes" if by_bytes >= by_ops else "operations")
 
 
+@contextlib.contextmanager
+def stage_clock(patches):
+    """Times every call of each ``(owner, attribute, name)`` in ``patches``
+    while the block runs, and the cyclic garbage collector's pauses: yields
+    a dict that ends up holding {name: [s, gc s inside it]} and "gc": [s,
+    collections of generation 0, 1, 2] over the whole block. A stage's
+    time is its own thread's; the stream's worker stages overlap the
+    caller's."""
+    t = {"gc": [0.0, 0, 0, 0]}
+    gc_at = [0.0]
+
+    def on_gc(phase, info):
+        if phase == "start":
+            gc_at[0] = time.perf_counter()
+        else:
+            t["gc"][0] += time.perf_counter() - gc_at[0]
+            t["gc"][1 + info["generation"]] += 1
+
+    def timed(name, fn):
+        def call(*a, **kw):
+            t0, g0 = time.perf_counter(), t["gc"][0]
+            try:
+                return fn(*a, **kw)
+            finally:
+                row = t.setdefault(name, [0.0, 0.0])
+                row[0] += time.perf_counter() - t0
+                row[1] += t["gc"][0] - g0
+        return call
+
+    saved = [(owner, attr, owner.__dict__.get(attr)) for owner, attr, _ in
+             patches]
+    for owner, attr, name in patches:
+        setattr(owner, attr, timed(name, getattr(owner, attr)))
+    gc.callbacks.append(on_gc)
+    try:
+        yield t
+    finally:
+        gc.callbacks.remove(on_gc)
+        for owner, attr, old in reversed(saved):
+            if old is None:
+                delattr(owner, attr)
+            else:
+                setattr(owner, attr, old)
+
+
+def stage_line(t, wall, caller, others="worker", whole=True):
+    """The stages of one run beside its wall: with ``whole``, the
+    caller's-thread stages named in ``caller`` must sum to within 10% of
+    the wall (a streamed run's caller also waits for the interpreter lock
+    between its stages while the worker packs: that time is in no stage);
+    the other stages are printed after ``others``."""
+    total = sum(t[k][0] for k in caller if k in t)
+    check(not whole or abs(total - wall) <= 0.1 * wall,
+          f"the stages sum to {total:.4f} s against a wall of {wall:.4f} s: "
+          f"{t}")
+    return (f"wall {wall:.4f} s = " + " + ".join(
+        f"{k} {t[k][0]:.4f}" for k in caller if k in t)
+        + f" (sum {total:.4f}, {total / wall:.3f} of the wall; "
+        f"{wall - total:.4f} s in no stage)"
+        + "".join(f"; {others} {k} {v[0]:.4f}" for k, v in t.items()
+                  if k not in caller and k != "gc")
+        + f"; gc {t['gc'][0]:.4f} s in {t['gc'][1]}/{t['gc'][2]}/"
+        f"{t['gc'][3]} collections of generation 0/1/2, inside "
+        + ", ".join(f"{k} {v[1]:.4f}" for k, v in t.items()
+                    if k != "gc" and v[1] > 0))
+
+
+def engine_stages(eng, kind, streamed):
+    """The patches of stage_clock for one run of ``eng``: SW ("sw") or
+    PairHMM ("pairhmm"), one-shot or streamed, and the stages that run on
+    the caller's thread. The one-shot engine runs every stage on the
+    caller's thread; the stream packs (job list, mask, pack) in its
+    worker and waits for it (RunStats.pack_s, "wait" here)."""
+    from genomax_torch.engine import executor, stream
+
+    mod = stream if streamed else executor
+    run = ((stream, "_run_buckets", "run") if streamed else
+           (eng, "_sw_run" if kind == "sw" else "_phmm_run", "run"))
+    if kind == "sw":
+        patches = [(eng, "_sw_offload_mask", "mask"),
+                   (mod, "pack_sw_pairs", "pack"), run,
+                   (mod, "unpack_scores", "unpack"),
+                   (eng, "_sw_offload_post", "offload")]
+    else:
+        patches = [(mod, "_jobs", "jobs"),
+                   (eng, "_phmm_offload_mask", "mask"),
+                   (mod, "pack_pairhmm_batches", "pack"), run,
+                   (mod, "unpack_scores", "unpack"),
+                   (eng, "_phmm_offload_post", "offload"),
+                   (eng, "_phmm_fallback", "fallback")]
+    names = [name for _, _, name in patches]
+    caller = (["wait"] + names[names.index("run"):] if streamed else names)
+    return patches, caller
+
+
+def timed_run(eng, kind, fn, streamed, extra=(), others="worker",
+              collect=True):
+    """One run of ``fn`` (a call of ``eng``) under stage_clock, with
+    ``collect`` after a full collection so that runs in turns start from
+    the same collector state: (result, wall s, RunStats, the
+    stage_line)."""
+    patches, caller = engine_stages(eng, kind, streamed)
+    if collect:
+        gc.collect()
+    with stage_clock(patches + list(extra)) as t:
+        t0 = time.perf_counter()
+        out = fn()
+        wall = time.perf_counter() - t0
+    if streamed:
+        t["wait"] = [eng.last_stats.pack_s, 0.0]
+    return out, wall, eng.last_stats, stage_line(t, wall, caller, others,
+                                                 whole=not streamed)
+
+
+def stream_phase(sw512, sw64, ph):
+    """Phase 34: Engine.sw_scores_stream and Engine.pairhmm_stream against
+    the one-shot engine at full width, each streamed wall in turns with
+    its unchunked wall. ``sw512`` is phase 4's (pairs, scores), ``sw64``
+    phase 22's, ``ph`` phase 9's (batch, values, fallback_jobs)."""
+    import numpy as np
+
+    from genomax_torch import native
+    from genomax_torch.engine.executor import Engine
+    from genomax_torch.io.formats import PairHMMBatch, SWPair
+    from genomax_torch.io.generator import random_dna
+    from genomax_torch.kernels import pairhmm, sw, sw_rotor, sw_stacked, sw_strips
+
+    counters = {"lane tile": sw, "strips": sw_strips, "rotor": sw_rotor,
+                "stacked": sw_stacked, "pairhmm": pairhmm}
+
+    def turns(label, kind, work, chunks, want, atol=None):
+        """The one-shot engine, each chunk size, the chunk sizes again
+        backwards, the one-shot engine: every result == ``want`` (within
+        ``atol`` for PairHMM, with want's dtype); the walls by chunk size
+        (None: unchunked) and each streamed run's launches."""
+        eng = Engine(device="cuda")
+        walls, launches = {}, []
+        for c in [None, *chunks, *reversed(chunks), None]:
+            if kind == "sw":
+                fn = ((lambda: eng.sw_scores(work)) if c is None else
+                      (lambda c=c: eng.sw_scores_stream(work, c)))
+            else:
+                fn = ((lambda: eng.pairhmm(work)) if c is None else
+                      (lambda c=c: eng.pairhmm_stream(work, c)))
+            for mod in counters.values():
+                mod.launches = 0
+            out, wall, st, line = timed_run(eng, kind, fn, c is not None)
+            n = {k: mod.launches for k, mod in counters.items()
+                 if mod.launches}
+            if atol is None:
+                check(np.array_equal(out, want),
+                      f"{label} at chunk {c}: != the one-shot engine")
+            else:
+                err = float(np.abs(out - want).max())
+                check(out.dtype == want.dtype and err <= atol,
+                      f"{label} at chunk {c}: {out.dtype}, max |err| {err}")
+            if c is not None:
+                launches.append(n)
+            walls.setdefault(c, []).append(wall)
+            print(f"phase 34 {label}, "
+                  f"{'unchunked' if c is None else f'chunk {c}'}: pack_s "
+                  f"{st.pack_s:.4f}{'' if c is None else ' (the wait)'}, "
+                  f"exec_s {st.exec_s:.4f}, {st.buckets} buckets, launches "
+                  f"{json.dumps(n)}; {line}")
+        print(f"phase 34 {label} walls in turns, s: " + "; ".join(
+            f"{'unchunked' if c is None else f'chunk {c}'} "
+            + " / ".join(f"{w:.4f}" for w in ws) for c, ws in walls.items())
+            + f"; best streamed / best unchunked "
+            + ", ".join(f"{c}: {min(walls[c]) / min(walls[None]):.3f}"
+                        for c in chunks))
+        return eng.last_stats, launches
+
+    # bench.py's headline, 100,000 x 512bp (seed 0): its first 25,000 pairs
+    # are phase 4's
+    rng = np.random.default_rng(SEED)
+    pairs = [SWPair(sx=random_dna(rng, LEN) + b"\n",
+                    sy=random_dna(rng, LEN) + b"\n")
+             for _ in range(4 * N_PAIRS)]
+    check(pairs[:N_PAIRS] == sw512[0], "the headline's first 25,000 pairs "
+          "are not phase 4's")
+    eng = Engine(device="cuda")
+    want = eng.sw_scores(pairs)
+    check(np.array_equal(want[:N_PAIRS], sw512[1]),
+          "the 100,000-pair one-shot scores != phase 4's on its pairs")
+    # every streamed result below equals want, exactly
+    sample = np.random.default_rng(SEED + 11).choice(len(pairs), 512,
+                                                     replace=False)
+    check(np.array_equal(want[sample], native.sw_scores_native(
+        [pairs[i] for i in sample])), "the engine != native model on the "
+        "sampled pairs")
+    turns(f"sw {len(pairs)} x {LEN}bp", "sw", pairs, [65536, 25000], want)
+    del pairs
+    turns(f"sw {N_PAIRS} x {LEN}bp (phase 4)", "sw", sw512[0], [6250],
+          sw512[1])
+    _, launches = turns(f"sw {RT_PAIRS} x {RT_LEN}bp (phase 22)", "sw",
+                        sw64[0], [6250], sw64[1])
+    check(all(n == {"rotor": 4} for n in launches),
+          f"the 64bp stream's launches {launches}: want the rotor's, one a "
+          "chunk")
+    # phase 9's jobs as 128 batches of 64 reads x 8 haplotypes: the same
+    # reads in the same order, so the flat job order is phase 9's
+    batch, ph_values, ph_fallbacks = ph
+    batches = [PairHMMBatch(reads=batch.reads[i:i + 64],
+                            haplotypes=batch.haplotypes)
+               for i in range(0, len(batch.reads), 64)]
+    check(len(batches) == 128, f"{len(batches)} batches")
+    eng = Engine(device="cuda")
+    want = eng.pairhmm(batches)
+    one_fallbacks = eng.last_stats.fallback_jobs
+    err9 = float(np.abs(want - ph_values).max())
+    check(err9 <= 1e-6 and one_fallbacks == ph_fallbacks,
+          f"128 batches vs phase 9's one batch: max |err| {err9}, "
+          f"fallbacks {one_fallbacks} vs {ph_fallbacks}")
+    st, _ = turns(f"pairhmm {len(want)} jobs in 128 batches", "pairhmm",
+                  batches, [32], want, atol=1e-6)
+    check(st.fallback_jobs == one_fallbacks,
+          f"streamed fallbacks {st.fallback_jobs} vs {one_fallbacks}")
+    print(f"phase 34 pairhmm: one-shot on the 128 batches vs phase 9 max "
+          f"|err| {err9:.3g}, {one_fallbacks} fallbacks in every run")
+
+
+def cli_phase(kernels):
+    """Phase 35: ``python -m genomax_torch`` on the card, in process (one
+    subprocess): generate, sw --chunk, pairhmm --chunk and --resume (also
+    after a run cut short by hand), --profile, --unroll under --devices 1
+    --xshard. ``kernels`` are the CUDA sources' names (``_build.KERNELS``),
+    whose kernels are ``<name>_kernel``."""
+    import numpy as np
+
+    from genomax_torch import native
+    from genomax_torch.cli.main import main as cli
+    from genomax_torch.dist import xsharded
+    from genomax_torch.io.formats import parse_pairhmm_file, parse_sw_file
+
+    golden = os.path.join(REPO, "tests", "golden")
+
+    def run(*argv):
+        out, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli(list(argv))
+        check(rc == 0, f"genomax_torch {' '.join(argv)}: rc {rc}, "
+              f"{err.getvalue()[-600:]}")
+        return out.getvalue(), err.getvalue()
+
+    def scores(text):
+        return [ln for ln in text.splitlines() if ln.startswith("Score: ")]
+
+    with tempfile.TemporaryDirectory() as d:
+        gen = os.path.join(d, "gen.in")
+        out, _ = run("generate", gen)
+        pairs = parse_sw_file(gen)
+        check(len(pairs) == 500 and "(500 alignments)" in out,
+              f"generate: {out.strip()}, {len(pairs)} pairs")
+        want = scores(run("sw", gen)[0])
+        got = scores(run("sw", gen, "--chunk", "128")[0])
+        proc = subprocess.run(
+            [sys.executable, "-m", "genomax_torch", "sw", gen, "--chunk",
+             "100", "--stats"], cwd=REPO, capture_output=True, text=True,
+            timeout=300)
+        check(proc.returncode == 0, f"python -m genomax_torch sw --chunk: "
+              f"{proc.stderr[-600:]}")
+        nat = [f"Score: {v}" for v in native_sw(native, pairs)]
+        check(want == got == scores(proc.stdout) == nat,
+              "sw --chunk != sw != native on the generated file")
+        print(f"phase 35 cli generate: {len(pairs)} pairs of 450-500bp; sw, "
+              f"sw --chunk 128 and python -m genomax_torch sw --chunk 100 "
+              f"print the same {len(want)} scores == native model, stats "
+              f"{proc.stderr.strip().splitlines()[-1]}")
+
+        ten = os.path.join(golden, "10s.in")
+        batches = parse_pairhmm_file(ten)
+        gold = np.loadtxt(os.path.join(golden, "10s.golden.out"))
+        outs = {}
+        for name, flags in [("one-shot", ()), ("chunk 16", ("--chunk", "16")),
+                            ("chunk 2", ("--chunk", "2")),
+                            ("resume", ("--resume",))]:
+            path = os.path.join(d, name.replace(" ", "") + ".out")
+            run("pairhmm", ten, path, *flags)
+            with open(path) as f:
+                outs[name] = f.read()
+        vals = {k: np.array(v.split(), float) for k, v in outs.items()}
+        for k, v in vals.items():
+            check(v.shape == gold.shape == (3550,)
+                  and float(np.abs(v - vals["one-shot"]).max()) <= 1e-6
+                  and float(np.abs(v - gold).max()) <= PH_TOL,
+                  f"pairhmm 10s.in {k}: {v.shape}, max |err| vs one-shot "
+                  f"{float(np.abs(v - vals['one-shot']).max())}")
+        # a run cut short by hand after k batches, with a torn line past
+        # them: --resume truncates the tail and completes the same file
+        res = os.path.join(d, "resume.out")
+        k = 3
+        n_k = sum(len(b.reads) * len(b.haplotypes) for b in batches[:k])
+        with open(res, "w") as f:
+            f.writelines(outs["resume"].splitlines(True)[:n_k] + ["-1.0\n"])
+        with open(res + ".progress.json", "w") as f:
+            json.dump({"input": os.path.abspath(ten),
+                       "config": {"gatk_emission": False},
+                       "completed_batches": k, "lines": n_k}, f)
+        _, err = run("pairhmm", ten, res, "--resume")
+        with open(res) as f:
+            resumed = f.read()
+        check(f"resuming at batch {k}/{len(batches)}" in err
+              and resumed == outs["resume"],
+              f"--resume after batch {k}: {err.strip()[-300:]}")
+        print(f"phase 35 cli pairhmm 10s.in: one-shot, --chunk 16, --chunk 2 "
+              f"and --resume write 3,550 values, max |err| vs one-shot "
+              + ", ".join(f"{k} {float(np.abs(v - vals['one-shot']).max()):.3g}"
+                          for k, v in vals.items() if k != "one-shot")
+              + f", vs golden {float(np.abs(vals['one-shot'] - gold).max()):.3g}"
+              f"; text identical to one-shot: "
+              + ", ".join(f"{k} {v == outs['one-shot']}"
+                          for k, v in outs.items() if k != "one-shot")
+              + f"; cut after batch {k} ({n_k} lines and a torn one), "
+              f"--resume completed the same file")
+
+        prof = os.path.join(d, "profile")
+        run("sw", os.path.join(golden, "sw_small.in"), "--profile", prof)
+        traces = [os.path.join(r, f) for r, _, fs in os.walk(prof)
+                  for f in fs if f.endswith(".json")]
+        check(len(traces) == 1, f"--profile wrote {traces}")
+        with open(traces[0]) as f:
+            events = json.load(f)["traceEvents"]
+        ours = sorted({e["name"] for e in events
+                       if e.get("cat") == "kernel"
+                       and any(f"{k}_kernel" in e["name"] for k in kernels)})
+        check(ours, "the --profile trace names none of the port's kernels: "
+              + str(sorted({e["name"] for e in events
+                            if e.get("cat") == "kernel"})[:20]))
+        print(f"phase 35 cli --profile: {os.path.getsize(traces[0])} bytes, "
+              f"{len(events)} events, the port's kernels in it: {ours}")
+
+        rng = np.random.default_rng(SEED + 35)
+        abc = np.frombuffer(b"ATGC", np.uint8)
+        seqs = [rng.choice(abc, n).tobytes().decode()
+                for n in (8, 12, 80, 110, 30, 40, 150, 200, 190, 240)]
+        small = os.path.join(d, "xshard.in")
+        with open(small, "w") as f:
+            f.write(f"{len(seqs)}\n" + "\n".join(seqs) + "\n")
+        base = ("sw", small, "--max-device-len", "40")
+        want = scores(run(*base)[0])
+        xsharded.launches = 0
+        out, err = run(*base, "--devices", "1", "--xshard", "64", "--unroll",
+                       "8", "--stats")
+        stats = json.loads(err.strip().splitlines()[-1])
+        check(scores(out) == want and stats["xsharded_jobs"] == 3
+              and xsharded.launches > 0,
+              f"--unroll 8 --xshard: {scores(out)} vs {want}, stats {stats}, "
+              f"{xsharded.launches} xstrip launches")
+        print(f"phase 35 cli --devices 1 --xshard 64 --unroll 8: "
+              f"{len(want)} scores == the run without --xshard, "
+              f"{stats['xsharded_jobs']} pairs across devices in "
+              f"{xsharded.launches} xstrip launches of 8 diagonals")
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -679,6 +1064,7 @@ def main(argv=None) -> int:
     from genomax_torch.dist import xsharded
     from genomax_torch.dist.engine import ShardedEngine
     from genomax_torch.dist.mesh import initialize_distributed, make_mesh
+    from genomax_torch.engine import executor
     from genomax_torch.engine.executor import Engine
     from genomax_torch.io.formats import SWPair
     from genomax_torch.io.generator import generate_pairhmm_batch, random_dna
@@ -1167,6 +1553,7 @@ def main(argv=None) -> int:
     check(np.array_equal(main[True][0], main[False][0]),
           "sw_strips on and off disagree on the 25,000 pairs")
     launches, strips_launches = main[False][1], main[True][2]
+    sw512 = (pairs, main[True][0])
     print(f"phase 4 sw_strips on == off on all {N_PAIRS} pairs")
 
     # 5. timing on the full-width bucket: both kernels at every R in turns
@@ -1192,10 +1579,10 @@ def main(argv=None) -> int:
         check(err == 0, f"{key} != plain on the 25k bucket: {err}")
     plain = lambda: sw_forward_tiles(sx, sy, nd, cfg)  # noqa: E731
     by_r = {key: [] for key in timed}
-    p1 = slope_ms(plain, torch)
+    p1 = one_ms(plain, torch)
     for key in list(timed) + list(timed)[::-1]:
         by_r[key].append(slope_ms(timed[key], torch))
-    p2 = slope_ms(plain, torch)
+    p2 = one_ms(plain, torch)
     k1, k2 = by_r[("lane tile", tile_r)]
     s1, s2 = by_r[("strips", strips_r)]
     kernel_ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
@@ -1363,6 +1750,7 @@ def main(argv=None) -> int:
               f"stats {json.dumps(e22.last_stats.as_dict())}")
     check(runs.count("rotor") >= 1 and rotor_launches >= 1,
           f"no run of phase 22 took the rotor: {runs}")
+    sw64 = (pairs, rt_scores)
     print(f"phase 22 all {len(runs)} runs equal on all {RT_PAIRS} pairs")
 
     # 23. rotor timing on phase 22's bucket: at the default queue depth
@@ -1821,7 +2209,7 @@ def main(argv=None) -> int:
     st_t = t
     st_k = lambda: pairhmm.pairhmm_forward(*st_t, bitmask=bm)  # noqa: E731
     st_p = lambda: phmm_forward_tiles(*st_t, 32, 1.0, bm)  # noqa: E731
-    p1, k1, k2 = (slope_ms(st_p, torch, 3), slope_ms(st_k, torch, 3),
+    p1, k1, k2 = (one_ms(st_p, torch), slope_ms(st_k, torch, 3),
                   slope_ms(st_k, torch, 3))
     st_bound = bound_ms(nbytes(*t) + 4 * b.rl.size,
                         int((b.rl.astype(np.int64) * b.hl).sum())
@@ -1937,43 +2325,19 @@ def main(argv=None) -> int:
           f"stats {json.dumps(stats.as_dict())}")
     ph_batch, ph_values, ph_fallbacks = batch, values, stats.fallback_jobs
 
-    # 9, stage by stage: the engine's steps on the same jobs, each timed
-    # to its end on the card
-    def staged():
-        t = {}
-
-        def mark(name, t0):
-            torch.cuda.synchronize()
-            t[name] = time.perf_counter() - t0
-            return time.perf_counter()
-
-        t0 = time.perf_counter()
-        jobs = [(rd, hp) for rd in batch.reads for hp in batch.haplotypes]
-        eng._phmm_offload_mask(jobs)
-        t0 = mark("jobs_mask", t0)
-        (b,), n = pack_pairhmm_batches([batch], byte_quals=True,
-                                       factored=True, bitmask_codes=True)
-        t0 = mark("pack", t0)
-        parts = [torch.from_numpy(a).to(dev) for a in (
-            b.rchar_u, b.qb_u, b.hap_u, b.ridx, b.hidx, b.meta,
-            b.ndiag_tile)]
-        t0 = mark("h2d", t0)
-        tiles = expand_factored(*parts[:5])
-        t0 = mark("expand", t0)
-        r = pairhmm.pairhmm_forward(*tiles, *parts[5:],
-                                    bitmask=b.bitmask_codes)
-        t0 = mark("kernel", t0)
-        host = r.cpu().numpy()
-        t0 = mark("d2h", t0)
-        v = unpack_scores([b], [host], n, np.float32)
-        t0 = mark("unpack", t0)
-        eng._phmm_fallback(jobs, v, type(stats)())
-        mark("fallback", t0)
-        return t
-
-    runs = [staged() for _ in range(3)]
-    print("phase 9 stages, s (three runs): " + ", ".join(
-        f"{k} " + " / ".join(f"{r[k]:.4f}" for r in runs) for k in runs[0]))
+    # 9, stage by stage: three more runs of the engine on the same jobs,
+    # each stage timed inside the run whose wall it is printed beside (the
+    # copy with the expansion, and the launch, inside "run"), with the
+    # collector's pauses; the collector left as the earlier phases left it
+    for k in range(3):
+        values, wall, _, line = timed_run(
+            eng, "pairhmm", lambda: eng.pairhmm([batch]), False,
+            extra=[(executor, "phmm_bucket_to_torch", "copy+expand"),
+                   (executor, "pairhmm_forward", "launch")],
+            others="inside run:", collect=False)
+        check(np.array_equal(values, ph_values), "a staged run's values "
+              "differ from the first run's")
+        print(f"phase 9 stages, run {k + 1} of 3: {line}")
 
     # 10. PairHMM timing on the full-width bucket
     (b,), _ = pack_pairhmm_batches([batch], byte_quals=True, factored=True,
@@ -2009,7 +2373,7 @@ def main(argv=None) -> int:
             _rows_per_thread=r)
 
     plain = lambda: phmm_forward_tiles(*t, period, mm_div, bm)  # noqa: E731
-    ph_plain_ms = slope_ms(plain, torch)
+    ph_plain_ms = one_ms(plain, torch)
     times = {r: [] for r in rs}
     for r in rs + rs[::-1]:
         times[r].append(slope_ms(kernel_at(r), torch))
@@ -2153,7 +2517,7 @@ def main(argv=None) -> int:
               for r in lr_rs)
     lr_err = max(lr_err, err)
     check(err <= PH_TOL, f"long-read kernel vs plain on the tile: {err}")
-    lr_plain_ms = slope_ms(lambda: plain(16, 1.0), torch, 3)
+    lr_plain_ms = one_ms(lambda: plain(16, 1.0), torch)
     times = {r: [] for r in lr_rs}
     for r in lr_rs + lr_rs[::-1]:
         times[r].append(slope_ms(lambda: kernel(16, 1.0, r), torch, 3))
@@ -2306,8 +2670,8 @@ def main(argv=None) -> int:
     sx, sy, nd = sw_bucket_to_torch(big, dev)
     kernel = lambda: sw.sw_forward(sx, sy, nd, cfg)  # noqa: E731
     plain = lambda: sw_forward_tiles(sx, sy, nd, cfg)  # noqa: E731
-    p1, k1, k2, p2 = (slope_ms(plain, torch, 3), slope_ms(kernel, torch, 3),
-                      slope_ms(kernel, torch, 3), slope_ms(plain, torch, 3))
+    p1, k1, k2, p2 = (one_ms(plain, torch), slope_ms(kernel, torch, 3),
+                      slope_ms(kernel, torch, 3), one_ms(plain, torch))
     cells = int(((big.nx - 1).astype(np.int64) * (big.ny - 1)).sum())
     ss_bound = bound_ms(nbytes(sx, sy, nd) + 4 * big.nx.size,
                         cells * SW_OPS_PER_CELL, int32_ops)
@@ -2788,6 +3152,17 @@ def main(argv=None) -> int:
           f"(K = 1, {xsharded.n_blocks(pk4.n_diags, U, 1)} blocks): kernel "
           f"ring {r4_kernel_ms:.1f} ms, plain ring {r4_plain_ms:.1f} ms (one "
           f"call each)")
+
+    # 34. the stream against the one-shot engine on phases 4, 22 and 9's
+    # workloads and bench.py's 100,000 x 512bp, walls in turns
+    t0 = time.perf_counter()
+    stream_phase(sw512, sw64, (ph_batch, ph_values, ph_fallbacks))
+    print(f"phase 34 took {time.perf_counter() - t0:.1f} s")
+
+    # 35. the command line on the card
+    t0 = time.perf_counter()
+    cli_phase(_build.KERNELS)
+    print(f"phase 35 took {time.perf_counter() - t0:.1f} s")
 
     # 6. the card
     smi = subprocess.run(["nvidia-smi", "-i", "0",

@@ -1,26 +1,40 @@
-"""Command line of the port: ``python -m genomax_torch sw <input>`` and
-``python -m genomax_torch pairhmm <input> <output>``.
+"""Command line of the port: ``python -m genomax_torch sw <input>``,
+``python -m genomax_torch pairhmm <input> <output>`` and
+``python -m genomax_torch generate <output>``.
 
-The same flags and output as ``genomax sw`` and ``genomax pairhmm``: sw
-prints one "Score: %d" line per pair (appended to --output when given);
-pairhmm writes one "%f" log10 likelihood per line to <output>,
-overwriting it; both then print "elapsed %f". --stats prints the run's
-RunStats as JSON on stderr. --device picks the torch device, and there is
-no fallback from one to the other: without a card, --device cuda (the
-default) prints the error and returns 2.
+The same flags and output as ``genomax sw``, ``genomax pairhmm`` and
+``genomax generate``: sw prints one "Score: %d" line per pair (appended to
+--output when given); pairhmm writes one "%f" log10 likelihood per line to
+<output>, overwriting it; both then print "elapsed %f". --stats prints the
+run's RunStats as JSON on stderr. --device picks the torch device, and there
+is no fallback from one to the other: without a card, --device cuda (the
+default) prints the error and returns 2. The TPU's --backend, --interpret
+and ``probe`` have no counterpart.
+
+--chunk N streams the workload through ``engine/stream.py`` in chunks of N
+pairs (sw) or N batches (pairhmm), the next chunk packed while this one
+runs; N must be at least 1. --profile DIR records the scoring call with
+``torch.profiler`` (the CPU, and the card when the engine runs there) and
+writes the trace into DIR; a profiler that cannot trace what was asked
+fails the command. pairhmm --resume appends batch by batch and keeps a
+``<output>.progress.json`` manifest, so that a killed run restarts at the
+next batch.
 
 --devices N scores over a mesh of N ranks (ShardedEngine), one process a
 device: N is the process group's size, 1 in a lone process, the world size
 under ``torchrun`` (or of --num-processes processes started with
 --coordinator and each its --process-id). Rank 0 alone writes the output.
 --xshard MINLEN (with --devices) sends SW pairs past --max-device-len
-whose x has at least MINLEN bases through the cross-device wavefront.
+whose x has at least MINLEN bases through the cross-device wavefront, in
+blocks of --unroll diagonals. --chunk and --resume take no --devices.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import sys
 import time
 
@@ -34,9 +48,13 @@ def _build_engine(args, **kw):
     if args.xshard is not None and not args.devices:
         raise ValueError("--xshard routes through the cross-device "
                          "wavefront; it requires --devices N")
+    if args.chunk is not None and args.devices:
+        raise ValueError("--chunk streams through the local engine; "
+                         "it cannot be combined with --devices")
     cfg_kw = {} if args.max_device_len is None else dict(
         max_device_len=args.max_device_len)
-    cfg = EngineConfig(xshard_min_len=args.xshard, **cfg_kw)
+    cfg = EngineConfig(xshard_min_len=args.xshard, unroll=args.unroll,
+                       **cfg_kw)
     if not args.devices:
         return Engine(cfg, device=args.device, **kw)
     from genomax_torch.dist.engine import ShardedEngine
@@ -54,6 +72,37 @@ def _is_writer(eng) -> bool:
     return getattr(eng, "mesh", None) is None or eng.mesh.rank == 0
 
 
+@contextlib.contextmanager
+def _profiled(args, eng):
+    """torch.profiler around the scoring call for --profile DIR: CPU
+    activity, and CUDA activity when the engine runs on the card. The trace
+    goes into DIR (``<host>_<pid>.<n>.pt.trace.json``). It raises where the
+    profiler cannot trace the card, or traced no device work on a run that
+    had some, rather than leave a trace without the card in it."""
+    if args.profile is None:
+        yield
+        return
+    from torch.autograd import DeviceType
+    from torch.profiler import (ProfilerActivity, profile,
+                                supported_activities, tensorboard_trace_handler)
+
+    acts = [ProfilerActivity.CPU]
+    if eng.device.type == "cuda":
+        if ProfilerActivity.CUDA not in supported_activities():
+            raise RuntimeError("--profile: this torch's profiler cannot "
+                               "trace CUDA")
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts,
+                 on_trace_ready=tensorboard_trace_handler(args.profile)) as p:
+        yield
+    stats = eng.last_stats
+    if (eng.device.type == "cuda" and stats is not None and stats.buckets
+            and not any(e.device_type == DeviceType.CUDA
+                        for e in p.events())):
+        raise RuntimeError("--profile: the profiler recorded no CUDA "
+                           "activity on a run that used the card")
+
+
 def cmd_sw(args) -> int:
     from genomax_torch.config import SWConfig
     from genomax_torch.io.formats import parse_sw_file
@@ -63,7 +112,9 @@ def cmd_sw(args) -> int:
         gap_extend=args.gap_extend))
     pairs = parse_sw_file(args.input)
     t0 = time.time()
-    scores = eng.sw_scores(pairs)
+    with _profiled(args, eng):
+        scores = (eng.sw_scores(pairs) if args.chunk is None
+                  else eng.sw_scores_stream(pairs, args.chunk))
     elapsed = time.time() - t0
     if not _is_writer(eng):
         return 0
@@ -83,11 +134,19 @@ def cmd_pairhmm(args) -> int:
     from genomax_torch.config import PairHMMConfig
     from genomax_torch.io.formats import parse_pairhmm_file, write_pairhmm_output
 
+    if args.resume and args.devices:
+        raise ValueError("--resume checkpoints the output of one process; "
+                         "it cannot be combined with --devices")
     eng = _build_engine(args, phmm_cfg=PairHMMConfig(
         gatk_emission=args.gatk_emission))
     batches = parse_pairhmm_file(args.input)
+    if args.resume:
+        with _profiled(args, eng):
+            return _pairhmm_resumable(args, eng, batches)
     t0 = time.time()
-    values = eng.pairhmm(batches)
+    with _profiled(args, eng):
+        values = (eng.pairhmm(batches) if args.chunk is None
+                  else eng.pairhmm_stream(batches, args.chunk))
     elapsed = time.time() - t0
     if not _is_writer(eng):
         return 0
@@ -98,7 +157,91 @@ def cmd_pairhmm(args) -> int:
     return 0
 
 
-def _add_mesh_args(p):
+def _pairhmm_resumable(args, eng, batches) -> int:
+    """Batch by batch, each batch's values appended to the output and the
+    manifest ``<output>.progress.json`` rewritten after it, so that a killed
+    run restarts at the next batch (genomax.cli.main._pairhmm_resumable).
+    The manifest records the input, the scoring config (the emission model),
+    the batches done and the output's lines; a manifest of another input or
+    config, or an output shorter than it records, restarts from scratch."""
+    from genomax_torch.io.formats import format_pairhmm_values
+
+    manifest_path = args.output + ".progress.json"
+    # Values written under another emission model must not be mixed with
+    # this run's (SW's scoring flags do not reach pairhmm).
+    fp = {"gatk_emission": bool(args.gatk_emission)}
+    done, lines = 0, 0
+    if os.path.exists(manifest_path) and os.path.exists(args.output):
+        with open(manifest_path) as f:
+            m = json.load(f)
+        # A manifest without some key was written when that key's behaviour
+        # was its default, False: compare with that, never with this run's
+        # flags. A manifest of the scaled-recurrence step, whose values
+        # differ from the classic step's within fp32, restarts.
+        mcfg = m.get("config", {})
+        stale_scaled = bool(mcfg.get("scaled_recurrence", False))
+        mcfg = {k: bool(mcfg.get(k, False)) for k in fp}
+        if m.get("input") != os.path.abspath(args.input):
+            pass  # another workload: restart
+        elif mcfg != fp or stale_scaled:
+            print("resume manifest was written with different scoring "
+                  "config; restarting from scratch", file=sys.stderr)
+        else:
+            done, lines = int(m["completed_batches"]), int(m["lines"])
+    if done:
+        # keep the checkpointed lines, drop a partial tail past them
+        with open(args.output) as f:
+            kept = [ln for _, ln in zip(range(lines), f)]
+        if len(kept) < lines:
+            print(f"output has {len(kept)} lines but manifest records "
+                  f"{lines}; restarting from scratch", file=sys.stderr)
+            done, lines, kept = 0, 0, []
+        with open(args.output, "w") as f:
+            f.writelines(kept)
+        if done:
+            print(f"resuming at batch {done}/{len(batches)}",
+                  file=sys.stderr)
+    else:
+        open(args.output, "w").close()
+    t0 = time.time()
+    for i in range(done, len(batches)):
+        vals = eng.pairhmm([batches[i]])
+        with open(args.output, "a") as f:
+            f.write(format_pairhmm_values(vals))
+        lines += len(vals)
+        with open(manifest_path, "w") as f:
+            json.dump({"input": os.path.abspath(args.input), "config": fp,
+                       "completed_batches": i + 1, "lines": lines}, f)
+    print("elapsed %f" % (time.time() - t0))
+    if args.stats and eng.last_stats is not None:
+        print(json.dumps(eng.last_stats.as_dict()), file=sys.stderr)
+    return 0
+
+
+def cmd_generate(args) -> int:
+    from genomax_torch.io.generator import write_sw_file
+
+    write_sw_file(args.output, num_alignments=args.num, min_len=args.min_len,
+                  max_len=args.max_len, seed=args.seed)
+    print(f"wrote {2 * args.num} sequences ({args.num} alignments) to "
+          f"{args.output}")
+    return 0
+
+
+def _add_engine_args(p):
+    p.add_argument("--chunk", type=int, metavar="N",
+                   help="stream the workload in chunks of N pairs (sw) / N "
+                        "batches (pairhmm), the next chunk packed while this "
+                        "one runs (engine/stream.py; local engine only)")
+    p.add_argument("--profile", metavar="DIR",
+                   help="record the run with torch.profiler (CPU, and CUDA "
+                        "on the card) and write the trace into DIR")
+    p.add_argument("--unroll", type=int, default=32,
+                   choices=[1, 2, 4, 8, 16, 32], metavar="{1,2,4,8,16,32}",
+                   help="the cross-device block length U of --xshard: the "
+                        "diagonals one launch sweeps and the halo rows a "
+                        "rank hands on a block (EngineConfig.unroll; the "
+                        "other kernels do not read it)")
     p.add_argument("--max-device-len", type=int, metavar="L",
                    help="pairs whose padded x extent exceeds L leave the "
                         "lane-tile kernels for the long-pair paths "
@@ -136,7 +279,7 @@ def main(argv=None) -> int:
     p.add_argument("--gap-extend", type=int, default=-1)
     p.add_argument("--stats", action="store_true",
                    help="print JSON run stats to stderr")
-    _add_mesh_args(p)
+    _add_engine_args(p)
     p.set_defaults(fn=cmd_sw)
     p = sub.add_parser("pairhmm", help="PairHMM forward log10 likelihoods "
                                        "for a reads x haplotypes file")
@@ -148,8 +291,19 @@ def main(argv=None) -> int:
                         "reference's plain Qr")
     p.add_argument("--stats", action="store_true",
                    help="print JSON run stats to stderr")
-    _add_mesh_args(p)
+    p.add_argument("--resume", action="store_true",
+                   help="batch by batch, with a <output>.progress.json "
+                        "manifest to restart a killed run at the next batch "
+                        "(--chunk does not apply)")
+    _add_engine_args(p)
     p.set_defaults(fn=cmd_pairhmm)
+    p = sub.add_parser("generate", help="random ATGC SW input file")
+    p.add_argument("output")
+    p.add_argument("--num", type=int, default=500)
+    p.add_argument("--min-len", type=int, default=450)
+    p.add_argument("--max-len", type=int, default=500)
+    p.add_argument("--seed", type=int, default=0)
+    p.set_defaults(fn=cmd_generate)
     args = ap.parse_args(argv)
     try:
         return args.fn(args)

@@ -11,11 +11,18 @@ from __future__ import annotations
 
 import dataclasses
 
-# The SW kernel runs one thread per x row of a pair, and a CUDA block holds
-# at most 1024 threads (csrc/sw_tile.cu).
+# The most x rows a pair of the SW kernels takes: the JAX engine's default
+# max_device_len, the height at which the port's SW kernels are held
+# against their plain versions on the card. It is no limit of the kernel's
+# geometry: csrc/sw_tile.cu keeps R rows a thread and past 32R rows gives a
+# pair a block of up to 16 warps (kernels/sw.tile_geometry), so 1,024 rows
+# take 4 warps at R = 8. Lifting it waits on a measurement of the long
+# buckets against csrc/sw_long.cu.
 MAX_KERNEL_ROWS = 1024
-# The PairHMM kernel runs one thread per read row; the engine sends it reads
-# under max_device_len // 2 (csrc/pairhmm_tile.cu).
+# The PairHMM lane-tile kernel sweeps a pair with a group of at most one
+# warp, R <= 16 read rows a thread (csrc/pairhmm_tile.cu,
+# kernels/pairhmm.tile_geometry): 32 x 16 = 512 rows. The engine sends it
+# reads under max_device_len // 2.
 MAX_PHMM_ROWS = MAX_KERNEL_ROWS // 2
 # The rotor kernel's segments hold up to 32 * 5 columns of the period
 # (csrc/sw_rotor.cu: one queue a warp, five columns a lane): periods up

@@ -371,3 +371,18 @@ class Engine:
 
     def pairhmm_file(self, path: str) -> np.ndarray:
         return self.pairhmm(parse_pairhmm_file(path))
+
+    # -- Streaming (chunked, the pack overlapped with the run) -------------
+
+    def sw_scores_stream(self, pairs, chunk_pairs: int = 65536) -> np.ndarray:
+        """``sw_scores`` over chunks, the next chunk packed in a worker
+        thread while this one runs (``engine/stream.py``)."""
+        from genomax_torch.engine.stream import sw_scores_stream
+
+        return sw_scores_stream(self, pairs, chunk_pairs)
+
+    def pairhmm_stream(self, batches, chunk_batches: int = 64) -> np.ndarray:
+        """``pairhmm`` over chunks of batches with the pack overlapped."""
+        from genomax_torch.engine.stream import pairhmm_stream
+
+        return pairhmm_stream(self, batches, chunk_batches)
