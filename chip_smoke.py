@@ -7,7 +7,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 Phases (one line each; any failure exits non-zero). They run in the
 order 1, 2, 19, 21, 24, 27, 3, 4, 5, 33, 22, 23, 25, 26, 28, 29, 20,
-7-18, 30-32, 34, 35, 6:
+7-18, 30-32, 34, 35, 36, 6:
   1. build      nvcc-builds the nine kernels (csrc/sw_tile.cu,
                 csrc/sw_long.cu, csrc/sw_strips.cu, csrc/sw_rotor.cu,
                 csrc/sw_stacked.cu, csrc/sw_conveyor.cu, csrc/sw_xstrip.cu,
@@ -286,6 +286,20 @@ order 1, 2, 19, 21, 24, 27, 3, 4, 5, 33, 22, 23, 25, 26, 28, 29, 20,
                 names a port kernel; --devices 1 --xshard 64 --unroll 8
                 gives the scores of the run without --xshard, through the
                 cross-device kernel
+ 36. harnesses  python -m genomax_torch in process: parity (the vendored
+                goldens, five cases OK, PARITY: PASS); soak --rounds 3
+                --seed 20260817 and soak --deep --rounds 4 (a one-rank
+                mesh, reads of 2,048-4,096 x haplotypes of 600-2,200)
+                pass, the launch counters read around each: strips, the
+                rotor, the lane tile, sw_long, the PairHMM tile and the
+                long-read kernel each launched, and 3 the fewest rounds
+                that launch the first five; bench --lengths 64,512,1024
+                --num 25000 (the rotor, strips and sw_long routes) and
+                bench --kernel pairhmm at 512 reads x 128 haplotypes of
+                151 x 300, every row printed, the 64bp, 512bp and PairHMM
+                rows within 0.5-2x of phases 23, 5 and 10's slopes;
+                bench-dist --devices 1,2: the 1-device row measures, the
+                2-device row is "--"
 
 Then one JSON line describing each kernel, the card line, and, last,
 {"ok": true, "device": {...}}. Without a CUDA device, or outside the
@@ -327,6 +341,14 @@ ROTOR_CHECK_LENS = (7, 39, 47, 63, 79, 135)
 ROTOR_MAIN_SLOTS = (2, 4, 8, 16)
 # Rotor main path: bench.py's short-pair point, 25,000 x 64bp + '\n'.
 RT_PAIRS, RT_LEN = 25000, 64
+# Phase 36: the soak's seed (the CLI default) and the fewest rounds with
+# which it launches strips, the rotor, the lane tile, sw_long and the
+# PairHMM tile (rounds 0, 0, 1, 0 and 2: the routing is the host's, the
+# same on the CPU); the deep soak's rounds (0 and 2 sharded, 1 and 3 on
+# the long-read kernel); the sweep's lengths and its PairHMM point, phase
+# 9's 65,536 jobs of 151 x 300 as 512 reads x 128 haplotypes.
+SOAK_SEED, SOAK_ROUNDS, DEEP_ROUNDS = 20260817, 3, 4
+BENCH_LENS, BENCH_PH_POINT = (64, 512, 1024), "512,128,151,300"
 # The lane tile's default route: short reads against reference windows
 # longer than the rotor's period, 25,000 x (100bp + '\n', 300bp + '\n').
 DR_PAIRS, DR_X_LEN, DR_Y_LEN = 25000, 100, 300
@@ -1043,6 +1065,139 @@ def cli_phase(kernels):
               f"{len(want)} scores == the run without --xshard, "
               f"{stats['xsharded_jobs']} pairs across devices in "
               f"{xsharded.launches} xstrip launches of 8 diagonals")
+
+
+def harness_phase(slopes):
+    """Phase 36: ``parity``, ``soak`` (plain and deep), ``bench`` and
+    ``bench-dist`` of ``python -m genomax_torch`` on the card, in process.
+    ``slopes`` are phase 23's rotor, phase 5's strips and phase 10's
+    PairHMM ms on their main-path buckets, the sweep's rows held within
+    0.5-2x of them."""
+    from genomax_torch.cli.main import main as cli
+    from genomax_torch.kernels import (pairhmm, pairhmm_long, sw, sw_long,
+                                       sw_rotor, sw_strips)
+
+    counters = {"strips": sw_strips, "rotor": sw_rotor, "lane tile": sw,
+                "sw_long": sw_long, "pairhmm_tile": pairhmm,
+                "pairhmm_long": pairhmm_long}
+
+    class Rounds(io.StringIO):
+        """stdout that notes, at each soak round's line, which counters
+        are past 0: the round at which each kernel first launched."""
+
+        def __init__(self):
+            super().__init__()
+            self.first = {}
+
+        def write(self, text):
+            if text.startswith("round "):
+                rd = int(text.split()[1].rstrip(":"))
+                for k, mod in counters.items():
+                    if mod.launches:
+                        self.first.setdefault(k, rd)
+            return super().write(text)
+
+    def run(*argv, out=None):
+        out, err = out or io.StringIO(), io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli(list(argv))
+        check(rc == 0, f"genomax_torch {' '.join(argv)}: rc {rc}, "
+              f"{out.getvalue()[-600:]} {err.getvalue()[-600:]}")
+        return out.getvalue(), time.perf_counter() - t0
+
+    def launched():
+        n = {k: mod.launches for k, mod in counters.items()}
+        for mod in counters.values():
+            mod.launches = 0
+        return n
+
+    text, t = run("parity")
+    cases = [ln for ln in text.splitlines()
+             if ln.startswith(("SW ", "PairHMM "))]
+    check("PARITY: PASS" in text and len(cases) == 5
+          and all(": OK (" in ln for ln in cases), f"parity: {text}")
+    print(f"phase 36 parity ({t:.1f} s): " + "; ".join(cases)
+          + "; PARITY: PASS")
+
+    launched()
+    rounds = Rounds()
+    text, t = run("soak", "--rounds", str(SOAK_ROUNDS), "--seed",
+                  str(SOAK_SEED), out=rounds)
+    plain = launched()
+    check(text.rstrip().endswith("SOAK PASS"), f"soak: {text[-600:]}")
+    text_d, t_d = run("soak", "--deep", "--rounds", str(DEEP_ROUNDS))
+    deep = launched()
+    check(text_d.rstrip().endswith("DEEP SOAK PASS"),
+          f"soak --deep: {text_d[-600:]}")
+    missing = [k for k in counters if not plain[k] + deep[k]]
+    check(not missing, f"the soaks launched no {missing}: {plain}, {deep}")
+    want = [k for k in counters if k != "pairhmm_long"]
+    fewest = max(rounds.first.get(k, SOAK_ROUNDS) for k in want) + 1
+    check(fewest == SOAK_ROUNDS,
+          f"soak --seed {SOAK_SEED}: its kernels first launch at rounds "
+          f"{rounds.first}, so {fewest} rounds, not {SOAK_ROUNDS}")
+    print(f"phase 36 soak --rounds {SOAK_ROUNDS} --seed {SOAK_SEED} "
+          f"({t:.1f} s): SOAK PASS, launches {plain}, first launch by round "
+          f"{rounds.first}: {SOAK_ROUNDS} is the fewest rounds that launch "
+          f"the five; " + " | ".join(ln for ln in text.splitlines()
+                                     if ln.startswith("round ")))
+    print(f"phase 36 soak --deep --rounds {DEEP_ROUNDS} ({t_d:.1f} s): "
+          f"DEEP SOAK PASS, launches {deep}; " + " | ".join(
+              ln for ln in text_d.splitlines() if ln.startswith("round ")))
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "sw.json")
+        text, t = run("bench", "--lengths", ",".join(map(str, BENCH_LENS)),
+                      "--num", str(N_PAIRS), "--json", path)
+        with open(path) as f:
+            rows = json.load(f)
+        path = os.path.join(d, "ph.json")
+        text_p, t_p = run("bench", "--kernel", "pairhmm", "--pairhmm-points",
+                          BENCH_PH_POINT, "--json", path)
+        with open(path) as f:
+            ph_rows = json.load(f)
+    check([r["length"] for r in rows] == list(BENCH_LENS)
+          and [r["routes"] for r in rows] == [["rotor"], ["strips"],
+                                              ["sw_long"]]
+          and all(r["device"] == "cuda" for r in rows + ph_rows)
+          and len(ph_rows) == 1 and ph_rows[0]["pairs"] == PH_READS * PH_HAPS,
+          f"bench rows {rows}, {ph_rows}")
+    for row in rows:
+        print(f"phase 36 bench row: {json.dumps(row)}")
+    print(f"phase 36 bench row: {json.dumps(ph_rows[0])}")
+    ratios = {}
+    for name, ms, ref in (("64bp / phase 23 rotor", rows[0]["elapsed_ms"],
+                           slopes["rotor"]),
+                          ("512bp / phase 5 strips", rows[1]["elapsed_ms"],
+                           slopes["strips"]),
+                          ("PairHMM / phase 10", ph_rows[0]["elapsed_ms"],
+                           slopes["pairhmm"])):
+        ratios[name] = ms / ref
+        check(0.5 <= ms / ref <= 2,
+              f"bench {name}: {ms:.4f} ms against {ref:.4f} ms, outside "
+              "0.5-2x: the sweep times something other than the kernel")
+    print(f"phase 36 bench ({t:.1f} s, PairHMM {t_p:.1f} s): the sweep's ms "
+          "over the phases' slopes on the same buckets: " + ", ".join(
+              f"{k} {v:.3f}" for k, v in ratios.items())
+          + " (0.5-2x); " + " | ".join(
+              ln.strip() for ln in (text + text_p).splitlines()
+              if ln.strip()[:1].isdigit() or "note:" in ln))
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "dist.json")
+        text, t = run("bench-dist", "--devices", "1,2", "--num", "2048",
+                      "--length", "256", "--json", path)
+        with open(path) as f:
+            dist_rows = json.load(f)
+    lines = text.splitlines()
+    check(len(dist_rows) == 1 and dist_rows[0]["devices"] == 1
+          and dist_rows[0]["pairs_per_s"] > 0
+          and any(ln.split()[:2] == ["2", "--"] for ln in lines)
+          and "cannot show scaling" in text,
+          f"bench-dist: {text}")
+    print(f"phase 36 bench-dist ({t:.1f} s): " + " | ".join(
+        ln.strip() for ln in lines))
 
 
 def main(argv=None) -> int:
@@ -3163,6 +3318,12 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     cli_phase(_build.KERNELS)
     print(f"phase 35 took {time.perf_counter() - t0:.1f} s")
+
+    # 36. parity, soak, bench and bench-dist on the card
+    t0 = time.perf_counter()
+    harness_phase({"rotor": rotor_ms, "strips": strips_ms,
+                   "pairhmm": ph_kernel_ms})
+    print(f"phase 36 took {time.perf_counter() - t0:.1f} s")
 
     # 6. the card
     smi = subprocess.run(["nvidia-smi", "-i", "0",

@@ -1,6 +1,7 @@
 """Command line of the port: ``python -m genomax_torch sw <input>``,
-``python -m genomax_torch pairhmm <input> <output>`` and
-``python -m genomax_torch generate <output>``.
+``python -m genomax_torch pairhmm <input> <output>``,
+``python -m genomax_torch generate <output>``, and the harnesses ``parity``,
+``soak``, ``bench`` and ``bench-dist``.
 
 The same flags and output as ``genomax sw``, ``genomax pairhmm`` and
 ``genomax generate``: sw prints one "Score: %d" line per pair (appended to
@@ -9,7 +10,7 @@ The same flags and output as ``genomax sw``, ``genomax pairhmm`` and
 run's RunStats as JSON on stderr. --device picks the torch device, and there
 is no fallback from one to the other: without a card, --device cuda (the
 default) prints the error and returns 2. The TPU's --backend, --interpret
-and ``probe`` have no counterpart.
+(soak's too), bench's --unrolls and ``probe`` have no counterpart.
 
 --chunk N streams the workload through ``engine/stream.py`` in chunks of N
 pairs (sw) or N batches (pairhmm), the next chunk packed while this one
@@ -27,6 +28,15 @@ under ``torchrun`` (or of --num-processes processes started with
 --xshard MINLEN (with --devices) sends SW pairs past --max-device-len
 whose x has at least MINLEN bases through the cross-device wavefront, in
 blocks of --unroll diagonals. --chunk and --resume take no --devices.
+
+``parity`` diffs the engine against the reference binaries, or the
+vendored goldens (testing/parity.py); ``soak`` runs the seeded campaign
+against the oracles, ``--deep`` the sharded engine and the long-read
+kernel (testing/soak.py); ``bench`` times the kernels the engine runs, by
+length (bench/sweep.py); ``bench-dist`` times ShardedEngine on meshes of
+the first K ranks of the process group (bench/scaling.py). ``bench-dist``
+and ``soak --deep --devices N`` start the process group as ``sw
+--devices`` does. Each takes --device, default cuda.
 """
 
 from __future__ import annotations
@@ -253,10 +263,63 @@ def _add_engine_args(p):
                    help="with --devices: SW pairs past --max-device-len with "
                         "len(x) >= MINLEN score through the cross-device "
                         "wavefront (one DP matrix in per-rank strips)")
+    _add_group_args(p)
+
+
+def _add_group_args(p):
     p.add_argument("--coordinator", metavar="HOST:PORT",
                    help="the process group's TCP rendezvous")
     p.add_argument("--num-processes", type=int)
     p.add_argument("--process-id", type=int)
+
+
+def _start_group(args):
+    """Start the process group of --coordinator, --num-processes and
+    --process-id (or torchrun's environment): NCCL on cuda, gloo on the
+    CPU; a no-op for one process."""
+    from genomax_torch.dist.mesh import BACKENDS, initialize_distributed
+
+    initialize_distributed(args.coordinator, args.num_processes,
+                           args.process_id, backend=BACKENDS[args.device])
+
+
+def cmd_parity(args) -> int:
+    from genomax_torch.testing.parity import run_parity
+
+    return run_parity(reference_dir=args.reference_dir, device=args.device)
+
+
+def cmd_soak(args) -> int:
+    from genomax_torch.testing import soak
+
+    if args.deep:
+        _start_group(args)
+    return soak.main(args)
+
+
+def cmd_bench(args) -> int:
+    from genomax_torch.bench.sweep import run_pairhmm_sweep, run_sweep
+
+    if args.kernel == "pairhmm":
+        pts = [tuple(int(x) for x in spec.split(","))
+               for spec in args.pairhmm_points.split(";")]
+        if any(len(p) != 4 for p in pts):
+            raise ValueError(f"--pairhmm-points {args.pairhmm_points!r}: "
+                             "want n_reads,n_haps,read_len,hap_len;...")
+        run_pairhmm_sweep(pts, device=args.device, json_out=args.json)
+        return 0
+    run_sweep([int(x) for x in args.lengths.split(",")], args.num,
+              device=args.device, json_out=args.json)
+    return 0
+
+
+def cmd_bench_dist(args) -> int:
+    from genomax_torch.bench.scaling import run_scaling
+
+    _start_group(args)
+    run_scaling([int(x) for x in args.devices.split(",")], args.num,
+                args.length, device=args.device, json_out=args.json)
+    return 0
 
 
 def main(argv=None) -> int:
@@ -304,6 +367,48 @@ def main(argv=None) -> int:
     p.add_argument("--max-len", type=int, default=500)
     p.add_argument("--seed", type=int, default=0)
     p.set_defaults(fn=cmd_generate)
+    p = sub.add_parser("bench", help="length sweep of kernel-only GCUPS "
+                                     "(bench/sweep.py)")
+    p.add_argument("--kernel", default="sw", choices=["sw", "pairhmm"])
+    p.add_argument("--pairhmm-points",
+                   default="1024,8,151,300;4096,8,151,300;1024,8,250,400",
+                   help="semicolon-separated n_reads,n_haps,read_len,hap_len")
+    p.add_argument("--lengths", default="64,128,256,512,1024")
+    p.add_argument("--num", type=int, default=25000,
+                   help="alignments per point")
+    p.add_argument("--json", help="write the rows as JSON to this path")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    p.set_defaults(fn=cmd_bench)
+    p = sub.add_parser("bench-dist", help="pairs/s scaling of ShardedEngine "
+                                          "over meshes of 1..N ranks "
+                                          "(bench/scaling.py)")
+    p.add_argument("--devices", default="1,2,4,8",
+                   help="mesh sizes to sweep, each the first K ranks of the "
+                        "process group")
+    p.add_argument("--num", type=int, default=2048, help="alignments")
+    p.add_argument("--length", type=int, default=256)
+    p.add_argument("--json", help="write the rows as JSON to this path")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    _add_group_args(p)
+    p.set_defaults(fn=cmd_bench_dist)
+    p = sub.add_parser("parity", help="diff against the reference C "
+                                      "binaries, or the vendored goldens")
+    p.add_argument("--reference-dir", default="/root/reference")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    p.set_defaults(fn=cmd_parity)
+    p = sub.add_parser("soak", help="seeded randomised differential soak "
+                                    "against the fp64 oracles")
+    p.add_argument("--rounds", type=int, default=24)
+    p.add_argument("--seed", type=int, default=20260817)
+    p.add_argument("--deep", action="store_true",
+                   help="the deep paths: ShardedEngine on a mesh and the "
+                        "long-read kernel on adversarial rescale patterns")
+    p.add_argument("--devices", type=int, default=1,
+                   help="the mesh size of --deep's sharded rounds (the "
+                        "process group's size)")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    _add_group_args(p)
+    p.set_defaults(fn=cmd_soak)
     args = ap.parse_args(argv)
     try:
         return args.fn(args)

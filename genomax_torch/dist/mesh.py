@@ -77,6 +77,14 @@ class Mesh:
         dist.all_gather(out, t.contiguous(), group=self.group)
         return out
 
+    def global_rank(self, r: int) -> int:
+        """The process group's rank of this mesh's rank r (the same unless
+        the mesh is a sub-group): point-to-point calls name global
+        ranks."""
+        if self.group is None or self.group is dist.group.WORLD:
+            return r
+        return dist.get_global_rank(self.group, r)
+
     def all_reduce_max(self, t: torch.Tensor) -> torch.Tensor:
         """The elementwise maximum of ``t`` over the ranks, in place."""
         if self.group is not None:
@@ -84,25 +92,34 @@ class Mesh:
         return t
 
 
-def make_mesh(n_devices: int | None = None, *, device="cuda") -> Mesh:
+def make_mesh(n_devices: int | None = None, *, device="cuda",
+              group=None) -> Mesh:
     """This process's mesh: the process group's rank and size (rank 0 of 1
     when none is up) and one device of the kind ``device`` names,
     ``cuda:LOCAL_RANK`` (LOCAL_RANK from the environment, default 0) or the
-    CPU. ``n_devices``, when given, must equal the group's size: there is
-    no fallback to other devices. The group's backend must be the one of
-    the device kind (NCCL for cuda, gloo for the CPU)."""
+    CPU. ``group``, a ``torch.distributed.new_group`` this process belongs
+    to, makes the mesh that group's instead of the whole process group's,
+    rank and size taken within it. ``n_devices``, when given, must equal
+    the group's size: there is no fallback to other devices. The group's
+    backend must be the one of the device kind (NCCL for cuda, gloo for the
+    CPU)."""
     kind = torch.device(device).type
     if kind not in BACKENDS:
         raise ValueError(f"device {device}: want cuda or cpu")
     if dist.is_available() and dist.is_initialized():
-        group, rank, size = (dist.group.WORLD, dist.get_rank(),
-                             dist.get_world_size())
-        backend = dist.get_backend()
+        group = dist.group.WORLD if group is None else group
+        rank, size = dist.get_rank(group), dist.get_world_size(group)
+        if rank < 0:
+            raise ValueError("this process is not a rank of the group")
+        backend = dist.get_backend(group)
         if backend != BACKENDS[kind]:
             raise ValueError(f"a {kind} mesh needs the {BACKENDS[kind]} "
                              f"backend; the process group runs {backend}")
+    elif group is not None:
+        raise ValueError("a sub-group mesh needs a process group; call "
+                         "initialize_distributed first")
     else:
-        group, rank, size = None, 0, 1
+        rank, size = 0, 1
     if n_devices is not None and n_devices != size:
         raise ValueError(
             f"need {n_devices} devices, the process group has {size} ranks "

@@ -354,11 +354,13 @@ def sw_forward_xsharded(sx_strip: torch.Tensor, sy: torch.Tensor, *, mesh,
         if K > 1 and b > 0:
             ops = []
             if k + 1 < K:
-                ops.append(dist.P2POp(dist.isend, mine, k + 1,
+                ops.append(dist.P2POp(dist.isend, mine,
+                                      mesh.global_rank(k + 1),
                                       group=mesh.group))
             if k > 0:
                 theirs = torch.empty_like(zh)
-                ops.append(dist.P2POp(dist.irecv, theirs, k - 1,
+                ops.append(dist.P2POp(dist.irecv, theirs,
+                                      mesh.global_rank(k - 1),
                                       group=mesh.group))
             for req in dist.batch_isend_irecv(ops):
                 req.wait()

@@ -177,32 +177,38 @@ class Engine:
 
     # -- Smith-Waterman ----------------------------------------------------
 
-    def _sw_bucket(self, b):
-        # The routing of genomax.engine.executor.Engine._sw_bucket: strips
-        # where its predicate takes the bucket, then the rotor where its
-        # predicate does (never under sw_stack >= 2), then the stacked
-        # kernel where its predicate does, else the lane-tile kernel. The
-        # rotor's and the stacked kernel's rows come back in bucket tile
-        # order (the stack's pad tiles last, past n_valid), so
-        # unpack_scores needs no change.
+    def _sw_prep(self, b):
+        """(route, launch) of bucket b: the prep and the copies to the
+        device done, ``launch()`` the kernel call alone, returning its
+        (rows, 128) scores. The routing of
+        genomax.engine.executor.Engine._sw_bucket: "strips" where its
+        predicate takes the bucket, then "rotor" where its predicate does
+        (never under sw_stack >= 2), then "stacked" where its predicate
+        does, else "tile", the lane-tile kernel. The rotor's and the stacked
+        kernel's rows come back in bucket tile order (the stack's pad tiles
+        last, past n_valid), so unpack_scores needs no change. The engine
+        and the sweep (``bench/sweep.py``) share it."""
         prep = maybe_prep_strips(self.cfg, b)
         if prep is not None:
             (_, _, _, nyt), statics = prep
-            return sw_forward_strips(*sw_strips_to_torch(prep, b, self.device),
-                                     ny_max=int(nyt.max()), cfg=self.sw_cfg,
-                                     **statics)
+            t, ny_max = sw_strips_to_torch(prep, b, self.device), int(nyt.max())
+            return "strips", lambda: sw_forward_strips(
+                *t, ny_max=ny_max, cfg=self.sw_cfg, **statics)
         prep = maybe_prep_rotor(self.cfg, b)
         if prep is not None:
-            return sw_forward_rotor_bucket(
-                *sw_rotor_to_torch(prep, self.device), cfg=self.sw_cfg,
-                **prep[1])
+            t = sw_rotor_to_torch(prep, self.device)
+            return "rotor", lambda: sw_forward_rotor_bucket(
+                *t, cfg=self.sw_cfg, **prep[1])
         prep = maybe_prep_stacked(self.cfg, b)
         if prep is not None:
-            return sw_forward_stacked(
-                *sw_stacked_to_torch(prep, self.device), cfg=self.sw_cfg,
-                **prep[1])
-        sx, sy, ndiag = sw_bucket_to_torch(b, self.device)
-        return sw_forward(sx, sy, ndiag, self.sw_cfg)
+            t = sw_stacked_to_torch(prep, self.device)
+            return "stacked", lambda: sw_forward_stacked(
+                *t, cfg=self.sw_cfg, **prep[1])
+        t = sw_bucket_to_torch(b, self.device)
+        return "tile", lambda: sw_forward(*t, self.sw_cfg)
+
+    def _sw_bucket(self, b):
+        return self._sw_prep(b)[1]()
 
     def _sw_offload_mask(self, pairs):
         """True = too big for the lane-tile kernel (the predicate of the
@@ -235,6 +241,13 @@ class Engine:
         shares them over its mesh)."""
         return _run_buckets("sw", buckets, self._sw_bucket, self.device)
 
+    def _sw_long_ok(self, pairs, idx) -> np.ndarray:
+        """True where the offloaded pair pairs[i], i in idx, takes the
+        long-pair kernel on the device, False where the native model."""
+        return np.array([len(pairs[i].sx) + len(pairs[i].sy)
+                         <= self.cfg.max_device_diags for i in idx],
+                        dtype=bool)
+
     def _sw_offload_post(self, pairs, out, off, stats):
         """Score the pairs the lane-tile kernel does not take, pair by
         pair: the long-pair kernel on the engine's device up to
@@ -245,9 +258,7 @@ class Engine:
             return
         idx = np.nonzero(off)[0]
         stats.offloaded_jobs += len(idx)
-        dev_ok = np.array([len(pairs[i].sx) + len(pairs[i].sy)
-                           <= self.cfg.max_device_diags for i in idx],
-                          dtype=bool)
+        dev_ok = self._sw_long_ok(pairs, idx)
         if dev_ok.any():
             didx = idx[dev_ok]
             try:
@@ -265,13 +276,27 @@ class Engine:
 
     # -- PairHMM -----------------------------------------------------------
 
+    def _phmm_prep(self, b):
+        """``launch`` of bucket b: the copies to the device and the
+        expansion done, ``launch()`` the kernel call alone, returning its
+        (NT, 128) log10 likelihoods. The engine and the sweep share it."""
+        t = phmm_bucket_to_torch(b, self.device,
+                                 float(self.phmm_cfg.phred_offset))
+        return lambda: pairhmm_forward(*t,
+                                       rescale_period=self.cfg.rescale_period,
+                                       mm_div=self.phmm_cfg.mm_div,
+                                       bitmask=b.bitmask_codes)
+
     def _phmm_bucket(self, b):
-        tensors = phmm_bucket_to_torch(b, self.device,
-                                       float(self.phmm_cfg.phred_offset))
-        return pairhmm_forward(*tensors,
-                               rescale_period=self.cfg.rescale_period,
-                               mm_div=self.phmm_cfg.mm_div,
-                               bitmask=b.bitmask_codes)
+        return self._phmm_prep(b)()
+
+    def _phmm_pack(self, batches, job_mask=None):
+        """(buckets, n_jobs): the engine's pack of PairHMM batches (byte
+        qualities, factored, bitmask codes), jobs where job_mask is False
+        left out."""
+        return pack_pairhmm_batches(
+            batches, self.phmm_cfg.phred_offset, job_mask=job_mask,
+            byte_quals=True, factored=True, bitmask_codes=True)
 
     def _phmm_offload_mask(self, jobs):
         """True = too big for the lane-tile kernel. PairHMM applies half
@@ -290,10 +315,8 @@ class Engine:
         jobs = _jobs(batches)
         off = self._phmm_offload_mask(jobs)
         t0 = time.perf_counter()
-        buckets, n = pack_pairhmm_batches(
-            batches, self.phmm_cfg.phred_offset,
-            job_mask=None if off is None else ~off, byte_quals=True,
-            factored=True, bitmask_codes=True)
+        buckets, n = self._phmm_pack(batches,
+                                     None if off is None else ~off)
         stats.pack_s = time.perf_counter() - t0
         stats.n_jobs = n
         stats.buckets = len(buckets)

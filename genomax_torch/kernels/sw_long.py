@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -217,19 +218,29 @@ def tile_to_torch(b: SWLongPacked, device):
                  for a in (b.sx, b.sy, b.nx, b.ny))
 
 
+def tile_launches(pairs, cfg: SWConfig = SWConfig(), *, device,
+                  strip_w: int = STRIP_W):
+    """Yield (base, n, launch) for each tile of 128 pairs in input order,
+    packed on the host and copied to ``device`` as it is reached;
+    ``launch()`` is the kernel call alone, returning the tile's (128,)
+    scores, the first n of them its pairs'. ``sw_scores_long`` and the
+    sweep (``bench/sweep.py``) share it."""
+    device = torch.device(device)
+    for base in range(0, len(pairs), LANES):
+        b = pack_sw_long(pairs[base : base + LANES], strip_w)
+        t = tile_to_torch(b, device)
+        yield base, b.n_valid, functools.partial(
+            sw_forward_long, *t, k_strips=b.n_strips, strip_w=b.strip_w,
+            ny_max=b.ny_max, cfg=cfg)
+
+
 def sw_scores_long(pairs, cfg: SWConfig = SWConfig(), *, device,
                    strip_w: int = STRIP_W) -> np.ndarray:
     """Scores of SWPair jobs of any length, in order: tiles of 128 in input
-    order, packed on the host, copied to ``device`` and scored there, all
-    tiles launched before the first copy back."""
-    device = torch.device(device)
-    pending = []
-    for base in range(0, len(pairs), LANES):
-        b = pack_sw_long(pairs[base : base + LANES], strip_w)
-        sx, sy, nx, ny = tile_to_torch(b, device)
-        pending.append((base, b.n_valid, sw_forward_long(
-            sx, sy, nx, ny, k_strips=b.n_strips, strip_w=b.strip_w,
-            ny_max=b.ny_max, cfg=cfg)))
+    order, packed on the host, copied to ``device`` and scored there, each
+    launched as soon as it is packed, all before the first copy back."""
+    pending = [(base, n, launch()) for base, n, launch in tile_launches(
+        pairs, cfg, device=device, strip_w=strip_w)]
     out = np.zeros(len(pairs), np.int32)
     for base, n, r in pending:
         out[base : base + n] = r.cpu().numpy()[:n]

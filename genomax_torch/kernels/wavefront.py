@@ -184,8 +184,9 @@ def sw_long_forward(sx: torch.Tensor, sy: torch.Tensor, nx: torch.Tensor,
 
     It sweeps as the kernel does, so that it tests the strip seam and not
     only the score: the K strips of W rows one after another, strip k over
-    the diagonals [kW + 1, min(kW + W - 1, len x) + len y] of the tile's
-    longest pair; the strip's last row writes its D and Q of diagonal d to
+    the diagonals [kW + 1, max over the pairs of min(kW + W - 1, len x) +
+    len y], its last live one (not the longest x's row plus the longest y,
+    which may be two pairs' and pass the anchor); the strip's last row writes its D and Q of diagonal d to
     halo row d, and the next strip's first row takes the row above from
     halo row d - 1 (and keeps d - 2 as its diagonal neighbour). One halo
     serves every strip: a strip reads row d, for the next diagonal, before
@@ -233,7 +234,7 @@ def sw_long_forward(sx: torch.Tensor, sy: torch.Tensor, nx: torch.Tensor,
         up2 = d1e[1:].clone()
         if k:
             d1e[0], q1e[0] = halo_d[row0], halo_q[row0]
-        for d in range(row0 + 1, min(row0 + w - 1, lx_max) + ly_max + 1):
+        for d in range(row0 + 1, int(d_hi.max()) + 1):
             up_d, up_q, d1 = d1e[:-1], q1e[:-1], d1e[1:]
             live = (d_lo <= d) & (d_hi >= d)
             yw = sy[anchor - d + row0: anchor - d + row0 + w]
@@ -274,7 +275,8 @@ def sw_strips_forward_tiles(sx: torch.Tensor, sy: torch.Tensor,
     The bucket flattened to (K*W, NT*128) columns has the layout of one
     long-pair tile, so this is ``sw_long_forward`` over all its columns.
     Every stream read stays in [0, NDs) while W <= NXs: the pack's anchor
-    is at least max(nx + ny - 1) + 32.
+    is at least max(nx + ny - 1) + 32, and each strip stops at its last
+    live diagonal, at most max(nx + ny - 2).
     """
     nt, kw, lanes = sx.shape
     if nt == 0:

@@ -3,10 +3,11 @@ group on the CPU. Imports no jax and nothing of the JAX package.
 
 Environment: GX_RANK, GX_WORLD, GX_INIT (the group's file:// init method),
 GX_JOBS (a JSON file of the jobs), GX_OUT (this rank writes GX_OUT.<rank>),
-GX_MODE ("engine": ShardedEngine on the SW and PairHMM jobs and on the
-xshard routing case; "sw": ShardedEngine on the SW jobs under each
+GX_MODE ("engine": ShardedEngine on the SW jobs and PairHMM jobs and on
+the xshard routing case; "sw": ShardedEngine on the SW jobs under each
 EngineConfig of jobs["configs"]; "xshard": sw_forward_xsharded on each
-case, windowed to the live rows).
+case, windowed to the live rows; "scaling": bench.scaling.run_scaling at
+jobs["devices"], and a mesh of the sub-group of the last rank alone).
 """
 
 import json
@@ -74,6 +75,15 @@ def main():
             eng = ShardedEngine(mesh, EngineConfig(**kw))
             out[f"sw{i}"] = eng.sw_scores(pairs).tolist()
             out[f"sw{i}_stats"] = _counts(eng.last_stats)
+    elif os.environ["GX_MODE"] == "scaling":
+        from genomax_torch.bench.scaling import run_scaling
+
+        out["rows"] = run_scaling(jobs["devices"], jobs["num"],
+                                  jobs["length"], device="cpu")
+        last = torch.distributed.new_group([world - 1])
+        if rank == world - 1:
+            sub = make_mesh(1, device="cpu", group=last)
+            out["sub"] = [sub.rank, sub.size, sub.global_rank(0)]
     else:
         from genomax_torch.dist import xsharded
 

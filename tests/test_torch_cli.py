@@ -398,9 +398,95 @@ def test_cli_unroll_through_xshard(tmp_path, monkeypatch, capsys):
 
 @pytest.mark.parametrize("argv", [["sw", "x.in", "--backend", "lax"],
                                   ["sw", "x.in", "--interpret"],
-                                  ["probe"]])
+                                  ["probe"],
+                                  ["bench", "--unrolls", "8"],
+                                  ["bench", "--backend", "lax"],
+                                  ["bench-dist", "--backend", "lax"],
+                                  ["parity", "--backend", "lax"],
+                                  ["soak", "--backend", "lax"],
+                                  ["soak", "--interpret"]])
 def test_cli_tpu_only_surface_is_refused(capsys, argv):
-    """--backend, --interpret and probe belong to the TPU package."""
+    """--backend, --interpret, bench's --unrolls (the TPU wavefront's
+    unroll) and probe belong to the TPU package."""
     with pytest.raises(SystemExit) as e:
         main(argv)
     assert e.value.code == 2
+
+
+# The harness subcommands on the CPU, as tests/test_cli.py runs them for
+# the JAX package.
+HARNESS_ARGV = {
+    "parity": ["parity"],
+    "soak": ["soak", "--rounds", "3", "--seed", "7"],
+    "bench": ["bench", "--lengths", "16,40", "--num", "16", "--json", None],
+    "bench-dist": ["bench-dist", "--devices", "1", "--num", "16", "--length",
+                   "32"],
+}
+
+
+@pytest.mark.parametrize("cmd", HARNESS_ARGV)
+def test_cli_harness_subcommand_on_the_cpu(capsys, tmp_path, cmd):
+    js = tmp_path / "rows.json"
+    argv = [str(js) if a is None else a for a in HARNESS_ARGV[cmd]]
+    assert main(argv + ["--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    want = {"parity": "PARITY: PASS", "soak": "SOAK PASS",
+            "bench": "SW sweep: 16 alignments per point, device=cpu",
+            "bench-dist": "platform=cpu, process group of 1 rank(s)"}[cmd]
+    assert want in out
+    if cmd == "bench":
+        rows = json.loads(js.read_text())
+        assert [r["length"] for r in rows] == [16, 40]
+
+
+def test_cli_bench_pairhmm_points(capsys, tmp_path):
+    js = tmp_path / "ph.json"
+    assert main(["bench", "--kernel", "pairhmm", "--pairhmm-points",
+                 "2,1,8,9;1,2,5,6", "--json", str(js), "--device",
+                 "cpu"]) == 0
+    rows = json.loads(js.read_text())
+    assert [(r["pairs"], r["read_len"], r["hap_len"]) for r in rows] == [
+        (2, 8, 9), (2, 5, 6)]
+    assert main(["bench", "--kernel", "pairhmm", "--pairhmm-points", "2,1,8",
+                 "--device", "cpu"]) == 2
+
+
+def test_cli_soak_deep_on_the_cpu(capsys, monkeypatch):
+    """soak --deep: the sharded rounds on a one-rank mesh, no process
+    group started for one device."""
+    from genomax_torch.testing import soak
+
+    real = soak.run_deep_soak
+    monkeypatch.setattr(soak, "run_deep_soak", lambda **kw: real(
+        **kw, long_rows=(200, 260), long_cols=(60, 90)))
+    assert main(["soak", "--deep", "--rounds", "2", "--seed", "11",
+                 "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "SHARDED-1dev" in out and "DEEP SOAK PASS" in out
+
+
+def test_cli_soak_mismatch_returns_one(capsys, monkeypatch):
+    from genomax_torch.engine.executor import Engine
+
+    real = Engine.sw_scores
+    monkeypatch.setattr(Engine, "sw_scores",
+                        lambda self, pairs: real(self, pairs) + 1)
+    assert main(["soak", "--rounds", "1", "--seed", "7", "--device",
+                 "cpu"]) == 1
+    assert "MISMATCH" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("argv", [["parity"], ["soak", "--rounds", "1"],
+                                  ["soak", "--deep", "--rounds", "1"],
+                                  ["bench", "--lengths", "8", "--num", "2"],
+                                  ["bench-dist", "--devices", "1", "--num",
+                                   "2"]])
+def test_cli_harness_without_a_card_prints_the_error(capsys, monkeypatch,
+                                                     argv):
+    """--device cuda (the default) without a card: rc 2 and the error,
+    never a run on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert main(argv) == 2
+    out = capsys.readouterr()
+    assert "no CUDA device" in out.err
+    assert "PASS" not in out.out

@@ -58,7 +58,10 @@ def test_every_module_imports_without_jax_or_genomax(walked):
     "genomax_torch.kernels.wavefront", "genomax_torch.cli.main",
     "genomax_torch.dist", "genomax_torch.dist.mesh",
     "genomax_torch.dist.sharded", "genomax_torch.dist.engine",
-    "genomax_torch.dist.xsharded"])
+    "genomax_torch.dist.xsharded", "genomax_torch.kernels.oracle",
+    "genomax_torch.testing", "genomax_torch.testing.parity",
+    "genomax_torch.testing.soak", "genomax_torch.bench",
+    "genomax_torch.bench.sweep", "genomax_torch.bench.scaling"])
 def test_module_is_part_of_the_walk(walked, name):
     assert name in walked["modules"]
 

@@ -459,3 +459,26 @@ def test_build_key_covers_the_rows_header(monkeypatch, tmp_path):
         f.write(b"// edited\n")
     changed = {n for n, k in keys.items() if _build.key(n) != k}
     assert changed == {"sw_tile", "sw_strips", "sw_stacked"}
+
+
+def test_plain_sweep_stops_at_the_last_live_diagonal():
+    """A bucket whose longest x and longest y are two pairs' (x 540 by y
+    560, and a tandem-repeat y of 809 over x 400): the tile's longest x
+    plus its longest y, 1,349, passes the stream anchor of 1,280, which
+    only each pair's own x + y (at most 1,209) must stay under. The plain
+    strip sweep, the engine's CPU route, stops each strip at its last live
+    diagonal and scores both pairs exactly; it once read a stream window
+    past the anchor there and raised."""
+    rng = np.random.default_rng(7)
+    x = _dna(rng, 400)
+    pairs = [SWPair(sx=_dna(rng, 540), sy=_dna(rng, 560)),
+             SWPair(sx=x, sy=x + _dna(rng, 9) + x)]
+    (b,) = pack_sw_pairs(pairs)
+    prep = torch_strips.maybe_prep_strips(EngineConfig(), b)
+    st = prep[1]
+    assert (st["k_strips"], b.sx.shape[1], st["anchor"]) == (1, 544, 1280)
+    assert 540 + 809 > st["anchor"] >= max(len(p.sx) + len(p.sy) + 1
+                                           for p in pairs) + 32
+    got = Engine(device="cpu").sw_scores(pairs)
+    np.testing.assert_array_equal(got, oracle.sw_scores_pairs(pairs))
+    np.testing.assert_array_equal(got, native.sw_scores_native(pairs))
