@@ -7,7 +7,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 Phases (one line each; any failure exits non-zero). They run in the
 order 1, 2, 19, 21, 24, 27, 3, 4, 5, 33, 22, 23, 25, 26, 28, 29, 20,
-7-18, 30-32, 34, 35, 36, 6:
+7-18, 30-32, 34-37, 6:
   1. build      nvcc-builds the nine kernels (csrc/sw_tile.cu,
                 csrc/sw_long.cu, csrc/sw_strips.cu, csrc/sw_rotor.cu,
                 csrc/sw_stacked.cu, csrc/sw_conveyor.cu, csrc/sw_xstrip.cu,
@@ -300,6 +300,25 @@ order 1, 2, 19, 21, 24, 27, 3, 4, 5, 33, 22, 23, 25, 26, 28, 29, 20,
                 rows within 0.5-2x of phases 23, 5 and 10's slopes;
                 bench-dist --devices 1,2: the 1-device row measures, the
                 2-device row is "--"
+ 37. ladder     the SW transfer ladder (pack/nibble.py): on phase 4's
+                and phase 22's buckets the raw, band, nibble and band +
+                nibble forms copied and rebuilt on the card == the host
+                pack's tensors bit for bit (the nibble forms its codes
+                through the bucket's LUT), and the engine's make_shipper
+                likewise; each form's bytes and its copy + expansion ms by
+                CUDA events in turns, the host's build_code_lut and
+                nibble_pack by the host clock; the engine walls of phase
+                4's, phase 22's and phase 34's 100,000 x 512bp pairs under
+                (stream_band_transfer, nibble_transfer) = (off, off), (on,
+                off), (off, on), (on, on), three turns each (forward,
+                backward, forward; on 100,000 pairs the two nibble
+                settings once, 2-4 s a run), each run's stages as in
+                phase 9 with the LUT, nibble pack and stream copy inside
+                the run, every score == the one-shot engine's of phases
+                4, 22 and 34, one launch of the strips or rotor kernel a
+                run; the medians,
+                the off spread and this run's verdict of the default rule;
+                a one-rank ShardedEngine with band and nibbles == Engine
 
 Then one JSON line describing each kernel, the card line, and, last,
 {"ok": true, "device": {...}}. Without a CUDA device, or outside the
@@ -349,6 +368,11 @@ RT_PAIRS, RT_LEN = 25000, 64
 # 9's 65,536 jobs of 151 x 300 as 512 reads x 128 haplotypes.
 SOAK_SEED, SOAK_ROUNDS, DEEP_ROUNDS = 20260817, 3, 4
 BENCH_LENS, BENCH_PH_POINT = (64, 512, 1024), "512,128,151,300"
+# Phase 37: the transfer ladder's four settings, (stream_band_transfer,
+# nibble_transfer), each engine wall timed in this many turns.
+LADDER_SETTINGS = ((False, False), (True, False), (False, True),
+                   (True, True))
+LADDER_TURNS = 3
 # The lane tile's default route: short reads against reference windows
 # longer than the rotor's period, 25,000 x (100bp + '\n', 300bp + '\n').
 DR_PAIRS, DR_X_LEN, DR_Y_LEN = 25000, 100, 300
@@ -831,7 +855,8 @@ def stream_phase(sw512, sw64, ph):
     """Phase 34: Engine.sw_scores_stream and Engine.pairhmm_stream against
     the one-shot engine at full width, each streamed wall in turns with
     its unchunked wall. ``sw512`` is phase 4's (pairs, scores), ``sw64``
-    phase 22's, ``ph`` phase 9's (batch, values, fallback_jobs)."""
+    phase 22's, ``ph`` phase 9's (batch, values, fallback_jobs). Returns
+    the headline's (pairs, one-shot scores), 100,000 x 512bp."""
     import numpy as np
 
     from genomax_torch import native
@@ -904,7 +929,7 @@ def stream_phase(sw512, sw64, ph):
         [pairs[i] for i in sample])), "the engine != native model on the "
         "sampled pairs")
     turns(f"sw {len(pairs)} x {LEN}bp", "sw", pairs, [65536, 25000], want)
-    del pairs
+    headline = (pairs, want)
     turns(f"sw {N_PAIRS} x {LEN}bp (phase 4)", "sw", sw512[0], [6250],
           sw512[1])
     _, launches = turns(f"sw {RT_PAIRS} x {RT_LEN}bp (phase 22)", "sw",
@@ -932,6 +957,7 @@ def stream_phase(sw512, sw64, ph):
           f"streamed fallbacks {st.fallback_jobs} vs {one_fallbacks}")
     print(f"phase 34 pairhmm: one-shot on the 128 batches vs phase 9 max "
           f"|err| {err9:.3g}, {one_fallbacks} fallbacks in every run")
+    return headline
 
 
 def cli_phase(kernels):
@@ -1198,6 +1224,182 @@ def harness_phase(slopes):
           f"bench-dist: {text}")
     print(f"phase 36 bench-dist ({t:.1f} s): " + " | ".join(
         ln.strip() for ln in lines))
+
+
+def ladder_phase(sw512, sw64, headline):
+    """Phase 37: the SW transfer ladder (pack/nibble.py) on the card.
+    ``sw512`` is phase 4's (pairs, scores), ``sw64`` phase 22's,
+    ``headline`` phase 34's 100,000 x 512bp (pairs, scores). (a) On
+    both buckets the raw, band, nibble and band + nibble forms rebuild the
+    host pack's tensors bit for bit on the card (the nibble forms its
+    remapped codes), and so does the engine's own shipper; (b) each form's
+    copy and expansion by CUDA events and its bytes, the host's LUT and
+    nibble pack by the host clock; (c) the engine walls of 25,000 x 512bp,
+    25,000 x 64bp and bench.py's 100,000 x 512bp under the four settings
+    in turns, every score equal to the one-shot engine's of phases 4, 22
+    and 34 (the nibble settings on 100,000 pairs once: 2-4 s a run); (d)
+    a one-rank ShardedEngine with band and nibbles equal to Engine."""
+    import numpy as np
+    import torch
+
+    from genomax_torch.config import EngineConfig
+    from genomax_torch.dist.engine import ShardedEngine
+    from genomax_torch.dist.mesh import make_mesh
+    from genomax_torch.engine import executor
+    from genomax_torch.engine.executor import Engine
+    from genomax_torch.kernels import sw, sw_rotor, sw_stacked, sw_strips
+    from genomax_torch.pack import nibble, tensors
+    from genomax_torch.pack.bucketing import pack_sw_pairs
+
+    dev = torch.device("cuda")
+
+    def put(a):
+        return torch.from_numpy(a).to(dev)
+
+    def host_s(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        return out, time.perf_counter() - t0
+
+    # (a) and (b), bucket by bucket
+    for label, pairs in ((f"{N_PAIRS} x {LEN}bp", sw512[0]),
+                         (f"{RT_PAIRS} x {RT_LEN}bp", sw64[0])):
+        (bf,), t_full = host_s(lambda: pack_sw_pairs(pairs))
+        (bb,), t_band = host_s(lambda: pack_sw_pairs(pairs, stream_band=True))
+        band = bb.sy.band
+        check(np.array_equal(bb.sx, bf.sx)
+              and np.array_equal(bb.sy.materialize(), bf.sy),
+              f"{label}: the band pack != the full pack on the host")
+        lut, t_lut_full = host_s(lambda: nibble.build_code_lut(bf.sx, bf.sy))
+        lut_b, t_lut_band = host_s(lambda: nibble.build_code_lut(bf.sx, band))
+        check(lut is not None and np.array_equal(lut, lut_b),
+              f"{label}: the LUTs of the full and the band forms differ")
+        psx, t_psx = host_s(lambda: nibble.nibble_pack(bf.sx, lut))
+        psy, t_psy = host_s(lambda: nibble.nibble_pack(bf.sy, lut))
+        pband, t_pband = host_s(lambda: nibble.nibble_pack(band, lut))
+        packed = {id(bf.sx): psx, id(bf.sy): psy, id(band): pband}
+
+        def dev_ship(a):
+            # make_shipper's device side: the copy of the host-packed
+            # bytes and the expansion
+            return nibble.expand_nibbles(put(packed[id(a)]), a.shape[1])
+
+        raw = (put(bf.sx), put(bf.sy))
+        remapped = (put(lut[bf.sx.view(np.uint8)].view(np.int8)),
+                    put(lut[bf.sy.view(np.uint8)].view(np.int8)))
+        forms = {"raw": (put, bf.sy, bf.sx.nbytes + bf.sy.nbytes, raw),
+                 "band": (put, bb.sy, bf.sx.nbytes + band.nbytes, raw),
+                 "nibble": (dev_ship, bf.sy, psx.nbytes + psy.nbytes,
+                            remapped),
+                 "band+nibble": (dev_ship, bb.sy, psx.nbytes + pband.nbytes,
+                                 remapped)}
+        for name, (ship, sy, _, want) in forms.items():
+            got = (ship(bf.sx), nibble.ship_stream(ship, sy))
+            check(all(g.dtype == torch.int8 and g.is_contiguous()
+                      and torch.equal(g, w) for g, w in zip(got, want)),
+                  f"{label}, {name}: the tensors on the card != the host "
+                  "pack's")
+        eng_ship = nibble.make_shipper(put, lut=lut)
+        for sy in (bf.sy, bb.sy):
+            got = (eng_ship(bf.sx), nibble.ship_stream(eng_ship, sy))
+            check(all(torch.equal(g, w) for g, w in zip(got, remapped)),
+                  f"{label}: make_shipper's tensors != the remapped pack")
+        check(torch.equal(nibble.expand_nibbles(put(pband), band.shape[1]),
+                          put(lut[band.view(np.uint8)].view(np.int8))),
+              f"{label}: expand_nibbles != the remapped band")
+        del raw, remapped, got
+        ms = {name: [] for name in forms}
+        start, end = torch.cuda.Event(True), torch.cuda.Event(True)
+        order = list(forms) + list(forms)[::-1] + list(forms)
+        for name in order:
+            ship, sy = forms[name][:2]
+            torch.cuda.synchronize()
+            start.record()
+            ship(bf.sx)
+            nibble.ship_stream(ship, sy)
+            end.record()
+            torch.cuda.synchronize()
+            ms[name].append(start.elapsed_time(end))
+        print(f"phase 37 {label} (NT {bf.sx.shape[0]}, NXs {bf.sx.shape[1]}, "
+              f"NDs {bf.sy.shape[1]}, band rows {band.shape[1]} from lo "
+              f"{bb.sy.lo}): every form == the host pack on the card, "
+              f"bit for bit; copy + expansion by CUDA events, ms in turns: "
+              + "; ".join(f"{n} {forms[n][2] / 1e6:.3f} MB "
+                          + " / ".join(f"{m:.4f}" for m in ms[n])
+                          for n in forms)
+              + f"; host s: pack full {t_full:.4f}, pack band {t_band:.4f}, "
+              f"build_code_lut (sx, stream) {t_lut_full:.4f}, (sx, band) "
+              f"{t_lut_band:.4f}, nibble_pack sx {t_psx:.4f}, stream "
+              f"{t_psy:.4f}, band {t_pband:.4f}")
+        del forms, packed, bf, bb, band, psx, psy, pband
+
+    # (c) the engine walls under the four settings, in turns
+    counters = {"lane tile": sw, "strips": sw_strips, "rotor": sw_rotor,
+                "stacked": sw_stacked}
+    inside = [(executor, "build_code_lut", "lut"),
+              (nibble, "nibble_pack", "nibble_pack"),
+              (tensors, "ship_stream", "ship_stream")]
+    medians = {}
+    for label, (pairs, want), route, thin in (
+            (f"sw {N_PAIRS} x {LEN}bp", sw512, "strips", False),
+            (f"sw {RT_PAIRS} x {RT_LEN}bp", sw64, "rotor", False),
+            (f"sw {len(headline[0])} x {LEN}bp", headline, "strips", True)):
+        walls = {s: [] for s in LADDER_SETTINGS}
+        order = [*LADDER_SETTINGS, *LADDER_SETTINGS[::-1]] * LADDER_TURNS
+        order = order[:LADDER_TURNS * len(LADDER_SETTINGS)]
+        if thin:  # the nibble settings in one turn
+            order = [s for i, s in enumerate(order)
+                     if not s[1] or s not in order[:i]]
+        for s in order:
+            eng = Engine(EngineConfig(stream_band_transfer=s[0],
+                                      nibble_transfer=s[1]), device="cuda")
+            for mod in counters.values():
+                mod.launches = 0
+            out, wall, st, line = timed_run(
+                eng, "sw", lambda: eng.sw_scores(pairs), False, extra=inside,
+                others="inside run")
+            n = {k: mod.launches for k, mod in counters.items()
+                 if mod.launches}
+            check(np.array_equal(out, want),
+                  f"{label}, band {s[0]}, nibble {s[1]}: scores != the "
+                  "one-shot engine's")
+            check(n == {route: 1}, f"{label}, {s}: launches {n}, want one of "
+                  f"{route}")
+            walls[s].append(wall)
+            print(f"phase 37 {label}, band {s[0]}, nibble {s[1]}: pack_s "
+                  f"{st.pack_s:.4f}, exec_s {st.exec_s:.4f}, launches "
+                  f"{json.dumps(n)}; {line}")
+        med = {s: float(np.median(w)) for s, w in walls.items()}
+        off = med[(False, False)]
+        spread = max(walls[(False, False)]) - min(walls[(False, False)])
+        medians[label] = (med, spread)
+        print(f"phase 37 {label} walls in turns, s: " + "; ".join(
+            f"band {s[0]} nibble {s[1]} " + " / ".join(
+                f"{w:.4f}" for w in ws) + f" (median {med[s]:.4f}, "
+            f"{med[s] / off:.3f} of off)" for s, ws in walls.items())
+            + f"; the off spread between turns {spread:.4f} s")
+    # the default rule, for this run: a rung is on where its median wall is
+    # below off's on both 512bp cells and no cell's median rises past that
+    # cell's off spread
+    for rung, s in (("stream_band_transfer", (True, False)),
+                    ("nibble_transfer", (False, True))):
+        below = all(medians[k][0][s] < medians[k][0][(False, False)]
+                    for k in medians if f"x {LEN}bp" in k)
+        rises = [k for k, (med, spread) in medians.items()
+                 if med[s] - med[(False, False)] > spread]
+        print(f"phase 37 rule, this run: {rung} below off on both {LEN}bp "
+              f"cells {below}; cells whose median rises past the off "
+              f"spread {rises}: {'on' if below and not rises else 'off'}")
+
+    # (d) a one-rank ShardedEngine with the band and nibbles == Engine
+    deng = ShardedEngine(make_mesh(1, device="cuda"),
+                         EngineConfig(stream_band_transfer=True,
+                                      nibble_transfer=True))
+    for label, (pairs, want) in (("512bp", sw512), ("64bp", sw64)):
+        check(np.array_equal(deng.sw_scores(pairs), want),
+              f"ShardedEngine with the band and nibbles != Engine on {label}")
+    print(f"phase 37 ShardedEngine, one rank, band and nibbles: == Engine on "
+          f"phase 4's and phase 22's pairs")
 
 
 def main(argv=None) -> int:
@@ -3311,7 +3513,7 @@ def main(argv=None) -> int:
     # 34. the stream against the one-shot engine on phases 4, 22 and 9's
     # workloads and bench.py's 100,000 x 512bp, walls in turns
     t0 = time.perf_counter()
-    stream_phase(sw512, sw64, (ph_batch, ph_values, ph_fallbacks))
+    headline = stream_phase(sw512, sw64, (ph_batch, ph_values, ph_fallbacks))
     print(f"phase 34 took {time.perf_counter() - t0:.1f} s")
 
     # 35. the command line on the card
@@ -3324,6 +3526,11 @@ def main(argv=None) -> int:
     harness_phase({"rotor": rotor_ms, "strips": strips_ms,
                    "pairhmm": ph_kernel_ms})
     print(f"phase 36 took {time.perf_counter() - t0:.1f} s")
+
+    # 37. the transfer ladder: the forms on the card, the engine walls
+    t0 = time.perf_counter()
+    ladder_phase(sw512, sw64, headline)
+    print(f"phase 37 took {time.perf_counter() - t0:.1f} s")
 
     # 6. the card
     smi = subprocess.run(["nvidia-smi", "-i", "0",

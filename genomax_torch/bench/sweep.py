@@ -36,7 +36,8 @@ def sw_launches(eng: Engine, pairs) -> list[tuple[str, object]]:
     prep, a tile of the pairs it offloads as "sw_long". Raises ValueError
     where the engine would score pairs on the host (native model)."""
     off = eng._sw_offload_mask(pairs)
-    buckets = pack_sw_pairs(pairs, job_mask=None if off is None else ~off)
+    buckets = pack_sw_pairs(pairs, job_mask=None if off is None else ~off,
+                            stream_band=eng._stream_band())
     runs = [eng._sw_prep(b) for b in buckets]
     if off is not None:
         idx = np.nonzero(off)[0]

@@ -8,8 +8,9 @@ the local engine's routing (``route``: the strips, rotor, stacked or
 lane-tile kernel for SW, the PairHMM kernel for PairHMM), which may decide
 per run: a route returns the same scores whatever kernel takes them. A
 factored PairHMM run keeps the unique-row tables whole and slices their
-gather indices. One all-gather in rank order then gives every bucket's
-scores in its tile order.
+gather indices; an SW stream packed as a band slices its band. One
+all-gather in rank order then gives every bucket's scores in its tile
+order.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import torch
 
 from genomax_torch.engine.executor import _run_buckets
 from genomax_torch.layout import LANES
-from genomax_torch.pack.bucketing import pad_tiles_to
+from genomax_torch.pack.bucketing import StreamBand, pad_tiles_to
 
 # Fields of a pack that are not indexed by tile: the factored unique-row
 # tables, needed whole by every rank's gather.
@@ -32,7 +33,10 @@ def tile_slice(bucket, rank: int, size: int):
     """Rank ``rank``'s run of the tiles of ``bucket``, whose tile count
     divides by ``size``: a bucket of the same type holding tiles
     [rank*n, (rank+1)*n), n = NT / size, whose ``perm`` and ``n_valid``
-    index the run's live slots."""
+    index the run's live slots. A StreamBand stream keeps its ``lo`` and
+    ``nds`` and slices its band; a field of any other type that is not an
+    array or a scalar raises TypeError rather than reach every rank
+    whole."""
     nt = bucket.ndiag_tile.shape[0]
     if nt % size:
         raise ValueError(f"{nt} tiles do not split over {size} ranks; pad "
@@ -42,8 +46,14 @@ def tile_slice(bucket, rank: int, size: int):
     kw = {}
     for f in dataclasses.fields(bucket):
         v = getattr(bucket, f.name)
-        if v is None or f.name in _WHOLE or not isinstance(v, np.ndarray):
-            kw[f.name] = v
+        if v is None or f.name in _WHOLE or isinstance(v, int):
+            kw[f.name] = v  # bitmask_codes; n_valid is set below
+        elif isinstance(v, StreamBand):
+            kw[f.name] = dataclasses.replace(v, band=v.band[t0:t1])
+        elif not isinstance(v, np.ndarray):
+            raise TypeError(f"field {f.name} ({type(v).__name__}) is neither "
+                            "an array nor a StreamBand: no way to slice it "
+                            "by tile")
         elif f.name == "perm":
             kw[f.name] = v[t0 * LANES: t1 * LANES]
         elif v.shape[0] == nt:

@@ -55,7 +55,8 @@ def sw_scores_stream(engine, pairs, chunk_pairs: int = 65536) -> np.ndarray:
         chunk = pairs[span[0]:span[1]]
         off = engine._sw_offload_mask(chunk)
         return chunk, off, pack_sw_pairs(
-            chunk, job_mask=None if off is None else ~off)
+            chunk, job_mask=None if off is None else ~off,
+            stream_band=engine._stream_band())
 
     with ThreadPoolExecutor(max_workers=1) as pool:
         fut = pool.submit(prep, spans[0])

@@ -29,7 +29,8 @@ from genomax_torch.config import MAX_ROTOR_PERIOD, SWConfig
 from genomax_torch.kernels import _build
 from genomax_torch.kernels.wavefront import sw_rotor_forward_tiles
 from genomax_torch.layout import LANES, PAD_STREAM, PAD_X
-from genomax_torch.pack.bucketing import _reject_pad_codes, _round_up
+from genomax_torch.pack.bucketing import (StreamBand, _reject_pad_codes,
+                                          _round_up)
 
 UNROLLS = (8, 16, 24, 32)
 WARP = 32
@@ -223,8 +224,9 @@ def prep_bucket_rotor(bucket, T: int, max_slots: int = 32,
                       unroll: int | None = None, n_shards: int = 1):
     """Re-pack an SWPacked bucket (sublane-fixed x codes + reversed y
     stream) into the rotor layout: ((xrev, ybuf), dict(period, n_slots,
-    anchor, unroll)), the arrays and statics of the JAX prep's full-stream
-    branch (the port's pack has no stream band). Bucket tile t becomes
+    anchor, unroll)), the arrays and statics of the JAX prep, from a full
+    stream or a :class:`~genomax_torch.pack.bucketing.StreamBand` (whose
+    band holds the stream's top rows). Bucket tile t becomes
     queue slot q = t % P of rotor tile t // P, so rotor output row
     t_r * P + q is bucket tile t and ``unpack_scores`` needs no change.
 
@@ -247,8 +249,13 @@ def prep_bucket_rotor(bucket, T: int, max_slots: int = 32,
     NY = _round_up(max_d, 8)
     xrev = np.full((nt_r, NB, LANES), PAD_X, np.int8)
     ybuf = np.full((nt_r, NY, LANES), PAD_STREAM, np.int8)
-    stream = bucket.sy
-    sa = stream.shape[1] - nxs  # the stream's anchor, NDs - NXs
+    sy = bucket.sy
+    if isinstance(sy, StreamBand):
+        stream = sy.band
+        sa = stream.shape[1]  # the band's own anchor, A - lo
+    else:
+        stream = sy
+        sa = sy.shape[1] - nxs  # the stream's anchor, NDs - NXs
     W = min(nxs, T) - 1  # x code rows 1..W of the bucket tile
     H = min(T, sa)
     for t in range(nt):

@@ -34,7 +34,7 @@ from genomax_torch.config import MAX_KERNEL_ROWS, SWConfig
 from genomax_torch.kernels import _build
 from genomax_torch.kernels.wavefront import sw_stacked_forward_tiles
 from genomax_torch.layout import LANES, PAD_STREAM
-from genomax_torch.pack.bucketing import pad_tiles_to
+from genomax_torch.pack.bucketing import StreamBand, pad_tiles_to
 
 # Rows a thread of the kernel keeps in registers (its template argument,
 # the values the build makes): 16 lets a warp hold a region of h <= 512
@@ -108,6 +108,8 @@ def prep_bucket_stacked(bucket, stack: int):
     its stream, [a0 - h, a0), to [a0 + (q-1)*h, a0 + q*h) makes that window
     the single-pair window for every q at once. Raises ValueError when
     h > a0 (a hand-built bucket; the q = 0 copy would start below row 0).
+    A stream packed as a StreamBand is materialized first, as the JAX prep
+    does.
     """
     nt = bucket.sx.shape[0]
     h = bucket.sx.shape[1]
@@ -121,6 +123,10 @@ def prep_bucket_stacked(bucket, stack: int):
             f"a0={a0}; not a pack_sw_pairs-shaped bucket")
     if int(bucket.ny.max()) - 1 > h:  # stream codes must fit one region
         return None
+    if isinstance(bucket.sy, StreamBand):
+        # the re-stack slices the host stream: materialize a band first
+        # (the engine packs no band where it stacks)
+        bucket = dataclasses.replace(bucket, sy=bucket.sy.materialize())
     b = pad_tiles_to(bucket, stack)
     nt2 = b.sx.shape[0] // stack
     sx = np.empty((nt2, stack * h, LANES), b.sx.dtype)

@@ -146,7 +146,9 @@ def prep_bucket_strips(bucket, strip_w: int | None = None):
     ((sx, sy, ndiag_tile, nyt), dict(k_strips, strip_w, anchor)), the
     arrays and statics of ``genomax.kernels.sw_strips.prep_bucket_strips``
     at the same strip_w: sx re-padded with PAD_X to K*W rows, the stream
-    untouched, nyt the largest ny of each tile, anchor = NDs - NXs.
+    untouched (a StreamBand too, which ``pack.tensors.sw_strips_to_torch``
+    rebuilds on the device), nyt the largest ny of each tile,
+    anchor = NDs - NXs.
 
     strip_w None picks it (``pick_strip_w``). Returns None where the
     kernel cannot take the bucket: a bucket of at most 33 rows, or one

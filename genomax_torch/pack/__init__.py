@@ -1,9 +1,11 @@
 """Packing of the port: ``bucketing`` lays ragged jobs out as dense numpy
-tiles (a copy of ``genomax.pack.bucketing``), ``tensors`` puts a packed
-bucket on a device."""
+tiles (a copy of ``genomax.pack.bucketing``), ``nibble`` is the SW
+transfer ladder (the stream band and two codes a byte), ``tensors`` puts a
+packed bucket on a device."""
 
 from genomax_torch.pack.bucketing import (  # noqa: F401
     PairHMMPacked,
+    StreamBand,
     SWPacked,
     pack_pairhmm_batches,
     pack_sw_pairs,

@@ -1,9 +1,9 @@
 """Ragged-length packing: bucket, pad and lay out alignment jobs as dense
 tiles for the wavefront kernels. A copy of ``genomax/pack/bucketing.py``
-that produces the same arrays bit for bit; what the port does not use is
-left out (the stream band, which ``pad_tiles_to`` therefore does not
-handle, and the pure-Python fill loops: the native fill always runs, see
-``native``).
+that produces the same arrays bit for bit, the stream band
+(:class:`StreamBand`, ``pack_sw_pairs(stream_band=...)``) included; the
+pure-Python fill loops are left out: the native fill always runs, see
+``native``.
 
 Ragged lengths are handled exactly by the kernels' pad-code decay (see
 kernels/wavefront.py); bucketing by padded shape only controls padding
@@ -146,6 +146,46 @@ def _quantize_tiles(n: int) -> int:
 
 
 @dataclasses.dataclass
+class StreamBand:
+    """The live band of a reversed stream buffer (``pack_sw_pairs``
+    ``stream_band=True``): the full (NT, NDs, 128) buffer is zeros outside
+    rows [A - max_len, A), because the anchor A is STREAM_CHUNK-quantized
+    well above the longest stream and everything above A is the top pad
+    region. Copying only the band to the device cuts the largest SW copy
+    (the band is about max_len rows of NDs = A + NXs);
+    ``pack.nibble.ship_stream`` rebuilds the full buffer on the device bit
+    for bit (zeros and one slice insert), so no kernel changes.
+
+    band : (NT, A - lo, 128) int8, rows [lo, A) of the full buffer; the
+           codes of stream k at band row (A - lo) - 1 - k
+    lo   : full-buffer row of band row 0 (SUB_Q-quantized, > 0)
+    nds  : rows of the full buffer (= anchor + NXs)
+    """
+
+    band: np.ndarray
+    lo: int
+    nds: int
+
+    @property
+    def shape(self) -> tuple:
+        # the full buffer's, for the routing reads that take only a shape
+        # (the strips and stacked preps' geometry)
+        return (self.band.shape[0], self.nds, self.band.shape[2])
+
+    @property
+    def dtype(self):
+        return self.band.dtype
+
+    def materialize(self) -> np.ndarray:
+        """The full host buffer, byte for byte a stream_band=False pack's
+        (for host consumers: the stacked re-pack, tests)."""
+        nt, rows, lanes = self.band.shape
+        full = np.zeros((nt, self.nds, lanes), self.band.dtype)
+        full[:, self.lo: self.lo + rows, :] = self.band
+        return full
+
+
+@dataclasses.dataclass
 class SWPacked:
     """One shape-bucket of SW jobs, densely packed.
 
@@ -157,6 +197,7 @@ class SWPacked:
            at A = NDs - NXs (STREAM_CHUNK-quantized; layout.py): row
            A-1-k holds sy[k], so cell (x=p, y=j) compares against row
            A-j.
+           A :class:`StreamBand` of it under ``stream_band``.
     nx,ny: (NP,) int32 — true matrix dims (len+1); padding rows use 1
     ndiag_tile: (NT,) int32 — max nx+ny-1 within each 128-pair tile
     perm : (n_valid,) int64 — original pair index of packed slot r
@@ -262,10 +303,11 @@ def _full(shape, fill, dtype):
 
 def pad_tiles_to(bucket, multiple: int):
     """Pad a packed bucket's tile count to a multiple (the stacked SW
-    re-pack stacks ``multiple`` tiles deep; the JAX package also shards
-    the tile dim over a device mesh). Pad tiles carry all-pad codes and
-    sweep a single diagonal; per-slot nx/ny/hl pad with 1, the rest with
-    0, and perm/n_valid still index the original job list."""
+    re-pack stacks ``multiple`` tiles deep; ``ShardedEngine`` splits the
+    tiles over a mesh). Pad tiles carry all-pad codes and sweep a single
+    diagonal; per-slot nx/ny/hl pad with 1, the rest with 0, a
+    :class:`StreamBand`'s band with 0 (its lo and nds kept), and
+    perm/n_valid still index the original job list."""
     nt = bucket.ndiag_tile.shape[0]
     want = _round_up(nt, multiple)
     if want == nt:
@@ -288,7 +330,11 @@ def pad_tiles_to(bucket, multiple: int):
         elif f.name in ("sx", "rchar"):
             kw[f.name] = padt(v, PAD_X)
         elif f.name in ("sy", "hap"):
-            kw[f.name] = padt(v, PAD_STREAM)
+            if isinstance(v, StreamBand):
+                kw[f.name] = dataclasses.replace(
+                    v, band=padt(v.band, PAD_STREAM))
+            else:
+                kw[f.name] = padt(v, PAD_STREAM)
         elif f.name == "ridx":
             # Factored gather indices: pad tiles must point at the
             # all-pad row (last), NOT row 0 (a real read's bytes).
@@ -309,13 +355,20 @@ def pad_tiles_to(bucket, multiple: int):
     return type(bucket)(**kw)
 
 
-def pack_sw_pairs(pairs, job_mask=None) -> list[SWPacked]:
+def pack_sw_pairs(pairs, job_mask=None,
+                  stream_band=False) -> list[SWPacked]:
     """Bucket and pack SWPair jobs. Sequences are raw bytes (the '\\n'
     quirk is preserved upstream by the parser: a trailing newline byte is
     part of the sequence). ``job_mask`` (bool, len(pairs)): pack only the
     True jobs; perm still indexes the original pair list, so results
     scatter back alongside jobs computed elsewhere (the long-pair kernel,
     the native offload).
+
+    ``stream_band``: pack the stream as a :class:`StreamBand` (only the
+    live rows [A - max_len, A); the engine rebuilds the full buffer on the
+    device through ``pack.nibble.ship_stream``). A bool applies to every
+    bucket; a callable is a predicate of the bucket's nxs
+    (``Engine._stream_band``'s carve-out for the stacked re-pack).
 
     The per-pair fill loop is the native library's (gx_pack_sw_fill)."""
     lib = native.load()
@@ -362,14 +415,32 @@ def pack_sw_pairs(pairs, job_mask=None) -> list[SWPacked]:
         # PAD_STREAM is 0, so the big stream buffer comes straight off
         # calloc pages.
         sx = _full((nt, nxs, LANES), PAD_X, np.int8)
-        sy = _full((nt, nds, LANES), PAD_STREAM, np.int8)
+        band = stream_band(nxs) if callable(stream_band) else stream_band
+        if band:
+            # The live band only: codes occupy [anchor - max_len, anchor);
+            # lo is SUB_Q-quantized and > 0 (anchor >= ndiags.max() +
+            # MAX_UNROLL > max_len + 32). The fill writes through a local
+            # anchor A' = anchor - lo with the band's own row count, so
+            # the band's bytes are the full buffer's.
+            band_lo = (anchor - int(sy_len[idx].max())) // SUB_Q * SUB_Q
+            if band_lo <= 0:  # a raise, not an assert: it must survive -O
+                raise AssertionError(
+                    f"stream-band invariant violated: band_lo={band_lo} "
+                    f"(anchor={anchor}, max_len={int(sy_len[idx].max())}): "
+                    "the anchor no longer lies past max_len + MAX_UNROLL")
+            fill_anchor = fill_rows = anchor - band_lo
+        else:
+            fill_anchor, fill_rows = anchor, nds
+        sy = _full((nt, fill_rows, LANES), PAD_STREAM, np.int8)
         nx = np.ones(slots, dtype=np.int32)
         ny = np.ones(slots, dtype=np.int32)
         lib.gx_pack_sw_fill(
             sx_data, sx_off, sy_data, sy_off,
-            np.ascontiguousarray(idx), len(idx), nxs, nds,
-            anchor, sx, sy, nx, ny,
+            np.ascontiguousarray(idx), len(idx), nxs, fill_rows,
+            fill_anchor, sx, sy, nx, ny,
         )
+        if band:
+            sy = StreamBand(band=sy, lo=band_lo, nds=nds)
         ndiag = (nx.astype(np.int64) + ny - 1).astype(np.int32)
         ndiag[len(idx):] = 1
         out.append(

@@ -49,7 +49,7 @@ def test_every_module_imports_without_jax_or_genomax(walked):
     "genomax_torch.layout", "genomax_torch.config", "genomax_torch.io.formats",
     "genomax_torch.io.phred", "genomax_torch.io.generator",
     "genomax_torch.native", "genomax_torch.pack.bucketing",
-    "genomax_torch.pack.tensors", "genomax_torch.engine.executor",
+    "genomax_torch.pack.nibble", "genomax_torch.pack.tensors", "genomax_torch.engine.executor",
     "genomax_torch.engine.stream",
     "genomax_torch.kernels.sw", "genomax_torch.kernels.sw_long",
     "genomax_torch.kernels.sw_strips", "genomax_torch.kernels.sw_rotor",
