@@ -304,21 +304,18 @@ order 1, 2, 19, 21, 24, 27, 3, 4, 5, 33, 22, 23, 25, 26, 28, 29, 20,
                 and phase 22's buckets the raw, band, nibble and band +
                 nibble forms copied and rebuilt on the card == the host
                 pack's tensors bit for bit (the nibble forms its codes
-                through the bucket's LUT), and the engine's make_shipper
-                likewise; each form's bytes and its copy + expansion ms by
-                CUDA events in turns, the host's build_code_lut and
+                through the bucket's LUT), and make_shipper likewise;
+                each form's bytes and its copy + expansion ms by CUDA
+                events in turns, the host's build_code_lut and
                 nibble_pack by the host clock; the engine walls of phase
-                4's, phase 22's and phase 34's 100,000 x 512bp pairs under
-                (stream_band_transfer, nibble_transfer) = (off, off), (on,
-                off), (off, on), (on, on), three turns each (forward,
-                backward, forward; on 100,000 pairs the two nibble
-                settings once, 2-4 s a run), each run's stages as in
-                phase 9 with the LUT, nibble pack and stream copy inside
-                the run, every score == the one-shot engine's of phases
-                4, 22 and 34, one launch of the strips or rotor kernel a
-                run; the medians,
-                the off spread and this run's verdict of the default rule;
-                a one-rank ShardedEngine with band and nibbles == Engine
+                4's, phase 22's and phase 34's 100,000 x 512bp pairs with
+                the band (the engine's path) and with the full stream
+                (the gate closed), three turns of both forms forward and
+                backward, each run's stages as in phase 9 with the stream
+                copy inside the run, every score == the one-shot engine's
+                of phases 4, 22 and 34, one launch of the strips or rotor
+                kernel a run; the medians and spreads; a one-rank
+                ShardedEngine with the band == Engine
 
 Then one JSON line describing each kernel, the card line, and, last,
 {"ok": true, "device": {...}}. Without a CUDA device, or outside the
@@ -368,10 +365,8 @@ RT_PAIRS, RT_LEN = 25000, 64
 # 9's 65,536 jobs of 151 x 300 as 512 reads x 128 haplotypes.
 SOAK_SEED, SOAK_ROUNDS, DEEP_ROUNDS = 20260817, 3, 4
 BENCH_LENS, BENCH_PH_POINT = (64, 512, 1024), "512,128,151,300"
-# Phase 37: the transfer ladder's four settings, (stream_band_transfer,
-# nibble_transfer), each engine wall timed in this many turns.
-LADDER_SETTINGS = ((False, False), (True, False), (False, True),
-                   (True, True))
+# Phase 37: the turns of the engine walls with the band and with the full
+# stream, each turn both forms forward and backward.
 LADDER_TURNS = 3
 # The lane tile's default route: short reads against reference windows
 # longer than the rotor's period, 25,000 x (100bp + '\n', 300bp + '\n').
@@ -1232,20 +1227,20 @@ def ladder_phase(sw512, sw64, headline):
     ``headline`` phase 34's 100,000 x 512bp (pairs, scores). (a) On
     both buckets the raw, band, nibble and band + nibble forms rebuild the
     host pack's tensors bit for bit on the card (the nibble forms its
-    remapped codes), and so does the engine's own shipper; (b) each form's
-    copy and expansion by CUDA events and its bytes, the host's LUT and
-    nibble pack by the host clock; (c) the engine walls of 25,000 x 512bp,
-    25,000 x 64bp and bench.py's 100,000 x 512bp under the four settings
-    in turns, every score equal to the one-shot engine's of phases 4, 22
-    and 34 (the nibble settings on 100,000 pairs once: 2-4 s a run); (d)
-    a one-rank ShardedEngine with band and nibbles equal to Engine."""
+    remapped codes), and so does make_shipper; (b) each form's copy and
+    expansion by CUDA events and its bytes, the host's LUT and nibble pack
+    by the host clock (the nibble rung runs on no engine path; these are
+    its costs); (c) the engine walls of 25,000 x 512bp, 25,000 x 64bp and
+    bench.py's 100,000 x 512bp with the band (the engine) and with the
+    full stream (the gate closed) in turns, every score equal to the
+    one-shot engine's of phases 4, 22 and 34; (d) a one-rank
+    ShardedEngine, which ships the band, equal to Engine."""
     import numpy as np
     import torch
 
     from genomax_torch.config import EngineConfig
     from genomax_torch.dist.engine import ShardedEngine
     from genomax_torch.dist.mesh import make_mesh
-    from genomax_torch.engine import executor
     from genomax_torch.engine.executor import Engine
     from genomax_torch.kernels import sw, sw_rotor, sw_stacked, sw_strips
     from genomax_torch.pack import nibble, tensors
@@ -1299,9 +1294,9 @@ def ladder_phase(sw512, sw64, headline):
                       and torch.equal(g, w) for g, w in zip(got, want)),
                   f"{label}, {name}: the tensors on the card != the host "
                   "pack's")
-        eng_ship = nibble.make_shipper(put, lut=lut)
+        shipper = nibble.make_shipper(put, lut=lut)
         for sy in (bf.sy, bb.sy):
-            got = (eng_ship(bf.sx), nibble.ship_stream(eng_ship, sy))
+            got = (shipper(bf.sx), nibble.ship_stream(shipper, sy))
             check(all(torch.equal(g, w) for g, w in zip(got, remapped)),
                   f"{label}: make_shipper's tensors != the remapped pack")
         check(torch.equal(nibble.expand_nibbles(put(pband), band.shape[1]),
@@ -1333,26 +1328,25 @@ def ladder_phase(sw512, sw64, headline):
               f"{t_psy:.4f}, band {t_pband:.4f}")
         del forms, packed, bf, bb, band, psx, psy, pband
 
-    # (c) the engine walls under the four settings, in turns
+    # (c) the engine's walls (the band) and the full stream's, in turns
+    class FullStream(Engine):
+        """The engine with the full stream buffer packed and copied, as
+        before the band: the gate closed."""
+
+        def _stream_band(self):
+            return False
+
     counters = {"lane tile": sw, "strips": sw_strips, "rotor": sw_rotor,
                 "stacked": sw_stacked}
-    inside = [(executor, "build_code_lut", "lut"),
-              (nibble, "nibble_pack", "nibble_pack"),
-              (tensors, "ship_stream", "ship_stream")]
-    medians = {}
-    for label, (pairs, want), route, thin in (
-            (f"sw {N_PAIRS} x {LEN}bp", sw512, "strips", False),
-            (f"sw {RT_PAIRS} x {RT_LEN}bp", sw64, "rotor", False),
-            (f"sw {len(headline[0])} x {LEN}bp", headline, "strips", True)):
-        walls = {s: [] for s in LADDER_SETTINGS}
-        order = [*LADDER_SETTINGS, *LADDER_SETTINGS[::-1]] * LADDER_TURNS
-        order = order[:LADDER_TURNS * len(LADDER_SETTINGS)]
-        if thin:  # the nibble settings in one turn
-            order = [s for i, s in enumerate(order)
-                     if not s[1] or s not in order[:i]]
-        for s in order:
-            eng = Engine(EngineConfig(stream_band_transfer=s[0],
-                                      nibble_transfer=s[1]), device="cuda")
+    inside = [(tensors, "ship_stream", "ship_stream")]
+    forms = {"band": Engine, "full": FullStream}
+    for label, (pairs, want), route in (
+            (f"sw {N_PAIRS} x {LEN}bp", sw512, "strips"),
+            (f"sw {RT_PAIRS} x {RT_LEN}bp", sw64, "rotor"),
+            (f"sw {len(headline[0])} x {LEN}bp", headline, "strips")):
+        walls = {name: [] for name in forms}
+        for name in [*forms, *list(forms)[::-1]] * LADDER_TURNS:
+            eng = forms[name](EngineConfig(), device="cuda")
             for mod in counters.values():
                 mod.launches = 0
             out, wall, st, line = timed_run(
@@ -1361,45 +1355,27 @@ def ladder_phase(sw512, sw64, headline):
             n = {k: mod.launches for k, mod in counters.items()
                  if mod.launches}
             check(np.array_equal(out, want),
-                  f"{label}, band {s[0]}, nibble {s[1]}: scores != the "
-                  "one-shot engine's")
-            check(n == {route: 1}, f"{label}, {s}: launches {n}, want one of "
-                  f"{route}")
-            walls[s].append(wall)
-            print(f"phase 37 {label}, band {s[0]}, nibble {s[1]}: pack_s "
-                  f"{st.pack_s:.4f}, exec_s {st.exec_s:.4f}, launches "
-                  f"{json.dumps(n)}; {line}")
-        med = {s: float(np.median(w)) for s, w in walls.items()}
-        off = med[(False, False)]
-        spread = max(walls[(False, False)]) - min(walls[(False, False)])
-        medians[label] = (med, spread)
+                  f"{label}, {name}: scores != the one-shot engine's")
+            check(n == {route: 1}, f"{label}, {name}: launches {n}, want one "
+                  f"of {route}")
+            walls[name].append(wall)
+            print(f"phase 37 {label}, {name}: pack_s {st.pack_s:.4f}, exec_s "
+                  f"{st.exec_s:.4f}, launches {json.dumps(n)}; {line}")
+        med = {k: float(np.median(w)) for k, w in walls.items()}
+        spread = {k: max(w) - min(w) for k, w in walls.items()}
         print(f"phase 37 {label} walls in turns, s: " + "; ".join(
-            f"band {s[0]} nibble {s[1]} " + " / ".join(
-                f"{w:.4f}" for w in ws) + f" (median {med[s]:.4f}, "
-            f"{med[s] / off:.3f} of off)" for s, ws in walls.items())
-            + f"; the off spread between turns {spread:.4f} s")
-    # the default rule, for this run: a rung is on where its median wall is
-    # below off's on both 512bp cells and no cell's median rises past that
-    # cell's off spread
-    for rung, s in (("stream_band_transfer", (True, False)),
-                    ("nibble_transfer", (False, True))):
-        below = all(medians[k][0][s] < medians[k][0][(False, False)]
-                    for k in medians if f"x {LEN}bp" in k)
-        rises = [k for k, (med, spread) in medians.items()
-                 if med[s] - med[(False, False)] > spread]
-        print(f"phase 37 rule, this run: {rung} below off on both {LEN}bp "
-              f"cells {below}; cells whose median rises past the off "
-              f"spread {rises}: {'on' if below and not rises else 'off'}")
+            f"{k} " + " / ".join(f"{w:.4f}" for w in ws)
+            + f" (median {med[k]:.4f}, spread {spread[k]:.4f})"
+            for k, ws in walls.items())
+            + f"; band / full medians {med['band'] / med['full']:.3f}")
 
-    # (d) a one-rank ShardedEngine with the band and nibbles == Engine
-    deng = ShardedEngine(make_mesh(1, device="cuda"),
-                         EngineConfig(stream_band_transfer=True,
-                                      nibble_transfer=True))
+    # (d) a one-rank ShardedEngine, which ships the band, == Engine
+    deng = ShardedEngine(make_mesh(1, device="cuda"), EngineConfig())
     for label, (pairs, want) in (("512bp", sw512), ("64bp", sw64)):
         check(np.array_equal(deng.sw_scores(pairs), want),
-              f"ShardedEngine with the band and nibbles != Engine on {label}")
-    print(f"phase 37 ShardedEngine, one rank, band and nibbles: == Engine on "
-          f"phase 4's and phase 22's pairs")
+              f"ShardedEngine with the band != Engine on {label}")
+    print("phase 37 ShardedEngine, one rank, with the band: == Engine on "
+          "phase 4's and phase 22's pairs")
 
 
 def main(argv=None) -> int:

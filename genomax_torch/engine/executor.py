@@ -1,30 +1,31 @@
 """Per-device execution engine of the port: the Smith-Waterman and PairHMM
 paths of ``genomax.engine.executor.Engine``.
 
-parse -> offload mask -> pack -> the copies to the device -> one kernel
-launch per bucket -> one synchronize -> ``unpack_scores`` -> the long-pair
-kernels and the native model for the offloaded jobs (and, for PairHMM, the
-fp64 fallback). SW copies go through the transfer ladder
-(``pack/nibble.py``): with ``stream_band_transfer`` the stream travels as
-its live band and is rebuilt on the device, with ``nibble_transfer`` the
-codes travel two a byte and are expanded there; the kernels see the same
-tensors either way. SW routes each bucket in the JAX engine's order: with
-``sw_strips`` on, a bucket of at least ``strips_min_nxs`` rows takes the
-strip-mined kernel (``csrc/sw_strips.cu``) unless its prep declines it;
-then, with ``sw_rotor`` on and ``sw_stack`` below 2, a bucket of short
-pairs that the rotor's predicate takes goes to the column-stationary rotor
-kernel (``csrc/sw_rotor.cu``); then, with ``sw_stack`` >= 2, a bucket of
-at most ``stack_max_nxs`` rows that the stacked prep takes goes to the
+parse -> offload mask -> pack -> one kernel launch per bucket -> one
+synchronize -> ``unpack_scores`` -> the long-pair kernels and the native
+model for the offloaded jobs (and, for PairHMM, the fp64 fallback). SW
+routes each bucket in the JAX engine's order: with ``sw_strips`` on, a
+bucket of at least ``strips_min_nxs`` rows takes the strip-mined kernel
+(``csrc/sw_strips.cu``) unless its prep declines it; then, with
+``sw_rotor`` on and ``sw_stack`` below 2, a bucket of short pairs that the
+rotor's predicate takes goes to the column-stationary rotor kernel
+(``csrc/sw_rotor.cu``); then, with ``sw_stack`` >= 2, a bucket of at most
+``stack_max_nxs`` rows that the stacked prep takes goes to the
 sublane-stacked kernel (``csrc/sw_stacked.cu``); every other bucket takes
 the lane-tile kernel (``csrc/sw_tile.cu``, at any stream length); pairs
 whose x is too long for these take the long-pair kernel
 (``csrc/sw_long.cu``) on the same device, and only pairs past
-``max_device_diags`` go to the native model. PairHMM packs as the JAX
-engine's Pallas backend does (byte qualities, factored, bitmask codes),
-expands on the device and runs ``csrc/pairhmm_tile.cu`` on every bucket;
-the reads too long for it take the long-read kernel
+``max_device_diags`` go to the native model. PairHMM
+packs as the JAX engine's Pallas backend does (byte qualities, factored,
+bitmask codes), expands on the device and runs ``csrc/pairhmm_tile.cu``
+on every bucket; the reads too long for it take the long-read kernel
 (``csrc/pairhmm_long.cu``) on the same device, and only jobs past
 ``max_device_diags`` go to the native model.
+
+An SW bucket's stream is packed as its live band
+(``pack.bucketing.StreamBand``, the JAX engine's ``stream_band_transfer``)
+and rebuilt on the device by ``pack.nibble.ship_stream``, so every kernel
+sees the full buffer.
 """
 
 from __future__ import annotations
@@ -53,8 +54,6 @@ from genomax_torch.pack import (pack_pairhmm_batches, pack_sw_pairs,
                                 phmm_bucket_to_torch, sw_bucket_to_torch,
                                 sw_rotor_to_torch, sw_stacked_to_torch,
                                 sw_strips_to_torch, unpack_scores)
-from genomax_torch.pack.nibble import (build_code_lut, make_shipper,
-                                       stream_bytes)
 
 
 class EngineError(RuntimeError):
@@ -185,30 +184,15 @@ class Engine:
 
     def _stream_band(self):
         """The stream-band gate of ``pack_sw_pairs`` (the JAX engine's
-        ``_stream_band``), shared by the engine, the stream and the sweep
-        so that the policy cannot drift: False with
-        ``stream_band_transfer`` off; under ``sw_stack`` >= 2 a predicate
-        of the bucket's nxs that keeps the band only past
-        ``stack_max_nxs``, where no bucket stacks (the stacked re-pack
-        slices the full host stream); True otherwise. It takes no device
-        condition: the CPU route runs the same ladder as the card."""
-        if not self.cfg.stream_band_transfer:
-            return False
+        ``_stream_band`` with ``stream_band_transfer`` on), shared by the
+        engine, the stream and the sweep so that it cannot drift: under
+        ``sw_stack`` >= 2 a predicate of the bucket's nxs that keeps the
+        band only past ``stack_max_nxs``, where no bucket stacks (the
+        stacked re-pack slices the full host stream); True otherwise. The
+        CPU route packs the same band as the card."""
         if self.cfg.sw_stack >= 2:
             return lambda nxs: nxs > self.cfg.stack_max_nxs
         return True
-
-    def _ship(self, sx, sy):
-        """The placement of a route's code arrays ``sx`` and stream ``sy``
-        (``pack.nibble``): with ``nibble_transfer`` a nibble shipper over
-        one table of both arrays' alphabet (raw where it passes 14
-        symbols), else the plain copy to the engine's device."""
-        def put(a):
-            return torch.from_numpy(a).to(self.device)
-
-        if not self.cfg.nibble_transfer:
-            return put
-        return make_shipper(put, lut=build_code_lut(sx, stream_bytes(sy)))
 
     def _sw_prep(self, b):
         """(route, launch) of bucket b: the prep and the copies to the
@@ -219,29 +203,25 @@ class Engine:
         (never under sw_stack >= 2), then "stacked" where its predicate
         does, else "tile", the lane-tile kernel. The rotor's and the stacked
         kernel's rows come back in bucket tile order (the stack's pad tiles
-        last, past n_valid), so unpack_scores needs no change. Each route's
-        arrays go to the device through ``_ship`` (a stream band is rebuilt
-        there). The engine and the sweep (``bench/sweep.py``) share it."""
+        last, past n_valid), so unpack_scores needs no change. The engine
+        and the sweep (``bench/sweep.py``) share it."""
         prep = maybe_prep_strips(self.cfg, b)
         if prep is not None:
-            (sx, sy, _, nyt), statics = prep
-            t = sw_strips_to_torch(prep, b, self.device,
-                                   ship=self._ship(sx, sy))
-            ny_max = int(nyt.max())
+            (_, _, _, nyt), statics = prep
+            t, ny_max = sw_strips_to_torch(prep, b, self.device), int(nyt.max())
             return "strips", lambda: sw_forward_strips(
                 *t, ny_max=ny_max, cfg=self.sw_cfg, **statics)
         prep = maybe_prep_rotor(self.cfg, b)
         if prep is not None:
-            t = sw_rotor_to_torch(prep, self.device, ship=self._ship(*prep[0]))
+            t = sw_rotor_to_torch(prep, self.device)
             return "rotor", lambda: sw_forward_rotor_bucket(
                 *t, cfg=self.sw_cfg, **prep[1])
         prep = maybe_prep_stacked(self.cfg, b)
         if prep is not None:
-            t = sw_stacked_to_torch(prep, self.device,
-                                    ship=self._ship(*prep[0][:2]))
+            t = sw_stacked_to_torch(prep, self.device)
             return "stacked", lambda: sw_forward_stacked(
                 *t, cfg=self.sw_cfg, **prep[1])
-        t = sw_bucket_to_torch(b, self.device, ship=self._ship(b.sx, b.sy))
+        t = sw_bucket_to_torch(b, self.device)
         return "tile", lambda: sw_forward(*t, self.sw_cfg)
 
     def _sw_bucket(self, b):

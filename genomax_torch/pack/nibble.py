@@ -1,22 +1,31 @@
 """The SW transfer ladder: the host-to-device rung of the SW code tiles (the
 counterpart of ``genomax.pack.nibble``).
 
-The SW kernels read sequence codes only through equality tests plus the
-pad contract (x pads are code 1, stream pads code 0, and the packers
-reject bytes 0 and 1 inside sequences). Scores are therefore the same
-under any one-to-one remap of the alphabet that keeps the two pad codes,
-so when a bucket's alphabet has at most 14 symbols (always for DNA: ACGTN
-and the trailing '\\n' make 6) the bytes are remapped to the codes 2..15
-and two rows travel in one byte. A :class:`StreamBand` stream travels as
-its live band only. On the device both are undone bit for bit, so every
-kernel sees the tensors it saw before.
+The engine ships every SW stream packed as a :class:`StreamBand` (its live
+rows only) through ``ship_stream``, which rebuilds the full buffer on the
+device bit for bit: the kernels see the same tensors as from a full pack.
+
+The nibble rung (``build_code_lut``, ``nibble_pack``,
+``nibble_pack_4bit``, ``expand_nibbles``, ``make_shipper``) is kept equal
+to the JAX module's but runs on no engine path: on the H100 its host table
+and pack cost more than the copy they save (PERF.md). It rests on
+an invariant of the SW kernels: they read sequence codes only through
+equality tests plus the pad contract (x pads are code 1, stream pads code
+0, and the packers reject bytes 0 and 1 inside sequences). Scores are
+therefore the same under any one-to-one remap of the alphabet that keeps
+the two pad codes, so when a bucket's alphabet has at most 14 symbols
+(always for DNA: ACGTN and the trailing '\\n' make 6) the bytes are
+remapped to the codes 2..15 and two rows travel in one byte. The tensors a
+nibble shipper gives are that remap of the host pack, not the host pack: a
+kernel that read a code's value (as the PairHMM kernels read their N code)
+would score differently under it.
 
 Contract: ``build_code_lut`` over every array a route copies (one shared
 alphabet: the x codes must equal the same stream bytes after the remap),
 ``nibble_pack`` each on the host, ``expand_nibbles`` each on the device;
-``ship_stream`` rebuilds a band's full buffer. ``make_shipper`` ties the
-three together. The expansion and the rebuild are plain torch on the
-engine's device: one or two passes over the copied bytes each.
+``make_shipper`` ties the three together. The expansion and the rebuild
+are plain torch on the tensor's device: one or two passes over the copied
+bytes each.
 """
 
 from __future__ import annotations
@@ -104,20 +113,13 @@ def ship_stream(ship, sy) -> torch.Tensor:
     return full
 
 
-def make_shipper(put, *, lut=None, four_bit: bool = False):
-    """The host-to-device contract for code tiles. ``put`` places a numpy
-    array on the device (``lambda a: torch.from_numpy(a).to(device)``).
-    Returns a function of a (NT, R, 128) array that nibble-packs it on the
-    host, places the half-size buffer and expands it on the device:
-
-    - lut: the remap table of ``build_code_lut`` (SW tiles of at most 14
-      symbols);
-    - four_bit: the codes are already 4-bit (PairHMM match-bitmask packs),
-      packed with no remap.
-
-    With neither it returns ``put``: the tiles travel raw."""
+def make_shipper(put, *, lut=None):
+    """The nibble shipper of SW code tiles. ``put`` places a numpy array on
+    the device (``lambda a: torch.from_numpy(a).to(device)``). With ``lut``
+    (the remap table of ``build_code_lut``) it returns a function of a (NT,
+    R, 128) array that nibble-packs it on the host, places the half-size
+    buffer and expands it on the device, giving the remapped codes; with
+    None it returns ``put``: the tiles travel raw."""
     if lut is not None:
         return lambda a: expand_nibbles(put(nibble_pack(a, lut)), a.shape[1])
-    if four_bit:
-        return lambda a: expand_nibbles(put(nibble_pack_4bit(a)), a.shape[1])
     return put

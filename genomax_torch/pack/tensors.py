@@ -1,9 +1,7 @@
 """Packed buckets (``pack.bucketing.SWPacked`` and ``PairHMMPacked``) as
-tensors on a device. The SW code tiles go through a placement function
-``ship`` (``pack.nibble.make_shipper``; by default a plain copy to the
-device) and the streams through ``pack.nibble.ship_stream``, which
-rebuilds a :class:`~genomax_torch.pack.bucketing.StreamBand` on the
-device; the int32 arrays are copied raw."""
+tensors on a device. An SW stream packed as a
+:class:`~genomax_torch.pack.bucketing.StreamBand` travels as its band and
+is rebuilt on the device (``pack.nibble.ship_stream``)."""
 
 from __future__ import annotations
 
@@ -14,48 +12,39 @@ from genomax_torch.pack.bucketing import PairHMMPacked, SWPacked
 from genomax_torch.pack.nibble import ship_stream
 
 
-def _placement(device, ship):
-    """(put, ship): the raw copy to ``device``, and ``ship`` or that copy
-    where ``ship`` is None."""
-    def put(a):
-        return torch.from_numpy(a).to(device)
-
-    return put, put if ship is None else ship
+def _put(device):
+    return lambda a: torch.from_numpy(a).to(device)
 
 
-def sw_bucket_to_torch(b: SWPacked, device: torch.device, ship=None):
+def sw_bucket_to_torch(b: SWPacked, device: torch.device):
     """(sx (NT,NXs,128) int8, sy (NT,NDs,128) int8, ndiag_tile (NT,) int32)
-    on ``device``, the codes through ``ship``."""
-    put, ship = _placement(device, ship)
-    return ship(b.sx), ship_stream(ship, b.sy), put(b.ndiag_tile)
+    on ``device``."""
+    put = _put(device)
+    return put(b.sx), ship_stream(put, b.sy), put(b.ndiag_tile)
 
 
-def sw_strips_to_torch(prep, b: SWPacked, device: torch.device, ship=None):
+def sw_strips_to_torch(prep, b: SWPacked, device: torch.device):
     """(sx (NT,K*W,128) int8, sy (NT,NDs,128) int8, nx, ny (NT*128,) int32)
     on ``device``: the re-padded codes and stream of a strips prep of
-    bucket ``b`` (``kernels.sw_strips.prep_bucket_strips``), the codes
-    through ``ship``, and the bucket's per-slot lengths."""
+    bucket ``b`` (``kernels.sw_strips.prep_bucket_strips``) and the
+    bucket's per-slot lengths."""
     (sx, sy, _, _), _ = prep
-    put, ship = _placement(device, ship)
-    return ship(sx), ship_stream(ship, sy), put(b.nx), put(b.ny)
+    put = _put(device)
+    return put(sx), ship_stream(put, sy), put(b.nx), put(b.ny)
 
 
-def sw_rotor_to_torch(prep, device: torch.device, ship=None):
-    """(xrev (NT_r,NB,128) int8, ybuf (NT_r,NY,128) int8) on ``device``
-    through ``ship``: the arrays of a rotor prep
-    (``kernels.sw_rotor.prep_bucket_rotor``)."""
+def sw_rotor_to_torch(prep, device: torch.device):
+    """(xrev (NT_r,NB,128) int8, ybuf (NT_r,NY,128) int8) on ``device``: the
+    arrays of a rotor prep (``kernels.sw_rotor.prep_bucket_rotor``)."""
     (xrev, ybuf), _ = prep
-    _, ship = _placement(device, ship)
-    return ship(xrev), ship(ybuf)
+    return tuple(torch.from_numpy(a).to(device) for a in (xrev, ybuf))
 
 
-def sw_stacked_to_torch(prep, device: torch.device, ship=None):
+def sw_stacked_to_torch(prep, device: torch.device):
     """(sx (NT',S*h,128) int8, sy (NT',a0+S*h,128) int8, ndt (NT',) int32)
-    on ``device``, the codes through ``ship``: the arrays of a stacked prep
+    on ``device``: the arrays of a stacked prep
     (``kernels.sw_stacked.prep_bucket_stacked``)."""
-    (sx, sy, ndt), _ = prep
-    put, ship = _placement(device, ship)
-    return ship(sx), ship(sy), put(ndt)
+    return tuple(torch.from_numpy(a).to(device) for a in prep[0])
 
 
 def phmm_bucket_to_torch(b: PairHMMPacked, device: torch.device,

@@ -74,7 +74,7 @@ def test_cli_engine_failure_prints_the_error(capsys, monkeypatch, golden_dir):
     the same one-line error and rc 2."""
     from genomax_torch.engine import executor
 
-    def fail(b, device, ship=None):
+    def fail(b, device):
         raise RuntimeError("device fault (simulated)")
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)

@@ -258,13 +258,13 @@ def test_kernel_build_failure_raises_not_cpu_scores(monkeypatch):
     # Stand-in for device tensors on a host without a card.
     monkeypatch.setattr(
         executor, "sw_bucket_to_torch",
-        lambda b, device, ship=None: tuple(
+        lambda b, device: tuple(
             torch.from_numpy(a).to("meta")
             for a in (b.sx, stream_bytes(b.sy), b.ndiag_tile)))
     monkeypatch.setattr(
         executor, "sw_rotor_to_torch",
-        lambda prep, device, ship=None: tuple(
-            torch.from_numpy(a).to("meta") for a in prep[0]))
+        lambda prep, device: tuple(torch.from_numpy(a).to("meta") for a in
+                                   prep[0]))
     with pytest.raises(EngineError) as err:
         eng.sw_scores([SWPair(sx=b"ACGT", sy=b"ACGT")])
     assert isinstance(err.value.cause, _build.BuildError)

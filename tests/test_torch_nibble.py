@@ -3,9 +3,9 @@ the CPU: every function of genomax.pack.nibble, StreamBand,
 pack_sw_pairs(stream_band=...) and pad_tiles_to on a band bucket held
 against the JAX package bit for bit; tile_slice of a band bucket; the
 rotor and stacked preps on band buckets; and the CPU Engine, its stream,
-the sweep's pack and a two-rank gloo ShardedEngine under all four ladder
-settings, equal to the oracle on the strips, rotor, stacked and tile
-routes. Codes and scores are integers; tolerance exact."""
+the sweep's pack and a two-rank gloo ShardedEngine, which ship the band,
+equal to the oracle on the strips, rotor, stacked and tile routes. Codes
+and scores are integers; tolerance exact."""
 
 import dataclasses
 
@@ -35,9 +35,6 @@ from genomax_torch.kernels import sw_rotor, sw_stacked
 from genomax_torch.pack import bucketing, nibble, tensors
 
 ABC = np.frombuffer(b"ACGT", np.uint8)
-# (stream_band_transfer, nibble_transfer)
-SETTINGS = [(False, False), (True, False), (False, True), (True, True)]
-SETTING_IDS = ["off", "band", "nibble", "band+nibble"]
 
 
 def _tiles(rng, nt, r, alphabet):
@@ -145,8 +142,7 @@ def test_expand_nibbles_equal(rows):
 
 
 def test_make_shipper_forms():
-    """lut: remap and expand; four_bit: expand with no remap; neither: the
-    placement itself."""
+    """lut: remap and expand; none: the placement itself."""
     def put(a):
         return torch.from_numpy(a)
 
@@ -156,9 +152,6 @@ def test_make_shipper_forms():
     lut = nibble.build_code_lut(arr)
     got = nibble.make_shipper(put, lut=lut)(arr)
     np.testing.assert_array_equal(got.numpy(), lut[arr.view(np.uint8)])
-    bits = rng.choice(np.array([0, 1, 2, 4, 8, 15], np.int8), (2, 9, 128))
-    np.testing.assert_array_equal(
-        nibble.make_shipper(put, four_bit=True)(bits).numpy(), bits)
 
 
 # -- StreamBand and the pack ------------------------------------------------
@@ -326,10 +319,10 @@ def test_prep_bucket_stacked_on_band_buckets_equal():
     assert isinstance(bb.sy, bucketing.StreamBand)
 
 
-@pytest.mark.parametrize("shipper", ["raw", "nibble"])
-def test_tensors_helpers_rebuild_the_band(shipper):
+@pytest.mark.parametrize("helper", ["bucket", "strips"])
+def test_tensors_helpers_rebuild_the_band(helper):
     """sw_bucket_to_torch and sw_strips_to_torch of a band bucket == of the
-    full bucket, through the same placement."""
+    full bucket."""
     from genomax_torch.kernels import sw_strips
 
     rng = np.random.default_rng(8)
@@ -338,22 +331,16 @@ def test_tensors_helpers_rebuild_the_band(shipper):
              for _ in range(20)]
     (bb,), (bf,) = (bucketing.pack_sw_pairs(pairs, stream_band=s)
                     for s in (True, False))
-    lut = nibble.build_code_lut(bf.sx, bf.sy)
-
-    def ship_of(device):
-        return (None if shipper == "raw" else nibble.make_shipper(
-            lambda a: torch.from_numpy(a).to(device), lut=lut))
-
-    for helper, args in (
-            (tensors.sw_bucket_to_torch, lambda b: (b,)),
-            (tensors.sw_strips_to_torch,
-             lambda b: (sw_strips.prep_bucket_strips(b), b))):
-        got = helper(*args(bb), "cpu", ship=ship_of("cpu"))
-        want = helper(*args(bf), "cpu", ship=ship_of("cpu"))
-        assert len(got) == len(want)
-        for g, w in zip(got, want):
-            assert g.dtype == w.dtype
-            torch.testing.assert_close(g, w, rtol=0, atol=0)
+    if helper == "bucket":
+        fn, args = tensors.sw_bucket_to_torch, lambda b: (b,)
+    else:
+        fn, args = tensors.sw_strips_to_torch, lambda b: (
+            sw_strips.prep_bucket_strips(b), b)
+    got, want = fn(*args(bb), "cpu"), fn(*args(bf), "cpu")
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
 
 
 # -- the engine, the stream, the sweep and the mesh --------------------------
@@ -393,70 +380,48 @@ def route_case():
     pairs = _route_pairs()
     want = oracle.sw_scores_pairs(_jax(pairs))
     np.testing.assert_array_equal(want, native.sw_scores_native(pairs))
-    off = Engine(EngineConfig(stream_band_transfer=False,
-                              nibble_transfer=False), device="cpu")
-    np.testing.assert_array_equal(off.sw_scores(pairs), want)
     return pairs, want
 
 
-def _spy(monkeypatch, routes, luts):
-    """Record each bucket's route (Engine._sw_prep) and each table that
-    build_code_lut hands the engine."""
-    from genomax_torch.engine import executor
-
-    prep, build = Engine._sw_prep, executor.build_code_lut
+def _spy(monkeypatch, routes):
+    """Record each bucket's route (Engine._sw_prep) and whether its stream
+    came as a band."""
+    prep = Engine._sw_prep
 
     def spied_prep(self, b):
         route, launch = prep(self, b)
         routes.append((route, isinstance(b.sy, bucketing.StreamBand)))
         return route, launch
 
-    def spied_build(*arrays):
-        lut = build(*arrays)
-        luts.append(lut)
-        return lut
-
     monkeypatch.setattr(Engine, "_sw_prep", spied_prep)
-    monkeypatch.setattr(executor, "build_code_lut", spied_build)
 
 
-@pytest.mark.parametrize("band,nib", SETTINGS, ids=SETTING_IDS)
 @pytest.mark.parametrize("stack", [0, 4], ids=["", "sw_stack4"])
-def test_engine_ladder_settings_equal_the_oracle(monkeypatch, route_case,
-                                                 band, nib, stack):
+def test_engine_band_equals_the_oracle(monkeypatch, route_case, stack):
     pairs, want = route_case
-    routes, luts = [], []
-    _spy(monkeypatch, routes, luts)
-    eng = Engine(EngineConfig(stream_band_transfer=band, nibble_transfer=nib,
-                              sw_stack=stack), device="cpu")
+    routes = []
+    _spy(monkeypatch, routes)
+    eng = Engine(EngineConfig(sw_stack=stack), device="cpu")
     np.testing.assert_array_equal(eng.sw_scores(pairs), want)
     short = "stacked" if stack else "rotor"
     assert sorted(r for r, _ in routes) == sorted([short, "tile", "strips"])
     # the band travels where the gate keeps it: past stack_max_nxs under
     # sw_stack >= 2, everywhere otherwise
-    assert dict(routes) == {short: band and not stack, "tile": band,
-                            "strips": band}
-    assert len(luts) == (3 if nib else 0)
-    assert all(lut is not None for lut in luts)
+    assert dict(routes) == {short: not stack, "tile": True, "strips": True}
 
 
-@pytest.mark.parametrize("band,nib", SETTINGS, ids=SETTING_IDS)
-def test_engine_wide_alphabet_ships_raw(monkeypatch, band, nib):
+def test_engine_band_wide_alphabet(monkeypatch):
+    """An 18-symbol alphabet (past the nibble codes) through the band."""
     pairs = _wide_pairs() + _route_pairs()[:20]
-    routes, luts = [], []
-    _spy(monkeypatch, routes, luts)
-    got = Engine(EngineConfig(stream_band_transfer=band, nibble_transfer=nib),
-                 device="cpu").sw_scores(pairs)
+    routes = []
+    _spy(monkeypatch, routes)
+    got = Engine(EngineConfig(), device="cpu").sw_scores(pairs)
     np.testing.assert_array_equal(got, oracle.sw_scores_pairs(_jax(pairs)))
-    assert len(routes) == 2
-    if nib:
-        assert sorted(lut is None for lut in luts) == [False, True]
-    else:
-        assert luts == []
+    assert len(routes) == 2 and all(band for _, band in routes)
 
 
-@pytest.mark.parametrize("band,nib", SETTINGS, ids=SETTING_IDS)
-def test_stream_packs_through_the_gate(monkeypatch, route_case, band, nib):
+@pytest.mark.parametrize("stack", [0, 4], ids=["", "sw_stack4"])
+def test_stream_packs_through_the_gate(monkeypatch, route_case, stack):
     pairs, want = route_case
     flags, pack = [], stream.pack_sw_pairs
 
@@ -465,10 +430,13 @@ def test_stream_packs_through_the_gate(monkeypatch, route_case, band, nib):
         return pack(chunk, job_mask=job_mask, stream_band=stream_band)
 
     monkeypatch.setattr(stream, "pack_sw_pairs", spied)
-    eng = Engine(EngineConfig(stream_band_transfer=band, nibble_transfer=nib),
-                 device="cpu")
+    eng = Engine(EngineConfig(sw_stack=stack), device="cpu")
     np.testing.assert_array_equal(eng.sw_scores_stream(pairs, 64), want)
-    assert flags == [band] * 3
+    assert len(flags) == 3
+    if stack:
+        assert all(callable(f) and not f(96) and f(97) for f in flags)
+    else:
+        assert flags == [True] * 3
 
 
 def test_sweep_packs_through_the_gate(monkeypatch, route_case):
@@ -481,8 +449,7 @@ def test_sweep_packs_through_the_gate(monkeypatch, route_case):
 
     monkeypatch.setattr(sweep, "pack_sw_pairs", spied)
     for stack in (0, 4):
-        eng = Engine(EngineConfig(sw_stack=stack, stream_band_transfer=True,
-                                  nibble_transfer=True), device="cpu")
+        eng = Engine(EngineConfig(sw_stack=stack), device="cpu")
         runs = sweep.sw_launches(eng, pairs)
         buckets = bucketing.pack_sw_pairs(pairs)
         got = bucketing.unpack_scores(
@@ -496,29 +463,23 @@ def test_stream_band_gate():
     def gate(**kw):
         return Engine(EngineConfig(**kw), device="cpu")._stream_band()
 
-    assert gate(stream_band_transfer=True) is True
-    assert gate(stream_band_transfer=False) is False
-    assert gate() is EngineConfig().stream_band_transfer
-    stacked = gate(sw_stack=2, stream_band_transfer=True)
+    assert gate() is True
+    stacked = gate(sw_stack=2)
     assert not stacked(96) and stacked(104)
-    assert gate(sw_stack=2, stream_band_transfer=False) is False
 
 
 def test_one_rank_sharded_engine_with_the_band_equals_engine(route_case):
     pairs, want = route_case
-    cfg = EngineConfig(stream_band_transfer=True, nibble_transfer=True)
-    dist = ShardedEngine(make_mesh(device="cpu"), cfg)
+    dist = ShardedEngine(make_mesh(device="cpu"), EngineConfig())
     np.testing.assert_array_equal(dist.sw_scores(pairs), want)
 
 
-def test_two_rank_sharded_engine_ladder_settings(tmp_path, route_case):
-    """Two gloo ranks of ShardedEngine (tests/_torch_dist_worker.py) under
-    the four ladder settings and the band under sw_stack=4: both ranks ==
-    one rank == the oracle."""
+def test_two_rank_sharded_engine_band(tmp_path, route_case):
+    """Two gloo ranks of ShardedEngine (tests/_torch_dist_worker.py) with
+    the band, and with it under sw_stack=4: both ranks == one rank == the
+    oracle."""
     pairs, want = route_case
-    configs = [dict(stream_band_transfer=b, nibble_transfer=n)
-               for b, n in SETTINGS]
-    configs.append(dict(stream_band_transfer=True, sw_stack=4))
+    configs = [{}, dict(sw_stack=4)]
     r0, r1 = _run_ranks(tmp_path, 2, "sw", {"sw": _rows(pairs),
                                              "configs": configs})
     assert r0 == r1

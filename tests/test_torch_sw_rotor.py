@@ -415,8 +415,8 @@ def test_rotor_build_failure_raises_engine_error(monkeypatch):
     # Stand-in for device tensors on a host without a card.
     monkeypatch.setattr(
         executor, "sw_rotor_to_torch",
-        lambda prep, device, ship=None: tuple(
-            t.to("meta") for t in sw_rotor_to_torch(prep, "cpu")))
+        lambda prep, device: tuple(t.to("meta") for t in
+                                   sw_rotor_to_torch(prep, "cpu")))
     eng = Engine(EngineConfig(sw_rotor=True), device="cuda")
     with pytest.raises(EngineError) as err:
         eng.sw_scores(_short_pairs(17, n=20, lo=50, hi=60))

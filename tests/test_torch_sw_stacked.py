@@ -311,8 +311,8 @@ def test_stacked_build_failure_raises_engine_error(monkeypatch):
     # Stand-in for device tensors on a host without a card.
     monkeypatch.setattr(
         executor, "sw_stacked_to_torch",
-        lambda prep, device, ship=None: tuple(
-            t.to("meta") for t in sw_stacked_to_torch(prep, "cpu")))
+        lambda prep, device: tuple(t.to("meta") for t in
+                                   sw_stacked_to_torch(prep, "cpu")))
     eng = Engine(EngineConfig(sw_stack=2), device="cuda")
     with pytest.raises(EngineError) as err:
         eng.sw_scores(stacked_sw_pairs(5, 30, n_pairs=300))

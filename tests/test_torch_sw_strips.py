@@ -271,8 +271,8 @@ def test_strips_build_failure_raises_engine_error(monkeypatch):
     # Stand-in for device tensors on a host without a card.
     monkeypatch.setattr(
         executor, "sw_strips_to_torch",
-        lambda prep, b, device, ship=None: tuple(
-            t.to("meta") for t in sw_strips_to_torch(prep, b, "cpu")))
+        lambda prep, b, device: tuple(t.to("meta") for t in
+                                      sw_strips_to_torch(prep, b, "cpu")))
     rng = np.random.default_rng(0)
     with pytest.raises(EngineError) as err:
         eng.sw_scores([SWPair(sx=_dna(rng, 150), sy=_dna(rng, 160))])
