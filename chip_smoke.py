@@ -7,7 +7,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 Phases (one line each; any failure exits non-zero). They run in the
 order 1, 2, 19, 21, 24, 27, 3, 4, 5, 33, 22, 23, 25, 26, 28, 29, 20,
-7-18, 30-32, 34-37, 6:
+7-18, 38, 30-32, 34-37, 6:
   1. build      nvcc-builds the nine kernels (csrc/sw_tile.cu,
                 csrc/sw_long.cu, csrc/sw_strips.cu, csrc/sw_rotor.cu,
                 csrc/sw_stacked.cu, csrc/sw_conveyor.cu, csrc/sw_xstrip.cu,
@@ -25,8 +25,9 @@ order 1, 2, 19, 21, 24, 27, 3, 4, 5, 33, 22, 23, 25, 26, 28, 29, 20,
                 must not pass,
                 and of fp32
                 flops a cell (FFMA 2) along one step of
-                csrc/pairhmm_tile.cu's and csrc/pairhmm_long.cu's loop at
-                every R, which must reach PHMM_FLOPS_PER_CELL
+                csrc/pairhmm_tile.cu's (the warp form at every R, the
+                block form at R = 4, 5, 6, 8) and csrc/pairhmm_long.cu's
+                loop at every R, which must reach PHMM_FLOPS_PER_CELL
   2. kernel     the lane-tile SW kernel at its default R and at every R
                 the build makes vs its plain PyTorch version on ragged
                 buckets (one warp a pair, and past 32R rows a block of
@@ -94,7 +95,8 @@ order 1, 2, 19, 21, 24, 27, 3, 4, 5, 33, 22, 23, 25, 26, 28, 29, 20,
                 all-mismatch pair, a one-base pair) under three scoring
                 configs, packed at strip widths 64 and 1024, the kernel at
                 R = 4, 8 and 16, exact; the plain
-                strip sweep at 1024 and the plain full-height sweep
+                strip sweep at 1024 (under the first config, timed by
+                that call) and the plain full-height sweep
                 there, and the strip sweep at 64 on a tile a quarter as
                 long (x 300-1,100bp, the same special pairs, 18 strips);
                 on a tile taller than 4,096 rows (24 pairs, x
@@ -123,10 +125,10 @@ order 1, 2, 19, 21, 24, 27, 3, 4, 5, 33, 22, 23, 25, 26, 28, 29, 20,
                 kernel; results in input order, 256 sampled pairs ==
                 native model, the lane-tile, strips and long-pair launch
                 counts move
- 18. sw long time  long-pair kernel ms per 50kbp tile at R = 4, 8 and
-                16 in turns (4, 8, 16, 16, 8, 4), slope (t(3) - t(1)) /
-                2, each R's scores == phase 16's, beside phase 16's plain
-                ms on the same tile
+ 18. sw long time  long-pair kernel ms per 50kbp tile at its default
+                R, twice, slope (t(3) - t(1)) / 2, each R's scores (4, 8,
+                16) == phase 16's, beside phase 16's plain ms on the same
+                tile
  19. sw strips   the strips kernel vs its plain strip sweep, the plain
                 lane-tile sweep and the native model on ragged buckets of
                 136-608 rows (an identical pair, a tandem repeat across
@@ -316,6 +318,25 @@ order 1, 2, 19, 21, 24, 27, 3, 4, 5, 33, 22, 23, 25, 26, 28, 29, 20,
                 of phases 4, 22 and 34, one launch of the strips or rotor
                 kernel a run; the medians and spreads; a one-rank
                 ShardedEngine with the band == Engine
+ 38. past 1,024 rows  max_device_len up to 4,096 (tall_phase): the lane
+                tile's block form (8 and 16 warps) on buckets of 256
+                pairs of 2,048 rows (y of 100-1,000bp, a stream the JAX
+                engine keeps resident, and y up to x + 1,000) and 4,096
+                rows at every R that holds them, and the strips kernel on
+                the same buckets, == the plain lane-tile sweep under two
+                configs (the plain strip sweep under one), 8 sampled ==
+                native, exact; both kernels' slopes (t(5) - t(1)) / 4 in
+                turns and bounds; the PairHMM tile's block form at R = 4,
+                5, 6, 8 on phase 12's jobs (1,008 rows) and 256 jobs of
+                2,040bp reads (2,048 rows) vs its plain version within
+                1e-4, -inf on the same slots, each R's slope in turns, the
+                plain by one call, the bound, beside phase 10's one-warp
+                time; engine walls in turns, three each: phase 17's file
+                at max_device_len 1,024 (1-4kbp pairs on sw_long) and
+                4,096 (on strips), == phase 17's scores, the offloads the
+                predicate counts; phase 12's jobs at 1,024 (pairhmm_long)
+                and 2,048 (the block form), 64 sampled within 1e-4 of the
+                native fp64 model, the same fallback counts
 
 Then one JSON line describing each kernel, the card line, and, last,
 {"ok": true, "device": {...}}. Without a CUDA device, or outside the
@@ -347,6 +368,11 @@ LR_READS, LR_HAPS, LR_READ_LEN, LR_HAP_LEN = 128, 4, 1000, 1200
 LP_PAIRS, LP_LEN = 128, 50000
 # Mixed SW file: x of 20-4,000bp, y up to 1,000bp longer.
 MX_PAIRS, MX_X_LENS = 2000, (20, 4000)
+# Phase 38: pairs a bucket past 1,024 SW rows, and the PairHMM jobs of
+# 2,040bp reads (2,048 rows, the tallest at max_device_len 4,096) as reads x
+# phase 12's LR_HAPS haplotypes.
+TALL_PAIRS = 256
+TALL_READS, TALL_READ_LEN, TALL_HAP_LEN = 64, 2040, 2200
 # SW sweep: pairs per point and lengths; the rotor's lengths and queue
 # depths (rotor_max_slots).
 SWEEP_PAIRS, SWEEP_LENS = 4096, (32, 64, 128, 256, 512, 1000)
@@ -570,13 +596,15 @@ def sass_blocks(ins):
 
 
 def sass_phmm_flops(lib, kernel):
-    """{(R, variant): (fp32 flops a cell along one step, cells on the
-    path)} of the PairHMM `kernel` in `lib`, variant the bitmask flag of
-    the lane-tile kernel's instances (None for the long-read kernel's).
+    """{(R, *flags): (fp32 flops a cell along one step, cells on the
+    path)} of the PairHMM `kernel` in `lib`, flags the lane-tile kernel's
+    bool template arguments (the bitmask codes, the block form; none for
+    the long-read kernel's instances, whose key is (R, None)).
     In each instance the walk starts from the straight-line block with the
-    most FFMAs on a loop that takes no vote and no barrier (the cells of
-    the step loop, one step or as many as the compiler unrolled; a
-    rescale block's last step and its votes lie on the outer loop) and
+    most FFMAs on a loop that takes no vote and no reducing barrier (the
+    cells of the step loop, one step or as many as the compiler unrolled,
+    with the block form's seam barrier; a rescale block's last step and
+    its votes, a warp's or the block's, lie on the outer loop) and
     takes the shortest path from its end round that loop back to it, so
     that every branch a step may skip (the stream chunk, the first
     diagonal) is skipped and predicated code is counted. Along it FADD
@@ -588,11 +616,11 @@ def sass_phmm_flops(lib, kernel):
     flop = {"FADD": 1, "FMUL": 1, "FFMA": 2}
     out = {}
     for name, ins in sass_functions(lib).items():
-        m = re.search(kernel + r"ILi(\d+)E(?:Lb([01])E)?", name)
+        m = re.search(kernel + r"ILi(\d+)E((?:Lb[01]E)*)", name)
         if not m:
             continue
         r = int(m.group(1))
-        variant = None if m.group(2) is None else int(m.group(2))
+        flags = tuple(int(v) for v in re.findall(r"Lb([01])E", m.group(2)))
         index = {a: n for n, (a, _, _, _) in enumerate(ins)}
 
         def succ(n):
@@ -630,15 +658,16 @@ def sass_phmm_flops(lib, kernel):
             if ffma >= 3 and (best is None or ffma > best[0]):
                 path = cycle(b)
                 if path is not None and not any(
-                        op(n) in ("VOTE", "BAR") for n in path):
+                        op(n) == "VOTE" or ins[n][1].startswith("BAR.RED")
+                        for n in path):
                     best = (ffma, path)
         check(best is not None, f"{name}: no FFMA block on a loop")
         path = best[1]
         ffma = sum(op(n) == "FFMA" for n in path)
         check(ffma % 3 == 0 and ffma // 3 % r == 0,
               f"{name}: {ffma} FFMAs on one step's path, not 3 x R cells")
-        out[(r, variant)] = (sum(flop.get(op(n), 0) for n in path)
-                             / (ffma // 3), ffma // 3)
+        out[(r, *flags) if flags else (r, None)] = (
+            sum(flop.get(op(n), 0) for n in path) / (ffma // 3), ffma // 3)
     return out
 
 
@@ -1221,6 +1250,241 @@ def harness_phase(slopes):
         ln.strip() for ln in lines))
 
 
+def tall_phase(mixed, lr_batch, int32_ops, ph_one_warp_ms):
+    """Phase 38, past 1,024 rows (max_device_len up to 4,096, as the JAX
+    engine runs it). ``mixed`` is phase 17's (pairs, scores), ``lr_batch``
+    phase 12's batch, ``ph_one_warp_ms`` phase 10's kernel time. (a) The
+    lane tile's block form on buckets of 2,048 rows (8 warps at R = 8; a
+    stream the JAX engine keeps resident, y of 100-1,000bp, and one it
+    streams, y up to x + 1,000) and 4,096 rows (16 warps, streamed), 256
+    pairs each, at every R that 16 warps hold the bucket at, under two
+    configs == the plain lane-tile sweep, exact, 8 sampled pairs == native;
+    (b) the strips kernel on the same buckets == the same plain sweep, and
+    the plain strip sweep under the first config; the two kernels' slopes
+    in turns and their bounds; (c) the PairHMM lane tile's block form at
+    every R of BLOCK_R on phase 12's jobs (1,008 rows) and 256 jobs of
+    2,040bp reads (2,048 rows) against its plain version (finite slots
+    within 1e-4, -inf on the same slots), timed in turns, its bound, beside
+    phase 10's one-warp time; (d) engine walls in turns, three each: phase
+    17's file at max_device_len 1,024 (the 1-4kbp pairs on sw_long) and
+    4,096 (on strips), every score == phase 17's; phase 12's jobs at 1,024
+    (pairhmm_long) and 2,048 (the block form), 64 sampled jobs within 1e-4
+    of the native fp64 model at both, the same fallback counts. Returns the
+    numbers of the kernels line."""
+    import numpy as np
+    import torch
+
+    from genomax_torch import native
+    from genomax_torch.config import EngineConfig, SWConfig
+    from genomax_torch.engine.executor import Engine
+    from genomax_torch.io.generator import generate_pairhmm_batch
+    from genomax_torch.kernels import (pairhmm, pairhmm_long, sw, sw_long,
+                                       sw_rotor, sw_strips)
+    from genomax_torch.kernels.wavefront import (phmm_forward_tiles,
+                                                 sw_forward_tiles,
+                                                 sw_strips_forward_tiles)
+    from genomax_torch.pack import (pack_pairhmm_batches, pack_sw_pairs,
+                                    phmm_bucket_to_torch, sw_bucket_to_torch,
+                                    sw_strips_to_torch, unpack_scores)
+
+    dev = torch.device("cuda")
+    cases = load_cases()
+    out = {"sw_tile": {}, "sw_strips": {}, "pairhmm_tile": {},
+           "sw_err": 0, "ph_err": 0.0}
+    # (a), (b): the SW buckets past 1,024 rows
+    for height, y_short in ((2048, True), (2048, False), (4096, False)):
+        name = f"{height}-{'resident' if y_short else 'streamed'}"
+        pairs = cases.tall_sw_pairs(SEED + 38, height, n_pairs=TALL_PAIRS,
+                                    y_short=y_short)
+        (b,) = pack_sw_pairs(pairs)
+        check(b.sx.shape[1] == height, f"phase 38: bucket {b.sx.shape}")
+        t = sw_bucket_to_torch(b, dev)
+        prep = sw_strips.prep_bucket_strips(b)
+        (_, _, _, nyt), kw = prep
+        ts, kw = sw_strips_to_torch(prep, b, dev), dict(kw)
+        rs = [r for r in sw.ROWS_PER_THREAD
+              if height - 1 <= sw.MAX_WARPS * sw.WARP * r]
+        sample = np.random.default_rng(SEED + 38).choice(len(pairs), 8,
+                                                         replace=False)
+        plain_ms = {}
+        for i, c in enumerate(CFGS[:2]):
+            cfg = SWConfig(**c)
+            held = []
+            p_ms = one_ms(lambda: held.append(sw_forward_tiles(*t, cfg)),
+                          torch)
+            want = held[0]
+            plain_ms.setdefault("tile", p_ms)
+            for r in rs:
+                got = sw.sw_forward(*t, cfg, _rows_per_thread=r)
+                torch.cuda.synchronize()
+                err = int((got.long() - want.long()).abs().max())
+                out["sw_err"] = max(out["sw_err"], err)
+                check(err == 0, f"phase 38: lane tile R = {r} != plain on "
+                                f"{name} under {cfg}: {err}")
+            got = sw_strips.sw_forward_strips(*ts, ny_max=int(nyt.max()),
+                                              cfg=cfg, **kw)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want),
+                  f"phase 38: strips != plain lane tile on {name}, {cfg}")
+            if i == 0:  # the plain strip sweep, timed by that call
+                held = []
+                plain_ms["strips"] = one_ms(lambda: held.append(
+                    sw_strips_forward_tiles(*ts, cfg=cfg, **kw)), torch)
+                check(torch.equal(held[0], want),
+                      f"phase 38: plain strip sweep != plain on {name}")
+            scores = unpack_scores([b], [want.cpu().numpy()], len(pairs))
+            check(np.array_equal(scores[sample], native_sw(
+                native, [pairs[j] for j in sample], cfg)),
+                  f"phase 38: plain != native on {name}, {cfg}")
+        tile = lambda: sw.sw_forward(*t)  # noqa: E731
+        strips = lambda: sw_strips.sw_forward_strips(  # noqa: E731
+            *ts, ny_max=int(nyt.max()), **kw)
+        ms = {"tile": [], "strips": []}
+        for key in ("tile", "strips", "strips", "tile"):
+            ms[key].append(slope_ms(tile if key == "tile" else strips, torch,
+                                    5))
+        cells = int(((b.nx - 1).astype(np.int64) * (b.ny - 1)).sum())
+        geo = sw.tile_geometry(height)
+        for key, tensors in (("tile", t), ("strips", ts)):
+            bound = bound_ms(nbytes(*tensors) + 4 * b.nx.size,
+                             cells * SW_OPS_PER_CELL, int32_ops)
+            k = sum(ms[key]) / 2
+            out["sw_tile" if key == "tile" else "sw_strips"][name] = {
+                "shape": [TALL_PAIRS, height, int(t[1].shape[1])],
+                "ms": k, "plain_ms": plain_ms[key], "bound_ms": bound[0],
+                "bound_by": bound[1]}
+            print(f"phase 38 {'lane tile' if key == 'tile' else 'strips'} "
+                  f"{name}: bucket {tuple(t[0].shape)} stream "
+                  f"{tuple(t[1].shape)}"
+                  + (f", R = {geo.rows_per_thread}, {geo.warps} warps a pair "
+                     f"(every R of {rs} == plain)" if key == "tile" else "")
+                  + f": {ms[key][0]:.3f} / {ms[key][1]:.3f} ms in turns, "
+                  f"plain {plain_ms[key]:.1f} ms (one call), "
+                  f"bound {bound[0]:.4f} ms by {bound[1]} "
+                  f"({100 * bound[0] / k:.1f}% of it), GCUPS "
+                  f"{cells / k / 1e6:.2f}; == plain under two configs, "
+                  "8 sampled == native")
+    # (c): the PairHMM block form
+    for name, batch in (("1000bp", lr_batch), ("2040bp", generate_pairhmm_batch(
+            TALL_READS, LR_HAPS, read_len=TALL_READ_LEN,
+            hap_len=TALL_HAP_LEN, seed=SEED + 38, from_haps=True))):
+        (b,), _ = pack_pairhmm_batches([batch], byte_quals=True,
+                                       factored=True, bitmask_codes=True)
+        t = phmm_bucket_to_torch(b, dev)
+        valid = torch.from_numpy(b.rl > 0).to(dev)
+        want = phmm_forward_tiles(*t, 32, 1.0, True)
+        plain_ms = one_ms(lambda: phmm_forward_tiles(*t, 32, 1.0, True),
+                          torch)
+        errs = {}
+        for r in pairhmm.BLOCK_R:
+            got = pairhmm.pairhmm_forward(*t, bitmask=True, _rows_per_thread=r)
+            errs[r] = log10_err(got, want, valid, torch)
+        err = max(errs.values())
+        out["ph_err"] = max(out["ph_err"], err)
+        check(err <= PH_TOL, f"phase 38: block form != plain on {name}: "
+                             f"{errs}")
+        times = {r: [] for r in pairhmm.BLOCK_R}
+        for r in pairhmm.BLOCK_R + pairhmm.BLOCK_R[::-1]:
+            times[r].append(slope_ms(lambda: pairhmm.pairhmm_forward(
+                *t, bitmask=True, _rows_per_thread=r), torch))
+        geo = pairhmm.tile_geometry(b.nxs)
+        k = sum(times[geo.rows_per_thread]) / 2
+        cells = int((b.rl.astype(np.int64) * b.hl).sum())
+        bound = bound_ms(nbytes(*t) + 4 * b.rl.size,
+                         cells * PHMM_FLOPS_PER_CELL, FP32_FLOPS)
+        out["pairhmm_tile"][name] = {
+            "shape": [int(b.rl.size), b.nxs, int(t[7].shape[1])],
+            "rows_per_thread": geo.rows_per_thread, "warps": geo.warps,
+            "ms": k, "plain_ms": plain_ms, "bound_ms": bound[0],
+            "bound_by": bound[1],
+            "ms_by_r": {r: sum(v) / 2 for r, v in times.items()}}
+        print(f"phase 38 phmm block form {name}: bucket {tuple(t[0].shape)} "
+              f"stream {tuple(t[7].shape)}, default R = "
+              f"{geo.rows_per_thread} ({geo.warps} warps a pair); ms in "
+              "turns " + ", ".join(f"R={r} ({-(-b.nxs // (32 * r))} warps) "
+                                   f"{v[0]:.3f} / {v[1]:.3f}"
+                                   for r, v in times.items())
+              + f"; plain {plain_ms:.1f} ms; bound {bound[0]:.4f} ms by "
+              f"{bound[1]} ({100 * bound[0] / k:.1f}% of it), GCUPS "
+              f"{cells / k / 1e6:.2f} (cells {cells}); max |dlog10| by R "
+              + ", ".join(f"R={r} {e:.3g}" for r, e in errs.items())
+              + f", {int(torch.isfinite(want).sum())} finite; phase 10's "
+              f"one-warp time {ph_one_warp_ms:.3f} ms")
+    # (d): engine walls in turns
+    pairs, want = mixed
+    walls = {}
+
+    def sw_run(L):
+        eng = Engine(EngineConfig(max_device_len=L), device="cuda")
+        sw_long.launches = sw.launches = sw_strips.launches = 0
+        sw_rotor.launches = 0
+        t0 = time.perf_counter()
+        scores = eng.sw_scores(pairs)
+        wall = time.perf_counter() - t0
+        check(np.array_equal(scores, want),
+              f"phase 38: the mixed file at L = {L} != phase 17's scores")
+        n_off = sum(len(p.sx) + 2 > L for p in pairs)
+        st = eng.last_stats
+        check(st.offloaded_jobs == n_off and sw_long.launches == -(-n_off
+                                                                   // 128),
+              f"phase 38: L = {L}: {st.offloaded_jobs} offloaded, "
+              f"{sw_long.launches} sw_long launches, want {n_off}")
+        return wall, st.exec_s, (sw.launches, sw_strips.launches,
+                                 sw_rotor.launches, sw_long.launches), st
+
+    sample = np.random.default_rng(SEED + 2).choice(len(lr_batch.reads) * LR_HAPS,
+                                                   64, replace=False)
+    jobs = [(lr_batch.reads[j // LR_HAPS], lr_batch.haplotypes[j % LR_HAPS])
+            for j in sample]
+    ref = np.array([native.pairhmm_native([type(lr_batch)(
+        reads=[rd], haplotypes=[hp])])[0] for rd, hp in jobs])
+
+    def ph_run(L):
+        eng = Engine(EngineConfig(max_device_len=L), device="cuda")
+        pairhmm.launches = pairhmm_long.launches = 0
+        t0 = time.perf_counter()
+        values = eng.pairhmm([lr_batch])
+        wall = time.perf_counter() - t0
+        err = float(np.abs(values[sample] - ref).max())
+        out["ph_err"] = max(out["ph_err"], err)
+        check(err <= PH_TOL and bool(np.isfinite(values).all()),
+              f"phase 38: phase 12's jobs at L = {L} vs native: {err}")
+        return wall, eng.last_stats.exec_s, (pairhmm.launches,
+                                             pairhmm_long.launches), \
+            eng.last_stats, values
+
+    for kind, run, Ls in (("sw", sw_run, (1024, 4096)),
+                          ("phmm", ph_run, (1024, 2048))):
+        res = {L: [] for L in Ls}
+        for L in (Ls[0], Ls[1], Ls[1], Ls[0], Ls[0], Ls[1]):
+            res[L].append(run(L))
+        for L in Ls:
+            st = res[L][-1][3]
+            print(f"phase 38 {kind} engine, max_device_len {L}: walls "
+                  + " / ".join(f"{r[0]:.4f}" for r in res[L])
+                  + " s in turns, exec_s " + " / ".join(
+                      f"{r[1]:.4f}" for r in res[L])
+                  + f"; launches {res[L][0][2]} ("
+                  + ("lane tile, strips, rotor, sw_long" if kind == "sw"
+                     else "pairhmm_tile, pairhmm_long")
+                  + f"); stats {json.dumps(st.as_dict())}")
+        walls[kind] = {L: sorted(r[0] for r in res[L])[1] for L in Ls}
+        if kind == "phmm":
+            a, b = (res[L][0][4] for L in Ls)
+            fa, fb = (res[L][0][3].fallback_jobs for L in Ls)
+            check(fa == fb, f"phase 38: fallback jobs {fa} at L = {Ls[0]}, "
+                            f"{fb} at L = {Ls[1]}")
+            print(f"phase 38 phmm L = {Ls[0]} vs {Ls[1]}: max |dlog10| "
+                  f"{float(np.abs(a - b).max()):.3g} over {len(a)} jobs, "
+                  f"fallback jobs {fa} == {fb}, 64 sampled within "
+                  f"{PH_TOL} of native at both")
+        print(f"phase 38 {kind} engine medians: " + ", ".join(
+            f"L = {L} {w:.4f} s" for L, w in walls[kind].items())
+            + f" (ratio {walls[kind][Ls[1]] / walls[kind][Ls[0]]:.3f})")
+    out["walls"] = walls
+    return out
+
+
 def ladder_phase(sw512, sw64, headline):
     """Phase 37: the SW transfer ladder (pack/nibble.py) on the card.
     ``sw512`` is phase 4's (pairs, scores), ``sw64`` phase 22's,
@@ -1495,20 +1759,30 @@ def main(argv=None) -> int:
     phmm_flops = {}
     for name, kernel, want in (
             ("pairhmm_tile", "pairhmm_tile_kernel",
-             [(r, b) for r in pairhmm.TILE_R for b in (0, 1)]),
+             [(r, b, 0) for r in pairhmm.TILE_R for b in (0, 1)]
+             + [(r, b, 1) for r in pairhmm.BLOCK_R for b in (0, 1)]),
             ("pairhmm_long", "pairhmm_long_kernel",
              [(r, None) for r in pairhmm_long.LONG_R])):
         flops = sass_phmm_flops(builds[names.index(name)][0], kernel)
         check(sorted(flops, key=str) == sorted(want, key=str),
               f"{name}: SASS instances {sorted(flops, key=str)}")
         phmm_flops[name] = flops
+
+        def by_r(label, rs, variants):
+            return label + ": " + ", ".join(
+                f"R={r}: " + " / ".join(
+                    f"{flops[(r, *v)][0]:.2f} over {flops[(r, *v)][1]} cells"
+                    for v in variants) for r in rs)
+
+        if name == "pairhmm_long":
+            text = by_r("", pairhmm_long.LONG_R, [(None,)])
+        else:
+            text = (by_r(" (raw / bitmask codes), warp form", pairhmm.TILE_R,
+                         [(0, 0), (1, 0)])
+                    + by_r("; block form", pairhmm.BLOCK_R,
+                           [(0, 1), (1, 1)]))
         print(f"phase 1 sass {name}: fp32 flops a cell along one step of the "
-              "loop (FFMA 2) by R" + ("" if name == "pairhmm_long" else
-                                      " (raw / bitmask codes)") + ": " +
-              ", ".join(f"R={r}: " + " / ".join(
-                  f"{flops[(r, v)][0]:.2f} over {flops[(r, v)][1]} cells"
-                  for v in ((None,) if name == "pairhmm_long" else (0, 1)))
-                  for r in sorted({r for r, _ in want})))
+              "loop (FFMA 2) by R" + text)
     fewest = min(f for fl in phmm_flops.values() for f, _ in fl.values())
     check(PHMM_FLOPS_PER_CELL <= fewest,
           f"PHMM_FLOPS_PER_CELL {PHMM_FLOPS_PER_CELL}: a PairHMM step takes "
@@ -2916,17 +3190,22 @@ def main(argv=None) -> int:
                                r)
         check((geo.n_sub, geo.height) == (2, 2560),
               f"the tall tile at R = {r}: {geo}")
-    for c in CFGS:
+    for i, c in enumerate(CFGS):
         cfg = SWConfig(**c)
         t0 = time.perf_counter()
         want = torch.from_numpy(native_sw(native, pairs, cfg)).to(dev)
         want_small = torch.from_numpy(native_sw(native, small, cfg)).to(dev)
         want_tall = torch.from_numpy(native_sw(native, tall, cfg)).to(dev)
         t_native = time.perf_counter() - t0
-        got = {f"plain, strips of {bdef.strip_w}": pdef(cfg),
-               "plain, full height": ddef(cfg),
+        got = {"plain, full height": ddef(cfg),
                "small tile, plain, strips of 64": ps64(cfg),
                "tall tile, plain, full height": dtall(cfg)}
+        if i == 0:
+            # the plain strip sweep of the 4kbp tile (some 8 s) under the
+            # first config only, timed by that call
+            held = []
+            p1 = one_ms(lambda: held.append(pdef(cfg)), torch)
+            got[f"plain, strips of {bdef.strip_w}"] = held[0]
         # the kernel at every R on every pack
         for r in sw_long.ROWS_PER_THREAD:
             got[f"R={r}, strips of 64"] = k64(cfg, r)
@@ -2954,7 +3233,8 @@ def main(argv=None) -> int:
         print(f"phase 14 sw long kernel == plain == native: {n} pairs (x "
               f"1,023-4,000bp, y to 5kbp), packs of {b64.n_strips} strips "
               f"of 64 and {bdef.n_strips} of {bdef.strip_w}, plain at "
-              f"{bdef.strip_w} and at full height; {len(small)} pairs (x "
+              f"{bdef.strip_w} (the first config) and at full height; "
+              f"{len(small)} pairs (x "
               f"300-1,100bp, y to 1.3kbp), {bs64.n_strips} strips of 64, "
               f"kernel and plain; {len(tall)} pairs (x 4,200-4,400bp, y to "
               f"4.6kbp), {btall.n_strips} strips of {btall.strip_w}, two "
@@ -2962,10 +3242,9 @@ def main(argv=None) -> int:
               f"the kernel at R = {sw_long.ROWS_PER_THREAD}; {cfg}, "
               f"{len(got)} results exact (native {t_native:.2f} s)")
     cfg = SWConfig()
-    k1, p1, f1, k2 = (slope_ms(lambda: kdef(cfg), torch, 3),
-                      one_ms(lambda: pdef(cfg), torch),
-                      one_ms(lambda: ddef(cfg), torch),
-                      slope_ms(lambda: kdef(cfg), torch, 3))
+    k1, f1, k2 = (slope_ms(lambda: kdef(cfg), torch, 3),
+                  one_ms(lambda: ddef(cfg), torch),
+                  slope_ms(lambda: kdef(cfg), torch, 3))
     sl4_kernel_ms = (k1 + k2) / 2
     cells = sum(len(p.sx) * len(p.sy) for p in pairs)
     sl4_bound = bound_ms(nbytes(*tdef) + 4 * 128, cells * SW_OPS_PER_CELL,
@@ -3146,28 +3425,35 @@ def main(argv=None) -> int:
           f"stats {json.dumps(stats.as_dict())}")
     mx_pairs, mx_scores = pairs, scores
 
-    # 18. long-pair kernel timing on the 50kbp tile
-    # each R in turns (4, 8, 16, 16, 8, 4), each result == phase 16's
-    sl_r_ms = {r: [] for r in sw_long.ROWS_PER_THREAD}
-    for r in sw_long.ROWS_PER_THREAD + sw_long.ROWS_PER_THREAD[::-1]:
-        k50 = lambda: sw_long.sw_forward_long(  # noqa: E731
-            *t50, **kw50, _rows_per_thread=r)
-        check(torch.equal(k50(), got), f"sw_long at R = {r} != R = "
-                                       f"{sw_long.LONG_R} on the 50kbp tile")
-        sl_r_ms[r].append(slope_ms(k50, torch, 3))
-    k1, k2 = sl_r_ms[sw_long.LONG_R]
+    # 18. long-pair kernel timing on the 50kbp tile: each R's result ==
+    # phase 16's, the default R timed twice (every R's times: PERF.md §6,
+    # row 5)
+    for r in sw_long.ROWS_PER_THREAD:
+        check(torch.equal(sw_long.sw_forward_long(
+            *t50, **kw50, _rows_per_thread=r), got),
+              f"sw_long at R = {r} != R = {sw_long.LONG_R} on the 50kbp "
+              "tile")
+    k1, k2 = (slope_ms(lambda: sw_long.sw_forward_long(*t50, **kw50), torch,
+                       3) for _ in range(2))
     sl_kernel_ms = (k1 + k2) / 2
     cells = LP_PAIRS * LP_LEN * LP_LEN
     sl_bound = bound_ms(nbytes(*t50) + 4 * 128, cells * SW_OPS_PER_CELL,
                         int32_ops)
     print(f"phase 18 sw long timing, tile of {LP_PAIRS} pairs {LP_LEN} x "
-          f"{LP_LEN}, ms per call in turns: " + ", ".join(
-              f"R={r} {a:.3f} / {b:.3f}" for r, (a, b) in sl_r_ms.items())
-          + f"; the default R = {sw_long.LONG_R}: {sl_kernel_ms:.3f} ms, "
+          f"{LP_LEN}, every R of {sw_long.ROWS_PER_THREAD} == phase 16's "
+          f"scores; the default R = {sw_long.LONG_R}: {k1:.3f} / {k2:.3f} "
+          f"ms, mean {sl_kernel_ms:.3f} ms, "
           f"bound {sl_bound[0]:.4f} ms by {sl_bound[1]}; GCUPS kernel "
           f"{cells / sl_kernel_ms / 1e6:.2f}, plain "
           f"{cells / sl_plain_ms / 1e6:.2f} at phase 16's {sl_plain_ms:.1f} "
           f"ms (cells = sum len(sx)*len(sy), {cells})")
+
+    # 38. past 1,024 rows: the block forms, strips and the engine walls
+    t0 = time.perf_counter()
+    tall = tall_phase((mx_pairs, mx_scores), batch, int32_ops, ph_kernel_ms)
+    max_err = max(max_err, tall["sw_err"])
+    ph_err = max(ph_err, tall["ph_err"])
+    print(f"phase 38 took {time.perf_counter() - t0:.1f} s")
 
     # 30. the cross-device strip kernel vs its plain version, then the
     # K-strip ring, each strip's halo handed to the next, on the card
@@ -3551,11 +3837,12 @@ def main(argv=None) -> int:
                   "rows_per_thread": dr_geo.rows_per_thread,
                   "launches": dr_launches, "ms": dr_ms,
                   "plain_ms": dr_plain_ms, "bound_ms": dr_bound[0],
-                  "bound_by": dr_bound[1]}),
+                  "bound_by": dr_bound[1]},
+              past_1024_rows=tall["sw_tile"]),
         entry("sw_strips", "sw_strips.cu", "genomax/kernels/sw_strips.py:68",
               strips_launches, strips_err, strips_ms, strips_plain_ms,
               strips_bound, rows_per_thread=strips_r,
-              ms_by_r=strips_ms_by_r),
+              ms_by_r=strips_ms_by_r, past_1024_rows=tall["sw_strips"]),
         entry("sw_rotor", "sw_rotor.cu", "genomax/kernels/sw_rotor.py:141",
               rotor_launches, rotor_err, rotor_ms, rotor_plain_ms,
               rotor_bound, geometry=dataclasses.asdict(rotor_geo),
@@ -3580,7 +3867,8 @@ def main(argv=None) -> int:
               xs_launches, xs_err, xs_kernel_ms, xs_plain_ms, xs_bound),
         entry("pairhmm_tile", "pairhmm_tile.cu",
               "genomax/kernels/pairhmm_pallas.py:93", ph_launches, ph_err,
-              ph_kernel_ms, ph_plain_ms, ph_bound),
+              ph_kernel_ms, ph_plain_ms, ph_bound,
+              block_form=tall["pairhmm_tile"]),
         entry("pairhmm_long", "pairhmm_long.cu",
               "genomax/kernels/pairhmm_long.py:130", lr_launches, lr_err,
               lr_kernel_ms, lr_plain_ms, lr_bound)]}))

@@ -14,7 +14,8 @@ default) prints the error and returns 2. The TPU's --backend, --interpret
 
 --chunk N streams the workload through ``engine/stream.py`` in chunks of N
 pairs (sw) or N batches (pairhmm), the next chunk packed while this one
-runs; N must be at least 1. --profile DIR records the scoring call with
+runs; N = 0 is the unchunked run, as in ``genomax``, and a negative N is
+refused. --profile DIR records the scoring call with
 ``torch.profiler`` (the CPU, and the card when the engine runs there) and
 writes the trace into DIR; a profiler that cannot trace what was asked
 fails the command. pairhmm --resume appends batch by batch and keeps a
@@ -58,7 +59,7 @@ def _build_engine(args, **kw):
     if args.xshard is not None and not args.devices:
         raise ValueError("--xshard routes through the cross-device "
                          "wavefront; it requires --devices N")
-    if args.chunk is not None and args.devices:
+    if args.chunk and args.devices:
         raise ValueError("--chunk streams through the local engine; "
                          "it cannot be combined with --devices")
     cfg_kw = {} if args.max_device_len is None else dict(
@@ -123,8 +124,8 @@ def cmd_sw(args) -> int:
     pairs = parse_sw_file(args.input)
     t0 = time.time()
     with _profiled(args, eng):
-        scores = (eng.sw_scores(pairs) if args.chunk is None
-                  else eng.sw_scores_stream(pairs, args.chunk))
+        scores = (eng.sw_scores_stream(pairs, args.chunk) if args.chunk
+                  else eng.sw_scores(pairs))
     elapsed = time.time() - t0
     if not _is_writer(eng):
         return 0
@@ -155,8 +156,8 @@ def cmd_pairhmm(args) -> int:
             return _pairhmm_resumable(args, eng, batches)
     t0 = time.time()
     with _profiled(args, eng):
-        values = (eng.pairhmm(batches) if args.chunk is None
-                  else eng.pairhmm_stream(batches, args.chunk))
+        values = (eng.pairhmm_stream(batches, args.chunk) if args.chunk
+                  else eng.pairhmm(batches))
     elapsed = time.time() - t0
     if not _is_writer(eng):
         return 0
@@ -242,7 +243,8 @@ def _add_engine_args(p):
     p.add_argument("--chunk", type=int, metavar="N",
                    help="stream the workload in chunks of N pairs (sw) / N "
                         "batches (pairhmm), the next chunk packed while this "
-                        "one runs (engine/stream.py; local engine only)")
+                        "one runs (engine/stream.py; local engine only); 0 "
+                        "runs unchunked")
     p.add_argument("--profile", metavar="DIR",
                    help="record the run with torch.profiler (CPU, and CUDA "
                         "on the card) and write the trace into DIR")
@@ -255,7 +257,8 @@ def _add_engine_args(p):
     p.add_argument("--max-device-len", type=int, metavar="L",
                    help="pairs whose padded x extent exceeds L leave the "
                         "lane-tile kernels for the long-pair paths "
-                        "(EngineConfig.max_device_len; default 1024)")
+                        "(EngineConfig.max_device_len; default 1024, 8 to "
+                        "4096)")
     p.add_argument("--devices", type=int, metavar="N",
                    help="score over a mesh of N ranks, one process a device "
                         "(ShardedEngine); N must be the process group's size")

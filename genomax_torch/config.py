@@ -11,19 +11,25 @@ from __future__ import annotations
 
 import dataclasses
 
-# The most x rows a pair of the SW kernels takes: the JAX engine's default
-# max_device_len, the height at which the port's SW kernels are held
-# against their plain versions on the card. It is no limit of the kernel's
-# geometry: csrc/sw_tile.cu keeps R rows a thread and past 32R rows gives a
-# pair a block of up to 16 warps (kernels/sw.tile_geometry), so 1,024 rows
-# take 4 warps at R = 8. Lifting it waits on a measurement of the long
-# buckets against csrc/sw_long.cu.
-MAX_KERNEL_ROWS = 1024
-# The PairHMM lane-tile kernel sweeps a pair with a group of at most one
-# warp, R <= 16 read rows a thread (csrc/pairhmm_tile.cu,
-# kernels/pairhmm.tile_geometry): 32 x 16 = 512 rows. The engine sends it
-# reads under max_device_len // 2.
+# The engine's cap on max_device_len: the tallest bucket the lane-tile SW
+# kernel holds, 16 warps x 32 threads x 8 rows = 4,096 rows
+# (csrc/sw_tile.cu's block form, kernels/sw.tile_geometry; kernels/sw.py's
+# MAX_WARPS). The JAX engine takes any max_device_len; past this cap the
+# port raises. Buckets of at least strips_min_nxs rows take the strips
+# kernel at any height (csrc/sw_strips.cu walks sub-strips of 32R rows), so
+# the lane tile sees only the buckets strips declines, and every bucket
+# under sw_strips=False.
+MAX_KERNEL_ROWS = 4096
+# The PairHMM lane-tile kernel takes reads under max_device_len // 2, as the
+# JAX engine sends them: up to 2,048 rows, one warp a pair up to 32 x R
+# rows and past that a block of up to 16 warps (csrc/pairhmm_tile.cu,
+# kernels/pairhmm.tile_geometry).
 MAX_PHMM_ROWS = MAX_KERNEL_ROWS // 2
+# The stacked kernel's rows a stack and the conveyor's window rows: the TPU
+# kernels' limit of 1,024, at which both are held on the card
+# (kernels/sw_stacked.py, kernels/sw_conveyor.py).
+MAX_STACK_ROWS = 1024
+MAX_CONVEYOR_ROWS = 1024
 # The rotor kernel's segments hold up to 32 * 5 columns of the period
 # (csrc/sw_rotor.cu: one queue a warp, five columns a lane): periods up
 # to 160.
@@ -168,11 +174,11 @@ class EngineConfig:
             raise ValueError(f"xshard_min_len={self.xshard_min_len}: want a "
                              "positive x length, or None")
         if (self.sw_stack >= 2
-                and self.sw_stack * self.stack_max_nxs > MAX_KERNEL_ROWS):
+                and self.sw_stack * self.stack_max_nxs > MAX_STACK_ROWS):
             raise ValueError(
                 f"sw_stack={self.sw_stack} x stack_max_nxs="
                 f"{self.stack_max_nxs} rows: the stacked kernel takes at "
-                f"most {MAX_KERNEL_ROWS} rows a stack")
+                f"most {MAX_STACK_ROWS} rows a stack")
         if self.strips_min_nxs < 1:
             raise ValueError(f"strips_min_nxs={self.strips_min_nxs}: want a "
                              "positive row count")
@@ -187,8 +193,9 @@ class EngineConfig:
                              "at least one pair a queue")
         if not 8 <= self.max_device_len <= MAX_KERNEL_ROWS:
             raise ValueError(
-                f"max_device_len={self.max_device_len}: the SW kernel takes "
-                f"8 to {MAX_KERNEL_ROWS} x rows per pair")
+                f"max_device_len={self.max_device_len}: want 8 to "
+                f"{MAX_KERNEL_ROWS}, the tallest bucket of the lane-tile "
+                "kernel (16 warps x 32 threads x 8 rows a pair)")
         if self.rescale_period not in RESCALE_PERIODS:
             raise ValueError(
                 f"rescale_period={self.rescale_period}: want one of "

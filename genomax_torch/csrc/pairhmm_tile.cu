@@ -15,18 +15,25 @@
 // Design: a group of G <= 32 threads of one warp a pair, R read rows a
 // thread in registers (R a template argument, G*R >= NXs), floor(32/G)
 // pairs a warp, each with its own shuffle segment and vote mask, 8 warps of
-// neighbouring lanes of one tile a block. The rows are placed so that the
-// read's last row rl is the last row of the group's last thread: thread g
-// holds rows r0 + g*R .. r0 + g*R + R-1, r0 = rl - G*R + 1 <= -1. Rows
-// below 0 carry no read (zero constants, zero state) and stay 0; row 0 is
-// the boundary (M = X = 0, Y = 2^120 / max(hl, 1)); rows past rl are not
-// swept, because nothing they hold reaches a cell the result or a rescale
-// reads. A row keeps its M, X, Y of diagonal d-1 and T, the row above's
-// transition sum for diagonal d (phmm_cell.cuh). In a step a thread
+// neighbouring lanes of one tile a block (the warp form: buckets of at most
+// 32R rows, 512 at R = 16). A taller bucket gives a pair a block of W =
+// ceil(NXs / 32R) warps, G = 32W threads, one pair a block (the block form,
+// R = 4, 5, 6, 8: NXs up to 2,048 rows in 8-16 warps). The rows are placed
+// so that the read's last row rl is the last row of the group's last
+// thread: thread g holds rows r0 + g*R .. r0 + g*R + R-1, r0 = rl - G*R + 1
+// <= -1. Rows below 0 carry no read (zero constants, zero state) and stay
+// 0; row 0 is the boundary (M = X = 0, Y = 2^120 / max(hl, 1)); rows past
+// rl are not swept, because nothing they hold reaches a cell the result or
+// a rescale reads. A row keeps its M, X, Y of diagonal d-1 and T, the row
+// above's transition sum for diagonal d (phmm_cell.cuh). In a step a thread
 // updates its rows bottom up, so that row k reads row k-1's values at d-1
 // before they are overwritten; its first row takes the row above from the
-// previous thread by __shfl_up_sync at the top of the step. There is no
-// shared memory and no block barrier: a warp never waits for another.
+// previous thread by __shfl_up_sync at the top of the step. In the warp
+// form there is no shared memory and no block barrier: a warp never waits
+// for another. In the block form lane 0 of warp w > 0 takes the row above
+// from warp w-1's lane 31 through a seam in shared memory by step parity:
+// lane 31 stores its last row's M, X, Y and code at the end of each step,
+// one __syncthreads a step, and lane 0 reads them at the top of the next.
 //
 // The haplotype code travels down the rows: cell (i, j) at diagonal d
 // compares H[j-1], which (i-1, j) compared at d-1, so row k takes row k-1's
@@ -42,11 +49,13 @@
 // block partial (acc += accb * cmul), the pair checks the peak of the live
 // window against 2^40 (the masks v0/v1/v2 of phmm_cell.cuh, v2 evaluated
 // at the top of the block's last step on the values of d-1) by two warp
-// votes over its segment, and multiplies every carried value by 2^80 where
-// it fell below (T by taking Ts, phmm_cell.cuh), the accumulator following
-// that scale while it is small and freezing after (cmul, acc_log). The
-// values a thread takes from the row above are read after the rescale, so
-// each is scaled exactly once.
+// votes over its segment (in the block form two __syncthreads_or over the
+// block, so that every warp scales at the same diagonal), and multiplies
+// every carried value by 2^80 where it fell below (T by taking Ts,
+// phmm_cell.cuh), the accumulator following that scale while it is small
+// and freezing after (cmul, acc_log). The values a thread takes from the
+// row above are read after the rescale (the block form's seam is stored
+// after it), so each is scaled exactly once.
 // The accumulator is one scalar on the group's last thread, summed in
 // increasing j as the reference sums. A warp runs its pairs' longest sweep;
 // past its own rl+hl+1 diagonals rounded up to the period (capped by the
@@ -55,8 +64,10 @@
 //
 // Bound on this card: fp32 issue. A cell is 11 flops (4 multiplies, 3
 // fused multiply-adds, 1 add) plus its match test, select and code move;
-// a step adds 5 shuffles a thread. At 151bp x 300bp a pair is one warp of
-// 32 threads x 5 rows sweeping 480 diagonals, 92% of its rows live.
+// a step adds 5 shuffles a thread, and in the block form a barrier and the
+// seam. At 151bp x 300bp a pair is one warp of 32 threads x 5 rows
+// sweeping 480 diagonals, 92% of its rows live; at 1,000bp x 1,200bp a
+// block of 4 warps x 32 threads x 8 rows (1,024 rows for 1,008).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -67,11 +78,26 @@ namespace {
 
 constexpr int kLanes = 128;    // pairs per packed tile
 constexpr int kWarp = 32;
-constexpr int kMaxWarps = 8;   // warps a block
+constexpr int kMaxWarps = 8;   // warps a block of the warp form
+constexpr int kMaxRows = 2048; // rows of the tallest bucket (NXs)
 constexpr unsigned kFull = 0xffffffffu;
 
-template <int R, bool kBitmask>
-__global__ void __launch_bounds__(kMaxWarps * kWarp)
+// The most warps a pair of the block form takes at R rows a thread: the
+// launch bound of its instance (16 at R = 4, 8 at R = 8).
+__host__ __device__ constexpr int block_warps(int R) {
+  return (kMaxRows + kWarp * R - 1) / (kWarp * R);
+}
+// R of the block form: register pressure past 8 rows a thread.
+constexpr bool block_r(int R) {
+  return R == 4 || R == 5 || R == 6 || R == 8;
+}
+
+// kBlock false: the warp form, G = group threads a pair, P = 32 / G pairs a
+// warp. kBlock true: one pair a block of G = blockDim.x threads (P = 1),
+// the seam in 2 * (G / 32) float4 of dynamic shared memory.
+template <int R, bool kBitmask, bool kBlock>
+__global__ void __launch_bounds__(kBlock ? kWarp * block_warps(R)
+                                         : kMaxWarps * kWarp)
 pairhmm_tile_kernel(const int8_t* __restrict__ rchar,
                     const float* __restrict__ qr_in,
                     const float* __restrict__ mmv_in,
@@ -84,18 +110,29 @@ pairhmm_tile_kernel(const int8_t* __restrict__ rchar,
                     const int32_t* __restrict__ ndiag_tile,
                     float* __restrict__ out, int nxs, int nds, int period,
                     float inv_div, int G, int P) {
-  const int lanes_per_block = (blockDim.x / kWarp) * P;
-  const int blocks_per_tile = (kLanes + lanes_per_block - 1) / lanes_per_block;
-  const int t = blockIdx.x / blocks_per_tile;
+  extern __shared__ float4 seam[];  // block form: [step parity][warp]
   const int wl = threadIdx.x % kWarp;
-  const int l0 = (blockIdx.x % blocks_per_tile) * lanes_per_block +
-                 threadIdx.x / kWarp * P;  // the warp's first lane
-  const int p = wl / G;                    // pair of this thread in the warp
-  const int g = wl - p * G;                // thread in the pair's group
+  const int wp = threadIdx.x / kWarp;
+  int t, l0, p, g;
+  unsigned segmask;
+  if constexpr (kBlock) {
+    t = blockIdx.x / kLanes;
+    l0 = blockIdx.x % kLanes;
+    p = 0;
+    g = threadIdx.x;
+    segmask = kFull;
+  } else {
+    const int lanes_per_block = (blockDim.x / kWarp) * P;
+    const int blocks_per_tile =
+        (kLanes + lanes_per_block - 1) / lanes_per_block;
+    t = blockIdx.x / blocks_per_tile;
+    l0 = (blockIdx.x % blocks_per_tile) * lanes_per_block + wp * P;
+    p = wl / G;  // pair of this thread in the warp
+    g = wl - p * G;  // thread in the pair's group
+    segmask = G == kWarp ? kFull : ((1u << G) - 1u) << min(p * G, kWarp - 1);
+  }
   const int l = l0 + p;
   const bool active = p < P && l < kLanes;
-  const unsigned segmask =
-      G == kWarp ? kFull : ((1u << G) - 1u) << min(p * G, kWarp - 1);
 
   int rl = 0, hl = 0, steps = 0;
   if (active) {
@@ -105,8 +142,10 @@ pairhmm_tile_kernel(const int8_t* __restrict__ rchar,
     steps = min((rl + hl + 1 + period - 1) / period,
                 (nd + period - 1) / period) * period;
   }
+  // The same for every warp of a block-form pair, so the block leaves as
+  // one and no barrier is missed.
   const int steps_warp = __reduce_max_sync(kFull, steps);
-  if (steps_warp == 0) return;  // no pair in this warp; no barrier to miss
+  if (steps_warp == 0) return;  // no pair in this warp
   const int anchor = nds - nxs;
   const int acc_last = min(rl + hl, steps - 1);
   const int need_last = min(rl + hl + 1, steps - 1);
@@ -135,17 +174,31 @@ pairhmm_tile_kernel(const int8_t* __restrict__ rchar,
   const float y0 = kPhmmInit / static_cast<float>(max(hl, 1));
 
   // The first row's stream codes: lane wl loads pair wl / C's code for step
-  // (chunk base) + wl % C, one chunk ahead.
+  // (chunk base) + wl % C, one chunk ahead (in the block form warp 0 only,
+  // the warp of the first row).
   const int C = kWarp / P;
   const int lp = min(wl / C, P - 1);
   const int r0_lp = __shfl_sync(kFull, r0, lp * G);
-  const bool ld = wl / C < P && l0 + lp < kLanes;
+  const bool ld = wl / C < P && l0 + lp < kLanes && (!kBlock || wp == 0);
   auto load_code = [&](int e) -> int {
     if (!ld) return 0;
     const int row = max(anchor - e + r0_lp, 0);
     return hs[static_cast<size_t>(row) * kLanes + l0 + lp];
   };
   int cur = load_code(wl % C), nxt = load_code(C + wl % C), ci = 0;
+
+  // Block form: lane 31 hands its last row at diagonal d (its values after
+  // any rescale of d) to the next warp's lane 0, through the seam of d's
+  // parity; the barrier orders the store before that read at d + 1 and
+  // the read of d - 1's seam before d + 1's store over it.
+  auto hand = [&](const int d) {
+    if constexpr (kBlock) {
+      if (wl == kWarp - 1)
+        seam[(d & 1) * (G / kWarp) + wp] = make_float4(
+            M[R - 1], X[R - 1], Y[R - 1], __int_as_float(hc[R - 1]));
+      __syncthreads();
+    }
+  };
 
   float accb = 0.0f, acc = 0.0f, cmul = 1.0f, acc_log = 0.0f;
   bool big = false, pos = false;
@@ -159,6 +212,15 @@ pairhmm_tile_kernel(const int8_t* __restrict__ rchar,
     float aY = __shfl_up_sync(kFull, Y[R - 1], 1);
     int ac = __shfl_up_sync(kFull, hc[R - 1], 1);
     const int sc = __shfl_sync(kFull, cur, (p * C + ci) & (kWarp - 1));
+    if constexpr (kBlock) {
+      if (wl == 0 && wp > 0) {
+        const float4 a = seam[((d - 1) & 1) * (G / kWarp) + wp - 1];
+        aM = a.x;
+        aX = a.y;
+        aY = a.z;
+        ac = __float_as_int(a.w);
+      }
+    }
     if (g == 0) {
       aM = aX = aY = 0.0f;
       ac = sc;
@@ -196,6 +258,7 @@ pairhmm_tile_kernel(const int8_t* __restrict__ rchar,
     if (g == G - 1 && d <= acc_last) accb += M[R - 1] + X[R - 1];
   };
 
+  hand(-1);  // every row's state at d = -1: zeros and its first code
   for (int d0 = 0; d0 < steps_warp; d0 += period) {
     big = pos = false;
     for (int tt = 0; tt < period - 1; ++tt) {
@@ -205,6 +268,7 @@ pairhmm_tile_kernel(const int8_t* __restrict__ rchar,
         for (int k = 0; k < R; ++k)
           if (rb + k == 0) Y[k] = y0;
       }
+      hand(d0 + tt);
     }
     const int d = d0 + period - 1;  // the block's last diagonal
     step(d, true);
@@ -220,8 +284,14 @@ pairhmm_tile_kernel(const int8_t* __restrict__ rchar,
       phmm_admit_v0(true, d - (rb + k), hl, M[k], Y[k], big, pos);
       phmm_admit_v1(true, d - (rb + k), hl, M[k], X[k], Y[k], big, pos);
     }
-    const bool any_big = (__ballot_sync(kFull, big) & segmask) != 0;
-    const bool any_pos = (__ballot_sync(kFull, pos) & segmask) != 0;
+    bool any_big, any_pos;
+    if constexpr (kBlock) {  // the pair's every warp decides alike
+      any_big = __syncthreads_or(big) != 0;
+      any_pos = __syncthreads_or(pos) != 0;
+    } else {
+      any_big = (__ballot_sync(kFull, big) & segmask) != 0;
+      any_pos = (__ballot_sync(kFull, pos) & segmask) != 0;
+    }
     const bool need = d <= need_last && any_pos && !any_big;
     acc += accb * cmul;
     accb = 0.0f;
@@ -241,6 +311,7 @@ pairhmm_tile_kernel(const int8_t* __restrict__ rchar,
         T[k] = Ts[k];
       }
     }
+    hand(d);
   }
   if (active && g == G - 1)
     out[t * kLanes + l] = log10f(acc) + acc_log - kPhmmInitLog10;
@@ -251,17 +322,30 @@ int launch(const void* rchar, const void* const* q, const void* hap,
            const void* meta, const void* ndiag_tile, void* out, int nt,
            int nxs, int nds, int period, float inv_div, int G, int warps,
            cudaStream_t stream) {
+  const int8_t* rc = static_cast<const int8_t*>(rchar);
+  const float* f[6];
+  for (int i = 0; i < 6; ++i) f[i] = static_cast<const float*>(q[i]);
+  const int8_t* h = static_cast<const int8_t*>(hap);
+  const int32_t* m = static_cast<const int32_t*>(meta);
+  const int32_t* nd = static_cast<const int32_t*>(ndiag_tile);
+  float* o = static_cast<float*>(out);
+  if (G > kWarp) {  // the block form: one pair a block of G / 32 warps
+    if constexpr (block_r(R)) {
+      pairhmm_tile_kernel<R, kBitmask, true>
+          <<<nt * kLanes, G, 2 * (G / kWarp) * sizeof(float4), stream>>>(
+              rc, f[0], f[1], f[2], f[3], f[4], f[5], h, m, nd, o, nxs, nds,
+              period, inv_div, G, 1);
+      return static_cast<int>(cudaGetLastError());
+    }
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const int P = kWarp / G;
   const int lanes_per_block = warps * P;
   const int blocks = nt * ((kLanes + lanes_per_block - 1) / lanes_per_block);
-  pairhmm_tile_kernel<R, kBitmask><<<blocks, warps * kWarp, 0, stream>>>(
-      static_cast<const int8_t*>(rchar), static_cast<const float*>(q[0]),
-      static_cast<const float*>(q[1]), static_cast<const float*>(q[2]),
-      static_cast<const float*>(q[3]), static_cast<const float*>(q[4]),
-      static_cast<const float*>(q[5]), static_cast<const int8_t*>(hap),
-      static_cast<const int32_t*>(meta),
-      static_cast<const int32_t*>(ndiag_tile), static_cast<float*>(out), nxs,
-      nds, period, inv_div, G, P);
+  pairhmm_tile_kernel<R, kBitmask, false><<<blocks, warps * kWarp, 0,
+                                            stream>>>(
+      rc, f[0], f[1], f[2], f[3], f[4], f[5], h, m, nd, o, nxs, nds, period,
+      inv_div, G, P);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -269,18 +353,23 @@ int launch(const void* rchar, const void* const* q, const void* hap,
 
 // Launches the kernel on `stream` and returns cudaGetLastError(), or
 // cudaErrorInvalidValue for an R the build does not make or a geometry
-// outside the kernel's: 1 <= group <= 32, group * R >= nxs, 1 <= warps <=
-// 8. The caller allocates `out` and checks shapes: 2 <= nxs <= 512,
-// nds > nxs, rescale_period one of 1, 2, 4, 8, 16, 32, every pair's rl <=
-// nxs - 2 and A = nds - nxs >= rl + hl + 1 + 32 (the pack's slack).
+// outside the kernel's: the warp form 1 <= group <= 32, 1 <= warps <= 8;
+// the block form group = 32 * warps > 32, R in 4, 5, 6, 8 and warps at
+// most block_warps(R); group * R >= nxs. The caller allocates `out` and
+// checks shapes: 2 <= nxs <= 2048, nds > nxs, rescale_period one of 1, 2,
+// 4, 8, 16, 32, every pair's rl <= nxs - 2 and A = nds - nxs >= rl + hl +
+// 1 + 32 (the pack's slack).
 extern "C" int pairhmm_tile_launch(
     const void* rchar, const void* qr, const void* mmv, const void* gapm,
     const void* qi, const void* qd, const void* qg, const void* hap,
     const void* meta, const void* ndiag_tile, void* out, int nt, int nxs,
     int nds, int rescale_period, float mm_div, int bitmask,
     int rows_per_thread, int group, int warps, void* stream) {
-  if (group < 1 || group > kWarp || group * rows_per_thread < nxs ||
-      warps < 1 || warps > kMaxWarps)
+  const bool block = group > kWarp;
+  if (group < 1 || group * rows_per_thread < nxs || nxs > kMaxRows ||
+      warps < 1 ||
+      (block ? group != warps * kWarp || warps > block_warps(rows_per_thread)
+             : warps > kMaxWarps))
     return static_cast<int>(cudaErrorInvalidValue);
   if (nt <= 0) return 0;
   // 1/mm_div rounded once from double, as the JAX constant fold does.

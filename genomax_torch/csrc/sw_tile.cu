@@ -18,7 +18,8 @@
 //  - a pair of at most H rows is one warp (up to 256 rows at R = 8), and
 //    a block holds several pairs with no barrier: the buckets of 72-143
 //    rows that the default route sends here;
-//  - a taller pair is a block of W warps, warp w rows 1 + w*H ..; lane 0
+//  - a taller pair is a block of W <= 16 warps (4,096 rows at R = 8, the
+//    engine's tallest bucket), warp w rows 1 + w*H ..; lane 0
 //    of warp w takes the row above from warp w-1's lane 31 through a
 //    shared seam by step parity, one __syncthreads a step for all rows
 //    (the form of sw_long.cu). A warp skips the cells of the diagonals on
@@ -204,7 +205,7 @@ int launch(const void* sx, const void* sy, const void* ndiag_tile, void* out,
 // Launches the kernel on `stream` and returns cudaGetLastError(), or
 // cudaErrorInvalidValue for an R the build does not make or a geometry
 // out of range. The caller allocates `out` and checks shapes: 2 <= nxs <=
-// 1024, nds > nxs, and A = nds - nxs >= every ndiag_tile[t]; and picks R
+// 4096, nds > nxs, and A = nds - nxs >= every ndiag_tile[t]; and picks R
 // (`rows_per_thread`), the warps a pair (1, or W >= 2 with W * 32 * R >=
 // nxs - 1) and, for one warp a pair, the pairs a block (1-16).
 extern "C" int sw_tile_launch(const void* sx, const void* sy,

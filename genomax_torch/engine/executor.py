@@ -319,7 +319,8 @@ class Engine:
     def _phmm_offload_mask(self, jobs):
         """True = too big for the lane-tile kernel. PairHMM applies half
         the SW bounds, as the JAX engine does, so that kernel sees at most
-        512 read rows."""
+        max_device_len // 2 read rows (512 at the default, 2,048 at the
+        cap: one warp a pair up to 512, a block of warps past it)."""
         L, D = self.cfg.max_device_len // 2, self.cfg.max_device_diags // 2
         off = np.array([len(rd.bases) + 2 > L or len(rd.bases) + len(hp) + 1 > D
                         for rd, hp in jobs], dtype=bool)

@@ -3,7 +3,8 @@
 ``genomax.kernels.pairhmm_pallas.pairhmm_forward_pallas``.
 
 The kernel keeps R read rows a thread in registers and sweeps a pair with a
-group of G <= 32 threads of one warp (``tile_geometry``). CUDA tensors
+group of G <= 32 threads of one warp, or past 32R rows with a block of warps
+(``tile_geometry``). CUDA tensors
 launch the kernel on the current stream; CPU tensors take the plain version
 (``kernels.wavefront.phmm_forward_tiles``). There is no other route: a
 build or launch failure raises.
@@ -26,6 +27,14 @@ from genomax_torch.layout import LANES
 TILE_R = (1, 2, 4, 5, 6, 8, 10, 16)
 WARP = 32
 TILE_WARPS = 8
+# R of the block form, a pair of more than 32R rows as a block of warps
+# (register pressure past 8 rows a thread), and the weights of its cost in
+# cells: a step's fixed part (the hand-over's shuffles, the stream shuffle,
+# the loop) and a warp's barrier and seam. The weights are not fitted:
+# they pick R = 8 at 1,008 and 2,048 rows, the fastest of every R that
+# chip_smoke.py phase 38 times there on one H100.
+BLOCK_R = (4, 5, 6, 8)
+STEP_CELLS, BARRIER_CELLS = 1, 1
 
 # Kernel launches made by pairhmm_forward (CUDA tensors only).
 launches = 0
@@ -37,10 +46,12 @@ _ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_float]
 @dataclasses.dataclass(frozen=True)
 class TileGeometry:
     """How the kernel sweeps a bucket of NXs rows: ``rows_per_thread`` (R)
-    rows a thread, a ``group`` of G threads a pair (G * R >= NXs, G <= 32),
+    rows a thread, a ``group`` of G threads a pair (G * R >= NXs),
     ``pairs_per_warp`` = 32 // G pairs a warp, ``warps`` a block, so
     ``lanes_per_block`` neighbouring lanes of one tile a block and
-    ``blocks_per_tile`` blocks a tile of 128 lanes."""
+    ``blocks_per_tile`` blocks a tile of 128 lanes. The warp form has G <=
+    32 and 8 warps a block; the block form (``block``) G = 32 * warps, one
+    pair a block (pairs_per_warp 0: a pair spans the warps)."""
 
     rows_per_thread: int
     group: int
@@ -49,20 +60,33 @@ class TileGeometry:
     lanes_per_block: int
     blocks_per_tile: int
 
+    @property
+    def block(self) -> bool:
+        return self.group > WARP
+
+
+def _block_warps(nxs: int, r: int) -> int:
+    return -(-nxs // (WARP * r))
+
 
 def default_rows_per_thread(nxs: int) -> int:
     """R the wrappers take when the caller names none: the fewest rows a
-    thread with which one warp holds a pair of NXs rows."""
+    thread with which one warp holds a pair of NXs rows; past 512 rows, of
+    BLOCK_R, the one whose step costs least (W warps of R cells, a fixed
+    part and a barrier each, W = ceil(NXs / 32R)), the smallest on a tie."""
     for r in TILE_R:
         if -(-nxs // r) <= WARP:
             return r
-    raise ValueError(f"NXs={nxs}: no R in {TILE_R} fits a pair in a warp")
+    return min(BLOCK_R, key=lambda r: (
+        _block_warps(nxs, r) * (r + STEP_CELLS + BARRIER_CELLS), r))
 
 
 def tile_geometry(nxs: int, r: int | None = None) -> TileGeometry:
     """The kernel's geometry on a bucket of NXs rows at R rows a thread
-    (the default's when r is None). Raises ValueError for an R the build
-    does not make, or one with which a pair needs more than a warp."""
+    (the default's when r is None): the warp form where one warp holds the
+    pair at R, else the block form. Raises ValueError for an R the build
+    does not make, or one with which a pair needs more than a warp and the
+    block form is not built."""
     if not 2 <= nxs <= MAX_PHMM_ROWS:
         raise ValueError(f"NXs={nxs} must lie in [2, {MAX_PHMM_ROWS}]")
     if r is None:
@@ -71,8 +95,15 @@ def tile_geometry(nxs: int, r: int | None = None) -> TileGeometry:
         raise ValueError(f"rows_per_thread={r}: the build makes {TILE_R}")
     g = -(-nxs // r)
     if g > WARP:
-        raise ValueError(f"rows_per_thread={r}: NXs={nxs} needs {g} threads "
-                         f"a pair, more than a warp of {WARP}")
+        if r not in BLOCK_R:
+            raise ValueError(
+                f"rows_per_thread={r}: NXs={nxs} needs {g} threads a pair, "
+                f"more than a warp of {WARP}, and the block form takes R in "
+                f"{BLOCK_R}")
+        w = _block_warps(nxs, r)
+        return TileGeometry(rows_per_thread=r, group=w * WARP,
+                            pairs_per_warp=0, warps=w, lanes_per_block=1,
+                            blocks_per_tile=LANES)
     p = WARP // g
     lanes = TILE_WARPS * p
     return TileGeometry(rows_per_thread=r, group=g, pairs_per_warp=p,

@@ -25,7 +25,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from genomax_torch.config import MAX_KERNEL_ROWS, SWConfig
+from genomax_torch.config import MAX_CONVEYOR_ROWS, SWConfig
 from genomax_torch.kernels import _build
 from genomax_torch.kernels.wavefront import sw_conveyor_forward_tiles
 from genomax_torch.layout import LANES, PAD_STREAM, PAD_X
@@ -184,9 +184,9 @@ def geometry(nxs: int, n_queues: int, queues_per_warp: int | None = None,
     each SM where the warps allow it, so that no SM runs two blocks while
     another runs none. Raises ValueError for a geometry the build does not
     make or one whose lanes cannot hold the window."""
-    if not 1 <= nxs <= MAX_KERNEL_ROWS or n_queues < 1:
+    if not 1 <= nxs <= MAX_CONVEYOR_ROWS or n_queues < 1:
         raise ValueError(f"nxs={nxs}, n_queues={n_queues}: want a window "
-                         f"in [1, {MAX_KERNEL_ROWS}] rows and a queue")
+                         f"in [1, {MAX_CONVEYOR_ROWS}] rows and a queue")
     given = (queues_per_warp, rows, warps_per_queue)
     if None in given and given != (None, None, None):
         raise ValueError("give queues_per_warp, rows and warps_per_queue, "
@@ -250,9 +250,9 @@ def _check(name, sched, sy, nxs, n_slots, period, a0):
         raise ValueError(f"{name}: shapes {tuple(sched.shape)}, "
                          f"{tuple(sy.shape)}, want (NT, SR, {LANES}) and "
                          f"(NT, NB, {LANES})")
-    if not 8 <= nxs <= MAX_KERNEL_ROWS or nxs % 8:
+    if not 8 <= nxs <= MAX_CONVEYOR_ROWS or nxs % 8:
         raise ValueError(f"{name}: nxs={nxs} must be a multiple of 8 in "
-                         f"[8, {MAX_KERNEL_ROWS}] (the kernel's tallest "
+                         f"[8, {MAX_CONVEYOR_ROWS}] (the kernel's tallest "
                          "window: a block of 4 warps x 32 lanes x 8 rows)")
     if n_slots < 1 or period % UNROLL or period < nxs:
         raise ValueError(f"{name}: want n_slots={n_slots} >= 1 and "

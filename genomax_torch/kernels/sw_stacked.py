@@ -30,7 +30,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from genomax_torch.config import MAX_KERNEL_ROWS, SWConfig
+from genomax_torch.config import MAX_STACK_ROWS, SWConfig
 from genomax_torch.kernels import _build
 from genomax_torch.kernels.wavefront import sw_stacked_forward_tiles
 from genomax_torch.layout import LANES, PAD_STREAM
@@ -72,10 +72,10 @@ def geometry(stack: int, h: int, r: int | None = None) -> StackedGeometry:
     stack 4 that is one warp at R = 9 (4 regions of 8 lanes). Raises
     ValueError for an R the build does not make or at which a region's
     rows pass a warp."""
-    if stack < 2 or h < 1 or stack * h > MAX_KERNEL_ROWS:
+    if stack < 2 or h < 1 or stack * h > MAX_STACK_ROWS:
         raise ValueError(f"stack={stack} regions of h={h} rows; want "
                          f"stack >= 2, h >= 1 and stack*h <= "
-                         f"{MAX_KERNEL_ROWS}")
+                         f"{MAX_STACK_ROWS}")
     if r is not None and r not in ROWS_PER_THREAD:
         raise ValueError(f"rows_per_thread={r}: the build makes "
                          f"{ROWS_PER_THREAD}")
@@ -179,10 +179,10 @@ def sw_forward_stacked(sx: torch.Tensor, sy: torch.Tensor, ndt: torch.Tensor,
     kernel's R among those the build makes (``geometry``'s choice when
     None), for its tests and timing; one the build does not make, or at
     which a region passes a warp, raises on every device."""
-    if stack < 2 or h < 1 or stack * h > MAX_KERNEL_ROWS:
+    if stack < 2 or h < 1 or stack * h > MAX_STACK_ROWS:
         raise ValueError(f"sw_forward_stacked: stack={stack} regions of "
                          f"h={h} rows; want stack >= 2, h >= 1 and stack*h "
-                         f"<= {MAX_KERNEL_ROWS} (the rows of a stack)")
+                         f"<= {MAX_STACK_ROWS} (the rows of a stack)")
     if _rows_per_thread is not None:
         geometry(stack, h, _rows_per_thread)
     if (sx.dtype, sy.dtype, ndt.dtype) != (torch.int8, torch.int8,

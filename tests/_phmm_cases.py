@@ -136,6 +136,73 @@ def streamed_batches(seed, n_reads=24, read_len=151, hap_lens=(7000, 10000)):
     return [PairHMMBatch(reads=reads, haplotypes=[h.tobytes() for h in haps])]
 
 
+def tall_phmm_batches(seed, n_reads=48, read_lens=(513, 2046),
+                      hap_extra=300):
+    """One batch for the lane-tile kernel's block form (buckets past 512
+    rows, up to 2,048): reads of 513-2,046bp drawn with errors from three
+    variants of one locus hap_extra bases longer than the longest read,
+    some unrelated, N runs in reads and haplotypes; and one batch of two
+    all-mismatch deep-decay pairs in Q40, 600bp and 1,500bp, whose window
+    the block must rescale at every period (and can lose inside one)."""
+    rng = np.random.default_rng(seed)
+    abc = np.frombuffer(b"ACGT", np.uint8)
+    locus = rng.choice(abc, read_lens[1] + hap_extra)
+    haps = [_noisy(rng, locus, 0.01, abc) for _ in range(3)]
+    haps[1][int(rng.integers(0, len(locus) - 40)):][:40] = ord("N")
+    reads = []
+    for k in range(n_reads):
+        n = (read_lens[1] if k == 0 else
+             int(rng.integers(read_lens[0], read_lens[1] + 1)))
+        if k % 9 == 4:
+            bases = rng.choice(abc, n)
+        else:
+            a = int(rng.integers(0, len(locus) - n + 1))
+            bases = _noisy(rng, locus[a: a + n], 0.005, abc)
+        if k % 6 == 1:
+            bases[int(rng.integers(0, n - 30)):][:30] = ord("N")
+        reads.append(_read(rng, bases))
+    deep = [_read(rng, np.full(n, ord("A"), np.uint8), 40, 41)
+            for n in (600, 1500)]
+    return [PairHMMBatch(reads=reads, haplotypes=[h.tobytes() for h in haps]),
+            PairHMMBatch(reads=deep, haplotypes=[b"C" * 1560])]
+
+
+def tall_sw_pairs(seed, height, n_pairs=256, y_extra=1000, y_short=False):
+    """One bucket of ``height`` rows for the lane-tile and strips kernels
+    past 1,024 rows: x of 3/4 height to height - 2 bases (one ladder
+    level; the longest is height - 2), y planted with x with errors on two
+    pairs in three, from x - 200 to x + y_extra bases long, or with
+    y_short of 100 to 1,000 bases (a stream the JAX engine keeps resident
+    at 2,048 rows). The last four pairs are an identical pair (its maximum
+    runs through every warp's seam), a tandem repeat of a 300bp unit (its
+    copies straddle the seams at every R), an all-mismatch pair and a
+    one-base y."""
+    rng = np.random.default_rng(seed)
+    abc = np.frombuffer(b"ACGT", np.uint8)
+    lo = 3 * height // 4
+    pairs = []
+    for k in range(n_pairs - 4):
+        n = height - 2 if k == 0 else int(rng.integers(lo, height - 1))
+        x = rng.choice(abc, n)
+        m = (int(rng.integers(100, 1001)) if y_short
+             else int(rng.integers(n - 200, n + y_extra + 1)))
+        y = rng.choice(abc, m)
+        if k % 3:
+            w = min(n, m)
+            a = int(rng.integers(0, m - w + 1))
+            y[a: a + w] = _noisy(rng, x[:w], 0.05, abc)
+        pairs.append(SWPair(sx=x.tobytes(), sy=y.tobytes()))
+    same = rng.choice(abc, height - 2).tobytes()
+    pairs.append(SWPair(sx=same, sy=same[: 1000] if y_short else same))
+    unit = rng.choice(abc, 300).tobytes()
+    x = (rng.choice(abc, lo - 600).tobytes() + unit * 3)[: height - 2]
+    y = unit + rng.choice(abc, 41).tobytes() + unit * 2
+    pairs.append(SWPair(sx=x, sy=y))
+    pairs.append(SWPair(sx=b"A" * lo, sy=b"C" * (500 if y_short else lo)))
+    pairs.append(SWPair(sx=same[:lo], sy=b"G"))
+    return pairs
+
+
 def long_jobs(seed, n_jobs=128, read_lens=(511, 1500), hap_max=2000):
     """(PairHMMRead, haplotype) jobs for the long-read kernel: reads of
     511-1500bp drawn with errors from haplotypes up to 2kbp, some

@@ -341,8 +341,10 @@ def test_cli_chunk_refuses_devices(capsys, golden_dir, tmp_path, cmd):
 
 
 def test_cli_chunk_below_one_fails(capsys, golden_dir):
+    """A negative chunk is refused (0 is the unchunked run, as in genomax:
+    tests/test_torch_device_len.py)."""
     assert main(["sw", os.path.join(golden_dir, "sw_small.in"), "--device",
-                 "cpu", "--chunk", "0"]) == 2
+                 "cpu", "--chunk", "-1"]) == 2
     assert "chunk_pairs must be >= 1" in capsys.readouterr().err
 
 

@@ -234,9 +234,39 @@ def test_rotor_sizes_out_of_range_raise(bad):
         EngineConfig(**bad)
 
 
-def test_max_device_len_past_kernel_rows_raises():
-    with pytest.raises(ValueError, match="1024"):
-        EngineConfig(max_device_len=2048)
+def _stacked_window(rows):
+    from genomax_torch.kernels import sw_stacked
+
+    return sw_stacked.geometry(2, rows // 2)
+
+
+def _conveyor_window(rows):
+    from genomax_torch.kernels import sw_conveyor
+
+    return sw_conveyor.geometry(rows, 1)
+
+
+@pytest.mark.parametrize("make,rows,raises", [
+    (lambda n: EngineConfig(max_device_len=n), 2048, None),
+    (lambda n: EngineConfig(max_device_len=n), 4096, None),
+    (lambda n: EngineConfig(max_device_len=n), 4104, "16 warps"),
+    (lambda n: EngineConfig(max_device_len=n), 8192, "16 warps"),
+    (lambda n: EngineConfig(sw_stack=2, stack_max_nxs=n // 2), 1032, "1024"),
+    (_stacked_window, 1032, "1024"),
+    (_conveyor_window, 1032, "1024"),
+    (_conveyor_window, 1024, None)],
+    ids=["L2048", "L4096", "L4104", "L8192", "stack-rows", "stacked-geometry",
+         "conveyor-window", "conveyor-1024"])
+def test_max_device_len_cap_and_window_limits(make, rows, raises):
+    """max_device_len runs up to the lane tile's tallest bucket, 4,096 rows
+    (16 warps x 32 threads x 8 rows), and raises past it naming that
+    geometry; the stacked kernel's rows a stack and the conveyor's window
+    keep their own 1,024 rows."""
+    if raises is None:
+        make(rows)
+    else:
+        with pytest.raises(ValueError, match=raises):
+            make(rows)
 
 
 def test_cuda_device_without_cuda_raises(monkeypatch):

@@ -29,7 +29,8 @@ from _phmm_cases import (CONVEYOR_KINDS, conveyor_leak_pairs,
                          rotor_leak_pairs, rotor_sw_pairs, short_phmm_batches,
                          stacked_ghost_pairs, stacked_sw_pairs,
                          streamed_batches, streamed_sw_pairs, strips_sw_pairs,
-                         tight_rows, xshard_cases, xstrip_inputs)
+                         tall_phmm_batches, tall_sw_pairs, tight_rows,
+                         xshard_cases, xstrip_inputs)
 from genomax_torch.dist import xsharded
 from genomax_torch.engine.executor import Engine
 from genomax_torch.kernels import (_build, pairhmm, pairhmm_long, sw,
@@ -175,6 +176,36 @@ def test_sw_tile_kernel_every_r_streamed_bucket(device):
             got = sw.sw_forward(*t, _rows_per_thread=r)
             torch.cuda.synchronize()
             assert torch.equal(got, want), (r, b.sx.shape)
+
+
+@pytest.mark.parametrize("height,y_short", [
+    (2048, True), (2048, False), (4096, False)],
+    ids=["2048-resident", "2048-streamed", "4096-streamed"])
+def test_sw_tile_and_strips_past_1024_rows(device, height, y_short):
+    """Buckets of 2,048 and 4,096 rows (max_device_len up to 4,096): the
+    lane tile's block form at every R that 16 warps hold it at (8 to 16
+    warps) and the strips kernel == the plain lane-tile sweep, exact, under
+    two configs; the scores == native."""
+    pairs = tall_sw_pairs(7, height, n_pairs=128, y_short=y_short)
+    (b,) = pack_sw_pairs(pairs)
+    assert b.sx.shape[1] == height
+    t = sw_bucket_to_torch(b, device)
+    for cfg in CFGS[:2]:
+        want = sw_forward_tiles(*t, cfg)
+        rs = [r for r in sw.ROWS_PER_THREAD
+              if height - 1 <= sw.MAX_WARPS * sw.WARP * r]
+        for r in rs:
+            assert sw.tile_geometry(height, r).warps >= 8
+            got = sw.sw_forward(*t, cfg, _rows_per_thread=r)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (r, cfg)
+        st, kw = _strips_inputs(b, device, None)
+        got = sw_strips.sw_forward_strips(*st, cfg=cfg, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), cfg
+        scores = unpack_scores([b], [want.cpu().numpy()], len(pairs))
+        np.testing.assert_array_equal(scores,
+                                      native.sw_scores_native(pairs, cfg))
 
 
 @pytest.mark.parametrize("strip_w", [None, 88], ids=["router", "w88"])
@@ -815,8 +846,9 @@ _PLAIN = {}
 def _pairhmm_close_at_r(case, groups, device, mm_div, period, r, bitmask):
     """Every bucket of each group of batches (packed a group at a time), as
     packed and cut to its rows (tight_rows), whose rows fit a warp at R
-    rows a thread: the kernel at R against the plain version; at least one
-    bucket."""
+    rows a thread, or a block of warps at an R of the block form: the
+    kernel at R against the plain version; at least one bucket. Returns
+    the count run."""
     buckets = [b for g in groups for b in pack_pairhmm_batches(
         g, byte_quals=True, factored=True, bitmask_codes=bitmask)[0]]
     ran = 0
@@ -824,7 +856,7 @@ def _pairhmm_close_at_r(case, groups, device, mm_div, period, r, bitmask):
         full = phmm_bucket_to_torch(b, device)
         for j, (t, nxs) in enumerate(((full, b.nxs),
                                       tight_rows(full, b.rl))):
-            if -(-nxs // r) > pairhmm.WARP:
+            if -(-nxs // r) > pairhmm.WARP and r not in pairhmm.BLOCK_R:
                 with pytest.raises(ValueError, match="more than a warp"):
                     pairhmm.tile_geometry(nxs, r)
                 continue
@@ -843,6 +875,7 @@ def _pairhmm_close_at_r(case, groups, device, mm_div, period, r, bitmask):
                                 torch.from_numpy(b.rl > 0).to(device))
             ran += 1
     assert ran
+    return ran
 
 
 @pytest.mark.parametrize("codes", ["bitmask", "bytes-gatk"])
@@ -868,6 +901,21 @@ def test_pairhmm_kernel_every_r_deep_decay(device, r, period):
     groups = [[b] for b in deep_decay_batches()]
     _pairhmm_close_at_r("deep", groups, device, 1.0, period, r, True)
     _pairhmm_close_at_r("deep", groups, device, 3.0, period, r, False)
+
+
+@pytest.mark.parametrize("codes", ["bitmask", "bytes-gatk"])
+@pytest.mark.parametrize("r", pairhmm.BLOCK_R)
+def test_pairhmm_kernel_block_form_close_to_plain_version(device, r, codes):
+    """Buckets of 736-2,048 rows (reads of 513-2,046bp, N runs, 600bp and
+    1,500bp all-mismatch deep-decay pairs) as a block of warps at every R
+    of the block form and at rescale periods 32, 8 and 1: the rescale is
+    decided for the whole block and the seam hands scaled values."""
+    bitmask = codes == "bitmask"
+    for period in (32, 8, 1):
+        ran = _pairhmm_close_at_r(
+            "tall", [tall_phmm_batches(3)], device,
+            1.0 if bitmask else 3.0, period, r, bitmask)
+        assert ran >= 4
 
 
 @pytest.mark.parametrize("strip_w,unroll,gatk", [

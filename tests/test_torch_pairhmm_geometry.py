@@ -24,6 +24,14 @@ from _torch_cpu import one_torch_thread  # noqa: F401
 def _check_tile(geo, nxs):
     assert geo.rows_per_thread in pairhmm.TILE_R
     assert geo.group * geo.rows_per_thread >= nxs
+    if geo.block:  # one pair a block of the fewest warps that hold it
+        assert geo.rows_per_thread in pairhmm.BLOCK_R
+        assert geo.group == geo.warps * pairhmm.WARP
+        assert (geo.warps - 1) * pairhmm.WARP * geo.rows_per_thread < nxs
+        assert geo.warps * pairhmm.WARP <= 512  # the block form's bound
+        assert (geo.pairs_per_warp, geo.lanes_per_block,
+                geo.blocks_per_tile) == (0, 1, 128)
+        return
     assert 1 <= geo.group <= pairhmm.WARP
     assert geo.pairs_per_warp == pairhmm.WARP // geo.group
     assert geo.lanes_per_block == geo.warps * geo.pairs_per_warp
@@ -33,32 +41,55 @@ def _check_tile(geo, nxs):
 
 def test_tile_geometry_covers_every_bucket_height():
     """The default R holds a pair of every NXs from 2 to 512 in one warp,
-    with the fewest rows a thread that does."""
+    with the fewest rows a thread that does; past 512 rows, up to 2,048,
+    a block of warps at the R of BLOCK_R whose step costs least."""
     for nxs in range(2, MAX_PHMM_ROWS + 1):
         geo = pairhmm.tile_geometry(nxs)
         _check_tile(geo, nxs)
+        assert geo.block == (nxs > 512)
         smaller = [r for r in pairhmm.TILE_R if r < geo.rows_per_thread]
-        assert all(-(-nxs // r) > pairhmm.WARP for r in smaller)
+        assert geo.block or all(-(-nxs // r) > pairhmm.WARP for r in smaller)
     assert pairhmm.tile_geometry(160).rows_per_thread == 5
+    assert MAX_PHMM_ROWS == 2048
+
+
+@pytest.mark.parametrize("nxs,r,warps", [
+    (513, 6, 3), (520, 6, 3), (736, 8, 3), (1008, 8, 4), (1504, 8, 6),
+    (2048, 8, 8)])
+def test_tile_geometry_past_512_rows(nxs, r, warps):
+    """Past one warp's 512 rows the default is the block form: warps, R and
+    one pair (lane) a block; phase 12's 1,000bp reads (1,008 rows) take 4
+    warps at R = 8, the 2,046bp reads of max_device_len 4,096 take 8."""
+    geo = pairhmm.tile_geometry(nxs)
+    assert (geo.rows_per_thread, geo.warps, geo.group) == (r, warps,
+                                                           32 * warps)
+    assert geo.block and geo.lanes_per_block == 1
+    for rr in pairhmm.BLOCK_R:
+        g = pairhmm.tile_geometry(nxs, rr)
+        _check_tile(g, nxs)
+        assert g.warps == -(-nxs // (32 * rr))
 
 
 @pytest.mark.parametrize("r", pairhmm.TILE_R)
 def test_tile_geometry_at_every_r(r):
     """At each R the build makes: a geometry wherever a warp holds the pair,
-    a ValueError naming the warp where it does not; several pairs a warp
-    once a group is 16 threads or fewer."""
+    several pairs a warp once a group is 16 threads or fewer; past a warp
+    the block form at the R of BLOCK_R, and a ValueError naming the warp at
+    the others."""
     fits = 0
     for nxs in range(2, MAX_PHMM_ROWS + 1):
-        if -(-nxs // r) <= pairhmm.WARP:
+        if -(-nxs // r) <= pairhmm.WARP or r in pairhmm.BLOCK_R:
             geo = pairhmm.tile_geometry(nxs, r)
             _check_tile(geo, nxs)
             assert geo.rows_per_thread == r
-            assert (geo.pairs_per_warp >= 2) == (geo.group <= 16)
+            assert geo.block == (-(-nxs // r) > pairhmm.WARP)
+            assert geo.block or (geo.pairs_per_warp >= 2) == (geo.group <= 16)
             fits += 1
         else:
             with pytest.raises(ValueError, match="more than a warp"):
                 pairhmm.tile_geometry(nxs, r)
-    assert fits == min(pairhmm.WARP * r, MAX_PHMM_ROWS) - 1
+    assert fits == (MAX_PHMM_ROWS - 1 if r in pairhmm.BLOCK_R
+                    else min(pairhmm.WARP * r, MAX_PHMM_ROWS) - 1)
 
 
 @pytest.mark.parametrize("r", [0, 3, 7, 32])

@@ -38,7 +38,8 @@ def _dna(rng, n):
 @pytest.mark.parametrize("nxs,r,warps,pairs", [
     (2, 2, 1, 8), (40, 2, 1, 8), (72, 3, 1, 8), (104, 4, 1, 8),
     (136, 5, 1, 8), (144, 5, 1, 8), (200, 8, 1, 8), (256, 8, 1, 8),
-    (264, 5, 2, 1), (520, 6, 3, 1), (608, 5, 4, 1), (1024, 8, 4, 1)])
+    (264, 5, 2, 1), (520, 6, 3, 1), (608, 5, 4, 1), (1024, 8, 4, 1),
+    (2048, 8, 8, 1), (4096, 8, 16, 1)])
 def test_tile_geometry_picks_r_warps_and_pairs(nxs, r, warps, pairs):
     geo = sw.tile_geometry(nxs)
     assert (geo.rows_per_thread, geo.warps, geo.pairs) == (r, warps, pairs)
@@ -48,10 +49,15 @@ def test_tile_geometry_picks_r_warps_and_pairs(nxs, r, warps, pairs):
 
 @pytest.mark.parametrize("r", sw.ROWS_PER_THREAD)
 def test_tile_geometry_at_every_built_r_holds_every_bucket(r):
-    """At each R the build makes, every bucket height up to the kernel's
-    1,024 rows gets whole warps that hold its rows, at most MAX_WARPS a
-    block (512 threads, the kernel's launch bound)."""
+    """At each R the build makes, every bucket height up to the engine's
+    4,096 rows that MAX_WARPS warps hold at R gets whole warps that hold
+    its rows, at most MAX_WARPS a block (512 threads, the kernel's launch
+    bound); a taller one raises. At R = 8 that is every height."""
     for nxs in range(2, MAX_KERNEL_ROWS + 1):
+        if nxs - 1 > sw.MAX_WARPS * sw.WARP * r:
+            with pytest.raises(ValueError, match="warps a pair"):
+                sw.tile_geometry(nxs, r)
+            continue
         geo = sw.tile_geometry(nxs, r)
         assert geo.rows_per_thread == r
         assert geo.warps * sw.WARP * r >= nxs - 1
@@ -61,9 +67,9 @@ def test_tile_geometry_at_every_built_r_holds_every_bucket(r):
         assert geo.pairs * geo.warps * sw.WARP <= 512
 
 
-@pytest.mark.parametrize("bad", [dict(nxs=1), dict(nxs=1025),
+@pytest.mark.parametrize("bad", [dict(nxs=1), dict(nxs=4097),
                                  dict(nxs=72, r=7), dict(nxs=72, r=1)],
-                         ids=["nxs-1", "nxs-1025", "r7", "r1"])
+                         ids=["nxs-1", "nxs-4097", "r7", "r1"])
 def test_tile_geometry_rejects(bad):
     with pytest.raises(ValueError):
         sw.tile_geometry(bad["nxs"], bad.get("r"))
