@@ -7,7 +7,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 Phases (one line each; any failure exits non-zero). They run in the
 order 1, 2, 19, 21, 24, 27, 3, 4, 5, 33, 22, 23, 25, 26, 28, 29, 20,
-7-18, 38, 30-32, 34-37, 6:
+7-18, 38, 39, 30-32, 34-37, 6:
   1. build      nvcc-builds the nine kernels (csrc/sw_tile.cu,
                 csrc/sw_long.cu, csrc/sw_strips.cu, csrc/sw_rotor.cu,
                 csrc/sw_stacked.cu, csrc/sw_conveyor.cu, csrc/sw_xstrip.cu,
@@ -18,7 +18,8 @@ order 1, 2, 19, 21, 24, 27, 3, 4, 5, 33, 22, 23, 25, 26, 28, 29, 20,
                 arithmetic a cell along one step of the loop of every
                 instance of csrc/sw_long.cu and csrc/sw_xstrip.cu (R = 4,
                 8, 16), csrc/sw_strips.cu and csrc/sw_tile.cu (R = 2, 3,
-                4, 5, 6, 8; the lane tile's warp and block forms),
+                4, 5, 6, 8; the lane tile's warp form and its blocks of
+                2-16 and 17-32 warps),
                 csrc/sw_rotor.cu (every G and C), csrc/sw_stacked.cu
                 (R = 2-16) and csrc/sw_conveyor.cu (every G and R, and
                 the block form) (cuobjdump -sass), which SW_OPS_PER_CELL
@@ -26,7 +27,8 @@ order 1, 2, 19, 21, 24, 27, 3, 4, 5, 33, 22, 23, 25, 26, 28, 29, 20,
                 and of fp32
                 flops a cell (FFMA 2) along one step of
                 csrc/pairhmm_tile.cu's (the warp form at every R, the
-                block form at R = 4, 5, 6, 8) and csrc/pairhmm_long.cu's
+                block form at R = 4, 5, 6, 8 at each launch bound) and
+                csrc/pairhmm_long.cu's
                 loop at every R, which must reach PHMM_FLOPS_PER_CELL
   2. kernel     the lane-tile SW kernel at its default R and at every R
                 the build makes vs its plain PyTorch version on ragged
@@ -322,14 +324,14 @@ order 1, 2, 19, 21, 24, 27, 3, 4, 5, 33, 22, 23, 25, 26, 28, 29, 20,
                 tile's block form (8 and 16 warps) on buckets of 256
                 pairs of 2,048 rows (y of 100-1,000bp, a stream the JAX
                 engine keeps resident, and y up to x + 1,000) and 4,096
-                rows at every R that holds them, and the strips kernel on
+                rows at every R that 32 warps hold them at, and the strips kernel on
                 the same buckets, == the plain lane-tile sweep under two
                 configs (the plain strip sweep under one), 8 sampled ==
                 native, exact; both kernels' slopes (t(5) - t(1)) / 4 in
                 turns and bounds; the PairHMM tile's block form at R = 4,
                 5, 6, 8 on phase 12's jobs (1,008 rows) and 256 jobs of
                 2,040bp reads (2,048 rows) vs its plain version within
-                1e-4, -inf on the same slots, each R's slope in turns, the
+                1e-4, -inf on the same slots, the default R's slope, the
                 plain by one call, the bound, beside phase 10's one-warp
                 time; engine walls in turns, three each: phase 17's file
                 at max_device_len 1,024 (1-4kbp pairs on sw_long) and
@@ -337,6 +339,30 @@ order 1, 2, 19, 21, 24, 27, 3, 4, 5, 33, 22, 23, 25, 26, 28, 29, 20,
                 predicate counts; phase 12's jobs at 1,024 (pairhmm_long)
                 and 2,048 (the block form), 64 sampled within 1e-4 of the
                 native fp64 model, the same fallback counts
+ 39. past 4,096 rows  max_device_len with no cap (deep_phase): the lane
+                tile's 17-32-warp form on 256 pairs of x 4,100-8,190bp
+                (long-read windows) against y of x to x + 1,000bp, three
+                buckets of 4,344, 6,144 and 8,192 rows (17, 24 and 32
+                warps at R = 8), at every R that 32 warps hold them at,
+                and the strips
+                kernel on the same buckets, == the plain lane-tile sweep
+                (one call a bucket), exact, 8 sampled == native; both
+                kernels' slopes (t(5) - t(1)) / 4 in turns and bounds; the
+                PairHMM block form on a tile of 128 HaplotypeCaller-shaped
+                jobs (reads from their haplotypes with 0.1% substitutions,
+                base qualities 30-40) at 4,096 rows (16 warps) and one at
+                8,192 rows (32 warps), at every R that 32 warps hold them
+                at, vs its plain version (one call a height) within 1e-4,
+                -inf on the same slots, the default R's slope and bound;
+                engine walls in turns, three each, with RunStats and the
+                launch counters: 512 such SW pairs at max_device_len
+                4,096 (all on sw_long), 8,192 (strips) and 8,192 with
+                sw_strips off (the lane tile), every score equal across
+                the three, 8 sampled == native; 256 PairHMM jobs of
+                2,100-8,190bp at 4,096 (pairhmm_long) and 16,384 (the
+                block form), within 1e-4 of each other, 4 sampled within
+                1e-4 of the native fp64 model, the fallback counts; one
+                sw_long and one pairhmm_long tile of them timed by slope
 
 Then one JSON line describing each kernel, the card line, and, last,
 {"ok": true, "device": {...}}. Without a CUDA device, or outside the
@@ -346,6 +372,7 @@ repository, it exits non-zero and prints no result. It imports no jax.
 import concurrent.futures
 import contextlib
 import dataclasses
+import functools
 import gc
 import io
 import json
@@ -373,6 +400,13 @@ MX_PAIRS, MX_X_LENS = 2000, (20, 4000)
 # phase 12's LR_HAPS haplotypes.
 TALL_PAIRS = 256
 TALL_READS, TALL_READ_LEN, TALL_HAP_LEN = 64, 2040, 2200
+# Phase 39: SW pairs of x 4,100-8,190bp (long-read windows and amplicons),
+# 256 for the kernels and 512 for the engine walls; PairHMM tiles of 128
+# jobs at 4,096 and 8,192 rows (reads of one ladder level each), and 256
+# jobs of 2,100-8,190bp for the engine walls.
+DEEP_X, DEEP_PAIRS, DEEP_WALL_PAIRS = (4100, 8190), 256, 512
+DEEP_PH_TILES = {4096: (3100, 4090), 8192: (6200, 8190)}
+DEEP_PH_JOBS, DEEP_PH_READS = 256, (2100, 8190)
 # SW sweep: pairs per point and lengths; the rotor's lengths and queue
 # depths (rotor_max_slots).
 SWEEP_PAIRS, SWEEP_LENS = 4096, (32, 64, 128, 256, 512, 1000)
@@ -546,11 +580,10 @@ def native_sw(native, pairs, cfg=None, threads=8):
     return out
 
 
-def sass_functions(lib):
-    """{function name: [(address, opcode, branch target or None,
-    predicated)]} of the library `lib`, read with cuobjdump -sass (the CUDA
-    toolkit's, else the one Triton carries)."""
-    import re
+@functools.lru_cache(maxsize=None)
+def sass_text(lib):
+    """cuobjdump -sass of the library `lib` (the CUDA toolkit's, else the
+    one Triton carries); phase 1 reads every library's at once."""
     import shutil
 
     exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -561,10 +594,18 @@ def sass_functions(lib):
     sass = subprocess.run([exe, "-sass", lib], capture_output=True,
                           text=True, timeout=120)
     check(sass.returncode == 0, f"cuobjdump failed: {sass.stderr[-500:]}")
+    return sass.stdout
+
+
+def sass_functions(lib):
+    """{function name: [(address, opcode, branch target or None,
+    predicated)]} of the library `lib`, read with cuobjdump -sass."""
+    import re
+
     ins_re = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
     bra_re = re.compile(r"BRA (?:!?U?P\w+, )?(0x[0-9a-f]+)")
     funcs, name = {}, None
-    for line in sass.stdout.splitlines():
+    for line in sass_text(lib).splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             name = m.group(1)
@@ -598,8 +639,9 @@ def sass_blocks(ins):
 def sass_phmm_flops(lib, kernel):
     """{(R, *flags): (fp32 flops a cell along one step, cells on the
     path)} of the PairHMM `kernel` in `lib`, flags the lane-tile kernel's
-    bool template arguments (the bitmask codes, the block form; none for
-    the long-read kernel's instances, whose key is (R, None)).
+    other template arguments (the bitmask codes; the block form's launch
+    bound in warps, 0 for the warp form; none for the long-read kernel's
+    instances, whose key is (R, None)).
     In each instance the walk starts from the straight-line block with the
     most FFMAs on a loop that takes no vote and no reducing barrier (the
     cells of the step loop, one step or as many as the compiler unrolled,
@@ -616,11 +658,11 @@ def sass_phmm_flops(lib, kernel):
     flop = {"FADD": 1, "FMUL": 1, "FFMA": 2}
     out = {}
     for name, ins in sass_functions(lib).items():
-        m = re.search(kernel + r"ILi(\d+)E((?:Lb[01]E)*)", name)
+        m = re.search(kernel + r"I((?:L[ib]\d+E)+)E", name)
         if not m:
             continue
-        r = int(m.group(1))
-        flags = tuple(int(v) for v in re.findall(r"Lb([01])E", m.group(2)))
+        r, *flags = (int(v) for v in re.findall(r"L[ib](\d+)E", m.group(1)))
+        flags = tuple(flags)
         index = {a: n for n, (a, _, _, _) in enumerate(ins)}
 
         def succ(n):
@@ -1257,17 +1299,17 @@ def tall_phase(mixed, lr_batch, int32_ops, ph_one_warp_ms):
     lane tile's block form on buckets of 2,048 rows (8 warps at R = 8; a
     stream the JAX engine keeps resident, y of 100-1,000bp, and one it
     streams, y up to x + 1,000) and 4,096 rows (16 warps, streamed), 256
-    pairs each, at every R that 16 warps hold the bucket at, under two
+    pairs each, at every R that 32 warps hold the bucket at, under two
     configs == the plain lane-tile sweep, exact, 8 sampled pairs == native;
     (b) the strips kernel on the same buckets == the same plain sweep, and
     the plain strip sweep under the first config; the two kernels' slopes
     in turns and their bounds; (c) the PairHMM lane tile's block form at
     every R of BLOCK_R on phase 12's jobs (1,008 rows) and 256 jobs of
     2,040bp reads (2,048 rows) against its plain version (finite slots
-    within 1e-4, -inf on the same slots), timed in turns, its bound, beside
-    phase 10's one-warp time; (d) engine walls in turns, three each: phase
-    17's file at max_device_len 1,024 (the 1-4kbp pairs on sw_long) and
-    4,096 (on strips), every score == phase 17's; phase 12's jobs at 1,024
+    within 1e-4, -inf on the same slots), the default R timed, its bound,
+    beside phase 10's one-warp time; (d) engine walls in turns, three each:
+    phase 17's file at max_device_len 1,024 (the 1-4kbp pairs on sw_long)
+    and 4,096 (on strips), every score == phase 17's; phase 12's jobs at 1,024
     (pairhmm_long) and 2,048 (the block form), 64 sampled jobs within 1e-4
     of the native fp64 model at both, the same fallback counts. Returns the
     numbers of the kernels line."""
@@ -1383,11 +1425,11 @@ def tall_phase(mixed, lr_batch, int32_ops, ph_one_warp_ms):
         out["ph_err"] = max(out["ph_err"], err)
         check(err <= PH_TOL, f"phase 38: block form != plain on {name}: "
                              f"{errs}")
-        times = {r: [] for r in pairhmm.BLOCK_R}
-        for r in pairhmm.BLOCK_R + pairhmm.BLOCK_R[::-1]:
-            times[r].append(slope_ms(lambda: pairhmm.pairhmm_forward(
-                *t, bitmask=True, _rows_per_thread=r), torch))
+        # every R checked above; the default R timed, two slopes
         geo = pairhmm.tile_geometry(b.nxs)
+        fn = lambda: pairhmm.pairhmm_forward(*t, bitmask=True)  # noqa: E731
+        times = {geo.rows_per_thread: [slope_ms(fn, torch),
+                                       slope_ms(fn, torch)]}
         k = sum(times[geo.rows_per_thread]) / 2
         cells = int((b.rl.astype(np.int64) * b.hl).sum())
         bound = bound_ms(nbytes(*t) + 4 * b.rl.size,
@@ -1400,8 +1442,8 @@ def tall_phase(mixed, lr_batch, int32_ops, ph_one_warp_ms):
             "ms_by_r": {r: sum(v) / 2 for r, v in times.items()}}
         print(f"phase 38 phmm block form {name}: bucket {tuple(t[0].shape)} "
               f"stream {tuple(t[7].shape)}, default R = "
-              f"{geo.rows_per_thread} ({geo.warps} warps a pair); ms in "
-              "turns " + ", ".join(f"R={r} ({-(-b.nxs // (32 * r))} warps) "
+              f"{geo.rows_per_thread} ({geo.warps} warps a pair); ms "
+              + ", ".join(f"R={r} ({-(-b.nxs // (32 * r))} warps) "
                                    f"{v[0]:.3f} / {v[1]:.3f}"
                                    for r, v in times.items())
               + f"; plain {plain_ms:.1f} ms; bound {bound[0]:.4f} ms by "
@@ -1482,6 +1524,296 @@ def tall_phase(mixed, lr_batch, int32_ops, ph_one_warp_ms):
             f"L = {L} {w:.4f} s" for L, w in walls[kind].items())
             + f" (ratio {walls[kind][Ls[1]] / walls[kind][Ls[0]]:.3f})")
     out["walls"] = walls
+    return out
+
+
+def deep_phase(int32_ops):
+    """Phase 39, past 4,096 rows (max_device_len with no cap, as the JAX
+    engine takes it). (a) The lane tile's 17-32-warp form: DEEP_PAIRS
+    pairs of x 4,100-8,190bp against y of x to x + 1,000bp, which pack into
+    three buckets of 4,344, 6,144 and 8,192 rows (17, 24 and 32 warps at
+    R = 8), at every R that 32 warps hold them at
+    == the plain lane-tile sweep (one call a bucket), exact, 8 sampled ==
+    native; the strips kernel on the same buckets == that sweep; both
+    kernels' slopes (t(5) - t(1)) / 4 in turns and their bounds. (b) The
+    PairHMM block form on a tile of 128 HaplotypeCaller-shaped jobs at
+    4,096 rows (16 warps at R = 8) and one at 8,192 (32 warps), every R
+    that 32 warps hold them at against the plain version (one call a
+    height: finite slots within 1e-4, -inf on the same slots), the default
+    R's slope and bound, and pairhmm_long's slope on the same jobs. (c)
+    Engine walls in turns, three each, with
+    RunStats and the launch counters: DEEP_WALL_PAIRS SW pairs at
+    max_device_len 4,096 (sw_long), 8,192 (strips) and 8,192 with
+    sw_strips off (the lane tile), equal scores, 8 sampled == native;
+    DEEP_PH_JOBS PairHMM jobs at 4,096 (pairhmm_long) and 16,384 (the
+    block form), within 1e-4 of each other, 4 sampled within 1e-4 of the
+    native fp64 model; one sw_long and one pairhmm_long tile of these
+    timed by slope (t(3) - t(1)) / 2. Returns the numbers of the kernels
+    line."""
+    import numpy as np
+    import torch
+
+    from genomax_torch import native
+    from genomax_torch.config import EngineConfig
+    from genomax_torch.engine.executor import Engine, _jobs
+    from genomax_torch.kernels import (pairhmm, pairhmm_long, sw, sw_long,
+                                       sw_rotor, sw_strips)
+    from genomax_torch.kernels.wavefront import (phmm_forward_tiles,
+                                                 sw_forward_tiles)
+    from genomax_torch.pack import (pack_pairhmm_batches, pack_sw_pairs,
+                                    phmm_bucket_to_torch, sw_bucket_to_torch,
+                                    sw_strips_to_torch, unpack_scores)
+
+    dev = torch.device("cuda")
+    cases = load_cases()
+    out = {"sw_tile": {}, "sw_strips": {}, "pairhmm_tile": {},
+           "sw_err": 0, "ph_err": 0.0}
+    # (a): the lane tile's 17-32-warp form and strips
+    pairs = cases.tall_sw_pairs(SEED + 39, 8192, n_pairs=DEEP_PAIRS,
+                                x_min=DEEP_X[0], y_less=0)
+    buckets = pack_sw_pairs(pairs)
+    check(len(buckets) == 3 and buckets[-1].sx.shape[1] == 8192
+          and all(sw.tile_geometry(b.sx.shape[1]).warps > 16
+                  for b in buckets),
+          f"phase 39: buckets {[b.sx.shape for b in buckets]}")
+    for b in buckets:
+        height = b.sx.shape[1]
+        name = f"{height}-rows"
+        t = sw_bucket_to_torch(b, dev)
+        prep = sw_strips.prep_bucket_strips(b)
+        (_, _, _, nyt), kw = prep
+        ts, kw = sw_strips_to_torch(prep, b, dev), dict(kw)
+        held = []
+        plain_ms = one_ms(lambda: held.append(sw_forward_tiles(*t)), torch)
+        want = held[0]
+        rs = [r for r in sw.ROWS_PER_THREAD
+              if height - 1 <= sw.MAX_WARPS * sw.WARP * r]
+        for r in rs:
+            got = sw.sw_forward(*t, _rows_per_thread=r)
+            torch.cuda.synchronize()
+            err = int((got.long() - want.long()).abs().max())
+            out["sw_err"] = max(out["sw_err"], err)
+            check(err == 0, f"phase 39: lane tile R = {r} != plain on "
+                            f"{name}: {err}")
+        got = sw_strips.sw_forward_strips(*ts, ny_max=int(nyt.max()), **kw)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"phase 39: strips != plain on {name}")
+        scores = unpack_scores([b], [want.cpu().numpy()], len(pairs))
+        idx = b.perm[np.random.default_rng(SEED + 39).choice(
+            b.n_valid, 8, replace=False)]
+        check(np.array_equal(scores[idx], native_sw(
+            native, [pairs[j] for j in idx])),
+              f"phase 39: plain != native on {name}")
+        tile = lambda: sw.sw_forward(*t)  # noqa: E731
+        strips = lambda: sw_strips.sw_forward_strips(  # noqa: E731
+            *ts, ny_max=int(nyt.max()), **kw)
+        ms = {"tile": [], "strips": []}
+        for key in ("tile", "strips", "strips", "tile"):
+            ms[key].append(slope_ms(tile if key == "tile" else strips, torch,
+                                    5))
+        cells = int(((b.nx - 1).astype(np.int64) * (b.ny - 1)).sum())
+        geo = sw.tile_geometry(height)
+        for key, tensors in (("tile", t), ("strips", ts)):
+            bound = bound_ms(nbytes(*tensors) + 4 * b.nx.size,
+                             cells * SW_OPS_PER_CELL, int32_ops)
+            k = sum(ms[key]) / 2
+            out["sw_tile" if key == "tile" else "sw_strips"][name] = {
+                "shape": [b.n_valid, height, int(t[1].shape[1])],
+                "rows_per_thread": geo.rows_per_thread, "warps": geo.warps,
+                "ms": k, "plain_ms": plain_ms, "bound_ms": bound[0],
+                "bound_by": bound[1]}
+            print(f"phase 39 {'lane tile' if key == 'tile' else 'strips'} "
+                  f"{name}: {b.n_valid} pairs, bucket {tuple(t[0].shape)} "
+                  f"stream {tuple(t[1].shape)}"
+                  + (f", R = {geo.rows_per_thread}, {geo.warps} warps a pair "
+                     f"(every R of {rs} == plain)" if key == "tile" else "")
+                  + f": {ms[key][0]:.3f} / {ms[key][1]:.3f} ms in turns, "
+                  f"the plain lane-tile sweep {plain_ms:.1f} ms (one call), "
+                  f"bound {bound[0]:.4f} ms by {bound[1]} "
+                  f"({100 * bound[0] / k:.1f}% of it), GCUPS "
+                  f"{cells / k / 1e6:.2f}; == plain, 8 sampled == native")
+    # (b): the PairHMM block form at 4,096 and 8,192 rows
+    for height, lens in DEEP_PH_TILES.items():
+        name = f"{height}-rows"
+        tile_batches = cases.hc_long_batches(SEED + 39 + height, 128, lens)
+        (b,), _ = pack_pairhmm_batches(
+            tile_batches, byte_quals=True, factored=True, bitmask_codes=True)
+        check(b.nxs == height and b.rl.size == 128,
+              f"phase 39: PairHMM bucket {b.nxs} x {b.rl.size}")
+        t = phmm_bucket_to_torch(b, dev)
+        valid = torch.from_numpy(b.rl > 0).to(dev)
+        held = []
+        plain_ms = one_ms(lambda: held.append(
+            phmm_forward_tiles(*t, 32, 1.0, True)), torch)
+        want = held[0]
+        rs = [r for r in pairhmm.BLOCK_R
+              if -(-height // (32 * r)) <= pairhmm.BLOCK_MAX_WARPS]
+        errs = {}
+        for r in rs:
+            got = pairhmm.pairhmm_forward(*t, bitmask=True, _rows_per_thread=r)
+            errs[r] = log10_err(got, want, valid, torch)
+        err = max(errs.values())
+        out["ph_err"] = max(out["ph_err"], err)
+        check(err <= PH_TOL, f"phase 39: block form != plain on {name}: "
+                             f"{errs}")
+        geo = pairhmm.tile_geometry(height)
+        fn = lambda: pairhmm.pairhmm_forward(*t, bitmask=True)  # noqa: E731
+        times = [slope_ms(fn, torch), slope_ms(fn, torch)]
+        k = sum(times) / 2
+        cells = int((b.rl.astype(np.int64) * b.hl).sum())
+        bound = bound_ms(nbytes(*t) + 4 * b.rl.size,
+                         cells * PHMM_FLOPS_PER_CELL, FP32_FLOPS)
+        # the same jobs on the long-read kernel, the route past 8,190bp
+        arrays, st = pairhmm_long.pack_pairhmm_long(_jobs(tile_batches))
+        tl = [torch.from_numpy(arrays[f]).to(dev)
+              for f in ("rchar", "qual", "hap", "meta")]
+        lfn = lambda: pairhmm_long.pairhmm_long_forward(  # noqa: E731
+            *tl, **st)
+        long_ms = sum(slope_ms(lfn, torch, 3) for _ in range(2)) / 2
+        out["pairhmm_tile"][name] = {
+            "shape": [int(b.rl.size), b.nxs, int(t[7].shape[1])],
+            "rows_per_thread": geo.rows_per_thread, "warps": geo.warps,
+            "ms": k, "plain_ms": plain_ms, "bound_ms": bound[0],
+            "bound_by": bound[1], "pairhmm_long_ms": long_ms}
+        finite = int(torch.isfinite(want.reshape(-1)[valid.reshape(-1)])
+                     .sum())
+        print(f"phase 39 phmm block form {name}: reads {lens[0]}-{lens[1]}"
+              f"bp, bucket {tuple(t[0].shape)} stream {tuple(t[7].shape)}, "
+              f"R = {geo.rows_per_thread} ({geo.warps} warps a pair): "
+              f"{times[0]:.3f} / {times[1]:.3f} ms; plain {plain_ms:.1f} ms "
+              f"(one call); bound {bound[0]:.4f} ms by {bound[1]} "
+              f"({100 * bound[0] / k:.1f}% of it), GCUPS "
+              f"{cells / k / 1e6:.2f}; max |dlog10| by R "
+              + ", ".join(f"R={r} ({-(-height // (32 * r))} warps) {e:.3g}"
+                          for r, e in errs.items())
+              + f", {finite} of {int(valid.sum())} finite; the same jobs "
+              f"on pairhmm_long {long_ms:.3f} ms")
+    # (c): engine walls in turns
+    pairs = cases.tall_sw_pairs(SEED + 39 + 1, 8192,
+                                n_pairs=DEEP_WALL_PAIRS, x_min=DEEP_X[0],
+                                y_less=0)
+    sample = np.random.default_rng(SEED + 39 + 1).choice(len(pairs), 8,
+                                                         replace=False)
+    ref = native_sw(native, [pairs[j] for j in sample])
+    routes = {"L4096": (4096, True), "L8192-strips": (8192, True),
+              "L8192-tile": (8192, False)}
+    n_sw = len(pack_sw_pairs(pairs))
+    want_launches = {"L4096": (0, 0, 0, -(-len(pairs) // 128)),
+                     "L8192-strips": (0, n_sw, 0, 0),
+                     "L8192-tile": (n_sw, 0, 0, 0)}
+    first = {}
+
+    def sw_run(route):
+        L, strips = routes[route]
+        eng = Engine(EngineConfig(max_device_len=L, sw_strips=strips),
+                     device="cuda")
+        sw_long.launches = sw.launches = sw_strips.launches = 0
+        sw_rotor.launches = 0
+        t0 = time.perf_counter()
+        scores = eng.sw_scores(pairs)
+        wall = time.perf_counter() - t0
+        n = (sw.launches, sw_strips.launches, sw_rotor.launches,
+             sw_long.launches)
+        check(n == want_launches[route],
+              f"phase 39: {route} launches {n} (lane tile, strips, rotor, "
+              f"sw_long), want {want_launches[route]}")
+        check(np.array_equal(scores[sample], ref),
+              f"phase 39: {route}: 8 sampled != native")
+        check(all(np.array_equal(scores, s) for s in first.values()),
+              f"phase 39: {route}'s scores != the other routes'")
+        first.setdefault(route, scores)
+        return wall, eng.last_stats, n
+
+    batches = cases.hc_long_batches(SEED + 39 + 2, DEEP_PH_JOBS,
+                                    DEEP_PH_READS)
+    ph_sample = np.random.default_rng(SEED + 39 + 2).choice(len(batches), 4,
+                                                            replace=False)
+    ph_ref = native.pairhmm_native([batches[j] for j in ph_sample])
+    ph_first = {}
+    n_ph = len(pack_pairhmm_batches(
+        batches, byte_quals=True, factored=True, bitmask_codes=True)[0])
+    ph_routes = {"L4096": 4096, "L16384": 16384}
+    ph_want = {"L4096": (0, -(-len(batches) // 128)), "L16384": (n_ph, 0)}
+
+    def ph_run(route):
+        eng = Engine(EngineConfig(max_device_len=ph_routes[route]),
+                     device="cuda")
+        pairhmm.launches = pairhmm_long.launches = 0
+        t0 = time.perf_counter()
+        values = eng.pairhmm(batches)
+        wall = time.perf_counter() - t0
+        n = (pairhmm.launches, pairhmm_long.launches)
+        check(n == ph_want[route], f"phase 39: {route} launches {n} "
+                                   "(pairhmm_tile, pairhmm_long), want "
+                                   f"{ph_want[route]}")
+        err = float(np.abs(values[ph_sample] - ph_ref).max())
+        out["ph_err"] = max(out["ph_err"], err)
+        check(err <= PH_TOL and bool(np.isfinite(values).all()),
+              f"phase 39: PairHMM at {route} vs native: {err}")
+        ph_first.setdefault(route, values)
+        return wall, eng.last_stats, n
+
+    walls = {}
+    for kind, run, order in (
+            ("sw", sw_run, ("L4096", "L8192-strips", "L8192-tile",
+                            "L8192-tile", "L8192-strips", "L4096",
+                            "L4096", "L8192-strips", "L8192-tile")),
+            ("phmm", ph_run, ("L4096", "L16384", "L16384", "L4096",
+                              "L4096", "L16384"))):
+        res = {}
+        for route in order:
+            res.setdefault(route, []).append(run(route))
+        for route, rs in res.items():
+            print(f"phase 39 {kind} engine, {route}: walls "
+                  + " / ".join(f"{r[0]:.4f}" for r in rs) + " s in turns, "
+                  f"launches {rs[0][2]} ("
+                  + ("lane tile, strips, rotor, sw_long" if kind == "sw"
+                     else "pairhmm_tile, pairhmm_long")
+                  + "); stats " + " | ".join(json.dumps(r[1].as_dict())
+                                              for r in rs))
+        walls[kind] = {route: sorted(r[0] for r in rs)[1]
+                       for route, rs in res.items()}
+        print(f"phase 39 {kind} engine medians: " + ", ".join(
+            f"{route} {w:.4f} s" for route, w in walls[kind].items()))
+    a, b = ph_first["L4096"], ph_first["L16384"]
+    d = float(np.abs(a - b).max())
+    out["ph_err"] = max(out["ph_err"], d)
+    check(d <= PH_TOL, f"phase 39: PairHMM L4096 vs L16384: {d}")
+    print(f"phase 39 phmm L4096 vs L16384: max |dlog10| {d:.3g} over "
+          f"{len(a)} jobs in {n_ph} buckets at L16384; 4 sampled within "
+          f"{PH_TOL} of native at both; SW: every score equal across the "
+          f"three routes ({n_sw} buckets at L8192), 8 sampled == native")
+    out["walls"] = walls
+    # one tile of each long kernel on these jobs, by slope
+    _, n, launch = next(sw_long.tile_launches(pairs[:128], device=dev))
+    k = sum(slope_ms(launch, torch, 3) for _ in range(2)) / 2
+    check(np.array_equal(launch().cpu().numpy()[:n], first["L4096"][:128]),
+          "phase 39: the sw_long tile != the engine's scores")
+    cells = sum(len(p.sx) * len(p.sy) for p in pairs[:128])
+    bound = bound_ms(sum(len(p.sx) + len(p.sy) for p in pairs[:128])
+                     + 4 * 128, cells * SW_OPS_PER_CELL, int32_ops)
+    out["sw_long"] = {"shape": [128, *DEEP_X], "ms": k,
+                      "bound_ms": bound[0], "bound_by": bound[1],
+                      "launches": want_launches["L4096"][3]}
+    print(f"phase 39 sw_long tile of 128 pairs (x {DEEP_X[0]}-{DEEP_X[1]}"
+          f"bp): {k:.3f} ms, bound {bound[0]:.4f} ms by {bound[1]} "
+          f"({100 * bound[0] / k:.1f}% of it), GCUPS {cells / k / 1e6:.2f}")
+    jobs = _jobs(batches[:128])
+    arrays, st = pairhmm_long.pack_pairhmm_long(jobs)
+    tl = [torch.from_numpy(arrays[f]).to(dev)
+          for f in ("rchar", "qual", "hap", "meta")]
+    fn = lambda: pairhmm_long.pairhmm_long_forward(*tl, **st)  # noqa: E731
+    k = sum(slope_ms(fn, torch, 3) for _ in range(2)) / 2
+    cells = sum(len(rd.bases) * len(hp) for rd, hp in jobs)
+    bound = bound_ms(nbytes(*tl) + 4 * 128, cells * PHMM_FLOPS_PER_CELL,
+                     FP32_FLOPS)
+    out["pairhmm_long"] = {"shape": [128, *DEEP_PH_READS], "ms": k,
+                           "bound_ms": bound[0], "bound_by": bound[1],
+                           "launches": ph_want["L4096"][1]}
+    print(f"phase 39 pairhmm_long tile of 128 jobs (reads "
+          f"{DEEP_PH_READS[0]}-{DEEP_PH_READS[1]}bp): {k:.3f} ms, bound "
+          f"{bound[0]:.4f} ms by {bound[1]} ({100 * bound[0] / k:.1f}% of "
+          f"it), GCUPS {cells / k / 1e6:.2f}")
     return out
 
 
@@ -1717,9 +2049,11 @@ def main(argv=None) -> int:
                 print(f"  ptxas: {line.strip()}")
             elif "Compiling entry" in line:
                 print(f"  ptxas: {line.split('for')[0].strip()[-96:]}")
+    with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
+        list(pool.map(sass_text, [path for path, _ in builds]))
     # the DPX cell of the seven kernels that take it, instance by instance
-    # (sw_tile's keys (R, block form), sw_rotor's (G, C), sw_conveyor's (G,
-    # R, block form)); a step holds a whole number of R cells (C for the
+    # (sw_tile's keys (R, form), sw_rotor's (G, C), sw_conveyor's (G, R,
+    # block form)); a step holds a whole number of R cells (C for the
     # rotor)
     sass_ops = {}
     for name, kernel, dpx, want, per, label in (
@@ -1730,8 +2064,8 @@ def main(argv=None) -> int:
             ("sw_strips", "sw_strips_kernel", 2, sw_strips.ROWS_PER_THREAD,
              None, "R"),
             ("sw_tile", "sw_tile_kernel", 2,
-             [(r, b) for r in sw.ROWS_PER_THREAD for b in (0, 1)], 0,
-             "R (warp / block form)"),
+             [(r, f) for r in sw.ROWS_PER_THREAD for f in (0, 1, 2)], 0,
+             "(R, form: warp / block of 2-16 / 17-32 warps)"),
             ("sw_rotor", "sw_rotor_kernel", 2, sw_rotor.GEOMETRIES, 1,
              "(G, C)"),
             ("sw_stacked", "sw_stacked_kernel", 2,
@@ -1760,7 +2094,8 @@ def main(argv=None) -> int:
     for name, kernel, want in (
             ("pairhmm_tile", "pairhmm_tile_kernel",
              [(r, b, 0) for r in pairhmm.TILE_R for b in (0, 1)]
-             + [(r, b, 1) for r in pairhmm.BLOCK_R for b in (0, 1)]),
+             + [(r, b, w) for r in pairhmm.BLOCK_R for b in (0, 1)
+                for w in pairhmm.block_bounds(r)]),
             ("pairhmm_long", "pairhmm_long_kernel",
              [(r, None) for r in pairhmm_long.LONG_R])):
         flops = sass_phmm_flops(builds[names.index(name)][0], kernel)
@@ -1779,8 +2114,13 @@ def main(argv=None) -> int:
         else:
             text = (by_r(" (raw / bitmask codes), warp form", pairhmm.TILE_R,
                          [(0, 0), (1, 0)])
-                    + by_r("; block form", pairhmm.BLOCK_R,
-                           [(0, 1), (1, 1)]))
+                    + "".join(by_r(f"; block form, launch bound {w} warps",
+                                   [r for r in pairhmm.BLOCK_R
+                                    if w in pairhmm.block_bounds(r)],
+                                   [(0, w), (1, w)])
+                              for w in sorted({w for r in pairhmm.BLOCK_R
+                                               for w in
+                                               pairhmm.block_bounds(r)})))
         print(f"phase 1 sass {name}: fp32 flops a cell along one step of the "
               "loop (FFMA 2) by R" + text)
     fewest = min(f for fl in phmm_flops.values() for f, _ in fl.values())
@@ -3317,11 +3657,6 @@ def main(argv=None) -> int:
     wall = time.perf_counter() - t0
     lp_launches, tile_launches = sw_long.launches, sw.launches
     stats = eng.last_stats
-    # the native model takes seconds per 50kbp pair: one thread each
-    sample = [0, LP_PAIRS // 2, 77, LP_PAIRS - 1]
-    t0 = time.perf_counter()
-    ref = native_sw(native, [pairs[i] for i in sample], threads=len(sample))
-    t_native = time.perf_counter() - t0
     check(scores.shape == (LP_PAIRS,) and scores.dtype == np.int32,
           f"scores of shape {scores.shape} {scores.dtype}")
     check(lp_launches >= 1 and tile_launches == 0,
@@ -3331,15 +3666,11 @@ def main(argv=None) -> int:
           f"native calls {native_calls}")
     check(int(scores[LP_PAIRS // 2]) == LP_LEN,
           f"the identical pair scored {int(scores[LP_PAIRS // 2])}")
-    check(np.array_equal(scores[sample], ref),
-          f"engine {scores[sample]} != native {ref} on the sampled pairs")
     print(f"phase 16 sw long main path: {LP_PAIRS} x {LP_LEN}bp x "
           f"{LP_LEN}bp, engine wall {wall:.3f} s, {lp_launches} long-pair "
           f"launches, 0 native calls, offloaded_jobs {stats.offloaded_jobs}, "
-          f"identical pair {int(scores[LP_PAIRS // 2])}, {len(sample)} "
-          f"sampled pairs == native model (native {t_native:.1f} s on "
-          f"{len(sample)} threads), stats {json.dumps(stats.as_dict())}")
-    lp_pairs, lp_scores, lp_sample, lp_ref = pairs, scores, sample, ref
+          f"identical pair {int(scores[LP_PAIRS // 2])}, stats "
+          f"{json.dumps(stats.as_dict())}")
 
     # 16, stage by stage: pack, copy, kernel and copy back of that tile
     torch.cuda.synchronize()
@@ -3371,11 +3702,27 @@ def main(argv=None) -> int:
 
     # 16, kernel vs plain on that tile: every lane against the plain
     # full-height sweep (all 50,176 rows at once over 100,001 diagonals; the
-    # plain strip sweep would take 49 times the steps), in one timed call
-    _, anchor50, _ = sw_long._layout(b50.ny_max, b50.strip_w)
-    want = []
-    sl_plain_ms = one_ms(lambda: want.append(sw_long_forward_dense(
-        t50[0], t50[1], b50.n_diags, b50.ny_max, anchor50)), torch)
+    # plain strip sweep would take 49 times the steps), in one timed call;
+    # beside it, on host threads, the native model (seconds per 50kbp
+    # pair: one thread each) on four sampled pairs
+    sample = [0, LP_PAIRS // 2, 77, LP_PAIRS - 1]
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        t0 = time.perf_counter()
+        native_ref = pool.submit(native_sw, native,
+                                 [pairs[i] for i in sample],
+                                 threads=len(sample))
+        _, anchor50, _ = sw_long._layout(b50.ny_max, b50.strip_w)
+        want = []
+        sl_plain_ms = one_ms(lambda: want.append(sw_long_forward_dense(
+            t50[0], t50[1], b50.n_diags, b50.ny_max, anchor50)), torch)
+        ref = native_ref.result()
+        t_native = time.perf_counter() - t0
+    check(np.array_equal(scores[sample], ref),
+          f"engine {scores[sample]} != native {ref} on the sampled pairs")
+    print(f"phase 16 {len(sample)} sampled pairs == native model (native "
+          f"{t_native:.1f} s on {len(sample)} threads, beside the plain "
+          "sweep)")
+    lp_pairs, lp_scores, lp_sample, lp_ref = pairs, scores, sample, ref
     err = int((got.long() - want[0].long()).abs().max())
     sl_err = max(sl_err, err)
     check(err == 0, f"long-pair SW kernel != plain full-height sweep on the "
@@ -3454,6 +3801,13 @@ def main(argv=None) -> int:
     max_err = max(max_err, tall["sw_err"])
     ph_err = max(ph_err, tall["ph_err"])
     print(f"phase 38 took {time.perf_counter() - t0:.1f} s")
+
+    # 39. past 4,096 rows: the 32-warp forms, the routes past them
+    t0 = time.perf_counter()
+    deep = deep_phase(int32_ops)
+    max_err = max(max_err, deep["sw_err"])
+    ph_err = max(ph_err, deep["ph_err"])
+    print(f"phase 39 took {time.perf_counter() - t0:.1f} s")
 
     # 30. the cross-device strip kernel vs its plain version, then the
     # K-strip ring, each strip's halo handed to the next, on the card
@@ -3838,11 +4192,13 @@ def main(argv=None) -> int:
                   "launches": dr_launches, "ms": dr_ms,
                   "plain_ms": dr_plain_ms, "bound_ms": dr_bound[0],
                   "bound_by": dr_bound[1]},
-              past_1024_rows=tall["sw_tile"]),
+              past_1024_rows=tall["sw_tile"],
+              past_4096_rows=deep["sw_tile"]),
         entry("sw_strips", "sw_strips.cu", "genomax/kernels/sw_strips.py:68",
               strips_launches, strips_err, strips_ms, strips_plain_ms,
               strips_bound, rows_per_thread=strips_r,
-              ms_by_r=strips_ms_by_r, past_1024_rows=tall["sw_strips"]),
+              ms_by_r=strips_ms_by_r, past_1024_rows=tall["sw_strips"],
+              past_4096_rows=deep["sw_strips"]),
         entry("sw_rotor", "sw_rotor.cu", "genomax/kernels/sw_rotor.py:141",
               rotor_launches, rotor_err, rotor_ms, rotor_plain_ms,
               rotor_bound, geometry=dataclasses.asdict(rotor_geo),
@@ -3862,16 +4218,19 @@ def main(argv=None) -> int:
               ms_by_geometry=conveyor_ms_by_geo,
               tall_ms_by_geometry=tall_ms_by_geo),
         entry("sw_long", "sw_long.cu", "genomax/kernels/sw_long.py:126",
-              lp_launches, sl_err, sl_kernel_ms, sl_plain_ms, sl_bound),
+              lp_launches, sl_err, sl_kernel_ms, sl_plain_ms, sl_bound,
+              past_4096_rows=deep["sw_long"]),
         entry("sw_xstrip", "sw_xstrip.cu", "genomax/dist/xsharded.py:72",
               xs_launches, xs_err, xs_kernel_ms, xs_plain_ms, xs_bound),
         entry("pairhmm_tile", "pairhmm_tile.cu",
               "genomax/kernels/pairhmm_pallas.py:93", ph_launches, ph_err,
               ph_kernel_ms, ph_plain_ms, ph_bound,
-              block_form=tall["pairhmm_tile"]),
+              block_form=tall["pairhmm_tile"],
+              block_form_past_2048=deep["pairhmm_tile"]),
         entry("pairhmm_long", "pairhmm_long.cu",
               "genomax/kernels/pairhmm_long.py:130", lr_launches, lr_err,
-              lr_kernel_ms, lr_plain_ms, lr_bound)]}))
+              lr_kernel_ms, lr_plain_ms, lr_bound,
+              past_2048_rows=deep["pairhmm_long"])]}))
     print(f"phase 6 elapsed: {time.perf_counter() - t_start:.1f} s")
     print(f"phase 6 card: {smi.stdout.strip()}")
     print(json.dumps({"ok": True, "device": {

@@ -23,6 +23,7 @@ import time
 import numpy as np
 import torch
 
+from genomax_torch.config import MAX_PHMM_ROWS
 from genomax_torch.engine.executor import Engine, _jobs
 from genomax_torch.io.formats import SWPair
 from genomax_torch.io.generator import generate_pairhmm_batch, random_dna
@@ -61,7 +62,8 @@ def phmm_launches(eng: Engine, batches):
     if off is not None:
         raise ValueError(
             f"{int(off.sum())} jobs past the lane-tile kernel's "
-            f"{eng.cfg.max_device_len // 2 - 2}bp reads: the engine sends "
+            f"{min(eng.cfg.max_device_len // 2, MAX_PHMM_ROWS) - 2}bp reads: "
+            "the engine sends "
             "them to the long-read kernel, which the PairHMM sweep does not "
             "time")
     buckets, n = eng._phmm_pack(batches)

@@ -257,8 +257,8 @@ def _add_engine_args(p):
     p.add_argument("--max-device-len", type=int, metavar="L",
                    help="pairs whose padded x extent exceeds L leave the "
                         "lane-tile kernels for the long-pair paths "
-                        "(EngineConfig.max_device_len; default 1024, 8 to "
-                        "4096)")
+                        "(EngineConfig.max_device_len; default 1024, any "
+                        "L >= 8)")
     p.add_argument("--devices", type=int, metavar="N",
                    help="score over a mesh of N ranks, one process a device "
                         "(ShardedEngine); N must be the process group's size")

@@ -11,20 +11,23 @@ from __future__ import annotations
 
 import dataclasses
 
-# The engine's cap on max_device_len: the tallest bucket the lane-tile SW
-# kernel holds, 16 warps x 32 threads x 8 rows = 4,096 rows
-# (csrc/sw_tile.cu's block form, kernels/sw.tile_geometry; kernels/sw.py's
-# MAX_WARPS). The JAX engine takes any max_device_len; past this cap the
-# port raises. Buckets of at least strips_min_nxs rows take the strips
-# kernel at any height (csrc/sw_strips.cu walks sub-strips of 32R rows), so
-# the lane tile sees only the buckets strips declines, and every bucket
-# under sw_strips=False.
-MAX_KERNEL_ROWS = 4096
-# The PairHMM lane-tile kernel takes reads under max_device_len // 2, as the
-# JAX engine sends them: up to 2,048 rows, one warp a pair up to 32 x R
-# rows and past that a block of up to 16 warps (csrc/pairhmm_tile.cu,
-# kernels/pairhmm.tile_geometry).
-MAX_PHMM_ROWS = MAX_KERNEL_ROWS // 2
+# The lane-tile SW kernel's tallest bucket, a routing constant, not a cap
+# on max_device_len: 32 warps x 32 threads x 8 rows hold 8,193 rows (a
+# CUDA block's 1,024 threads; csrc/sw_tile.cu's block form,
+# kernels/sw.tile_geometry), and the pack's rows are a multiple of 8. The
+# JAX engine takes any max_device_len, and so does the port: a pair with
+# len(x) + 2 past this height stays in the bucket path only where the
+# strips kernel takes its bucket (csrc/sw_strips.cu walks sub-strips of 32R
+# rows at any height), else it takes the long-pair kernel
+# (Engine._sw_offload_mask).
+MAX_KERNEL_ROWS = 8192
+# The PairHMM lane-tile kernel's tallest bucket, a routing constant too:
+# one warp a pair up to 32 x R rows, past that a block of up to 32 warps
+# (csrc/pairhmm_tile.cu, kernels/pairhmm.tile_geometry), 8,192 rows at
+# R = 8. The engine sends it reads under max_device_len // 2, as the JAX
+# engine does, and reads past 8,190 bases to the long-read kernel
+# (Engine._phmm_offload_mask).
+MAX_PHMM_ROWS = 8192
 # The stacked kernel's rows a stack and the conveyor's window rows: the TPU
 # kernels' limit of 1,024, at which both are held on the card
 # (kernels/sw_stacked.py, kernels/sw_conveyor.py).
@@ -98,7 +101,10 @@ class EngineConfig:
     # max_device_diags, leave the lane-tile kernel (the predicate of
     # genomax.engine.executor._sw_offload_mask): the long-pair kernels take
     # them on the same device up to max_device_diags, the native model past
-    # it. PairHMM applies half of both bounds.
+    # it. PairHMM applies half of both bounds. Any max_device_len of 8 or
+    # more, as in the JAX engine; past the lane tiles' tallest buckets
+    # (MAX_KERNEL_ROWS, MAX_PHMM_ROWS) the port routes as their comments
+    # say, with the same scores.
     max_device_len: int = 1024
     max_device_diags: int = 1 << 20
     # Route SW buckets of at least strips_min_nxs rows through the
@@ -191,11 +197,9 @@ class EngineConfig:
         if self.rotor_max_slots < 1:
             raise ValueError(f"rotor_max_slots={self.rotor_max_slots}: want "
                              "at least one pair a queue")
-        if not 8 <= self.max_device_len <= MAX_KERNEL_ROWS:
-            raise ValueError(
-                f"max_device_len={self.max_device_len}: want 8 to "
-                f"{MAX_KERNEL_ROWS}, the tallest bucket of the lane-tile "
-                "kernel (16 warps x 32 threads x 8 rows a pair)")
+        if self.max_device_len < 8:
+            raise ValueError(f"max_device_len={self.max_device_len}: want "
+                             "at least 8 rows")
         if self.rescale_period not in RESCALE_PERIODS:
             raise ValueError(
                 f"rescale_period={self.rescale_period}: want one of "

@@ -17,8 +17,13 @@
 // pairs a warp, each with its own shuffle segment and vote mask, 8 warps of
 // neighbouring lanes of one tile a block (the warp form: buckets of at most
 // 32R rows, 512 at R = 16). A taller bucket gives a pair a block of W =
-// ceil(NXs / 32R) warps, G = 32W threads, one pair a block (the block form,
-// R = 4, 5, 6, 8: NXs up to 2,048 rows in 8-16 warps). The rows are placed
+// ceil(NXs / 32R) <= 32 warps, G = 32W threads, one pair a block (the block
+// form, R = 4, 5, 6, 8: NXs up to 8,192 rows, 32 warps at R = 8; R = 4 stops
+// at 4,096). Its instances come in three launch bounds a R, the warps of a
+// 2,048-row block (8 at R = 8, 16 at R = 4), 16 and 32, and a launch takes
+// the smallest that holds its block: a bound of 1,024 threads holds a
+// thread to 64 registers, which the shorter blocks need not pay. The rows
+// are placed
 // so that the read's last row rl is the last row of the group's last
 // thread: thread g holds rows r0 + g*R .. r0 + g*R + R-1, r0 = rl - G*R + 1
 // <= -1. Rows below 0 carry no read (zero constants, zero state) and stay
@@ -78,26 +83,36 @@ namespace {
 
 constexpr int kLanes = 128;    // pairs per packed tile
 constexpr int kWarp = 32;
-constexpr int kMaxWarps = 8;   // warps a block of the warp form
-constexpr int kMaxRows = 2048; // rows of the tallest bucket (NXs)
+constexpr int kMaxWarps = 8;    // warps a block of the warp form
+constexpr int kMaxRows = 8192;  // rows of the tallest bucket (NXs)
+constexpr int kBlockMaxWarps = 32;  // a CUDA block's 1,024 threads
 constexpr unsigned kFull = 0xffffffffu;
 
-// The most warps a pair of the block form takes at R rows a thread: the
-// launch bound of its instance (16 at R = 4, 8 at R = 8).
-__host__ __device__ constexpr int block_warps(int R) {
-  return (kMaxRows + kWarp * R - 1) / (kWarp * R);
+// Warps a pair of `rows` rows takes at R rows a thread.
+__host__ __device__ constexpr int warps_for(int rows, int R) {
+  return (rows + kWarp * R - 1) / (kWarp * R);
 }
+// The most warps a pair of the block form takes at R: 32, or fewer where
+// 32 warps would pass kMaxRows.
+__host__ __device__ constexpr int block_warps(int R) {
+  return warps_for(kMaxRows, R) < kBlockMaxWarps ? warps_for(kMaxRows, R)
+                                                 : kBlockMaxWarps;
+}
+// The smallest launch bound of the block form at R: the warps of a block
+// of 2,048 rows (16 at R = 4, 8 at R = 8).
+constexpr int block_bound0(int R) { return warps_for(2048, R); }
 // R of the block form: register pressure past 8 rows a thread.
 constexpr bool block_r(int R) {
   return R == 4 || R == 5 || R == 6 || R == 8;
 }
 
-// kBlock false: the warp form, G = group threads a pair, P = 32 / G pairs a
-// warp. kBlock true: one pair a block of G = blockDim.x threads (P = 1),
-// the seam in 2 * (G / 32) float4 of dynamic shared memory.
-template <int R, bool kBitmask, bool kBlock>
-__global__ void __launch_bounds__(kBlock ? kWarp * block_warps(R)
-                                         : kMaxWarps * kWarp)
+// kBlockWarps 0: the warp form, G = group threads a pair, P = 32 / G pairs
+// a warp. kBlockWarps > 0: one pair a block of G = blockDim.x threads, at
+// most kBlockWarps warps (P = 1), the seam in 2 * (G / 32) float4 of
+// dynamic shared memory.
+template <int R, bool kBitmask, int kBlockWarps>
+__global__ void __launch_bounds__(kBlockWarps > 0 ? kWarp * kBlockWarps
+                                                  : kMaxWarps * kWarp)
 pairhmm_tile_kernel(const int8_t* __restrict__ rchar,
                     const float* __restrict__ qr_in,
                     const float* __restrict__ mmv_in,
@@ -110,6 +125,7 @@ pairhmm_tile_kernel(const int8_t* __restrict__ rchar,
                     const int32_t* __restrict__ ndiag_tile,
                     float* __restrict__ out, int nxs, int nds, int period,
                     float inv_div, int G, int P) {
+  constexpr bool kBlock = kBlockWarps > 0;
   extern __shared__ float4 seam[];  // block form: [step parity][warp]
   const int wl = threadIdx.x % kWarp;
   const int wp = threadIdx.x / kWarp;
@@ -317,6 +333,19 @@ pairhmm_tile_kernel(const int8_t* __restrict__ rchar,
     out[t * kLanes + l] = log10f(acc) + acc_log - kPhmmInitLog10;
 }
 
+// The block form: one pair a block of G / 32 warps, at most kBound.
+template <int R, bool kBitmask, int kBound>
+int launch_block(const int8_t* rc, const float* const* f, const int8_t* h,
+                 const int32_t* m, const int32_t* nd, float* o, int nt,
+                 int nxs, int nds, int period, float inv_div, int G,
+                 cudaStream_t stream) {
+  pairhmm_tile_kernel<R, kBitmask, kBound>
+      <<<nt * kLanes, G, 2 * (G / kWarp) * sizeof(float4), stream>>>(
+          rc, f[0], f[1], f[2], f[3], f[4], f[5], h, m, nd, o, nxs, nds,
+          period, inv_div, G, 1);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int R, bool kBitmask>
 int launch(const void* rchar, const void* const* q, const void* hap,
            const void* meta, const void* ndiag_tile, void* out, int nt,
@@ -329,21 +358,24 @@ int launch(const void* rchar, const void* const* q, const void* hap,
   const int32_t* m = static_cast<const int32_t*>(meta);
   const int32_t* nd = static_cast<const int32_t*>(ndiag_tile);
   float* o = static_cast<float*>(out);
-  if (G > kWarp) {  // the block form: one pair a block of G / 32 warps
+  if (G > kWarp) {  // the block form, the instance of the smallest bound
     if constexpr (block_r(R)) {
-      pairhmm_tile_kernel<R, kBitmask, true>
-          <<<nt * kLanes, G, 2 * (G / kWarp) * sizeof(float4), stream>>>(
-              rc, f[0], f[1], f[2], f[3], f[4], f[5], h, m, nd, o, nxs, nds,
-              period, inv_div, G, 1);
-      return static_cast<int>(cudaGetLastError());
+      constexpr int b0 = block_bound0(R);
+      if (warps <= b0)
+        return launch_block<R, kBitmask, b0>(rc, f, h, m, nd, o, nt, nxs,
+                                             nds, period, inv_div, G, stream);
+      if (warps <= kBlockMaxWarps / 2)
+        return launch_block<R, kBitmask, kBlockMaxWarps / 2>(
+            rc, f, h, m, nd, o, nt, nxs, nds, period, inv_div, G, stream);
+      return launch_block<R, kBitmask, kBlockMaxWarps>(
+          rc, f, h, m, nd, o, nt, nxs, nds, period, inv_div, G, stream);
     }
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int P = kWarp / G;
   const int lanes_per_block = warps * P;
   const int blocks = nt * ((kLanes + lanes_per_block - 1) / lanes_per_block);
-  pairhmm_tile_kernel<R, kBitmask, false><<<blocks, warps * kWarp, 0,
-                                            stream>>>(
+  pairhmm_tile_kernel<R, kBitmask, 0><<<blocks, warps * kWarp, 0, stream>>>(
       rc, f[0], f[1], f[2], f[3], f[4], f[5], h, m, nd, o, nxs, nds, period,
       inv_div, G, P);
   return static_cast<int>(cudaGetLastError());
@@ -355,8 +387,9 @@ int launch(const void* rchar, const void* const* q, const void* hap,
 // cudaErrorInvalidValue for an R the build does not make or a geometry
 // outside the kernel's: the warp form 1 <= group <= 32, 1 <= warps <= 8;
 // the block form group = 32 * warps > 32, R in 4, 5, 6, 8 and warps at
-// most block_warps(R); group * R >= nxs. The caller allocates `out` and
-// checks shapes: 2 <= nxs <= 2048, nds > nxs, rescale_period one of 1, 2,
+// most block_warps(R) (32; 32 at R = 4 holds 4,096 rows); group * R >=
+// nxs. The caller allocates `out` and checks shapes: 2 <= nxs <= 8192,
+// nds > nxs, rescale_period one of 1, 2,
 // 4, 8, 16, 32, every pair's rl <= nxs - 2 and A = nds - nxs >= rl + hl +
 // 1 + 32 (the pack's slack).
 extern "C" int pairhmm_tile_launch(

@@ -18,13 +18,17 @@
 //  - a pair of at most H rows is one warp (up to 256 rows at R = 8), and
 //    a block holds several pairs with no barrier: the buckets of 72-143
 //    rows that the default route sends here;
-//  - a taller pair is a block of W <= 16 warps (4,096 rows at R = 8, the
-//    engine's tallest bucket), warp w rows 1 + w*H ..; lane 0
-//    of warp w takes the row above from warp w-1's lane 31 through a
-//    shared seam by step parity, one __syncthreads a step for all rows
-//    (the form of sw_long.cu). A warp skips the cells of the diagonals on
-//    which its rows have none (its first row's j < 1); the block still
-//    takes the step's barrier.
+//  - a taller pair is a block of W <= 32 warps (8,193 rows at R = 8, a
+//    CUDA block's 1,024 threads; the engine's tallest bucket is 8,192
+//    rows, and past it routes to strips or sw_long.cu), warp w rows
+//    1 + w*H ..; lane 0 of warp w takes the row above from warp w-1's
+//    lane 31 through a shared seam by step parity, one __syncthreads a
+//    step for all rows (the form of sw_long.cu). A warp skips the cells of
+//    the diagonals on which its rows have none (its first row's j < 1);
+//    the block still takes the step's barrier. Blocks of 2-16 warps and
+//    of 17-32 warps are separate instances: a launch bound of 1,024
+//    threads holds a thread to 64 registers, which the smaller blocks'
+//    bound of 512 (128 registers) does not impose on them.
 // A tile's pairs sweep its diagonals 2 .. ndiag - 1. Rows past a pair's
 // length and columns past its y hold pad codes that mismatch everything,
 // so those cells never exceed the pair's real maximum; the kernel needs
@@ -57,15 +61,18 @@ constexpr int kMaxWarps = 32;      // warps a block
 constexpr int kNeg = kSwNeg;       // -inf of P and Q (sw_cell.cuh)
 constexpr int kPadX = 1;           // the pack's x pad code
 
-// kBlock false: blockDim.x / 32 pairs a block, one warp each. kBlock true:
-// one pair a block, blockDim.x / 32 warps.
-template <int R, bool kBlock>
-__global__ void __launch_bounds__(kMaxWarps * 32 / 2)
+// kForm 0: blockDim.x / 32 pairs a block, one warp each. kForm 1 and 2:
+// one pair a block of blockDim.x / 32 warps, at most 16 (kForm 1) or 32
+// (kForm 2), the launch bound of the instance.
+template <int R, int kForm>
+__global__ void __launch_bounds__(kForm == 2 ? kMaxWarps * 32
+                                             : kMaxWarps * 32 / 2)
 sw_tile_kernel(const int8_t* __restrict__ sx, const int8_t* __restrict__ sy,
                const int32_t* __restrict__ ndiag_tile,
                int32_t* __restrict__ out, int n_slots, int nxs, int nds,
                SwScoring sc) {
   constexpr int H = 32 * R;
+  constexpr bool kBlock = kForm != 0;
   __shared__ int32_t seam[2][3][kMaxWarps];  // D, Q, code of each warp's
                                              // last row, by step parity
   __shared__ int32_t block_best;
@@ -191,10 +198,13 @@ int launch(const void* sx, const void* sy, const void* ndiag_tile, void* out,
   const int32_t* nd = static_cast<const int32_t*>(ndiag_tile);
   int32_t* o = static_cast<int32_t*>(out);
   if (warps == 1) {
-    sw_tile_kernel<R, false><<<(n_slots + pairs - 1) / pairs, pairs * 32, 0,
-                               stream>>>(x, y, nd, o, n_slots, nxs, nds, sc);
+    sw_tile_kernel<R, 0><<<(n_slots + pairs - 1) / pairs, pairs * 32, 0,
+                           stream>>>(x, y, nd, o, n_slots, nxs, nds, sc);
+  } else if (warps <= kMaxWarps / 2) {
+    sw_tile_kernel<R, 1><<<n_slots, warps * 32, 0, stream>>>(
+        x, y, nd, o, n_slots, nxs, nds, sc);
   } else {
-    sw_tile_kernel<R, true><<<n_slots, warps * 32, 0, stream>>>(
+    sw_tile_kernel<R, 2><<<n_slots, warps * 32, 0, stream>>>(
         x, y, nd, o, n_slots, nxs, nds, sc);
   }
   return static_cast<int>(cudaGetLastError());
@@ -204,17 +214,18 @@ int launch(const void* sx, const void* sy, const void* ndiag_tile, void* out,
 
 // Launches the kernel on `stream` and returns cudaGetLastError(), or
 // cudaErrorInvalidValue for an R the build does not make or a geometry
-// out of range. The caller allocates `out` and checks shapes: 2 <= nxs <=
-// 4096, nds > nxs, and A = nds - nxs >= every ndiag_tile[t]; and picks R
-// (`rows_per_thread`), the warps a pair (1, or W >= 2 with W * 32 * R >=
-// nxs - 1) and, for one warp a pair, the pairs a block (1-16).
+// out of range. The caller allocates `out` and checks shapes: 2 <= nxs,
+// nds > nxs, and A = nds - nxs >= every ndiag_tile[t]; and picks R
+// (`rows_per_thread`), the warps a pair (1, or 2 <= W <= 32 with W * 32 *
+// R >= nxs - 1: up to 8,193 rows at R = 8) and, for one warp a pair, the
+// pairs a block (1-16).
 extern "C" int sw_tile_launch(const void* sx, const void* sy,
                               const void* ndiag_tile, void* out, int nt,
                               int nxs, int nds, int rows_per_thread,
                               int warps, int pairs, int match, int mismatch,
                               int gap_open, int gap_extend, void* stream) {
   if (nt <= 0) return 0;
-  if (warps < 1 || warps > kMaxWarps / 2 || pairs < 1 ||
+  if (warps < 1 || warps > kMaxWarps || pairs < 1 ||
       pairs > kMaxWarps / 2 || warps * 32 * rows_per_thread < nxs - 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const SwScoring sc{match, mismatch, gap_open + gap_extend, gap_extend};

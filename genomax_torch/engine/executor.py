@@ -13,14 +13,16 @@ rotor's predicate takes goes to the column-stationary rotor kernel
 ``stack_max_nxs`` rows that the stacked prep takes goes to the
 sublane-stacked kernel (``csrc/sw_stacked.cu``); every other bucket takes
 the lane-tile kernel (``csrc/sw_tile.cu``, at any stream length); pairs
-whose x is too long for these take the long-pair kernel
-(``csrc/sw_long.cu``) on the same device, and only pairs past
-``max_device_diags`` go to the native model. PairHMM
+whose x is too long for these (past ``max_device_len``, or past the lane
+tile's 8,192 rows where strips would not take their bucket) take the
+long-pair kernel (``csrc/sw_long.cu``) on the same device, and only pairs
+past ``max_device_diags`` go to the native model. PairHMM
 packs as the JAX engine's Pallas backend does (byte qualities, factored,
 bitmask codes), expands on the device and runs ``csrc/pairhmm_tile.cu``
-on every bucket; the reads too long for it take the long-read kernel
-(``csrc/pairhmm_long.cu``) on the same device, and only jobs past
-``max_device_diags`` go to the native model.
+on every bucket; the reads too long for it (past ``max_device_len`` // 2
+- 2 or 8,190 bases) take the long-read kernel (``csrc/pairhmm_long.cu``)
+on the same device, and only jobs past ``max_device_diags`` go to the
+native model.
 
 An SW bucket's stream is packed as its live band
 (``pack.bucketing.StreamBand``, the JAX engine's ``stream_band_transfer``)
@@ -37,7 +39,8 @@ import numpy as np
 import torch
 
 from genomax_torch import native
-from genomax_torch.config import EngineConfig, PairHMMConfig, SWConfig
+from genomax_torch.config import (MAX_KERNEL_ROWS, MAX_PHMM_ROWS,
+                                  EngineConfig, PairHMMConfig, SWConfig)
 from genomax_torch.io.formats import (PairHMMBatch, parse_pairhmm_file,
                                       parse_sw_file)
 from genomax_torch.kernels.pairhmm import pairhmm_forward
@@ -49,11 +52,12 @@ from genomax_torch.kernels.sw_rotor import (maybe_prep_rotor,
 from genomax_torch.kernels.sw_stacked import (maybe_prep_stacked,
                                               sw_forward_stacked)
 from genomax_torch.kernels.sw_strips import (maybe_prep_strips,
-                                             sw_forward_strips)
+                                             sw_forward_strips, takes)
 from genomax_torch.pack import (pack_pairhmm_batches, pack_sw_pairs,
                                 phmm_bucket_to_torch, sw_bucket_to_torch,
                                 sw_rotor_to_torch, sw_stacked_to_torch,
                                 sw_strips_to_torch, unpack_scores)
+from genomax_torch.pack.bucketing import bucket_levels, bucket_rows
 
 
 class EngineError(RuntimeError):
@@ -228,12 +232,25 @@ class Engine:
         return self._sw_prep(b)[1]()
 
     def _sw_offload_mask(self, pairs):
-        """True = too big for the lane-tile kernel (the predicate of the
-        JAX engine); ``_sw_offload_post`` scores these."""
+        """True = not for the bucket path; ``_sw_offload_post`` scores
+        these. The JAX engine's predicate (len(x) + 2 past max_device_len,
+        or the diagonals past max_device_diags), and a pair past the lane
+        tile's tallest bucket (MAX_KERNEL_ROWS: a CUDA block's 1,024
+        threads) whose bucket strips would not take (``sw_strips.takes``
+        on the bucket the pack makes of the pair's x level), so that the
+        lane tile is never handed a bucket it cannot hold."""
         L, D = self.cfg.max_device_len, self.cfg.max_device_diags
-        m = np.array(
-            [len(p.sx) + 2 > L or len(p.sx) + len(p.sy) + 1 > D for p in pairs]
-        )
+        lx = np.fromiter((len(p.sx) for p in pairs), np.int64, len(pairs))
+        ly = np.fromiter((len(p.sy) for p in pairs), np.int64, len(pairs))
+        m = (lx + 2 > L) | (lx + ly + 1 > D)
+        tall = ~m & (lx + 2 > MAX_KERNEL_ROWS)
+        if tall.any():
+            level = bucket_levels(lx)
+            for v in np.unique(level[tall]):
+                b = ~m & (level == v)
+                nxs = bucket_rows(int(lx[b].max()))
+                if not takes(self.cfg, nxs, int(ly[b].max()) + 1):
+                    m |= tall & (level == v)
         return m if m.any() else None
 
     def sw_scores(self, pairs) -> np.ndarray:
@@ -319,9 +336,12 @@ class Engine:
     def _phmm_offload_mask(self, jobs):
         """True = too big for the lane-tile kernel. PairHMM applies half
         the SW bounds, as the JAX engine does, so that kernel sees at most
-        max_device_len // 2 read rows (512 at the default, 2,048 at the
-        cap: one warp a pair up to 512, a block of warps past it)."""
-        L, D = self.cfg.max_device_len // 2, self.cfg.max_device_diags // 2
+        max_device_len // 2 read rows (512 at the default: one warp a pair
+        up to 512, a block of warps past it), and no more than its tallest
+        bucket (MAX_PHMM_ROWS: reads past 8,190 bases take the long-read
+        kernel)."""
+        L = min(self.cfg.max_device_len // 2, MAX_PHMM_ROWS)
+        D = self.cfg.max_device_diags // 2
         off = np.array([len(rd.bases) + 2 > L or len(rd.bases) + len(hp) + 1 > D
                         for rd, hp in jobs], dtype=bool)
         return off if off.any() else None

@@ -3,8 +3,8 @@
 ``genomax.kernels.pairhmm_pallas.pairhmm_forward_pallas``.
 
 The kernel keeps R read rows a thread in registers and sweeps a pair with a
-group of G <= 32 threads of one warp, or past 32R rows with a block of warps
-(``tile_geometry``). CUDA tensors
+group of G <= 32 threads of one warp, or past 32R rows with a block of up to
+32 warps (``tile_geometry``; 8,192 rows at R = 8). CUDA tensors
 launch the kernel on the current stream; CPU tensors take the plain version
 (``kernels.wavefront.phmm_forward_tiles``). There is no other route: a
 build or launch failure raises.
@@ -27,13 +27,15 @@ from genomax_torch.layout import LANES
 TILE_R = (1, 2, 4, 5, 6, 8, 10, 16)
 WARP = 32
 TILE_WARPS = 8
-# R of the block form, a pair of more than 32R rows as a block of warps
-# (register pressure past 8 rows a thread), and the weights of its cost in
-# cells: a step's fixed part (the hand-over's shuffles, the stream shuffle,
-# the loop) and a warp's barrier and seam. The weights are not fitted:
-# they pick R = 8 at 1,008 and 2,048 rows, the fastest of every R that
-# chip_smoke.py phase 38 times there on one H100.
+# R of the block form, a pair of more than 32R rows as a block of up to
+# BLOCK_MAX_WARPS warps (register pressure past 8 rows a thread; a CUDA
+# block's 1,024 threads, so 8,192 rows at R = 8 and 4,096 at R = 4), and
+# the weights of its cost in cells: a step's fixed part (the hand-over's
+# shuffles, the stream shuffle, the loop) and a warp's barrier and seam.
+# The weights are not fitted: they pick R = 8 at 1,008 and 2,048 rows, the
+# fastest of every R that chip_smoke.py phase 38 times there on one H100.
 BLOCK_R = (4, 5, 6, 8)
+BLOCK_MAX_WARPS = 32
 STEP_CELLS, BARRIER_CELLS = 1, 1
 
 # Kernel launches made by pairhmm_forward (CUDA tensors only).
@@ -69,16 +71,28 @@ def _block_warps(nxs: int, r: int) -> int:
     return -(-nxs // (WARP * r))
 
 
+def block_bounds(r: int) -> tuple[int, ...]:
+    """The launch bounds, in warps, of the block form's instances at R = r
+    (csrc/pairhmm_tile.cu): the warps of a 2,048-row block, 16 and 32; a
+    launch takes the smallest that holds its block."""
+    return tuple(sorted({_block_warps(2048, r), BLOCK_MAX_WARPS // 2,
+                         BLOCK_MAX_WARPS}))
+
+
 def default_rows_per_thread(nxs: int) -> int:
     """R the wrappers take when the caller names none: the fewest rows a
     thread with which one warp holds a pair of NXs rows; past 512 rows, of
-    BLOCK_R, the one whose step costs least (W warps of R cells, a fixed
-    part and a barrier each, W = ceil(NXs / 32R)), the smallest on a tie."""
+    the R of BLOCK_R with which BLOCK_MAX_WARPS warps hold the pair, the one
+    whose step costs least (W warps of R cells, a fixed part and a barrier
+    each, W = ceil(NXs / 32R)), the smallest on a tie."""
     for r in TILE_R:
         if -(-nxs // r) <= WARP:
             return r
-    return min(BLOCK_R, key=lambda r: (
-        _block_warps(nxs, r) * (r + STEP_CELLS + BARRIER_CELLS), r))
+    return min((r for r in BLOCK_R
+                if _block_warps(nxs, r) <= BLOCK_MAX_WARPS),
+               key=lambda r: (
+                   _block_warps(nxs, r) * (r + STEP_CELLS + BARRIER_CELLS),
+                   r))
 
 
 def tile_geometry(nxs: int, r: int | None = None) -> TileGeometry:
@@ -86,7 +100,7 @@ def tile_geometry(nxs: int, r: int | None = None) -> TileGeometry:
     (the default's when r is None): the warp form where one warp holds the
     pair at R, else the block form. Raises ValueError for an R the build
     does not make, or one with which a pair needs more than a warp and the
-    block form is not built."""
+    block form is not built, or needs more than BLOCK_MAX_WARPS warps."""
     if not 2 <= nxs <= MAX_PHMM_ROWS:
         raise ValueError(f"NXs={nxs} must lie in [2, {MAX_PHMM_ROWS}]")
     if r is None:
@@ -101,6 +115,10 @@ def tile_geometry(nxs: int, r: int | None = None) -> TileGeometry:
                 f"more than a warp of {WARP}, and the block form takes R in "
                 f"{BLOCK_R}")
         w = _block_warps(nxs, r)
+        if w > BLOCK_MAX_WARPS:
+            raise ValueError(
+                f"rows_per_thread={r}: NXs={nxs} needs {w} warps a pair, "
+                f"past the block form's {BLOCK_MAX_WARPS}")
         return TileGeometry(rows_per_thread=r, group=w * WARP,
                             pairs_per_warp=0, warps=w, lanes_per_block=1,
                             blocks_per_tile=LANES)

@@ -5,7 +5,7 @@
 
 The engine sends it the jobs whose reads are too long for the lane-tile
 kernel (``csrc/pairhmm_tile.cu``: reads past max_device_len // 2 - 2
-bases, 510 at the default, 2,046 at the cap). The kernel sweeps a
+bases, 510 at the default, or past its tallest bucket's 8,190). The kernel sweeps a
 job's strips at once, one warp a strip with R rows a thread
 (``long_geometry``). CUDA tensors launch the kernel on the current stream;
 CPU tensors take the plain version (``kernels.wavefront.phmm_long_forward``).

@@ -5,7 +5,7 @@ kernel ``csrc/sw_tile.cu``, with the contract of
 The kernel keeps R rows a thread in registers and sweeps a pair's rows in
 groups of 32 * R, one warp a group (``tile_geometry``): a pair of at most
 32 * R rows is one warp, several pairs a block; a taller one a block of
-warps. CUDA tensors launch the kernel on the current stream; CPU tensors
+up to 32 warps (8,193 rows at R = 8). CUDA tensors launch the kernel on the current stream; CPU tensors
 take the plain version (``kernels.wavefront.sw_forward_tiles``). There is
 no other route: a build or launch failure raises.
 """
@@ -17,7 +17,7 @@ import dataclasses
 
 import torch
 
-from genomax_torch.config import MAX_KERNEL_ROWS, SWConfig
+from genomax_torch.config import SWConfig
 from genomax_torch.kernels import _build
 from genomax_torch.kernels.wavefront import sw_forward_tiles
 from genomax_torch.layout import LANES
@@ -26,9 +26,11 @@ from genomax_torch.layout import LANES
 # the values the build makes).
 ROWS_PER_THREAD = (2, 3, 4, 5, 6, 8)
 WARP = 32
-# Pairs a block when a pair is one warp; the most warps a pair's block has.
+# Pairs a block when a pair is one warp; the most warps a pair's block has
+# (a CUDA block's 1,024 threads; blocks past 16 warps are the kernel's
+# third instance family, with a launch bound of 1,024 threads).
 PAIRS_PER_BLOCK = 8
-MAX_WARPS = 16
+MAX_WARPS = 32
 # A step's fixed part (the hand-over's shuffles, the stream shuffle, the
 # loop) in cells, and a block's barrier and seam in cells a warp: the
 # weights of tile_geometry's cost.
@@ -51,6 +53,12 @@ class TileGeometry:
     pairs: int
 
 
+def max_rows() -> int:
+    """The tallest bucket the kernel holds: MAX_WARPS warps of 32 threads
+    at the largest R, plus row 0 (8,193 rows)."""
+    return MAX_WARPS * WARP * max(ROWS_PER_THREAD) + 1
+
+
 def tile_geometry(nxs: int, r: int | None = None) -> TileGeometry:
     """The kernel's geometry on a bucket of nxs rows. r None picks, of the
     R the build makes, the one whose step costs least: W warps of R cells
@@ -58,8 +66,8 @@ def tile_geometry(nxs: int, r: int | None = None) -> TileGeometry:
     warp where W > 1; the smallest R on a tie. So a pair that one warp
     holds at some R is one warp (R = ceil((nxs - 1) / 32) rounded up to a
     built R), and a taller one takes the R that wastes fewest rows."""
-    if not 2 <= nxs <= MAX_KERNEL_ROWS:
-        raise ValueError(f"nxs={nxs}: want 2 to {MAX_KERNEL_ROWS} rows")
+    if not 2 <= nxs <= max_rows():
+        raise ValueError(f"nxs={nxs}: want 2 to {max_rows()} rows")
     if r is not None and r not in ROWS_PER_THREAD:
         raise ValueError(f"rows_per_thread={r}: the build makes "
                          f"{ROWS_PER_THREAD}")
@@ -120,9 +128,9 @@ def _launch(sx, sy, ndiag_tile, cfg: SWConfig, r) -> torch.Tensor:
         raise ValueError(f"sw_forward: shapes {tuple(sx.shape)}, "
                          f"{tuple(sy.shape)}, {tuple(ndiag_tile.shape)} are "
                          f"not (NT,NXs,{LANES}), (NT,NDs,{LANES}), (NT,)")
-    if not 2 <= nxs <= MAX_KERNEL_ROWS or sy.shape[1] <= nxs:
+    if not 2 <= nxs <= max_rows() or sy.shape[1] <= nxs:
         raise ValueError(f"sw_forward: NXs={nxs} must lie in [2, "
-                         f"{MAX_KERNEL_ROWS}] and below NDs={sy.shape[1]}")
+                         f"{max_rows()}] and below NDs={sy.shape[1]}")
     geo = tile_geometry(nxs, r)
     sx, sy, ndiag_tile = (sx.contiguous(), sy.contiguous(),
                           ndiag_tile.contiguous())

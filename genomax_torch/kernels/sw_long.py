@@ -4,8 +4,8 @@ kernel ``csrc/sw_long.cu`` and the per-tile loop, with the contracts of
 and ``sw_scores_long``).
 
 The engine sends it the pairs whose x is too long for the lane-tile kernel
-(len(x) + 2 past max_device_len: 1,024 rows at the default, 4,096 at the
-cap). The pack cuts x into K strips of
+(len(x) + 2 past max_device_len, 1,024 rows at the default; or past the
+lane tile's 8,192 rows where strips would not take the pair's bucket). The pack cuts x into K strips of
 W rows, as the JAX pack does; the kernel walks those K*W rows in sub-strips
 of its own height H = threads x R (``geometry``), one after another, the
 last row of a sub-strip handing its D and Q over to the next through a

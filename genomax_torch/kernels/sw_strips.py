@@ -182,14 +182,25 @@ def prep_bucket_strips(bucket, strip_w: int | None = None):
     return arrays, dict(k_strips=k, strip_w=strip_w, anchor=anchor)
 
 
+def takes(cfg, nxs: int, ny_max: int) -> bool:
+    """Whether the strips route takes a bucket of nxs rows whose longest y
+    needs ny_max ring entries: cfg.sw_strips, at least cfg.strips_min_nxs
+    rows, a strip width (``pick_strip_w``) and one pair's shared memory
+    within MAX_SMEM_BYTES. ``maybe_prep_strips`` routes by it, and the
+    engine's offload mask asks it of the buckets past the lane tile's
+    tallest."""
+    return bool(cfg.sw_strips and nxs >= cfg.strips_min_nxs
+                and pick_strip_w(nxs, ny_max) is not None
+                and smem_bytes(ny_max) <= MAX_SMEM_BYTES)
+
+
 def maybe_prep_strips(cfg, bucket):
-    """The routing predicate of the strips kernel: cfg.sw_strips, at least
-    cfg.strips_min_nxs rows, and a bucket the kernel takes
-    (``prep_bucket_strips``). Returns the prep, or None. The JAX
-    predicate's two other gates (a stream past stream_vmem_rows, a VMEM
-    footprint past STRIPS_VMEM_BUDGET) are the TPU's capacity; the
-    shared-memory limit of the prep takes their place."""
-    if not cfg.sw_strips or bucket.sx.shape[1] < cfg.strips_min_nxs:
+    """The routing predicate of the strips kernel (``takes``). Returns the
+    prep, or None. The JAX predicate's two other gates (a stream past
+    stream_vmem_rows, a VMEM footprint past STRIPS_VMEM_BUDGET) are the
+    TPU's capacity; the shared-memory limit of the prep takes their
+    place."""
+    if not takes(cfg, bucket.sx.shape[1], int(bucket.ny.max())):
         return None
     return prep_bucket_strips(bucket)
 

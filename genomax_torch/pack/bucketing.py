@@ -132,6 +132,18 @@ def _level(x: int) -> int:
         scale *= 2
 
 
+def bucket_levels(lengths) -> np.ndarray:
+    """The bucket of each job: the ladder level (``_level``) of its x or
+    read length plus 2 rows. The packs group by it, and the engine's SW
+    offload mask asks it which pairs share a bucket."""
+    return np.array([_level(int(n) + 2) for n in lengths])
+
+
+def bucket_rows(max_len: int) -> int:
+    """The rows of a bucket whose longest x or read has max_len bases."""
+    return _round_up(max_len + 2, SUB_Q)
+
+
 def _quantize_tiles(n: int) -> int:
     """Pad a bucket's tile count to a quarter-octave level (1,2,3,4,5,6,
     8,10,12,16,20,24,32,...), as the JAX package does to bound its
@@ -388,7 +400,7 @@ def pack_sw_pairs(pairs, job_mask=None,
     _reject_pad_codes(sx_data[: sx_off[-1]], "sx")
     _reject_pad_codes(sy_data[: sy_off[-1]], "sy")
     # Bucket by the x (row) level only; see pack_pairhmm_batches.
-    nxq = np.array([_level(int(l) + 2) for l in sx_len])
+    nxq = bucket_levels(sx_len)
     if job_mask is not None:
         nxq = np.where(np.asarray(job_mask), nxq, -1)
         n = int(np.asarray(job_mask).sum())
@@ -400,7 +412,7 @@ def pack_sw_pairs(pairs, job_mask=None,
         idx = np.nonzero(nxq == lvl)[0]
         # The ladder only groups; pad to the bucket's actual max (8-quantum):
         # the 512bp+newline case packs at 520 rows, not 544.
-        nxs = _round_up(int(sx_len[idx].max()) + 2, SUB_Q)
+        nxs = bucket_rows(int(sx_len[idx].max()))
         ndiags = (sx_len[idx] + sy_len[idx] + 1).astype(np.int64)
         order = np.argsort(ndiags, kind="stable")
         idx = idx[order]
@@ -531,7 +543,7 @@ def pack_pairhmm_batches(
     # sizes the per-bucket stream buffer and each tile's sweep bound
     # (tiles are sorted by diagonal count), so splitting on it would just
     # multiply kernel launches.
-    nxq = np.array([_level(int(l) + 2) for l in rlen])
+    nxq = bucket_levels(rlen)
     if job_mask is not None:
         nxq = np.where(np.asarray(job_mask), nxq, -1)
 
@@ -540,7 +552,7 @@ def pack_pairhmm_batches(
         if lvl < 0:
             continue
         idx = np.nonzero(nxq == lvl)[0]
-        nxs = _round_up(int(rlen[idx].max()) + 2, SUB_Q)  # see pack_sw_pairs
+        nxs = bucket_rows(int(rlen[idx].max()))  # see pack_sw_pairs
         order = np.argsort(rlen[idx] + hlen[idx], kind="stable")
         idx = idx[order]
         nt = _quantize_tiles(len(idx))

@@ -167,11 +167,13 @@ def tall_phmm_batches(seed, n_reads=48, read_lens=(513, 2046),
             PairHMMBatch(reads=deep, haplotypes=[b"C" * 1560])]
 
 
-def tall_sw_pairs(seed, height, n_pairs=256, y_extra=1000, y_short=False):
+def tall_sw_pairs(seed, height, n_pairs=256, y_extra=1000, y_short=False,
+                  x_min=None, y_less=200):
     """One bucket of ``height`` rows for the lane-tile and strips kernels
-    past 1,024 rows: x of 3/4 height to height - 2 bases (one ladder
-    level; the longest is height - 2), y planted with x with errors on two
-    pairs in three, from x - 200 to x + y_extra bases long, or with
+    past 1,024 rows: x of 3/4 height (or x_min: then the pairs span more
+    than one ladder level, and so more than one bucket) to height - 2
+    bases (the longest is height - 2), y planted with x with errors on two
+    pairs in three, from x - y_less to x + y_extra bases long, or with
     y_short of 100 to 1,000 bases (a stream the JAX engine keeps resident
     at 2,048 rows). The last four pairs are an identical pair (its maximum
     runs through every warp's seam), a tandem repeat of a 300bp unit (its
@@ -179,13 +181,13 @@ def tall_sw_pairs(seed, height, n_pairs=256, y_extra=1000, y_short=False):
     one-base y."""
     rng = np.random.default_rng(seed)
     abc = np.frombuffer(b"ACGT", np.uint8)
-    lo = 3 * height // 4
+    lo = 3 * height // 4 if x_min is None else x_min
     pairs = []
     for k in range(n_pairs - 4):
         n = height - 2 if k == 0 else int(rng.integers(lo, height - 1))
         x = rng.choice(abc, n)
         m = (int(rng.integers(100, 1001)) if y_short
-             else int(rng.integers(n - 200, n + y_extra + 1)))
+             else int(rng.integers(n - y_less, n + y_extra + 1)))
         y = rng.choice(abc, m)
         if k % 3:
             w = min(n, m)
@@ -201,6 +203,39 @@ def tall_sw_pairs(seed, height, n_pairs=256, y_extra=1000, y_short=False):
     pairs.append(SWPair(sx=b"A" * lo, sy=b"C" * (500 if y_short else lo)))
     pairs.append(SWPair(sx=same[:lo], sy=b"G"))
     return pairs
+
+
+def hc_long_batches(seed, n_jobs, read_lens, hap_extra=(100, 400)):
+    """PairHMM jobs of long reads as HaplotypeCaller scores them (amplicons
+    and long-read windows of 2-8kbp), one batch a job: a haplotype of
+    random DNA and a read drawn from it with one substitution a 1,000
+    bases (about 0.1%), base qualities of 30-40, insertion and deletion
+    qualities of 45 and gap continuation of 10, so that each job scores
+    well above the engine's fp64 fallback threshold of -45 (random pairs
+    would all take it). Reads of read_lens[0] to read_lens[1] bases, the
+    first of the longest; haplotypes hap_extra longer."""
+    rng = np.random.default_rng(seed)
+    abc = np.frombuffer(b"ACGT", np.uint8)
+    out = []
+    for k in range(n_jobs):
+        n = (read_lens[1] if k == 0 else
+             int(rng.integers(read_lens[0], read_lens[1] + 1)))
+        h = rng.choice(abc, n + int(rng.integers(*hap_extra)))
+        a = int(rng.integers(0, len(h) - n + 1))
+        bases = h[a: a + n].copy()
+        for i in rng.choice(n, max(1, round(n / 1000)), replace=False):
+            bases[i] = abc[(np.nonzero(abc == bases[i])[0][0]
+                            + int(rng.integers(1, 4))) % 4]
+
+        def qual(lo, hi):
+            return (rng.integers(lo, hi + 1, n) + 33).astype(
+                np.uint8).tobytes()
+
+        read = PairHMMRead(bases=bases.tobytes(), base_q=qual(30, 40),
+                           ins_q=qual(45, 45), del_q=qual(45, 45),
+                           gcp_q=qual(10, 10))
+        out.append(PairHMMBatch(reads=[read], haplotypes=[h.tobytes()]))
+    return out
 
 
 def long_jobs(seed, n_jobs=128, read_lens=(511, 1500), hap_max=2000):

@@ -192,8 +192,8 @@ def _scores(text):
 
 
 def test_cli_max_device_len_2048_matches_jax_cli(tmp_path, capsys):
-    """rc 0 at 2,048 and 4,096 where the cap once returned 2, the JAX
-    command line's scores; past 4,096 rc 2 naming the lane tile."""
+    """rc 0 at 2,048 through 16,384, where a cap once returned 2 past
+    1,024 and then past 4,096, and the JAX command line's scores."""
     pairs = _sw_pairs()[10:19]
     path = tmp_path / "in.txt"
     formats.write_sw_input(str(path), [s for p in pairs
@@ -202,15 +202,12 @@ def test_cli_max_device_len_2048_matches_jax_cli(tmp_path, capsys):
                      "--max-device-len", "2048"]) == 0
     want = _scores(capsys.readouterr().out)
     assert len(want) == len(pairs)
-    for n in ("2048", "4096"):
+    for n in ("2048", "4096", "4104", "8192", "16384"):
         assert main(["sw", str(path), "--device", "cpu",
                      "--max-device-len", n, "--stats"]) == 0
         out = capsys.readouterr()
         assert _scores(out.out) == want
         assert '"offloaded_jobs": 0' in out.err
-    assert main(["sw", str(path), "--device", "cpu",
-                 "--max-device-len", "4104"]) == 2
-    assert "16 warps" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("cmd", ["sw", "pairhmm"])
@@ -232,3 +229,172 @@ def test_cli_chunk_zero_is_unchunked_as_in_genomax(tmp_path, capsys,
                  "--chunk", "0"]) == 0
     np.testing.assert_allclose(np.loadtxt(ours, ndmin=1),
                                np.loadtxt(theirs, ndmin=1), rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("cmd,name,n", [("sw", "sw_small.in", "8192"),
+                                        ("pairhmm", "10s.in", "8192"),
+                                        ("pairhmm", "10s.in", "16384")])
+def test_cli_past_the_tallest_block_matches_jax_cli(tmp_path, capsys,
+                                                    golden_dir, cmd, name,
+                                                    n):
+    """`--max-device-len` 8,192 (the SW lane tile's tallest bucket, once
+    past the cap) and 16,384 (the PairHMM tile's, 16,384 // 2 rows): rc 0
+    and what the genomax command line prints at the same L, SW scores
+    exact, PairHMM within 1e-4."""
+    path = os.path.join(golden_dir, name)
+    if cmd == "sw":
+        assert jax_main(["sw", path, "--backend", "lax",
+                         "--max-device-len", n]) == 0
+        want = _scores(capsys.readouterr().out)
+        assert main(["sw", path, "--device", "cpu",
+                     "--max-device-len", n]) == 0
+        assert _scores(capsys.readouterr().out) == want and len(want) == 32
+        return
+    ours, theirs = tmp_path / "ours.out", tmp_path / "theirs.out"
+    assert jax_main(["pairhmm", path, str(theirs), "--backend", "lax",
+                     "--max-device-len", n]) == 0
+    assert main(["pairhmm", path, str(ours), "--device", "cpu",
+                 "--max-device-len", n]) == 0
+    got, want = np.loadtxt(ours, ndmin=1), np.loadtxt(theirs, ndmin=1)
+    assert got.shape == want.shape == (3550,)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+
+
+# Routing past the lane tile's tallest bucket, with that bucket cut to two
+# warps at R = 2 (129 rows; the engine's routing constant 128) so that it
+# runs at a hundred rows on the CPU: x of 20-60bp (64 rows), 100-126bp
+# (rows the lane tile holds) and 127-134bp (past it) in one ladder level
+# of 136 rows, which strips decline (strips_min_nxs 144), and 150-180bp
+# (152-184 rows), which strips take.
+_TALLEST = 128
+
+
+def _routing_pairs():
+    rng = np.random.default_rng(20)
+    abc = np.frombuffer(b"ACGT", np.uint8)
+    pairs = []
+    for lo, hi, k in ((20, 60, 6), (100, 126, 6), (127, 134, 5),
+                      (150, 180, 7)):
+        for _ in range(k):
+            n = int(rng.integers(lo, hi + 1))
+            x = rng.choice(abc, n)
+            y = rng.choice(abc, n + int(rng.integers(0, 40)))
+            y[5: 5 + n // 2] = x[: n // 2]
+            pairs.append(formats.SWPair(sx=x.tobytes(), sy=y.tobytes()))
+    return pairs
+
+
+@pytest.fixture
+def tallest_two_warps(monkeypatch):
+    """The lane tile's tallest block cut to two warps at R = 2, and spies on
+    the routes: the rows of every bucket the lane tile and strips get (the
+    lane tile's geometry must hold each), the pairs sw_long and
+    pairhmm_long get, the rows of every PairHMM lane-tile bucket."""
+    from genomax_torch.engine import executor
+    from genomax_torch.kernels import sw
+
+    monkeypatch.setattr(sw, "MAX_WARPS", 2)
+    monkeypatch.setattr(sw, "ROWS_PER_THREAD", (2,))
+    assert sw.max_rows() // 8 * 8 == _TALLEST
+    monkeypatch.setattr(executor, "MAX_KERNEL_ROWS", _TALLEST)
+    monkeypatch.setattr(executor, "MAX_PHMM_ROWS", 64)
+    log = {"tile": [], "strips": [], "sw_long": [], "phmm_tile": [],
+           "pairhmm_long": []}
+
+    def spy(name, record):
+        fn = getattr(executor, name)
+
+        def call(*a, **k):
+            log[record].append(_spy_rows(record, a))
+            return fn(*a, **k)
+
+        monkeypatch.setattr(executor, name, call)
+
+    spy("sw_forward", "tile")
+    spy("sw_forward_strips", "strips")
+    spy("sw_scores_long", "sw_long")
+    spy("pairhmm_forward", "phmm_tile")
+    spy("pairhmm_long", "pairhmm_long")
+    return log
+
+
+def _spy_rows(route, args):
+    from genomax_torch.kernels import sw
+
+    if route in ("sw_long", "pairhmm_long"):
+        return len(args[0])
+    if route == "tile":
+        sw.tile_geometry(args[0].shape[1])  # raises past the tallest block
+    return args[0].shape[1]
+
+
+@pytest.mark.parametrize("route", ["strips", "tile", "smem"])
+def test_sw_routing_past_the_tallest_block(tallest_two_warps, monkeypatch,
+                                           route):
+    """Pairs past the lane tile's tallest bucket take strips where strips
+    take their bucket (cfg.sw_strips, strips_min_nxs rows, a y inside the
+    shared-memory limit), else sw_long; the lane tile never gets a bucket
+    past it. Scores == the JAX engine at the same L, exact; the stream
+    routes alike."""
+    from genomax_torch.kernels import sw_strips
+
+    log = tallest_two_warps
+    pairs = _routing_pairs()
+    lx = np.array([len(p.sx) for p in pairs])
+    if route == "smem":  # one pair's ring past the limit in the 184 rows
+        big = max(len(p.sy) for p in pairs if len(p.sx) >= 150) + 1
+        monkeypatch.setattr(sw_strips, "MAX_SMEM_BYTES",
+                            sw_strips.smem_bytes(big) - 1)
+    tall = lx + 2 > _TALLEST
+    want_long = tall & ((lx < 140) if route == "strips" else True)
+    eng = Engine(EngineConfig(sw_strips=route != "tile"), device="cpu")
+    off = eng._sw_offload_mask(pairs)
+    np.testing.assert_array_equal(off, want_long)
+    jax_eng = genomax.Engine(JaxEngineConfig(backend="lax"))
+    want = jax_eng.sw_scores(_jax_pairs(pairs))
+    # the stream's chunks of 11 pairs are packed, and so routed, apart
+    n_chunked = sum(int(m.sum()) for m in (
+        eng._sw_offload_mask(pairs[i: i + 11])
+        for i in range(0, len(pairs), 11))
+        if m is not None)
+    for run, n_long in ((lambda: eng.sw_scores(pairs), int(want_long.sum())),
+                        (lambda: eng.sw_scores_stream(pairs, 11), n_chunked)):
+        for v in log.values():
+            v.clear()
+        np.testing.assert_array_equal(run(), want)
+        assert eng.last_stats.offloaded_jobs == n_long
+        assert sum(log["sw_long"]) == n_long
+        assert all(rows <= _TALLEST for rows in log["tile"])
+        assert log["tile"]
+        # strips get a bucket past the tallest where sw_long did not take
+        # every pair past it
+        assert (max(log["strips"], default=0) > _TALLEST) == (
+            n_long < int(tall.sum()))
+    assert (n_chunked < int(tall.sum())) == (route != "tile")
+
+
+def test_pairhmm_routing_past_the_tallest_block(tallest_two_warps):
+    """PairHMM reads past the lane tile's tallest bucket (cut to 64 rows:
+    reads past 62bp) take pairhmm_long; the lane tile gets the rest.
+    Values within 1e-4 of the JAX engine at the same L and of the fp64
+    model; the stream routes alike."""
+    log = tallest_two_warps
+    batches = [generate_pairhmm_batch(4, 2, read_len=50, hap_len=90,
+                                      seed=21, from_haps=True),
+               generate_pairhmm_batch(3, 2, read_len=100, hap_len=140,
+                                      seed=22, from_haps=True)]
+    eng = Engine(device="cpu")
+    off = eng._phmm_offload_mask(_jobs(batches))
+    np.testing.assert_array_equal(off, [False] * 8 + [True] * 6)
+    jb = _jax_batches(batches)
+    want = genomax.Engine(JaxEngineConfig(backend="lax")).pairhmm(jb)
+    for run in (lambda: eng.pairhmm(batches),
+                lambda: eng.pairhmm_stream(batches, 1)):
+        for v in log.values():
+            v.clear()
+        got = run()
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+        np.testing.assert_allclose(got, jax_native.pairhmm_native(jb),
+                                   rtol=0, atol=1e-4)
+        assert sum(log["pairhmm_long"]) == 6
+        assert log["phmm_tile"] and max(log["phmm_tile"]) <= 64

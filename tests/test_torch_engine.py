@@ -249,24 +249,67 @@ def _conveyor_window(rows):
 @pytest.mark.parametrize("make,rows,raises", [
     (lambda n: EngineConfig(max_device_len=n), 2048, None),
     (lambda n: EngineConfig(max_device_len=n), 4096, None),
-    (lambda n: EngineConfig(max_device_len=n), 4104, "16 warps"),
-    (lambda n: EngineConfig(max_device_len=n), 8192, "16 warps"),
+    (lambda n: EngineConfig(max_device_len=n), 4104, None),
+    (lambda n: EngineConfig(max_device_len=n), 8192, None),
+    (lambda n: EngineConfig(max_device_len=n), 16384, None),
+    (lambda n: EngineConfig(max_device_len=n), 65536, None),
+    (lambda n: EngineConfig(max_device_len=n), 7, "at least 8"),
     (lambda n: EngineConfig(sw_stack=2, stack_max_nxs=n // 2), 1032, "1024"),
     (_stacked_window, 1032, "1024"),
     (_conveyor_window, 1032, "1024"),
     (_conveyor_window, 1024, None)],
-    ids=["L2048", "L4096", "L4104", "L8192", "stack-rows", "stacked-geometry",
-         "conveyor-window", "conveyor-1024"])
+    ids=["L2048", "L4096", "L4104", "L8192", "L16384", "L65536", "L7",
+         "stack-rows", "stacked-geometry", "conveyor-window",
+         "conveyor-1024"])
 def test_max_device_len_cap_and_window_limits(make, rows, raises):
-    """max_device_len runs up to the lane tile's tallest bucket, 4,096 rows
-    (16 warps x 32 threads x 8 rows), and raises past it naming that
-    geometry; the stacked kernel's rows a stack and the conveyor's window
-    keep their own 1,024 rows."""
+    """max_device_len takes any value of 8 or more, as the JAX config does
+    (past the lane tiles' tallest buckets the engine routes, with the same
+    scores), and raises below 8; the stacked kernel's rows a stack and the
+    conveyor's window keep their own 1,024 rows."""
     if raises is None:
         make(rows)
     else:
         with pytest.raises(ValueError, match=raises):
             make(rows)
+
+
+@pytest.mark.parametrize("strips,x_len,y_len,off", [
+    (True, 8190, 100, False), (False, 8190, 100, False),
+    (True, 8190, 30000, False), (True, 8191, 100, False),
+    (False, 8191, 100, True), (True, 8191, 30000, True),
+    (True, 12000, 9000, False), (False, 12000, 9000, True)],
+    ids=["tile", "tile-nostrips", "tile-long-y", "strips", "nostrips",
+         "strips-smem", "strips-12k", "nostrips-12k"])
+def test_sw_offload_mask_past_the_tallest_bucket(strips, x_len, y_len, off):
+    """At max_device_len 16,384: x up to 8,190 bases (8,192 rows, the lane
+    tile's tallest bucket) stays in the bucket path whatever its y; past
+    it a pair stays only where strips take its bucket (on, and a y whose
+    seam ring fits a block's shared memory), else it takes sw_long."""
+    eng = Engine(EngineConfig(max_device_len=16384, sw_strips=strips),
+                 device="cpu")
+    pairs = [SWPair(sx=b"A" * 20, sy=b"C" * 20),
+             SWPair(sx=b"A" * x_len, sy=b"C" * y_len)]
+    m = eng._sw_offload_mask(pairs)
+    assert (m is not None and bool(m[1])) == off
+    assert m is None or not m[0]
+
+
+@pytest.mark.parametrize("L,read_len,off", [
+    (4096, 2046, False), (4096, 2047, True), (16384, 8190, False),
+    (16384, 8191, True), (65536, 8191, True)])
+def test_phmm_offload_mask_past_the_tallest_bucket(L, read_len, off):
+    """Reads under max_device_len // 2 stay on the lane tile, as in the JAX
+    engine, up to its tallest bucket of 8,192 rows (8,190 bases); longer
+    ones take pairhmm_long at any L."""
+    from genomax_torch.io.formats import PairHMMBatch, PairHMMRead
+
+    q = b"I" * read_len
+    batch = PairHMMBatch(reads=[PairHMMRead(bases=b"A" * read_len, base_q=q,
+                                            ins_q=q, del_q=q, gcp_q=q)],
+                         haplotypes=[b"C" * 100])
+    m = Engine(EngineConfig(max_device_len=L),
+               device="cpu")._phmm_offload_mask(executor._jobs([batch]))
+    assert (m is not None and bool(m[0])) == off
 
 
 def test_cuda_device_without_cuda_raises(monkeypatch):

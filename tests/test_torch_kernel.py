@@ -23,7 +23,7 @@ from genomax_torch.pack.bucketing import (pack_pairhmm_batches,
 
 from _phmm_cases import (CONVEYOR_KINDS, conveyor_leak_pairs,
                          conveyor_sw_pairs, conveyor_tall_pairs,
-                         deep_decay_batches,
+                         deep_decay_batches, hc_long_batches,
                          height_sw_pairs, long_jobs,
                          long_seam_jobs, long_sw_pairs, phmm_batches,
                          rotor_leak_pairs, rotor_sw_pairs, short_phmm_batches,
@@ -183,7 +183,7 @@ def test_sw_tile_kernel_every_r_streamed_bucket(device):
     ids=["2048-resident", "2048-streamed", "4096-streamed"])
 def test_sw_tile_and_strips_past_1024_rows(device, height, y_short):
     """Buckets of 2,048 and 4,096 rows (max_device_len up to 4,096): the
-    lane tile's block form at every R that 16 warps hold it at (8 to 16
+    lane tile's block form at every R that 32 warps hold it at (8 to 32
     warps) and the strips kernel == the plain lane-tile sweep, exact, under
     two configs; the scores == native."""
     pairs = tall_sw_pairs(7, height, n_pairs=128, y_short=y_short)
@@ -206,6 +206,37 @@ def test_sw_tile_and_strips_past_1024_rows(device, height, y_short):
         scores = unpack_scores([b], [want.cpu().numpy()], len(pairs))
         np.testing.assert_array_equal(scores,
                                       native.sw_scores_native(pairs, cfg))
+
+
+@pytest.mark.parametrize("level", [0, 1, 2],
+                         ids=["4328-rows", "6112-rows", "8192-rows"])
+def test_sw_tile_and_strips_past_4096_rows(device, level):
+    """The three buckets of x of 4,100-8,190bp against y of x to x +
+    1,000bp (4,328, 6,112 and 8,192 rows): the lane tile's blocks of 17-32
+    warps (17, 24 and 32 at R = 8) at every R that 32 warps hold them at,
+    and the strips kernel, == the plain lane-tile sweep, exact; the scores
+    == native."""
+    pairs = tall_sw_pairs(7, 8192, n_pairs=128, x_min=4100, y_less=0)
+    b = pack_sw_pairs(pairs)[level]
+    height = b.sx.shape[1]
+    t = sw_bucket_to_torch(b, device)
+    want = sw_forward_tiles(*t)
+    rs = [r for r in sw.ROWS_PER_THREAD
+          if height - 1 <= sw.MAX_WARPS * sw.WARP * r]
+    assert 8 in rs and sw.tile_geometry(height).warps > 16
+    before = sw.launches
+    for r in rs:
+        got = sw.sw_forward(*t, _rows_per_thread=r)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), r
+    assert sw.launches == before + len(rs)
+    st, kw = _strips_inputs(b, device, None)
+    got = sw_strips.sw_forward_strips(*st, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    scores = unpack_scores([b], [want.cpu().numpy()], len(pairs))
+    np.testing.assert_array_equal(
+        scores[b.perm], native.sw_scores_native([pairs[i] for i in b.perm]))
 
 
 @pytest.mark.parametrize("strip_w", [None, 88], ids=["router", "w88"])
@@ -916,6 +947,29 @@ def test_pairhmm_kernel_block_form_close_to_plain_version(device, r, codes):
             "tall", [tall_phmm_batches(3)], device,
             1.0 if bitmask else 3.0, period, r, bitmask)
         assert ran >= 4
+
+
+@pytest.mark.parametrize("height,reads", [(4096, (3100, 4090)),
+                                          (8192, (6200, 8190))])
+def test_pairhmm_tile_block_form_past_2048_rows(device, height, reads):
+    """A tile of 128 HaplotypeCaller-shaped jobs at 4,096 rows (16 warps at
+    R = 8) and at 8,192 rows (32 warps), at every R of the block form that
+    32 warps hold them at (each launch bound's instance), against the plain
+    version: finite slots within 1e-4, -inf on the same slots."""
+    (b,), _ = pack_pairhmm_batches(hc_long_batches(11, 128, reads),
+                                   byte_quals=True, factored=True,
+                                   bitmask_codes=True)
+    assert b.nxs == height
+    t = phmm_bucket_to_torch(b, device)
+    want = phmm_forward_tiles(*t, 32, 1.0, True)
+    valid = torch.from_numpy(b.rl > 0).to(device)
+    rs = [r for r in pairhmm.BLOCK_R
+          if -(-height // (32 * r)) <= pairhmm.BLOCK_MAX_WARPS]
+    assert pairhmm.tile_geometry(height).warps == height // 256
+    for r in (None, *rs):
+        got = pairhmm.pairhmm_forward(*t, bitmask=True, _rows_per_thread=r)
+        torch.cuda.synchronize()
+        _assert_log10_close(got, want, valid)
 
 
 @pytest.mark.parametrize("strip_w,unroll,gatk", [

@@ -28,7 +28,8 @@ def _check_tile(geo, nxs):
         assert geo.rows_per_thread in pairhmm.BLOCK_R
         assert geo.group == geo.warps * pairhmm.WARP
         assert (geo.warps - 1) * pairhmm.WARP * geo.rows_per_thread < nxs
-        assert geo.warps * pairhmm.WARP <= 512  # the block form's bound
+        assert geo.warps * pairhmm.WARP <= 1024  # a CUDA block's threads
+        assert geo.warps <= max(pairhmm.block_bounds(geo.rows_per_thread))
         assert (geo.pairs_per_warp, geo.lanes_per_block,
                 geo.blocks_per_tile) == (0, 1, 128)
         return
@@ -41,7 +42,7 @@ def _check_tile(geo, nxs):
 
 def test_tile_geometry_covers_every_bucket_height():
     """The default R holds a pair of every NXs from 2 to 512 in one warp,
-    with the fewest rows a thread that does; past 512 rows, up to 2,048,
+    with the fewest rows a thread that does; past 512 rows, up to 8,192,
     a block of warps at the R of BLOCK_R whose step costs least."""
     for nxs in range(2, MAX_PHMM_ROWS + 1):
         geo = pairhmm.tile_geometry(nxs)
@@ -50,21 +51,27 @@ def test_tile_geometry_covers_every_bucket_height():
         smaller = [r for r in pairhmm.TILE_R if r < geo.rows_per_thread]
         assert geo.block or all(-(-nxs // r) > pairhmm.WARP for r in smaller)
     assert pairhmm.tile_geometry(160).rows_per_thread == 5
-    assert MAX_PHMM_ROWS == 2048
+    assert MAX_PHMM_ROWS == 8192
 
 
 @pytest.mark.parametrize("nxs,r,warps", [
     (513, 6, 3), (520, 6, 3), (736, 8, 3), (1008, 8, 4), (1504, 8, 6),
-    (2048, 8, 8)])
+    (2048, 8, 8), (4096, 8, 16), (6000, 8, 24), (8192, 8, 32)])
 def test_tile_geometry_past_512_rows(nxs, r, warps):
     """Past one warp's 512 rows the default is the block form: warps, R and
     one pair (lane) a block; phase 12's 1,000bp reads (1,008 rows) take 4
-    warps at R = 8, the 2,046bp reads of max_device_len 4,096 take 8."""
+    warps at R = 8, the 2,046bp reads of max_device_len 4,096 take 8, the
+    reads of 4,094 and 8,190bp 16 and 32. Every R of BLOCK_R with which 32
+    warps hold the pair gives the fewest warps that do; the others raise."""
     geo = pairhmm.tile_geometry(nxs)
     assert (geo.rows_per_thread, geo.warps, geo.group) == (r, warps,
                                                            32 * warps)
     assert geo.block and geo.lanes_per_block == 1
     for rr in pairhmm.BLOCK_R:
+        if -(-nxs // (32 * rr)) > pairhmm.BLOCK_MAX_WARPS:
+            with pytest.raises(ValueError, match="past the block form"):
+                pairhmm.tile_geometry(nxs, rr)
+            continue
         g = pairhmm.tile_geometry(nxs, rr)
         _check_tile(g, nxs)
         assert g.warps == -(-nxs // (32 * rr))
@@ -74,11 +81,16 @@ def test_tile_geometry_past_512_rows(nxs, r, warps):
 def test_tile_geometry_at_every_r(r):
     """At each R the build makes: a geometry wherever a warp holds the pair,
     several pairs a warp once a group is 16 threads or fewer; past a warp
-    the block form at the R of BLOCK_R, and a ValueError naming the warp at
-    the others."""
+    the block form at the R of BLOCK_R up to 32 warps (4,096 rows at R =
+    4), and a ValueError naming the warp at the others, or the block
+    form's 32 warps past it."""
     fits = 0
     for nxs in range(2, MAX_PHMM_ROWS + 1):
-        if -(-nxs // r) <= pairhmm.WARP or r in pairhmm.BLOCK_R:
+        if (r in pairhmm.BLOCK_R and -(-nxs // (pairhmm.WARP * r))
+                > pairhmm.BLOCK_MAX_WARPS):
+            with pytest.raises(ValueError, match="past the block form"):
+                pairhmm.tile_geometry(nxs, r)
+        elif -(-nxs // r) <= pairhmm.WARP or r in pairhmm.BLOCK_R:
             geo = pairhmm.tile_geometry(nxs, r)
             _check_tile(geo, nxs)
             assert geo.rows_per_thread == r
@@ -88,7 +100,8 @@ def test_tile_geometry_at_every_r(r):
         else:
             with pytest.raises(ValueError, match="more than a warp"):
                 pairhmm.tile_geometry(nxs, r)
-    assert fits == (MAX_PHMM_ROWS - 1 if r in pairhmm.BLOCK_R
+    assert fits == (min(pairhmm.BLOCK_MAX_WARPS * pairhmm.WARP * r,
+                        MAX_PHMM_ROWS) - 1 if r in pairhmm.BLOCK_R
                     else min(pairhmm.WARP * r, MAX_PHMM_ROWS) - 1)
 
 

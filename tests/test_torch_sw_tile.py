@@ -39,7 +39,8 @@ def _dna(rng, n):
     (2, 2, 1, 8), (40, 2, 1, 8), (72, 3, 1, 8), (104, 4, 1, 8),
     (136, 5, 1, 8), (144, 5, 1, 8), (200, 8, 1, 8), (256, 8, 1, 8),
     (264, 5, 2, 1), (520, 6, 3, 1), (608, 5, 4, 1), (1024, 8, 4, 1),
-    (2048, 8, 8, 1), (4096, 8, 16, 1)])
+    (2048, 8, 8, 1), (4096, 8, 16, 1), (4097, 8, 16, 1), (4098, 8, 17, 1),
+    (6000, 8, 24, 1), (8192, 8, 32, 1), (8193, 8, 32, 1)])
 def test_tile_geometry_picks_r_warps_and_pairs(nxs, r, warps, pairs):
     geo = sw.tile_geometry(nxs)
     assert (geo.rows_per_thread, geo.warps, geo.pairs) == (r, warps, pairs)
@@ -49,11 +50,14 @@ def test_tile_geometry_picks_r_warps_and_pairs(nxs, r, warps, pairs):
 
 @pytest.mark.parametrize("r", sw.ROWS_PER_THREAD)
 def test_tile_geometry_at_every_built_r_holds_every_bucket(r):
-    """At each R the build makes, every bucket height up to the engine's
-    4,096 rows that MAX_WARPS warps hold at R gets whole warps that hold
-    its rows, at most MAX_WARPS a block (512 threads, the kernel's launch
-    bound); a taller one raises. At R = 8 that is every height."""
-    for nxs in range(2, MAX_KERNEL_ROWS + 1):
+    """At each R the build makes, every bucket height up to the kernel's
+    8,193 rows that MAX_WARPS warps hold at R gets whole warps that hold
+    its rows, at most MAX_WARPS a block (1,024 threads, the launch bound of
+    the kernel's blocks past 16 warps); a taller one raises. At R = 8 that
+    is every height; the engine's tallest bucket is MAX_KERNEL_ROWS."""
+    assert sw.max_rows() == 8193 and sw.MAX_WARPS == 32
+    assert MAX_KERNEL_ROWS == sw.max_rows() // 8 * 8
+    for nxs in range(2, sw.max_rows() + 1):
         if nxs - 1 > sw.MAX_WARPS * sw.WARP * r:
             with pytest.raises(ValueError, match="warps a pair"):
                 sw.tile_geometry(nxs, r)
@@ -64,12 +68,12 @@ def test_tile_geometry_at_every_built_r_holds_every_bucket(r):
         assert (geo.warps - 1) * sw.WARP * r < nxs - 1
         assert 1 <= geo.warps <= sw.MAX_WARPS
         assert geo.pairs == (sw.PAIRS_PER_BLOCK if geo.warps == 1 else 1)
-        assert geo.pairs * geo.warps * sw.WARP <= 512
+        assert geo.pairs * geo.warps * sw.WARP <= 1024
 
 
-@pytest.mark.parametrize("bad", [dict(nxs=1), dict(nxs=4097),
+@pytest.mark.parametrize("bad", [dict(nxs=1), dict(nxs=8194),
                                  dict(nxs=72, r=7), dict(nxs=72, r=1)],
-                         ids=["nxs-1", "nxs-4097", "r7", "r1"])
+                         ids=["nxs-1", "nxs-8194", "r7", "r1"])
 def test_tile_geometry_rejects(bad):
     with pytest.raises(ValueError):
         sw.tile_geometry(bad["nxs"], bad.get("r"))
