@@ -875,7 +875,8 @@ def engine_stages(eng, kind, streamed):
     PairHMM ("pairhmm"), one-shot or streamed, and the stages that run on
     the caller's thread. The one-shot engine runs every stage on the
     caller's thread; the stream packs (job list, mask, pack) in its
-    worker and waits for it (RunStats.pack_s, "wait" here)."""
+    worker and waits for it (RunStats.pack_s, "wait" here). Both pack
+    PairHMM through Engine._phmm_pack, the executor's pack call."""
     from genomax_torch.engine import executor, stream
 
     mod = stream if streamed else executor
@@ -889,7 +890,7 @@ def engine_stages(eng, kind, streamed):
     else:
         patches = [(mod, "_jobs", "jobs"),
                    (eng, "_phmm_offload_mask", "mask"),
-                   (mod, "pack_pairhmm_batches", "pack"), run,
+                   (executor, "pack_pairhmm_batches", "pack"), run,
                    (mod, "unpack_scores", "unpack"),
                    (eng, "_phmm_offload_post", "offload"),
                    (eng, "_phmm_fallback", "fallback")]

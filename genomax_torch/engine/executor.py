@@ -328,7 +328,8 @@ class Engine:
     def _phmm_pack(self, batches, job_mask=None):
         """(buckets, n_jobs): the engine's pack of PairHMM batches (byte
         qualities, factored, bitmask codes), jobs where job_mask is False
-        left out."""
+        left out. Every route that packs PairHMM (the engine, the stream,
+        the sweep) packs here."""
         return pack_pairhmm_batches(
             batches, self.phmm_cfg.phred_offset, job_mask=job_mask,
             byte_quals=True, factored=True, bitmask_codes=True)

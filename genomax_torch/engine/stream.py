@@ -7,7 +7,7 @@ of ``genomax.engine.stream``).
 
 One worker thread packs a chunk ahead of the caller. Only numpy and
 native work crosses threads (the offload mask, the job list and
-``pack_sw_pairs`` / ``pack_pairhmm_batches``, whose fills are the native
+``pack_sw_pairs`` / ``Engine._phmm_pack``, whose fills are the native
 library's and release the GIL, while their bucketing in Python holds it,
 so the two threads contend for it); every torch call, kernel launch and
 synchronize stays on the caller's thread, and so do the strips, rotor and
@@ -32,8 +32,7 @@ import numpy as np
 
 from genomax_torch.engine.executor import (RunStats, _jobs, _run_buckets,
                                            phmm_bucket_stats, sw_bucket_stats)
-from genomax_torch.pack import (pack_pairhmm_batches, pack_sw_pairs,
-                                unpack_scores)
+from genomax_torch.pack import pack_sw_pairs, unpack_scores
 
 
 def sw_scores_stream(engine, pairs, chunk_pairs: int = 65536) -> np.ndarray:
@@ -95,14 +94,9 @@ def pairhmm_stream(engine, batches, chunk_batches: int = 64) -> np.ndarray:
         return np.zeros(0, np.float32)
 
     def prep(chunk):
-        # packed as Engine.pairhmm packs: byte qualities, factored,
-        # bitmask codes
         jobs = _jobs(chunk)
         off = engine._phmm_offload_mask(jobs)
-        buckets, n = pack_pairhmm_batches(
-            chunk, engine.phmm_cfg.phred_offset,
-            job_mask=None if off is None else ~off, byte_quals=True,
-            factored=True, bitmask_codes=True)
+        buckets, n = engine._phmm_pack(chunk, None if off is None else ~off)
         return jobs, off, buckets, n
 
     outs = []

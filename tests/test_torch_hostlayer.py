@@ -72,6 +72,49 @@ def test_engine_config_stack_knobs_equal():
         assert names[i: i + len(routing)] == routing, cls
 
 
+# Fields of genomax.config.EngineConfig that the port leaves out, each with
+# its reason.
+_NOT_PORTED = {
+    # the TPU's own surface
+    "backend": "the port has one backend per device, chosen by the "
+               "torch.device the engine takes",
+    "stream_vmem_rows": "a TPU VMEM budget; the CUDA lane tile takes any "
+                        "stream length",
+    # the transfer flags the port dropped: every SW stream ships as its
+    # band, every PairHMM bucket factored
+    "stream_band_transfer": "always on in the port",
+    "nibble_transfer": "the SW nibble rung runs on no path, and PairHMM "
+                       "ships factored, where no tile travels four-bit",
+    "factored_transfer": "always on in the port: the same scores, and the "
+                         "unfactored route was 2.1-5.7x slower on the H100 "
+                         "(PERF.md, unfactored_cost.py)",
+}
+# Fields whose port default was measured on the H100 (genomax_torch/config.py
+# says where), not taken from the JAX package's TPU measurement.
+_MEASURED_ON_H100 = {
+    "strips_min_nxs": "strips start past the rotor's 136 rows",
+    "rotor_max_slots": "four slots, the fastest on 25,000 x 64bp",
+}
+
+
+def test_engine_config_covers_every_jax_knob():
+    """Every field of the JAX EngineConfig is a field of the port's with the
+    same default, or stands on one of the two lists above with its reason:
+    a knob the JAX package grows reaches the port or this list."""
+    ours = {f.name: f.default for f in dataclasses.fields(EngineConfig)}
+    theirs = {f.name: f.default for f in dataclasses.fields(JaxEngineConfig)}
+    assert set(_NOT_PORTED) <= set(theirs) and not set(_NOT_PORTED) & set(ours)
+    assert set(_MEASURED_ON_H100) <= set(theirs) & set(ours)
+    for name, default in theirs.items():
+        if name in _NOT_PORTED:
+            continue
+        assert name in ours, f"EngineConfig.{name} is not ported"
+        if name in _MEASURED_ON_H100:
+            assert ours[name] != default, f"{name}: the JAX default again"
+        else:
+            assert ours[name] == default, name
+
+
 @pytest.mark.parametrize("kw", [
     dict(match=0), dict(mismatch=0), dict(gap_open=1), dict(gap_extend=0),
     dict(match=2, mismatch=-3, gap_open=0, gap_extend=-2)],
@@ -294,13 +337,16 @@ def test_unpack_scores_equal():
 
 def _packs_to_pad(kind):
     """(the port's buckets, the JAX package's) of one kind: SW, or PairHMM
-    factored (gather indices past the unique rows) or with fp32 planes."""
+    factored (gather indices past the unique rows), with raw quality bytes
+    or with fp32 planes."""
     if kind == "sw":
         return (bucketing.pack_sw_pairs(_ragged_sw_pairs(4, formats.SWPair)),
                 jax_bucketing.pack_sw_pairs(_ragged_sw_pairs(
                     4, jax_formats.SWPair)))
-    kw = (dict(byte_quals=True, factored=True, bitmask_codes=True)
-          if kind == "pairhmm-factored" else {})
+    kw = {"pairhmm-factored": dict(byte_quals=True, factored=True,
+                                   bitmask_codes=True),
+          "pairhmm-bytes": dict(byte_quals=True, bitmask_codes=True)}.get(
+              kind, {})
     return (bucketing.pack_pairhmm_batches(_ragged_batches(8, formats),
                                            **kw)[0],
             jax_bucketing.pack_pairhmm_batches(
@@ -308,7 +354,8 @@ def _packs_to_pad(kind):
 
 
 @pytest.mark.parametrize("multiple", [1, 3, 8])
-@pytest.mark.parametrize("kind", ["sw", "pairhmm-factored", "pairhmm-floats"])
+@pytest.mark.parametrize("kind", ["sw", "pairhmm-factored", "pairhmm-bytes",
+                                  "pairhmm-floats"])
 def test_pad_tiles_to_equal(kind, multiple):
     ours, theirs = _packs_to_pad(kind)
     padded = [bucketing.pad_tiles_to(b, multiple) for b in ours]

@@ -213,7 +213,7 @@ def test_sw_stream_thread_rule(monkeypatch):
 
 
 def test_pairhmm_stream_thread_rule(monkeypatch):
-    seen = _record_threads(monkeypatch, [(stream, "pack_pairhmm_batches"),
+    seen = _record_threads(monkeypatch, [(executor, "pack_pairhmm_batches"),
                                          (Engine, "_phmm_bucket"),
                                          (Engine, "_phmm_fallback")])
     batches = [generate_pairhmm_batch(2, 2, read_len=12, hap_len=16, seed=i)
