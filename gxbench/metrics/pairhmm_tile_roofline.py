@@ -1,0 +1,9 @@
+"""Percent of its roofline that pairhmm_tile_kernel (genomax_torch/csrc/pairhmm_tile.cu)
+reached over the traced window: the least time for the real cells of the
+window's calls (counts.py) over the kernel's device time."""
+
+from gxbench.metrics import roofline_pct
+
+
+def read(ctx):
+    return roofline_pct(ctx, "pairhmm_tile_kernel")
