@@ -384,6 +384,9 @@ import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+# the bucket routes of SW by label, each with its launch counter's route
+SW_ROUTES = {"lane tile": "tile", "strips": "strips", "rotor": "rotor",
+             "stacked": "stacked"}
 N_PAIRS, LEN, SEED = 25000, 512, 0
 # PairHMM main path: bench.py's GATK-shaped point, 8,192 reads x 8 haps.
 PH_READS, PH_HAPS, PH_READ_LEN, PH_HAP_LEN = 8192, 8, 151, 300
@@ -926,14 +929,13 @@ def stream_phase(sw512, sw64, ph):
     the headline's (pairs, one-shot scores), 100,000 x 512bp."""
     import numpy as np
 
-    from genomax_torch import native
+    from genomax_torch import native, trace
     from genomax_torch.engine.executor import Engine
     from genomax_torch.io.formats import PairHMMBatch, SWPair
     from genomax_torch.io.generator import random_dna
-    from genomax_torch.kernels import pairhmm, sw, sw_rotor, sw_stacked, sw_strips
 
-    counters = {"lane tile": sw, "strips": sw_strips, "rotor": sw_rotor,
-                "stacked": sw_stacked, "pairhmm": pairhmm}
+    counters = {"lane tile": "tile", "strips": "strips", "rotor": "rotor",
+                "stacked": "stacked", "pairhmm": "pairhmm_tile"}
 
     def turns(label, kind, work, chunks, want, atol=None):
         """The one-shot engine, each chunk size, the chunk sizes again
@@ -949,11 +951,10 @@ def stream_phase(sw512, sw64, ph):
             else:
                 fn = ((lambda: eng.pairhmm(work)) if c is None else
                       (lambda c=c: eng.pairhmm_stream(work, c)))
-            for mod in counters.values():
-                mod.launches = 0
+            launch0 = trace.counts()
             out, wall, st, line = timed_run(eng, kind, fn, c is not None)
-            n = {k: mod.launches for k, mod in counters.items()
-                 if mod.launches}
+            n = {k: trace.launched(r, launch0) for k, r in counters.items()}
+            n = {k: v for k, v in n.items() if v}
             if atol is None:
                 check(np.array_equal(out, want),
                       f"{label} at chunk {c}: != the one-shot engine")
@@ -1035,9 +1036,8 @@ def cli_phase(kernels):
     whose kernels are ``<name>_kernel``."""
     import numpy as np
 
-    from genomax_torch import native
+    from genomax_torch import native, trace
     from genomax_torch.cli.main import main as cli
-    from genomax_torch.dist import xsharded
     from genomax_torch.io.formats import parse_pairhmm_file, parse_sw_file
 
     golden = os.path.join(REPO, "tests", "golden")
@@ -1146,18 +1146,18 @@ def cli_phase(kernels):
             f.write(f"{len(seqs)}\n" + "\n".join(seqs) + "\n")
         base = ("sw", small, "--max-device-len", "40")
         want = scores(run(*base)[0])
-        xsharded.launches = 0
+        launch0 = trace.counts()
         out, err = run(*base, "--devices", "1", "--xshard", "64", "--unroll",
                        "8", "--stats")
         stats = json.loads(err.strip().splitlines()[-1])
-        check(scores(out) == want and stats["xsharded_jobs"] == 3
-              and xsharded.launches > 0,
+        n = trace.launched("xstrip", launch0)
+        check(scores(out) == want and stats["xsharded_jobs"] == 3 and n > 0,
               f"--unroll 8 --xshard: {scores(out)} vs {want}, stats {stats}, "
-              f"{xsharded.launches} xstrip launches")
+              f"{n} xstrip launches")
         print(f"phase 35 cli --devices 1 --xshard 64 --unroll 8: "
               f"{len(want)} scores == the run without --xshard, "
               f"{stats['xsharded_jobs']} pairs across devices in "
-              f"{xsharded.launches} xstrip launches of 8 diagonals")
+              f"{n} xstrip launches of 8 diagonals")
 
 
 def harness_phase(slopes):
@@ -1166,13 +1166,12 @@ def harness_phase(slopes):
     ``slopes`` are phase 23's rotor, phase 5's strips and phase 10's
     PairHMM ms on their main-path buckets, the sweep's rows held within
     0.5-2x of them."""
+    from genomax_torch import trace
     from genomax_torch.cli.main import main as cli
-    from genomax_torch.kernels import (pairhmm, pairhmm_long, sw, sw_long,
-                                       sw_rotor, sw_strips)
 
-    counters = {"strips": sw_strips, "rotor": sw_rotor, "lane tile": sw,
-                "sw_long": sw_long, "pairhmm_tile": pairhmm,
-                "pairhmm_long": pairhmm_long}
+    counters = {"strips": "strips", "rotor": "rotor", "lane tile": "tile",
+                "sw_long": "sw_long", "pairhmm_tile": "pairhmm_tile",
+                "pairhmm_long": "pairhmm_long"}
 
     class Rounds(io.StringIO):
         """stdout that notes, at each soak round's line, which counters
@@ -1185,8 +1184,8 @@ def harness_phase(slopes):
         def write(self, text):
             if text.startswith("round "):
                 rd = int(text.split()[1].rstrip(":"))
-                for k, mod in counters.items():
-                    if mod.launches:
+                for k, r in counters.items():
+                    if trace.launched(r, launch0):
                         self.first.setdefault(k, rd)
             return super().write(text)
 
@@ -1199,10 +1198,13 @@ def harness_phase(slopes):
               f"{out.getvalue()[-600:]} {err.getvalue()[-600:]}")
         return out.getvalue(), time.perf_counter() - t0
 
+    launch0 = {}
+
     def launched():
-        n = {k: mod.launches for k, mod in counters.items()}
-        for mod in counters.values():
-            mod.launches = 0
+        """Each route's launches since the last call."""
+        nonlocal launch0
+        n = {k: trace.launched(r, launch0) for k, r in counters.items()}
+        launch0 = trace.counts()
         return n
 
     text, t = run("parity")
@@ -1317,12 +1319,11 @@ def tall_phase(mixed, lr_batch, int32_ops, ph_one_warp_ms):
     import numpy as np
     import torch
 
-    from genomax_torch import native
+    from genomax_torch import native, trace
     from genomax_torch.config import EngineConfig, SWConfig
     from genomax_torch.engine.executor import Engine
     from genomax_torch.io.generator import generate_pairhmm_batch
-    from genomax_torch.kernels import (pairhmm, pairhmm_long, sw, sw_long,
-                                       sw_rotor, sw_strips)
+    from genomax_torch.kernels import pairhmm, sw, sw_strips
     from genomax_torch.kernels.wavefront import (phmm_forward_tiles,
                                                  sw_forward_tiles,
                                                  sw_strips_forward_tiles)
@@ -1459,8 +1460,7 @@ def tall_phase(mixed, lr_batch, int32_ops, ph_one_warp_ms):
 
     def sw_run(L):
         eng = Engine(EngineConfig(max_device_len=L), device="cuda")
-        sw_long.launches = sw.launches = sw_strips.launches = 0
-        sw_rotor.launches = 0
+        launch0 = trace.counts()
         t0 = time.perf_counter()
         scores = eng.sw_scores(pairs)
         wall = time.perf_counter() - t0
@@ -1468,12 +1468,12 @@ def tall_phase(mixed, lr_batch, int32_ops, ph_one_warp_ms):
               f"phase 38: the mixed file at L = {L} != phase 17's scores")
         n_off = sum(len(p.sx) + 2 > L for p in pairs)
         st = eng.last_stats
-        check(st.offloaded_jobs == n_off and sw_long.launches == -(-n_off
-                                                                   // 128),
+        n = tuple(trace.launched(r, launch0)
+                  for r in ("tile", "strips", "rotor", "sw_long"))
+        check(st.offloaded_jobs == n_off and n[3] == -(-n_off // 128),
               f"phase 38: L = {L}: {st.offloaded_jobs} offloaded, "
-              f"{sw_long.launches} sw_long launches, want {n_off}")
-        return wall, st.exec_s, (sw.launches, sw_strips.launches,
-                                 sw_rotor.launches, sw_long.launches), st
+              f"{n[3]} sw_long launches, want {n_off}")
+        return wall, st.exec_s, n, st
 
     sample = np.random.default_rng(SEED + 2).choice(len(lr_batch.reads) * LR_HAPS,
                                                    64, replace=False)
@@ -1484,7 +1484,7 @@ def tall_phase(mixed, lr_batch, int32_ops, ph_one_warp_ms):
 
     def ph_run(L):
         eng = Engine(EngineConfig(max_device_len=L), device="cuda")
-        pairhmm.launches = pairhmm_long.launches = 0
+        launch0 = trace.counts()
         t0 = time.perf_counter()
         values = eng.pairhmm([lr_batch])
         wall = time.perf_counter() - t0
@@ -1492,9 +1492,9 @@ def tall_phase(mixed, lr_batch, int32_ops, ph_one_warp_ms):
         out["ph_err"] = max(out["ph_err"], err)
         check(err <= PH_TOL and bool(np.isfinite(values).all()),
               f"phase 38: phase 12's jobs at L = {L} vs native: {err}")
-        return wall, eng.last_stats.exec_s, (pairhmm.launches,
-                                             pairhmm_long.launches), \
-            eng.last_stats, values
+        n = (trace.launched("pairhmm_tile", launch0),
+             trace.launched("pairhmm_long", launch0))
+        return wall, eng.last_stats.exec_s, n, eng.last_stats, values
 
     for kind, run, Ls in (("sw", sw_run, (1024, 4096)),
                           ("phmm", ph_run, (1024, 2048))):
@@ -1554,11 +1554,11 @@ def deep_phase(int32_ops):
     import numpy as np
     import torch
 
-    from genomax_torch import native
+    from genomax_torch import native, trace
     from genomax_torch.config import EngineConfig
     from genomax_torch.engine.executor import Engine, _jobs
     from genomax_torch.kernels import (pairhmm, pairhmm_long, sw, sw_long,
-                                       sw_rotor, sw_strips)
+                                       sw_strips)
     from genomax_torch.kernels.wavefront import (phmm_forward_tiles,
                                                  sw_forward_tiles)
     from genomax_torch.pack import (pack_pairhmm_batches, pack_sw_pairs,
@@ -1708,13 +1708,12 @@ def deep_phase(int32_ops):
         L, strips = routes[route]
         eng = Engine(EngineConfig(max_device_len=L, sw_strips=strips),
                      device="cuda")
-        sw_long.launches = sw.launches = sw_strips.launches = 0
-        sw_rotor.launches = 0
+        launch0 = trace.counts()
         t0 = time.perf_counter()
         scores = eng.sw_scores(pairs)
         wall = time.perf_counter() - t0
-        n = (sw.launches, sw_strips.launches, sw_rotor.launches,
-             sw_long.launches)
+        n = tuple(trace.launched(r, launch0)
+                  for r in ("tile", "strips", "rotor", "sw_long"))
         check(n == want_launches[route],
               f"phase 39: {route} launches {n} (lane tile, strips, rotor, "
               f"sw_long), want {want_launches[route]}")
@@ -1739,11 +1738,12 @@ def deep_phase(int32_ops):
     def ph_run(route):
         eng = Engine(EngineConfig(max_device_len=ph_routes[route]),
                      device="cuda")
-        pairhmm.launches = pairhmm_long.launches = 0
+        launch0 = trace.counts()
         t0 = time.perf_counter()
         values = eng.pairhmm(batches)
         wall = time.perf_counter() - t0
-        n = (pairhmm.launches, pairhmm_long.launches)
+        n = (trace.launched("pairhmm_tile", launch0),
+             trace.launched("pairhmm_long", launch0))
         check(n == ph_want[route], f"phase 39: {route} launches {n} "
                                    "(pairhmm_tile, pairhmm_long), want "
                                    f"{ph_want[route]}")
@@ -1835,11 +1835,11 @@ def ladder_phase(sw512, sw64, headline):
     import numpy as np
     import torch
 
+    from genomax_torch import trace
     from genomax_torch.config import EngineConfig
     from genomax_torch.dist.engine import ShardedEngine
     from genomax_torch.dist.mesh import make_mesh
     from genomax_torch.engine.executor import Engine
-    from genomax_torch.kernels import sw, sw_rotor, sw_stacked, sw_strips
     from genomax_torch.pack import nibble, tensors
     from genomax_torch.pack.bucketing import pack_sw_pairs
 
@@ -1933,8 +1933,8 @@ def ladder_phase(sw512, sw64, headline):
         def _stream_band(self):
             return False
 
-    counters = {"lane tile": sw, "strips": sw_strips, "rotor": sw_rotor,
-                "stacked": sw_stacked}
+    counters = {"lane tile": "tile", "strips": "strips", "rotor": "rotor",
+                "stacked": "stacked"}
     inside = [(tensors, "ship_stream", "ship_stream")]
     forms = {"band": Engine, "full": FullStream}
     for label, (pairs, want), route in (
@@ -1944,13 +1944,12 @@ def ladder_phase(sw512, sw64, headline):
         walls = {name: [] for name in forms}
         for name in [*forms, *list(forms)[::-1]] * LADDER_TURNS:
             eng = forms[name](EngineConfig(), device="cuda")
-            for mod in counters.values():
-                mod.launches = 0
+            launch0 = trace.counts()
             out, wall, st, line = timed_run(
                 eng, "sw", lambda: eng.sw_scores(pairs), False, extra=inside,
                 others="inside run")
-            n = {k: mod.launches for k, mod in counters.items()
-                 if mod.launches}
+            n = {k: trace.launched(r, launch0) for k, r in counters.items()}
+            n = {k: v for k, v in n.items() if v}
             check(np.array_equal(out, want),
                   f"{label}, {name}: scores != the one-shot engine's")
             check(n == {route: 1}, f"{label}, {name}: launches {n}, want one "
@@ -1988,7 +1987,7 @@ def main(argv=None) -> int:
         return 1
     import numpy as np
 
-    from genomax_torch import native
+    from genomax_torch import native, trace
     from genomax_torch.config import (RESCALE_PERIODS, EngineConfig,
                                       PairHMMConfig, SWConfig)
     from genomax_torch.dist import xsharded
@@ -2457,7 +2456,7 @@ def main(argv=None) -> int:
 
     # 3. engine on the vendored goldens
     eng = Engine(device="cuda")
-    sw.launches = 0
+    launch0 = trace.counts()
     for name in ("sw_small", "sw_medium", "sw_quirks"):
         got = eng.sw_scores_file(os.path.join(REPO, "tests", "golden",
                                               name + ".in"))
@@ -2466,7 +2465,7 @@ def main(argv=None) -> int:
             want = np.array([int(line.split()[1]) for line in f], np.int32)
         check(np.array_equal(got, want), f"engine != golden on {name}")
         print(f"phase 3 golden {name}: {len(got)} scores exact")
-    print(f"phase 3 kernel launches: {sw.launches}")
+    print(f"phase 3 kernel launches: {trace.launched('tile', launch0)}")
 
     # 4. the main path at full width, with sw_strips on and off
     rng = np.random.default_rng(SEED)
@@ -2478,11 +2477,12 @@ def main(argv=None) -> int:
     main = {}
     for on in (True, False):
         e4 = Engine(EngineConfig(sw_strips=on), device="cuda")
-        sw.launches = sw_strips.launches = 0
+        launch0 = trace.counts()
         t0 = time.perf_counter()
         scores = e4.sw_scores(pairs)
         wall = time.perf_counter() - t0
-        n_tile, n_strips = sw.launches, sw_strips.launches
+        n_tile, n_strips = (trace.launched("tile", launch0),
+                            trace.launched("strips", launch0))
         stats = e4.last_stats
         check(scores.shape == (N_PAIRS,) and scores.dtype == np.int32,
               f"scores of shape {scores.shape} {scores.dtype}")
@@ -2590,13 +2590,11 @@ def main(argv=None) -> int:
                                                      replace=False)
     ref = native.sw_scores_native([pairs[i] for i in sample])
     e33 = Engine(device="cuda")
-    sw.launches = sw_strips.launches = sw_rotor.launches = 0
-    sw_stacked.launches = 0
+    launch0 = trace.counts()
     t0 = time.perf_counter()
     scores = e33.sw_scores(pairs)
     wall = time.perf_counter() - t0
-    n = {"lane tile": sw.launches, "strips": sw_strips.launches,
-         "rotor": sw_rotor.launches, "stacked": sw_stacked.launches}
+    n = {k: trace.launched(r, launch0) for k, r in SW_ROUTES.items()}
     check(n["lane tile"] == e33.last_stats.buckets >= 1
           and n["strips"] == n["rotor"] == n["stacked"] == 0,
           f"phase 33: launches {n}, want the lane tile's only")
@@ -2672,13 +2670,11 @@ def main(argv=None) -> int:
         cfg22 = EngineConfig(**kw)
         want = routed_to(cfg22, rb)
         e22 = Engine(cfg22, device="cuda")
-        sw.launches = sw_strips.launches = sw_rotor.launches = 0
-        sw_stacked.launches = 0
+        launch0 = trace.counts()
         t0 = time.perf_counter()
         scores = e22.sw_scores(pairs)
         wall = time.perf_counter() - t0
-        n = {"lane tile": sw.launches, "strips": sw_strips.launches,
-             "rotor": sw_rotor.launches, "stacked": sw_stacked.launches}
+        n = {k: trace.launched(r, launch0) for k, r in SW_ROUTES.items()}
         check(scores.shape == (RT_PAIRS,) and scores.dtype == np.int32,
               f"scores of shape {scores.shape} {scores.dtype}")
         check(n[want] == 1 and sum(n.values()) == 1,
@@ -2794,13 +2790,11 @@ def main(argv=None) -> int:
         check(routed_to(cfg25, rb) == "stacked",
               f"sw_stack={stack}: the predicates pick {routed_to(cfg25, rb)}")
         e25 = Engine(cfg25, device="cuda")
-        sw.launches = sw_strips.launches = sw_rotor.launches = 0
-        sw_stacked.launches = 0
+        launch0 = trace.counts()
         t0 = time.perf_counter()
         scores = e25.sw_scores(pairs)
         wall = time.perf_counter() - t0
-        n = {"lane tile": sw.launches, "strips": sw_strips.launches,
-             "rotor": sw_rotor.launches, "stacked": sw_stacked.launches}
+        n = {k: trace.launched(r, launch0) for k, r in SW_ROUTES.items()}
         check(n == {"lane tile": 0, "strips": 0, "rotor": 0, "stacked": 1},
               f"sw_stack={stack}: launches {n}")
         check(scores.shape == (RT_PAIRS,) and scores.dtype == np.int32,
@@ -2880,11 +2874,11 @@ def main(argv=None) -> int:
 
     # 28. the conveyor's library entry on phase 22's pairs: one launch, the
     # engine's scores; then its stages apart, each synchronized
-    sw_conveyor.launches = 0
+    launch0 = trace.counts()
     t0 = time.perf_counter()
     scores = sw_conveyor.sw_scores_conveyor(pairs, device="cuda")
     wall = time.perf_counter() - t0
-    conveyor_launches = sw_conveyor.launches
+    conveyor_launches = trace.launched("conveyor", launch0)
     check(conveyor_launches == 1,
           f"sw_scores_conveyor made {conveyor_launches} conveyor launches")
     check(scores.shape == (RT_PAIRS,) and scores.dtype == np.int32,
@@ -3249,11 +3243,11 @@ def main(argv=None) -> int:
                                    hap_len=PH_HAP_LEN, seed=SEED,
                                    from_haps=True)
     n_jobs = PH_READS * PH_HAPS
-    pairhmm.launches = 0
+    launch0 = trace.counts()
     t0 = time.perf_counter()
     values = eng.pairhmm([batch])
     wall = time.perf_counter() - t0
-    ph_launches = pairhmm.launches
+    ph_launches = trace.launched("pairhmm_tile", launch0)
     stats = eng.last_stats
     check(values.shape == (n_jobs,) and bool(np.isfinite(values).all()),
           f"PairHMM values of shape {values.shape}, or not finite")
@@ -3423,11 +3417,11 @@ def main(argv=None) -> int:
                                    hap_len=LR_HAP_LEN, seed=SEED,
                                    from_haps=True)
     lr_jobs = LR_READS * LR_HAPS
-    pairhmm_long.launches = 0
+    launch0 = trace.counts()
     t0 = time.perf_counter()
     values = eng.pairhmm([batch])
     wall = time.perf_counter() - t0
-    lr_launches = pairhmm_long.launches
+    lr_launches = trace.launched("pairhmm_long", launch0)
     stats = eng.last_stats
     check(values.shape == (lr_jobs,) and bool(np.isfinite(values).all()),
           f"long-read values of shape {values.shape}, or not finite")
@@ -3649,14 +3643,15 @@ def main(argv=None) -> int:
     native.sw_scores_native = (
         lambda ps, cfg=None: native_calls.append(len(ps))
         or real_native(ps, cfg))
-    sw_long.launches = sw.launches = 0
+    launch0 = trace.counts()
     t0 = time.perf_counter()
     try:
         scores = eng.sw_scores(pairs)
     finally:
         native.sw_scores_native = real_native
     wall = time.perf_counter() - t0
-    lp_launches, tile_launches = sw_long.launches, sw.launches
+    lp_launches, tile_launches = (trace.launched("sw_long", launch0),
+                                  trace.launched("tile", launch0))
     stats = eng.last_stats
     check(scores.shape == (LP_PAIRS,) and scores.dtype == np.int32,
           f"scores of shape {scores.shape} {scores.dtype}")
@@ -3744,13 +3739,13 @@ def main(argv=None) -> int:
             rng, nx_ + int(rng.integers(0, 1001)))))
     n_long = sum(len(p.sx) + 2 > eng.cfg.max_device_len for p in pairs)
     e17 = Engine(EngineConfig(sw_strips=True), device="cuda")
-    sw_long.launches = sw.launches = sw_strips.launches = 0
-    sw_rotor.launches = 0
+    launch0 = trace.counts()
     t0 = time.perf_counter()
     scores = e17.sw_scores(pairs)
     wall = time.perf_counter() - t0
     mx_long, mx_tile, mx_strips, mx_rotor = (
-        sw_long.launches, sw.launches, sw_strips.launches, sw_rotor.launches)
+        trace.launched(r, launch0)
+        for r in ("sw_long", "tile", "strips", "rotor"))
     stats = e17.last_stats
     check(0 < n_long < MX_PAIRS and stats.offloaded_jobs == n_long,
           f"{stats.offloaded_jobs} offloaded, {n_long} long of {MX_PAIRS}")
@@ -3914,9 +3909,9 @@ def main(argv=None) -> int:
             sx, sy = (torch.from_numpy(a).to(dev) for a in (pk.sx, pk.sy))
             kw = dict(n_strips=K, strip_w=pk.strip_w, n_diags=pk.n_diags,
                       unroll=U, anchor=pk.anchor)
-            before = xsharded.launches
+            launch0 = trace.counts()
             got = xsharded.sw_forward_xsharded_ring(sx, sy, **kw)
-            n = xsharded.launches - before
+            n = trace.launched("xstrip", launch0)
             plain = xsharded.sw_forward_xsharded_ring(
                 sx, sy, block=sw_xstrip_block, **kw)
             torch.cuda.synchronize()
@@ -3937,10 +3932,10 @@ def main(argv=None) -> int:
                 for k in range(K)
                 for lo, hi in [xsharded.live_rows(
                     k, b, strip_w=pk.strip_w, unroll=U, ly_max=ly_max)])
-            before = xsharded.launches
+            launch0 = trace.counts()
             windowed = xsharded.sw_forward_xsharded_ring(sx, sy, **kw,
                                                          ly_max=ly_max)
-            nw = xsharded.launches - before
+            nw = trace.launched("xstrip", launch0)
             torch.cuda.synchronize()
             check(nw == live and torch.equal(windowed, plain),
                   f"windowed xstrip ring ({name}, K = {K}): {nw} launches "
@@ -3970,11 +3965,11 @@ def main(argv=None) -> int:
               and torch.distributed.get_backend() == "nccl",
               f"mesh {mesh}, backend {torch.distributed.get_backend()}")
         xeng = ShardedEngine(mesh, EngineConfig(xshard_min_len=XS_MIN_LEN))
-        xsharded.launches = sw_long.launches = sw.launches = 0
+        launch0 = trace.counts()
         t0 = time.perf_counter()
         scores = xeng.sw_scores(lp_pairs)
         wall = time.perf_counter() - t0
-        xs_launches = xsharded.launches
+        xs_launches = trace.launched("xstrip", launch0)
         stats = xeng.last_stats
         xs_unroll = xeng.cfg.unroll
         xs_blocks = xsharded.n_blocks(2 * LP_LEN + 1, xs_unroll, 1)
@@ -3987,11 +3982,12 @@ def main(argv=None) -> int:
         check(stats.xsharded_jobs == stats.offloaded_jobs == LP_PAIRS,
               f"xsharded_jobs {stats.xsharded_jobs}, offloaded_jobs "
               f"{stats.offloaded_jobs} of {LP_PAIRS}")
-        check(xs_launches == xs_live and sw_long.launches == 0
-              and sw.launches == 0,
+        xs_long, xs_tile = (trace.launched("sw_long", launch0),
+                            trace.launched("tile", launch0))
+        check(xs_launches == xs_live and xs_long == 0 and xs_tile == 0,
               f"{xs_launches} xstrip launches (want the {xs_live} non-empty "
-              f"windows of {xs_blocks} blocks), {sw_long.launches} "
-              f"long-pair, {sw.launches} lane-tile")
+              f"windows of {xs_blocks} blocks), {xs_long} long-pair, "
+              f"{xs_tile} lane-tile")
         check(np.array_equal(scores, lp_scores),
               "the cross-device scores != phase 16's sw_long scores")
         check(int(scores[LP_PAIRS // 2]) == LP_LEN,

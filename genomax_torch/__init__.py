@@ -30,6 +30,8 @@ same module name, held equal to the original by the tests:
                         buckets, ShardedEngine, the cross-device SW
                         wavefront (csrc/sw_xstrip.cu)
     cli/                ``python -m genomax_torch sw|pairhmm``
+    trace.py            the engine's spans and counters, recorded while a
+                        torch.profiler records (PERF.md names them)
 
 Importing the package imports neither jax nor torch and compiles nothing.
 """

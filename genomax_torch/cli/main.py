@@ -17,10 +17,12 @@ pairs (sw) or N batches (pairhmm), the next chunk packed while this one
 runs; N = 0 is the unchunked run, as in ``genomax``, and a negative N is
 refused. --profile DIR records the scoring call with
 ``torch.profiler`` (the CPU, and the card when the engine runs there) and
-writes the trace into DIR; a profiler that cannot trace what was asked
-fails the command. pairhmm --resume appends batch by batch and keeps a
-``<output>.progress.json`` manifest, so that a killed run restarts at the
-next batch.
+writes the trace into DIR, the engine's own spans in it (``trace.py``: the
+call, plan, pack and its stages, execute, copies, launches, syncs,
+unpack, offload, fallback, collections); a profiler that cannot trace what
+was asked fails the command. pairhmm --resume appends batch by batch and
+keeps a ``<output>.progress.json`` manifest, so that a killed run
+restarts at the next batch.
 
 --devices N scores over a mesh of N ranks (ShardedEngine), one process a
 device: N is the process group's size, 1 in a lone process, the world size

@@ -34,14 +34,12 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from genomax_torch import trace
 from genomax_torch.config import SWConfig
 from genomax_torch.kernels import _build
 from genomax_torch.kernels.wavefront import sw_xstrip_block
 from genomax_torch.layout import LANES, PAD_STREAM, PAD_X, SUB_Q
 from genomax_torch.pack.bucketing import _reject_pad_codes, _round_up
-
-# Kernel launches made by strip_block (CUDA tensors only).
-launches = 0
 
 # Rows a thread of the kernel keeps in registers (its template argument,
 # the values the build makes) and the default; rows a CUDA block sweeps at
@@ -267,9 +265,9 @@ def _plain_window(sxb, slab, hD, hQ, state, outs, w, U, g_lo, g_hi,
     return outs, bD, bQ
 
 
+@trace.traced("launch")
 def _launch(sxb, slab, hD, hQ, state, outs, w, U, g_lo, g_hi, r,
             cfg: SWConfig):
-    global launches
     if not sxb.is_cuda:
         raise ValueError(f"strip_block: device {sxb.device} is neither cpu "
                          "nor cuda")
@@ -309,7 +307,7 @@ def _launch(sxb, slab, hD, hQ, state, outs, w, U, g_lo, g_hi, r,
                      cfg.gap_open, cfg.gap_extend, stream)
     if err != 0:
         raise RuntimeError(f"sw_xstrip launch failed: cudaError {err}")
-    launches += 1
+    trace.count("launches.xstrip")
     return outs, bD, bQ
 
 
@@ -422,10 +420,9 @@ def sw_scores_xsharded(pairs, *, mesh, unroll: int = 16,
     stream to its device, and runs ``sw_forward_xsharded``."""
     pk = pack_sw_xsharded(pairs, mesh.size, unroll=unroll)
     w, k = pk.strip_w, mesh.rank
-    sx = torch.from_numpy(pk.sx[k * w: (k + 1) * w]).to(mesh.device)
-    sy = torch.from_numpy(pk.sy).to(mesh.device)
+    sx, sy = trace.to_device(mesh.device, pk.sx[k * w: (k + 1) * w], pk.sy)
     scores = sw_forward_xsharded(sx, sy, mesh=mesh, strip_w=w,
                                  n_diags=pk.n_diags, unroll=pk.unroll,
                                  anchor=pk.anchor, ly_max=tile_ly_max(pk),
                                  cfg=cfg)
-    return scores.cpu().numpy()[: pk.n_valid]
+    return trace.to_host(scores)[: pk.n_valid]

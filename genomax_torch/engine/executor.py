@@ -33,12 +33,11 @@ sees the full buffer.
 from __future__ import annotations
 
 import dataclasses
-import time
 
 import numpy as np
 import torch
 
-from genomax_torch import native
+from genomax_torch import native, trace
 from genomax_torch.config import (MAX_KERNEL_ROWS, MAX_PHMM_ROWS,
                                   EngineConfig, PairHMMConfig, SWConfig)
 from genomax_torch.io.formats import (PairHMMBatch, parse_pairhmm_file,
@@ -153,15 +152,21 @@ def _run_buckets(stage, buckets, dispatch, device: torch.device):
             except Exception as e:
                 raise EngineError(stage, i, _shape(b), e) from e
 
-    pending = [(i, b, retried(i, b, lambda: dispatch(b), lambda: dispatch(b)))
+    def dispatched(b):
+        with trace.span("dispatch"):
+            return dispatch(b)
+
+    pending = [(i, b, retried(i, b, lambda: dispatched(b),
+                              lambda: dispatched(b)))
                for i, b in enumerate(buckets)]
     if device.type == "cuda" and pending:
-        torch.cuda.synchronize(device)
-    return [retried(i, b, lambda: r.cpu().numpy(),
-                    lambda: dispatch(b).cpu().numpy())
+        trace.synchronize(device)
+    return [retried(i, b, lambda: trace.to_host(r),
+                    lambda: trace.to_host(dispatched(b)))
             for i, b, r in pending]
 
 
+@trace.traced("plan")
 def _jobs(batches):
     """(read, haplotype) of every PairHMM job, in the flat read-major order
     of the reference's output."""
@@ -231,6 +236,7 @@ class Engine:
     def _sw_bucket(self, b):
         return self._sw_prep(b)[1]()
 
+    @trace.traced("plan")
     def _sw_offload_mask(self, pairs):
         """True = not for the bucket path; ``_sw_offload_post`` scores
         these. The JAX engine's predicate (len(x) + 2 past max_device_len,
@@ -253,19 +259,21 @@ class Engine:
                     m |= tall & (level == v)
         return m if m.any() else None
 
+    @trace.traced("call")
     def sw_scores(self, pairs) -> np.ndarray:
         """Scores for SWPair jobs, in input order."""
         stats = RunStats(n_jobs=len(pairs))
         off = self._sw_offload_mask(pairs)
-        t0 = time.perf_counter()
-        buckets = pack_sw_pairs(pairs, job_mask=None if off is None else ~off,
-                                stream_band=self._stream_band())
-        stats.pack_s = time.perf_counter() - t0
+        with trace.timed("pack") as t:
+            buckets = pack_sw_pairs(pairs,
+                                    job_mask=None if off is None else ~off,
+                                    stream_band=self._stream_band())
+        stats.pack_s = t.seconds
         stats.buckets = len(buckets)
         sw_bucket_stats(stats, buckets)
-        t0 = time.perf_counter()
-        results = self._sw_run(buckets)
-        stats.exec_s = time.perf_counter() - t0
+        with trace.timed("execute") as t:
+            results = self._sw_run(buckets)
+        stats.exec_s = t.seconds
         out = unpack_scores(buckets, results, len(pairs), np.int32)
         self._sw_offload_post(pairs, out, off, stats)
         self.last_stats = stats
@@ -283,6 +291,7 @@ class Engine:
                          <= self.cfg.max_device_diags for i in idx],
                         dtype=bool)
 
+    @trace.traced("offload")
     def _sw_offload_post(self, pairs, out, off, stats):
         """Score the pairs the lane-tile kernel does not take, pair by
         pair: the long-pair kernel on the engine's device up to
@@ -334,6 +343,7 @@ class Engine:
             batches, self.phmm_cfg.phred_offset, job_mask=job_mask,
             byte_quals=True, factored=True, bitmask_codes=True)
 
+    @trace.traced("plan")
     def _phmm_offload_mask(self, jobs):
         """True = too big for the lane-tile kernel. PairHMM applies half
         the SW bounds, as the JAX engine does, so that kernel sees at most
@@ -347,6 +357,7 @@ class Engine:
                         for rd, hp in jobs], dtype=bool)
         return off if off.any() else None
 
+    @trace.traced("call")
     def pairhmm(self, batches) -> np.ndarray:
         """log10 likelihoods of every read x haplotype job across batches,
         in the reference's output order (batches in file order, read-major
@@ -354,16 +365,16 @@ class Engine:
         stats = RunStats()
         jobs = _jobs(batches)
         off = self._phmm_offload_mask(jobs)
-        t0 = time.perf_counter()
-        buckets, n = self._phmm_pack(batches,
-                                     None if off is None else ~off)
-        stats.pack_s = time.perf_counter() - t0
+        with trace.timed("pack") as t:
+            buckets, n = self._phmm_pack(batches,
+                                         None if off is None else ~off)
+        stats.pack_s = t.seconds
         stats.n_jobs = n
         stats.buckets = len(buckets)
         phmm_bucket_stats(stats, buckets)
-        t0 = time.perf_counter()
-        results = self._phmm_run(buckets)
-        stats.exec_s = time.perf_counter() - t0
+        with trace.timed("execute") as t:
+            results = self._phmm_run(buckets)
+        stats.exec_s = t.seconds
         out = unpack_scores(buckets, results, n, np.float32)
         out, native_done = self._phmm_offload_post(jobs, out, off, stats)
         out = self._phmm_fallback(jobs, out, stats, native_done=native_done)
@@ -375,6 +386,7 @@ class Engine:
         return _run_buckets("pairhmm", buckets, self._phmm_bucket,
                             self.device)
 
+    @trace.traced("offload")
     def _phmm_offload_post(self, jobs, out, off, stats):
         """Score the jobs the lane-tile kernel does not take: the long-read
         kernel on the device up to ``max_device_diags``, the native fp64
@@ -417,6 +429,7 @@ class Engine:
         out[idx] = exact
         return out
 
+    @trace.traced("fallback")
     def _phmm_fallback(self, jobs, out, stats, native_done=None):
         """Recompute results below the threshold, or not finite, in native
         fp64: the fp32 path holds 1e-4 only above about -50 log10. Jobs the
@@ -437,6 +450,7 @@ class Engine:
 
     # -- Streaming (chunked, the pack overlapped with the run) -------------
 
+    @trace.traced("call")
     def sw_scores_stream(self, pairs, chunk_pairs: int = 65536) -> np.ndarray:
         """``sw_scores`` over chunks, the next chunk packed in a worker
         thread while this one runs (``engine/stream.py``)."""
@@ -444,6 +458,7 @@ class Engine:
 
         return sw_scores_stream(self, pairs, chunk_pairs)
 
+    @trace.traced("call")
     def pairhmm_stream(self, batches, chunk_batches: int = 64) -> np.ndarray:
         """``pairhmm`` over chunks of batches with the pack overlapped."""
         from genomax_torch.engine.stream import pairhmm_stream

@@ -25,11 +25,11 @@ long-pair kernel raises :class:`EngineError` as in the one-shot engine.
 
 from __future__ import annotations
 
-import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
+from genomax_torch import trace
 from genomax_torch.engine.executor import (RunStats, _jobs, _run_buckets,
                                            phmm_bucket_stats, sw_bucket_stats)
 from genomax_torch.pack import pack_sw_pairs, unpack_scores
@@ -60,18 +60,18 @@ def sw_scores_stream(engine, pairs, chunk_pairs: int = 65536) -> np.ndarray:
     with ThreadPoolExecutor(max_workers=1) as pool:
         fut = pool.submit(prep, spans[0])
         for i, (s, e) in enumerate(spans):
-            t0 = time.perf_counter()
-            chunk, off, buckets = fut.result()
-            stats.pack_s += time.perf_counter() - t0  # the wait only
+            with trace.timed("stream.wait") as t:
+                chunk, off, buckets = fut.result()
+            stats.pack_s += t.seconds  # the wait only
             if i + 1 < len(spans):
                 fut = pool.submit(prep, spans[i + 1])
             stats.buckets += len(buckets)
             sw_bucket_stats(stats, buckets)
-            t1 = time.perf_counter()
-            results = _run_buckets("sw-stream", buckets, engine._sw_bucket,
-                                   engine.device)
+            with trace.timed("execute") as t:
+                results = _run_buckets("sw-stream", buckets,
+                                       engine._sw_bucket, engine.device)
             # exec_s strictly around the runs, as in Engine.sw_scores
-            stats.exec_s += time.perf_counter() - t1
+            stats.exec_s += t.seconds
             part = unpack_scores(buckets, results, len(chunk), np.int32)
             engine._sw_offload_post(chunk, part, off, stats)
             out[s:e] = part
@@ -103,18 +103,18 @@ def pairhmm_stream(engine, batches, chunk_batches: int = 64) -> np.ndarray:
     with ThreadPoolExecutor(max_workers=1) as pool:
         fut = pool.submit(prep, spans[0])
         for i in range(len(spans)):
-            t0 = time.perf_counter()
-            jobs, off, buckets, n = fut.result()
-            stats.pack_s += time.perf_counter() - t0
+            with trace.timed("stream.wait") as t:
+                jobs, off, buckets, n = fut.result()
+            stats.pack_s += t.seconds
             if i + 1 < len(spans):
                 fut = pool.submit(prep, spans[i + 1])
             stats.n_jobs += n
             stats.buckets += len(buckets)
             phmm_bucket_stats(stats, buckets)
-            t1 = time.perf_counter()
-            results = _run_buckets("pairhmm-stream", buckets,
-                                   engine._phmm_bucket, engine.device)
-            stats.exec_s += time.perf_counter() - t1
+            with trace.timed("execute") as t:
+                results = _run_buckets("pairhmm-stream", buckets,
+                                       engine._phmm_bucket, engine.device)
+            stats.exec_s += t.seconds
             part = unpack_scores(buckets, results, n, np.float32)
             part, native_done = engine._phmm_offload_post(jobs, part, off,
                                                           stats)

@@ -18,6 +18,8 @@ import shutil
 import subprocess
 import threading
 
+from genomax_torch import trace
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -96,11 +98,13 @@ def load(name: str, fn: str, argtypes) -> ctypes._CFuncPtr:
     ``argtypes`` set and an int return (a cudaError_t)."""
     with _lock:
         if fn not in _fns:
-            path, _ = build(name)
-            try:
-                f = getattr(ctypes.CDLL(path), fn)
-            except (OSError, AttributeError) as e:
-                raise BuildError(f"cannot load {fn} from {path}: {e}") from e
+            with trace.span("build"):
+                path, _ = build(name)
+                try:
+                    f = getattr(ctypes.CDLL(path), fn)
+                except (OSError, AttributeError) as e:
+                    raise BuildError(f"cannot load {fn} from {path}: "
+                                     f"{e}") from e
             f.argtypes = list(argtypes)
             f.restype = ctypes.c_int
             _fns[fn] = f

@@ -15,6 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from genomax_torch import trace
+
 
 def _phred_lut(phred_offset: float, device) -> torch.Tensor:
     """10**(-(b - offset)/10) for every byte b, computed in fp64 and cast to
@@ -27,7 +29,7 @@ def _phred_lut(phred_offset: float, device) -> torch.Tensor:
             "sentinel (lut[0] must be exactly 0)")
     lut = np.power(10.0, -(np.arange(256) - phred_offset) / 10.0)
     lut[: max(0, int(np.ceil(phred_offset)))] = 0.0
-    return torch.from_numpy(lut.astype(np.float32)).to(device)
+    return trace.to_device(device, lut.astype(np.float32))[0]
 
 
 def expand_byte_quals(qb: torch.Tensor, phred_offset: float = 33.0):
@@ -45,6 +47,7 @@ def expand_byte_quals(qb: torch.Tensor, phred_offset: float = 33.0):
     return qr, mmv, gapm, qi, qd, qg
 
 
+@trace.traced("expand")
 def expand_factored(rchar_u, qb_u, hap_u, ridx, hidx,
                     phred_offset: float = 33.0):
     """Job tiles from a factored pack: unique rows rchar_u (NRu+1, NXs),

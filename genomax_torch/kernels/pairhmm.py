@@ -17,6 +17,7 @@ import dataclasses
 
 import torch
 
+from genomax_torch import trace
 from genomax_torch.config import MAX_PHMM_ROWS, RESCALE_PERIODS
 from genomax_torch.kernels import _build
 from genomax_torch.kernels.wavefront import phmm_forward_tiles
@@ -37,9 +38,6 @@ TILE_WARPS = 8
 BLOCK_R = (4, 5, 6, 8)
 BLOCK_MAX_WARPS = 32
 STEP_CELLS, BARRIER_CELLS = 1, 1
-
-# Kernel launches made by pairhmm_forward (CUDA tensors only).
-launches = 0
 
 _ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_float]
              + [ctypes.c_int] * 4 + [ctypes.c_void_p])
@@ -155,9 +153,9 @@ def pairhmm_forward(rchar, qr, mmv, gapm, qi, qd, qg, hap, meta, ndiag_tile,
                    rescale_period, mm_div, bitmask, _rows_per_thread)
 
 
+@trace.traced("launch")
 def _launch(rchar, quals, hap, meta, ndiag_tile, rescale_period, mm_div,
             bitmask, rows_per_thread) -> torch.Tensor:
-    global launches
     launch = _build.load("pairhmm_tile", "pairhmm_tile_launch", _ARGTYPES)
     tensors = (rchar, *quals, hap, meta, ndiag_tile)
     if not rchar.is_cuda or any(t.device != rchar.device for t in tensors):
@@ -198,5 +196,5 @@ def _launch(rchar, quals, hap, meta, ndiag_tile, rescale_period, mm_div,
                      geo.rows_per_thread, geo.group, geo.warps, stream)
     if err != 0:
         raise RuntimeError(f"pairhmm_tile launch failed: cudaError {err}")
-    launches += 1
+    trace.count("launches.pairhmm_tile")
     return out

@@ -20,6 +20,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from genomax_torch import trace
 from genomax_torch.io.phred import phred_to_error_prob
 from genomax_torch.kernels import _build
 from genomax_torch.kernels.wavefront import LONG_CHUNK, phmm_long_forward
@@ -38,9 +39,6 @@ UNROLL = 16
 LONG_R = (1, 2, 4, 8, 16, 32)
 WARP = 32
 LONG_WARPS = 8
-
-# Kernel launches made by pairhmm_long_forward (CUDA tensors only).
-launches = 0
 
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float]
              + [ctypes.c_int] * 2 + [ctypes.c_void_p])
@@ -162,9 +160,9 @@ def pairhmm_long_forward(rchar, qual, hap, meta, *, k_strips: int,
                    ndt, unroll, mm_div, _rows_per_thread)
 
 
+@trace.traced("launch")
 def _launch(rchar, qual, hap, meta, k_strips, strip_w, ny_max, anchor, ndt,
             unroll, mm_div, rows_per_thread) -> torch.Tensor:
-    global launches
     launch = _build.load("pairhmm_long", "pairhmm_long_launch", _ARGTYPES)
     tensors = (rchar, qual, hap, meta)
     if not rchar.is_cuda or any(t.device != rchar.device for t in tensors):
@@ -192,7 +190,7 @@ def _launch(rchar, qual, hap, meta, k_strips, strip_w, ny_max, anchor, ndt,
                      geo.rows_per_thread, geo.warps, stream)
     if err != 0:
         raise RuntimeError(f"pairhmm_long launch failed: cudaError {err}")
-    launches += 1
+    trace.count("launches.pairhmm_long")
     return out
 
 
@@ -207,12 +205,13 @@ def pairhmm_long(jobs, phred_offset: float = 33.0, *, device,
     pending = []
     for base in range(0, len(jobs), LANES):
         tile = jobs[base:base + LANES]
-        arrays, statics = pack_pairhmm_long(tile, phred_offset, strip_w)
-        t = (torch.from_numpy(arrays[name]).to(device)
-             for name in ("rchar", "qual", "hap", "meta"))
+        with trace.span("pack.fill"):
+            arrays, statics = pack_pairhmm_long(tile, phred_offset, strip_w)
+        t = trace.to_device(device, *(arrays[name] for name in (
+            "rchar", "qual", "hap", "meta")))
         pending.append((base, len(tile), pairhmm_long_forward(
             *t, unroll=unroll, mm_div=mm_div, **statics)))
     out = np.zeros(len(jobs), np.float32)
     for base, n, r in pending:
-        out[base:base + n] = r.cpu().numpy()[:n]
+        out[base:base + n] = trace.to_host(r)[:n]
     return out

@@ -17,6 +17,7 @@ import dataclasses
 
 import torch
 
+from genomax_torch import trace
 from genomax_torch.config import SWConfig
 from genomax_torch.kernels import _build
 from genomax_torch.kernels.wavefront import sw_forward_tiles
@@ -35,9 +36,6 @@ MAX_WARPS = 32
 # loop) in cells, and a block's barrier and seam in cells a warp: the
 # weights of tile_geometry's cost.
 STEP_CELLS, BARRIER_CELLS = 2, 1
-
-# Kernel launches made by sw_forward (CUDA tensors only).
-launches = 0
 
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
 
@@ -110,8 +108,8 @@ def sw_forward(sx: torch.Tensor, sy: torch.Tensor, ndiag_tile: torch.Tensor,
     return _launch(sx, sy, ndiag_tile, cfg, _rows_per_thread)
 
 
+@trace.traced("launch")
 def _launch(sx, sy, ndiag_tile, cfg: SWConfig, r) -> torch.Tensor:
-    global launches
     launch = _build.load("sw_tile", "sw_tile_launch", _ARGTYPES)
     nt, nxs, lanes = sx.shape
     if not (sx.is_cuda and sy.device == sx.device
@@ -146,5 +144,5 @@ def _launch(sx, sy, ndiag_tile, cfg: SWConfig, r) -> torch.Tensor:
             cfg.gap_extend, stream)
     if err != 0:
         raise RuntimeError(f"sw_tile launch failed: cudaError {err}")
-    launches += 1
+    trace.count("launches.tile")
     return out

@@ -25,6 +25,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from genomax_torch import trace
 from genomax_torch.config import MAX_CONVEYOR_ROWS, SWConfig
 from genomax_torch.kernels import _build
 from genomax_torch.kernels.wavefront import sw_conveyor_forward_tiles
@@ -33,9 +34,6 @@ from genomax_torch.pack.bucketing import _reject_pad_codes, _round_up
 
 UNROLL = 8  # block length; T is rounded to it so period boundaries are
 # block-aligned (the JAX kernel harvests at block starts only)
-
-# Kernel launches made by sw_forward_conveyor (CUDA tensors only).
-launches = 0
 
 _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 16
              + [ctypes.c_void_p])
@@ -230,10 +228,9 @@ def sw_scores_conveyor(pairs, cfg: SWConfig = SWConfig(), idx=None,
     ``device`` (the plain version where it is the CPU)."""
     b = pack_sw_conveyor(pairs, idx, max_slots)
     res = sw_forward_conveyor(
-        torch.from_numpy(b.sched).to(device),
-        torch.from_numpy(b.sy).to(device),
+        *trace.to_device(device, b.sched, b.sy),
         nxs=b.nxs, n_slots=b.n_slots, period=b.period, a0=b.a0, cfg=cfg)
-    return unpack_conveyor(b, res.cpu().numpy(), len(pairs))
+    return unpack_conveyor(b, trace.to_host(res), len(pairs))
 
 
 def _check(name, sched, sy, nxs, n_slots, period, a0):
@@ -294,11 +291,11 @@ def sw_forward_conveyor(sched: torch.Tensor, sy: torch.Tensor, *, nxs: int,
     return _launch(sched, sy, nxs, n_slots, period, a0, cfg, _geometry)
 
 
+@trace.traced("launch")
 def _launch(sched, sy, nxs, n_slots, period, a0, cfg: SWConfig, geo=None):
     """Launch csrc/sw_conveyor.cu at ``geometry``'s choice, or at (G, R, W)
     = ``geo``: (NT * P8, 128), slot q in row q of a tile's block, the
     kernel writing rows P..P8-1 as 0."""
-    global launches
     launch = _build.load("sw_conveyor", "sw_conveyor_launch", _ARGTYPES)
     if not sched.is_cuda:
         raise ValueError(f"sw_forward_conveyor: device {sched.device} is "
@@ -319,5 +316,5 @@ def _launch(sched, sy, nxs, n_slots, period, a0, cfg: SWConfig, geo=None):
                      cfg.gap_open, cfg.gap_extend, stream)
     if err != 0:
         raise RuntimeError(f"sw_conveyor launch failed: cudaError {err}")
-    launches += 1
+    trace.count("launches.conveyor")
     return out

@@ -23,6 +23,7 @@ import functools
 import numpy as np
 import torch
 
+from genomax_torch import trace
 from genomax_torch.config import SWConfig
 from genomax_torch.kernels import _build
 from genomax_torch.kernels.wavefront import sw_long_forward
@@ -40,9 +41,6 @@ ROWS_PER_THREAD = (4, 8, 16)
 LONG_R = 8
 MAX_ROWS = 4096
 WARP = 32
-
-# Kernel launches made by sw_forward_long (CUDA tensors only).
-launches = 0
 
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
 
@@ -186,9 +184,9 @@ def sw_forward_long(sx: torch.Tensor, sy: torch.Tensor, nx: torch.Tensor,
     return _launch(sx, sy, nx, ny, kw, anchor, geo, _rows_per_thread, cfg)
 
 
+@trace.traced("launch")
 def _launch(sx, sy, nx, ny, n_rows, anchor, geo: Geometry, r,
             cfg: SWConfig) -> torch.Tensor:
-    global launches
     launch = _build.load("sw_long", "sw_long_launch", _ARGTYPES)
     tensors = (sx, sy, nx, ny)
     if not sx.is_cuda:
@@ -209,14 +207,13 @@ def _launch(sx, sy, nx, ny, n_rows, anchor, geo: Geometry, r,
                      stream)
     if err != 0:
         raise RuntimeError(f"sw_long launch failed: cudaError {err}")
-    launches += 1
+    trace.count("launches.sw_long")
     return out
 
 
 def tile_to_torch(b: SWLongPacked, device):
     """(sx, sy, nx, ny) of a packed tile as tensors on ``device``."""
-    return tuple(torch.from_numpy(a).to(device)
-                 for a in (b.sx, b.sy, b.nx, b.ny))
+    return trace.to_device(device, b.sx, b.sy, b.nx, b.ny)
 
 
 def tile_launches(pairs, cfg: SWConfig = SWConfig(), *, device,
@@ -228,7 +225,8 @@ def tile_launches(pairs, cfg: SWConfig = SWConfig(), *, device,
     sweep (``bench/sweep.py``) share it."""
     device = torch.device(device)
     for base in range(0, len(pairs), LANES):
-        b = pack_sw_long(pairs[base : base + LANES], strip_w)
+        with trace.span("pack.fill"):
+            b = pack_sw_long(pairs[base : base + LANES], strip_w)
         t = tile_to_torch(b, device)
         yield base, b.n_valid, functools.partial(
             sw_forward_long, *t, k_strips=b.n_strips, strip_w=b.strip_w,
@@ -244,5 +242,5 @@ def sw_scores_long(pairs, cfg: SWConfig = SWConfig(), *, device,
         pairs, cfg, device=device, strip_w=strip_w)]
     out = np.zeros(len(pairs), np.int32)
     for base, n, r in pending:
-        out[base : base + n] = r.cpu().numpy()[:n]
+        out[base : base + n] = trace.to_host(r)[:n]
     return out

@@ -25,6 +25,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from genomax_torch import trace
 from genomax_torch.config import MAX_ROTOR_PERIOD, SWConfig
 from genomax_torch.kernels import _build
 from genomax_torch.kernels.wavefront import sw_rotor_forward_tiles
@@ -51,10 +52,6 @@ GEOMETRIES = tuple((g, c) for g in QUEUES_PER_WARP
 SMS, SCHEDULERS = 132, 132 * 4
 MAX_WARPS_PER_BLOCK = 4
 STEP_CELLS, LATENCY_CELLS = 3, 10
-
-# Kernel launches made by sw_forward_rotor and sw_forward_rotor_bucket
-# (CUDA tensors only).
-launches = 0
 
 _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 14
              + [ctypes.c_void_p])
@@ -289,11 +286,10 @@ def sw_scores_rotor(pairs, cfg: SWConfig = SWConfig(), idx=None,
     ``device`` (the plain version where it is the CPU)."""
     b = pack_sw_rotor(pairs, idx, max_slots, unroll)
     res = sw_forward_rotor(
-        torch.from_numpy(b.xrev).to(device),
-        torch.from_numpy(b.ybuf).to(device),
+        *trace.to_device(device, b.xrev, b.ybuf),
         period=b.period, n_slots=b.n_slots, anchor=b.anchor,
         unroll=b.unroll, cfg=cfg)
-    return unpack_rotor(b, res.cpu().numpy(), len(pairs))
+    return unpack_rotor(b, trace.to_host(res), len(pairs))
 
 
 def _check(name, xrev, ybuf, period, n_slots, anchor, unroll):
@@ -386,12 +382,12 @@ def _check_geometry(period, geo):
         geometry(period, 1, *geo)
 
 
+@trace.traced("launch")
 def _launch(xrev, ybuf, period, n_slots, anchor, out_rows, cfg: SWConfig,
             name, geo=None) -> torch.Tensor:
     """Launch csrc/sw_rotor.cu at ``geometry``'s choice, or at (G, C) =
     ``geo``: out_rows rows a tile, slot q in row q and rows n_slots..
     zero."""
-    global launches
     launch = _build.load("sw_rotor", "sw_rotor_launch", _ARGTYPES)
     if not xrev.is_cuda:
         raise ValueError(f"{name}: device {xrev.device} is neither cpu nor "
@@ -412,5 +408,5 @@ def _launch(xrev, ybuf, period, n_slots, anchor, out_rows, cfg: SWConfig,
                      stream)
     if err != 0:
         raise RuntimeError(f"sw_rotor launch failed: cudaError {err}")
-    launches += 1
+    trace.count("launches.rotor")
     return out

@@ -30,6 +30,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from genomax_torch import trace
 from genomax_torch.config import MAX_STACK_ROWS, SWConfig
 from genomax_torch.kernels import _build
 from genomax_torch.kernels.wavefront import sw_stacked_forward_tiles
@@ -44,9 +45,6 @@ WARP = 32
 # A warp step's fixed part (the hand-over's shuffles, the stream shuffle,
 # the loop) in cells: the weight of geometry's cost.
 STEP_CELLS = 2
-
-# Kernel launches made by sw_forward_stacked (CUDA tensors only).
-launches = 0
 
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
 
@@ -161,8 +159,8 @@ def run_bucket_stacked(bucket, stack: int, cfg: SWConfig = SWConfig(), *,
                          f"{int(bucket.ny.max()) - 1} bases cannot stack "
                          f"{stack} deep")
     (sx, sy, ndt), statics = prep
-    return sw_forward_stacked(*(torch.from_numpy(a).to(device)
-                                for a in (sx, sy, ndt)), cfg=cfg, **statics)
+    return sw_forward_stacked(*trace.to_device(device, sx, sy, ndt), cfg=cfg,
+                              **statics)
 
 
 def sw_forward_stacked(sx: torch.Tensor, sy: torch.Tensor, ndt: torch.Tensor,
@@ -209,10 +207,10 @@ def sw_forward_stacked(sx: torch.Tensor, sy: torch.Tensor, ndt: torch.Tensor,
     return _launch(sx, sy, ndt, stack, h, cfg, _rows_per_thread)
 
 
+@trace.traced("launch")
 def _launch(sx, sy, ndt, stack, h, cfg: SWConfig, r=None) -> torch.Tensor:
     """Launch csrc/sw_stacked.cu on checked inputs, at ``geometry``'s R or
     at ``r``."""
-    global launches
     launch = _build.load("sw_stacked", "sw_stacked_launch", _ARGTYPES)
     if not sx.is_cuda:
         raise ValueError(f"sw_forward_stacked: device {sx.device} is neither "
@@ -232,5 +230,5 @@ def _launch(sx, sy, ndt, stack, h, cfg: SWConfig, r=None) -> torch.Tensor:
                      cfg.mismatch, cfg.gap_open, cfg.gap_extend, stream)
     if err != 0:
         raise RuntimeError(f"sw_stacked launch failed: cudaError {err}")
-    launches += 1
+    trace.count("launches.stacked")
     return out

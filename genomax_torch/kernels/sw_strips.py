@@ -24,6 +24,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from genomax_torch import trace
 from genomax_torch.config import SWConfig
 from genomax_torch.kernels import _build
 from genomax_torch.kernels.wavefront import sw_strips_forward_tiles
@@ -48,9 +49,6 @@ SM_BLOCKS, SM_WARPS = 32, 64
 # the extra of a masked cell (chip_smoke.py phase 5's times by R on one
 # H100 fit them).
 STEP_CELLS, MASKED_CELL = 1.0, 0.6
-
-# Kernel launches made by sw_forward_strips (CUDA tensors only).
-launches = 0
 
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 11
              + [ctypes.c_void_p])
@@ -255,9 +253,9 @@ def sw_forward_strips(sx: torch.Tensor, sy: torch.Tensor, nx: torch.Tensor,
                    cfg)
 
 
+@trace.traced("launch")
 def _launch(sx, sy, nx, ny, n_rows, anchor, ny_max, geo: Geometry,
             cfg: SWConfig) -> torch.Tensor:
-    global launches
     launch = _build.load("sw_strips", "sw_strips_launch", _ARGTYPES)
     if not sx.is_cuda:
         raise ValueError(f"sw_forward_strips: device {sx.device} is neither "
@@ -276,5 +274,5 @@ def _launch(sx, sy, nx, ny, n_rows, anchor, ny_max, geo: Geometry,
                      cfg.gap_extend, stream)
     if err != 0:
         raise RuntimeError(f"sw_strips launch failed: cudaError {err}")
-    launches += 1
+    trace.count("launches.strips")
     return out

@@ -27,7 +27,7 @@ import dataclasses
 
 import numpy as np
 
-from genomax_torch import native
+from genomax_torch import native, trace
 from genomax_torch.layout import (LANES, MAX_UNROLL, PAD_STREAM, PAD_X,
                                   STREAM_CHUNK, SUB_Q)
 
@@ -385,91 +385,102 @@ def pack_sw_pairs(pairs, job_mask=None,
     The per-pair fill loop is the native library's (gx_pack_sw_fill)."""
     lib = native.load()
     n = len(pairs)
-    sx_len = np.array([len(p.sx) for p in pairs], dtype=np.int64)
-    sy_len = np.array([len(p.sy) for p in pairs], dtype=np.int64)
-    # Masked-out pairs contribute empty slices: the fill never reads their
-    # bytes, so they are not copied.
-    keep = (
-        (lambda i: True) if job_mask is None
-        else (lambda i, m=np.asarray(job_mask): bool(m[i]))
-    )
-    sx_data, sx_off = native._concat_with_offsets(
-        [p.sx if keep(i) else b"" for i, p in enumerate(pairs)])
-    sy_data, sy_off = native._concat_with_offsets(
-        [p.sy if keep(i) else b"" for i, p in enumerate(pairs)])
-    _reject_pad_codes(sx_data[: sx_off[-1]], "sx")
-    _reject_pad_codes(sy_data[: sy_off[-1]], "sy")
-    # Bucket by the x (row) level only; see pack_pairhmm_batches.
-    nxq = bucket_levels(sx_len)
-    if job_mask is not None:
-        nxq = np.where(np.asarray(job_mask), nxq, -1)
-        n = int(np.asarray(job_mask).sum())
+    with trace.span("pack.flatten"):
+        sx_len = np.array([len(p.sx) for p in pairs], dtype=np.int64)
+        sy_len = np.array([len(p.sy) for p in pairs], dtype=np.int64)
+    with trace.span("pack.concat"):
+        # Masked-out pairs contribute empty slices: the fill never reads
+        # their bytes, so they are not copied.
+        keep = (
+            (lambda i: True) if job_mask is None
+            else (lambda i, m=np.asarray(job_mask): bool(m[i]))
+        )
+        sx_data, sx_off = native._concat_with_offsets(
+            [p.sx if keep(i) else b"" for i, p in enumerate(pairs)])
+        sy_data, sy_off = native._concat_with_offsets(
+            [p.sy if keep(i) else b"" for i, p in enumerate(pairs)])
+        _reject_pad_codes(sx_data[: sx_off[-1]], "sx")
+        _reject_pad_codes(sy_data[: sy_off[-1]], "sy")
+    with trace.span("pack.bucket"):
+        # Bucket by the x (row) level only; see pack_pairhmm_batches.
+        nxq = bucket_levels(sx_len)
+        if job_mask is not None:
+            nxq = np.where(np.asarray(job_mask), nxq, -1)
+            n = int(np.asarray(job_mask).sum())
+        levels = sorted(set(nxq.tolist()))
 
     out = []
-    for lvl in sorted(set(nxq.tolist())):
+    for lvl in levels:
         if lvl < 0:
             continue
-        idx = np.nonzero(nxq == lvl)[0]
-        # The ladder only groups; pad to the bucket's actual max (8-quantum):
-        # the 512bp+newline case packs at 520 rows, not 544.
-        nxs = bucket_rows(int(sx_len[idx].max()))
-        ndiags = (sx_len[idx] + sy_len[idx] + 1).astype(np.int64)
-        order = np.argsort(ndiags, kind="stable")
-        idx = idx[order]
-        nt = _quantize_tiles(len(idx))
-        slots = nt * LANES
-        # Stream anchor A: codes at [A-len, A), cell (p, j) reads row A-j.
-        # A >= ndiags + MAX_UNROLL keeps every sweep read in bounds.
-        anchor = _round_up(int(ndiags.max()) + MAX_UNROLL, STREAM_CHUNK)
-        nds = anchor + nxs
+        with trace.span("pack.bucket"):
+            idx = np.nonzero(nxq == lvl)[0]
+            # The ladder only groups; pad to the bucket's actual max
+            # (8-quantum): the 512bp+newline case packs at 520 rows, not
+            # 544.
+            nxs = bucket_rows(int(sx_len[idx].max()))
+            ndiags = (sx_len[idx] + sy_len[idx] + 1).astype(np.int64)
+            order = np.argsort(ndiags, kind="stable")
+            idx = idx[order]
+            nt = _quantize_tiles(len(idx))
+            slots = nt * LANES
+            # Stream anchor A: codes at [A-len, A), cell (p, j) reads row
+            # A-j. A >= ndiags + MAX_UNROLL keeps every sweep read in
+            # bounds.
+            anchor = _round_up(int(ndiags.max()) + MAX_UNROLL, STREAM_CHUNK)
+            nds = anchor + nxs
 
-        # Tile layout (NT, rows, 128) written directly by the native fill.
-        # PAD_STREAM is 0, so the big stream buffer comes straight off
-        # calloc pages.
-        sx = _full((nt, nxs, LANES), PAD_X, np.int8)
-        band = stream_band(nxs) if callable(stream_band) else stream_band
-        if band:
-            # The live band only: codes occupy [anchor - max_len, anchor);
-            # lo is SUB_Q-quantized and > 0 (anchor >= ndiags.max() +
-            # MAX_UNROLL > max_len + 32). The fill writes through a local
-            # anchor A' = anchor - lo with the band's own row count, so
-            # the band's bytes are the full buffer's.
-            band_lo = (anchor - int(sy_len[idx].max())) // SUB_Q * SUB_Q
-            if band_lo <= 0:  # a raise, not an assert: it must survive -O
-                raise AssertionError(
-                    f"stream-band invariant violated: band_lo={band_lo} "
-                    f"(anchor={anchor}, max_len={int(sy_len[idx].max())}): "
-                    "the anchor no longer lies past max_len + MAX_UNROLL")
-            fill_anchor = fill_rows = anchor - band_lo
-        else:
-            fill_anchor, fill_rows = anchor, nds
-        sy = _full((nt, fill_rows, LANES), PAD_STREAM, np.int8)
-        nx = np.ones(slots, dtype=np.int32)
-        ny = np.ones(slots, dtype=np.int32)
-        lib.gx_pack_sw_fill(
-            sx_data, sx_off, sy_data, sy_off,
-            np.ascontiguousarray(idx), len(idx), nxs, fill_rows,
-            fill_anchor, sx, sy, nx, ny,
-        )
-        if band:
-            sy = StreamBand(band=sy, lo=band_lo, nds=nds)
-        ndiag = (nx.astype(np.int64) + ny - 1).astype(np.int32)
-        ndiag[len(idx):] = 1
-        out.append(
-            SWPacked(
-                sx=sx,
-                sy=sy,
-                nx=nx,
-                ny=ny,
-                ndiag_tile=_tile_ndiags(ndiag),
-                perm=idx,
-                n_valid=len(idx),
+        with trace.span("pack.fill"):
+            # Tile layout (NT, rows, 128) written directly by the native
+            # fill. PAD_STREAM is 0, so the big stream buffer comes
+            # straight off calloc pages.
+            sx = _full((nt, nxs, LANES), PAD_X, np.int8)
+            band = stream_band(nxs) if callable(stream_band) else stream_band
+            if band:
+                # The live band only: codes occupy [anchor - max_len,
+                # anchor); lo is SUB_Q-quantized and > 0 (anchor >=
+                # ndiags.max() + MAX_UNROLL > max_len + 32). The fill
+                # writes through a local anchor A' = anchor - lo with the
+                # band's own row count, so the band's bytes are the full
+                # buffer's.
+                band_lo = (anchor - int(sy_len[idx].max())) // SUB_Q * SUB_Q
+                if band_lo <= 0:  # a raise, not an assert: it must survive -O
+                    raise AssertionError(
+                        f"stream-band invariant violated: band_lo={band_lo} "
+                        f"(anchor={anchor}, max_len={int(sy_len[idx].max())}"
+                        "): the anchor no longer lies past max_len + "
+                        "MAX_UNROLL")
+                fill_anchor = fill_rows = anchor - band_lo
+            else:
+                fill_anchor, fill_rows = anchor, nds
+            sy = _full((nt, fill_rows, LANES), PAD_STREAM, np.int8)
+            nx = np.ones(slots, dtype=np.int32)
+            ny = np.ones(slots, dtype=np.int32)
+            lib.gx_pack_sw_fill(
+                sx_data, sx_off, sy_data, sy_off,
+                np.ascontiguousarray(idx), len(idx), nxs, fill_rows,
+                fill_anchor, sx, sy, nx, ny,
             )
-        )
+            if band:
+                sy = StreamBand(band=sy, lo=band_lo, nds=nds)
+            ndiag = (nx.astype(np.int64) + ny - 1).astype(np.int32)
+            ndiag[len(idx):] = 1
+            out.append(
+                SWPacked(
+                    sx=sx,
+                    sy=sy,
+                    nx=nx,
+                    ny=ny,
+                    ndiag_tile=_tile_ndiags(ndiag),
+                    perm=idx,
+                    n_valid=len(idx),
+                )
+            )
     assert sum(b.n_valid for b in out) == n
     return out
 
 
+@trace.traced("unpack")
 def unpack_scores(buckets, results, n_total: int, dtype=np.int32) -> np.ndarray:
     """Scatter per-bucket kernel outputs back to original pair order.
     Kernel outputs are (NT, 128) per bucket; slot r = (r//128, r%128)."""
@@ -509,95 +520,108 @@ def pack_pairhmm_batches(
     if factored:
         byte_quals = True
     lib = native.load()
-    raw_reads = []  # (bases, bq, iq, dq, gq) raw bytes
-    haps = []  # u8 arrays
-    jobs_r = []
-    jobs_h = []
-    for b in batches:
-        r0 = len(raw_reads)
-        h0 = len(haps)
-        for rd in b.reads:
-            _reject_bad_read(rd, phred_offset)
-            raw_reads.append((rd.bases, rd.base_q, rd.ins_q, rd.del_q, rd.gcp_q))
-        for hp in b.haplotypes:
-            haps.append(np.frombuffer(hp, np.uint8))
-        for ri in range(len(b.reads)):
-            for hi in range(len(b.haplotypes)):
-                jobs_r.append(r0 + ri)
-                jobs_h.append(h0 + hi)
+    with trace.span("pack.flatten"):
+        raw_reads = []  # (bases, bq, iq, dq, gq) raw bytes
+        haps = []  # u8 arrays
+        jobs_r = []
+        jobs_h = []
+        for b in batches:
+            r0 = len(raw_reads)
+            h0 = len(haps)
+            for rd in b.reads:
+                _reject_bad_read(rd, phred_offset)
+                raw_reads.append((rd.bases, rd.base_q, rd.ins_q, rd.del_q,
+                                  rd.gcp_q))
+            for hp in b.haplotypes:
+                haps.append(np.frombuffer(hp, np.uint8))
+            for ri in range(len(b.reads)):
+                for hi in range(len(b.haplotypes)):
+                    jobs_r.append(r0 + ri)
+                    jobs_h.append(h0 + hi)
 
-    jobs_r = np.array(jobs_r, dtype=np.int64)
-    jobs_h = np.array(jobs_h, dtype=np.int64)
-    n = len(jobs_r)
-    rlen = np.array([len(r[0]) for r in raw_reads], dtype=np.int64)[jobs_r]
-    hlen = np.array([len(h) for h in haps], dtype=np.int64)[jobs_h]
-    rd_data, rd_off = native._concat_with_offsets([r[0] for r in raw_reads])
-    _reject_pad_codes(rd_data[: rd_off[-1]], "read bases")
-    bq_data, _ = native._concat_with_offsets([r[1] for r in raw_reads])
-    iq_data, _ = native._concat_with_offsets([r[2] for r in raw_reads])
-    dq_data, _ = native._concat_with_offsets([r[3] for r in raw_reads])
-    gq_data, _ = native._concat_with_offsets([r[4] for r in raw_reads])
-    hp_data, hp_off = native._concat_with_offsets(haps)
-    _reject_pad_codes(hp_data[: hp_off[-1]], "haplotype")
-    # Bucket by the read (row) level only: the haplotype length only
-    # sizes the per-bucket stream buffer and each tile's sweep bound
-    # (tiles are sorted by diagonal count), so splitting on it would just
-    # multiply kernel launches.
-    nxq = bucket_levels(rlen)
-    if job_mask is not None:
-        nxq = np.where(np.asarray(job_mask), nxq, -1)
+        jobs_r = np.array(jobs_r, dtype=np.int64)
+        jobs_h = np.array(jobs_h, dtype=np.int64)
+        n = len(jobs_r)
+        rlen = np.array([len(r[0]) for r in raw_reads],
+                        dtype=np.int64)[jobs_r]
+        hlen = np.array([len(h) for h in haps], dtype=np.int64)[jobs_h]
+    with trace.span("pack.concat"):
+        rd_data, rd_off = native._concat_with_offsets(
+            [r[0] for r in raw_reads])
+        _reject_pad_codes(rd_data[: rd_off[-1]], "read bases")
+        bq_data, _ = native._concat_with_offsets([r[1] for r in raw_reads])
+        iq_data, _ = native._concat_with_offsets([r[2] for r in raw_reads])
+        dq_data, _ = native._concat_with_offsets([r[3] for r in raw_reads])
+        gq_data, _ = native._concat_with_offsets([r[4] for r in raw_reads])
+        hp_data, hp_off = native._concat_with_offsets(haps)
+        _reject_pad_codes(hp_data[: hp_off[-1]], "haplotype")
+    with trace.span("pack.bucket"):
+        # Bucket by the read (row) level only: the haplotype length only
+        # sizes the per-bucket stream buffer and each tile's sweep bound
+        # (tiles are sorted by diagonal count), so splitting on it would
+        # just multiply kernel launches.
+        nxq = bucket_levels(rlen)
+        if job_mask is not None:
+            nxq = np.where(np.asarray(job_mask), nxq, -1)
+        levels = sorted(set(nxq.tolist()))
 
     out = []
-    for lvl in sorted(set(nxq.tolist())):
+    for lvl in levels:
         if lvl < 0:
             continue
-        idx = np.nonzero(nxq == lvl)[0]
-        nxs = bucket_rows(int(rlen[idx].max()))  # see pack_sw_pairs
-        order = np.argsort(rlen[idx] + hlen[idx], kind="stable")
-        idx = idx[order]
-        nt = _quantize_tiles(len(idx))
-        slots = nt * LANES
-        # Stream anchor: see pack_sw_pairs.
-        anchor = _round_up(
-            int((rlen[idx] + hlen[idx] + 1).max()) + MAX_UNROLL, STREAM_CHUNK
-        )
-        nds = anchor + nxs
+        with trace.span("pack.bucket"):
+            idx = np.nonzero(nxq == lvl)[0]
+            nxs = bucket_rows(int(rlen[idx].max()))  # see pack_sw_pairs
+            order = np.argsort(rlen[idx] + hlen[idx], kind="stable")
+            idx = idx[order]
+            nt = _quantize_tiles(len(idx))
+            slots = nt * LANES
+            # Stream anchor: see pack_sw_pairs.
+            anchor = _round_up(
+                int((rlen[idx] + hlen[idx] + 1).max()) + MAX_UNROLL,
+                STREAM_CHUNK)
+            nds = anchor + nxs
+            if factored:
+                # Unique-row layout + gather indices (dataclass
+                # docstring): NRu/NHu rows of bytes, one extra all-pad row
+                # at the end for padded lanes. Row-major per read; the
+                # device gather transposes back to the (NT, rows, 128) job
+                # tiles.
+                u_r, ridx_l = np.unique(jobs_r[idx], return_inverse=True)
+                u_h, hidx_l = np.unique(jobs_h[idx], return_inverse=True)
 
         if factored:
-            # Unique-row layout + gather indices (dataclass docstring):
-            # NRu/NHu rows of bytes, one extra all-pad row at the end
-            # for padded lanes. Row-major per read; the device gather
-            # transposes back to the (NT, rows, 128) job tiles.
-            u_r, ridx_l = np.unique(jobs_r[idx], return_inverse=True)
-            u_h, hidx_l = np.unique(jobs_h[idx], return_inverse=True)
-            nru, nhu = len(u_r), len(u_h)
-            rchar_u = _full((nru + 1, nxs), PAD_X, np.int8)
-            qb_u = np.zeros((nru + 1, 4, nxs), dtype=np.int8)
-            hap_u = _full((nhu + 1, nds), PAD_STREAM, np.int8)
-            for k, ri in enumerate(u_r):
-                bases, bq_r, iq_r, dq_r, gq_r = raw_reads[ri]
-                bases = np.frombuffer(bases, np.uint8)
-                L = len(bases)
-                rchar_u[k, 1 : L + 1] = bases
-                for p, q_raw in enumerate((bq_r, iq_r, dq_r, gq_r)):
-                    qb_u[k, p, 1 : L + 1] = np.frombuffer(q_raw, np.uint8)
-            for k, hi in enumerate(u_h):
-                h = haps[hi]
-                hap_u[k, anchor - len(h) : anchor] = h[::-1]
-            ridx = np.full(slots, nru, dtype=np.int32)
-            hidx = np.full(slots, nhu, dtype=np.int32)
-            ridx[: len(idx)] = ridx_l
-            hidx[: len(idx)] = hidx_l
-            rl = np.zeros(slots, dtype=np.int32)
-            hl = np.ones(slots, dtype=np.int32)
-            rl[: len(idx)] = rlen[idx]
-            hl[: len(idx)] = hlen[idx]
-            ndiag = (rl.astype(np.int64) + hl + 1).astype(np.int32)
-            ndiag[len(idx):] = 1
-            bm = bitmask_codes and _bitmask_translate(rchar_u, hap_u)
-            meta = np.zeros((nt, 8, LANES), dtype=np.int32)
-            meta[:, 0, :] = rl.reshape(nt, LANES)
-            meta[:, 1, :] = hl.reshape(nt, LANES)
+            with trace.span("pack.fill"):
+                nru, nhu = len(u_r), len(u_h)
+                rchar_u = _full((nru + 1, nxs), PAD_X, np.int8)
+                qb_u = np.zeros((nru + 1, 4, nxs), dtype=np.int8)
+                hap_u = _full((nhu + 1, nds), PAD_STREAM, np.int8)
+                for k, ri in enumerate(u_r):
+                    bases, bq_r, iq_r, dq_r, gq_r = raw_reads[ri]
+                    bases = np.frombuffer(bases, np.uint8)
+                    L = len(bases)
+                    rchar_u[k, 1 : L + 1] = bases
+                    for p, q_raw in enumerate((bq_r, iq_r, dq_r, gq_r)):
+                        qb_u[k, p, 1 : L + 1] = np.frombuffer(q_raw,
+                                                              np.uint8)
+                for k, hi in enumerate(u_h):
+                    h = haps[hi]
+                    hap_u[k, anchor - len(h) : anchor] = h[::-1]
+                ridx = np.full(slots, nru, dtype=np.int32)
+                hidx = np.full(slots, nhu, dtype=np.int32)
+                ridx[: len(idx)] = ridx_l
+                hidx[: len(idx)] = hidx_l
+                rl = np.zeros(slots, dtype=np.int32)
+                hl = np.ones(slots, dtype=np.int32)
+                rl[: len(idx)] = rlen[idx]
+                hl[: len(idx)] = hlen[idx]
+                ndiag = (rl.astype(np.int64) + hl + 1).astype(np.int32)
+                ndiag[len(idx):] = 1
+                meta = np.zeros((nt, 8, LANES), dtype=np.int32)
+                meta[:, 0, :] = rl.reshape(nt, LANES)
+                meta[:, 1, :] = hl.reshape(nt, LANES)
+            with trace.span("pack.translate"):
+                bm = bitmask_codes and _bitmask_translate(rchar_u, hap_u)
             out.append(
                 PairHMMPacked(
                     rchar=None, qr=None, mmv=None, gapm=None, qi=None,
@@ -611,31 +635,35 @@ def pack_pairhmm_batches(
             )
             continue
 
-        # Tile layout written directly (see pack_sw_pairs).
-        rchar = _full((nt, nxs, LANES), PAD_X, np.int8)
-        hap = _full((nt, nds, LANES), PAD_STREAM, np.int8)
-        rl = np.zeros(slots, dtype=np.int32)
-        hl = np.ones(slots, dtype=np.int32)
-        fill_args = (rd_data, rd_off, bq_data, iq_data, dq_data, gq_data,
-                     hp_data, hp_off, jobs_r, jobs_h,
-                     np.ascontiguousarray(idx), len(idx), nxs, nds, anchor)
-        if byte_quals:
-            qb = np.zeros((nt, 4, nxs, LANES), dtype=np.int8)
-            qr = mmv = gapm = qi = qd = qg = None
-            lib.gx_pack_phmm_fill_bytes(*fill_args, rchar, qb, hap, rl, hl)
-        else:
-            qb = None
-            qr, mmv, gapm, qi, qd, qg = (
-                np.zeros((nt, nxs, LANES), dtype=np.float32)
-                for _ in range(6))
-            lib.gx_pack_phmm_fill(*fill_args, phred_offset, rchar, qr, mmv,
-                                  gapm, qi, qd, qg, hap, rl, hl)
-        ndiag = (rl.astype(np.int64) + hl + 1).astype(np.int32)
-        ndiag[len(idx):] = 1
-        bm = bitmask_codes and _bitmask_translate(rchar, hap)
-        meta = np.zeros((nt, 8, LANES), dtype=np.int32)
-        meta[:, 0, :] = rl.reshape(nt, LANES)
-        meta[:, 1, :] = hl.reshape(nt, LANES)
+        with trace.span("pack.fill"):
+            # Tile layout written directly (see pack_sw_pairs).
+            rchar = _full((nt, nxs, LANES), PAD_X, np.int8)
+            hap = _full((nt, nds, LANES), PAD_STREAM, np.int8)
+            rl = np.zeros(slots, dtype=np.int32)
+            hl = np.ones(slots, dtype=np.int32)
+            fill_args = (rd_data, rd_off, bq_data, iq_data, dq_data,
+                         gq_data, hp_data, hp_off, jobs_r, jobs_h,
+                         np.ascontiguousarray(idx), len(idx), nxs, nds,
+                         anchor)
+            if byte_quals:
+                qb = np.zeros((nt, 4, nxs, LANES), dtype=np.int8)
+                qr = mmv = gapm = qi = qd = qg = None
+                lib.gx_pack_phmm_fill_bytes(*fill_args, rchar, qb, hap, rl,
+                                            hl)
+            else:
+                qb = None
+                qr, mmv, gapm, qi, qd, qg = (
+                    np.zeros((nt, nxs, LANES), dtype=np.float32)
+                    for _ in range(6))
+                lib.gx_pack_phmm_fill(*fill_args, phred_offset, rchar, qr,
+                                      mmv, gapm, qi, qd, qg, hap, rl, hl)
+            ndiag = (rl.astype(np.int64) + hl + 1).astype(np.int32)
+            ndiag[len(idx):] = 1
+            meta = np.zeros((nt, 8, LANES), dtype=np.int32)
+            meta[:, 0, :] = rl.reshape(nt, LANES)
+            meta[:, 1, :] = hl.reshape(nt, LANES)
+        with trace.span("pack.translate"):
+            bm = bitmask_codes and _bitmask_translate(rchar, hap)
         out.append(
             PairHMMPacked(
                 rchar=rchar,

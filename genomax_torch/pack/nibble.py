@@ -33,6 +33,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from genomax_torch import trace
 from genomax_torch.layout import PAD_STREAM, PAD_X
 from genomax_torch.pack.bucketing import StreamBand
 
@@ -107,19 +108,20 @@ def ship_stream(ship, sy) -> torch.Tensor:
         return ship(sy)
     band = ship(sy.band)
     nt, rows, lanes = band.shape
-    full = torch.zeros((nt, sy.nds, lanes), dtype=band.dtype,
-                       device=band.device)
-    full[:, sy.lo: sy.lo + rows] = band
+    with trace.span("expand"):
+        full = torch.zeros((nt, sy.nds, lanes), dtype=band.dtype,
+                           device=band.device)
+        full[:, sy.lo: sy.lo + rows] = band
     return full
 
 
 def make_shipper(put, *, lut=None):
     """The nibble shipper of SW code tiles. ``put`` places a numpy array on
-    the device (``lambda a: torch.from_numpy(a).to(device)``). With ``lut``
-    (the remap table of ``build_code_lut``) it returns a function of a (NT,
-    R, 128) array that nibble-packs it on the host, places the half-size
-    buffer and expands it on the device, giving the remapped codes; with
-    None it returns ``put``: the tiles travel raw."""
+    the device (``lambda a: trace.to_device(device, a)[0]``).
+    With ``lut`` (the remap table of ``build_code_lut``) it returns a
+    function of a (NT, R, 128) array that nibble-packs it on the host,
+    places the half-size buffer and expands it on the device, giving the
+    remapped codes; with None it returns ``put``: the tiles travel raw."""
     if lut is not None:
         return lambda a: expand_nibbles(put(nibble_pack(a, lut)), a.shape[1])
     return put

@@ -9,18 +9,16 @@ import torch
 
 from genomax_torch.kernels.expand import expand_factored
 from genomax_torch.pack.bucketing import PairHMMPacked, SWPacked
-from genomax_torch.pack.nibble import ship_stream
-
-
-def _put(device):
-    return lambda a: torch.from_numpy(a).to(device)
+from genomax_torch.pack.nibble import ship_stream, stream_bytes
+from genomax_torch.trace import to_device
 
 
 def sw_bucket_to_torch(b: SWPacked, device: torch.device):
     """(sx (NT,NXs,128) int8, sy (NT,NDs,128) int8, ndiag_tile (NT,) int32)
     on ``device``."""
-    put = _put(device)
-    return put(b.sx), ship_stream(put, b.sy), put(b.ndiag_tile)
+    # a band is copied with the rest, then rebuilt into the full buffer
+    sx, sy, nd = to_device(device, b.sx, stream_bytes(b.sy), b.ndiag_tile)
+    return sx, ship_stream(lambda _: sy, b.sy), nd
 
 
 def sw_strips_to_torch(prep, b: SWPacked, device: torch.device):
@@ -29,22 +27,22 @@ def sw_strips_to_torch(prep, b: SWPacked, device: torch.device):
     bucket ``b`` (``kernels.sw_strips.prep_bucket_strips``) and the
     bucket's per-slot lengths."""
     (sx, sy, _, _), _ = prep
-    put = _put(device)
-    return put(sx), ship_stream(put, sy), put(b.nx), put(b.ny)
+    tx, ty, nx, ny = to_device(device, sx, stream_bytes(sy), b.nx, b.ny)
+    return tx, ship_stream(lambda _: ty, sy), nx, ny
 
 
 def sw_rotor_to_torch(prep, device: torch.device):
     """(xrev (NT_r,NB,128) int8, ybuf (NT_r,NY,128) int8) on ``device``: the
     arrays of a rotor prep (``kernels.sw_rotor.prep_bucket_rotor``)."""
     (xrev, ybuf), _ = prep
-    return tuple(torch.from_numpy(a).to(device) for a in (xrev, ybuf))
+    return to_device(device, xrev, ybuf)
 
 
 def sw_stacked_to_torch(prep, device: torch.device):
     """(sx (NT',S*h,128) int8, sy (NT',a0+S*h,128) int8, ndt (NT',) int32)
     on ``device``: the arrays of a stacked prep
     (``kernels.sw_stacked.prep_bucket_stacked``)."""
-    return tuple(torch.from_numpy(a).to(device) for a in prep[0])
+    return to_device(device, *prep[0])
 
 
 def phmm_bucket_to_torch(b: PairHMMPacked, device: torch.device,
@@ -59,10 +57,6 @@ def phmm_bucket_to_torch(b: PairHMMPacked, device: torch.device,
     if b.rchar_u is None:
         raise ValueError("phmm_bucket_to_torch takes a factored pack "
                          "(pack_pairhmm_batches(..., factored=True))")
-
-    def dev(a):
-        return torch.from_numpy(a).to(device)
-
-    tiles = expand_factored(dev(b.rchar_u), dev(b.qb_u), dev(b.hap_u),
-                            dev(b.ridx), dev(b.hidx), phred_offset)
-    return tiles + (dev(b.meta), dev(b.ndiag_tile))
+    *factors, meta, nd = to_device(device, b.rchar_u, b.qb_u, b.hap_u,
+                                   b.ridx, b.hidx, b.meta, b.ndiag_tile)
+    return expand_factored(*factors, phred_offset) + (meta, nd)

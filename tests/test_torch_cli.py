@@ -290,6 +290,25 @@ def test_cli_profile_writes_trace(tmp_path, capsys, golden_dir):
     assert trace["traceEvents"]
 
 
+def test_cli_profile_trace_holds_the_program_spans(tmp_path, capsys,
+                                                  golden_dir):
+    """The trace --profile writes holds the engine's own ranges: the call,
+    its pack and its execute stage, nested in the call."""
+    d = tmp_path / "trace"
+    assert main(["pairhmm", os.path.join(golden_dir, "test.in"),
+                 str(tmp_path / "out.txt"), "--device", "cpu", "--profile",
+                 str(d)]) == 0
+    (found,) = [os.path.join(r, f) for r, _, fs in os.walk(d) for f in fs]
+    spans = {e["name"]: e for e in json.loads(open(found).read())[
+        "traceEvents"] if e.get("cat") == "user_annotation"}
+    assert {"call", "plan", "pack", "execute", "unpack"} <= set(spans)
+    call = spans["call"]
+    for name in ("pack", "execute"):
+        e = spans[name]
+        assert call["ts"] <= e["ts"] and (e["ts"] + e["dur"]
+                                         <= call["ts"] + call["dur"])
+
+
 def test_cli_profile_refuses_what_it_cannot_trace(monkeypatch, capsys,
                                                   golden_dir, tmp_path):
     """--profile on the card with a profiler that cannot trace CUDA fails

@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from genomax_torch import native
+from genomax_torch import native, trace
 from genomax_torch.config import EngineConfig, PairHMMConfig, SWConfig
 from genomax_torch.io.formats import SWPair
 from genomax_torch.io.generator import generate_pairhmm_batch
@@ -82,7 +82,7 @@ def _ragged_pairs(seed, n=300, hi=700):
 def test_kernel_equals_plain_version(device, cfg):
     pairs = _ragged_pairs(3)
     buckets = pack_sw_pairs(pairs)
-    before = sw.launches
+    before = trace.launched("tile")
     results = []
     for b in buckets:
         sx, sy, nd = sw_bucket_to_torch(b, device)
@@ -92,7 +92,7 @@ def test_kernel_equals_plain_version(device, cfg):
         want = sw_forward_tiles(sx, sy, nd, cfg)
         assert torch.equal(got, want)
         results.append(got.cpu().numpy())
-    assert sw.launches - before == len(buckets)
+    assert trace.launched("tile") - before == len(buckets)
     np.testing.assert_array_equal(unpack_scores(buckets, results, len(pairs)),
                                   native.sw_scores_native(pairs, cfg))
 
@@ -149,14 +149,14 @@ def test_sw_tile_kernel_every_r_equals_plain_version(device, cfg):
     want = [sw_forward_tiles(*sw_bucket_to_torch(b, device), cfg)
             for b in buckets]
     for r in sw.ROWS_PER_THREAD:
-        before = sw.launches
+        before = trace.launched("tile")
         for b, w in zip(buckets, want):
             got = sw.sw_forward(*sw_bucket_to_torch(b, device), cfg,
                                 _rows_per_thread=r)
             torch.cuda.synchronize()
             assert got.dtype == torch.int32
             assert torch.equal(got, w), (r, b.sx.shape)
-        assert sw.launches - before == len(buckets)
+        assert trace.launched("tile") - before == len(buckets)
     scores = unpack_scores(buckets, [w.cpu().numpy() for w in want],
                            len(pairs))
     np.testing.assert_array_equal(scores, native.sw_scores_native(pairs, cfg))
@@ -224,12 +224,12 @@ def test_sw_tile_and_strips_past_4096_rows(device, level):
     rs = [r for r in sw.ROWS_PER_THREAD
           if height - 1 <= sw.MAX_WARPS * sw.WARP * r]
     assert 8 in rs and sw.tile_geometry(height).warps > 16
-    before = sw.launches
+    before = trace.launched("tile")
     for r in rs:
         got = sw.sw_forward(*t, _rows_per_thread=r)
         torch.cuda.synchronize()
         assert torch.equal(got, want), r
-    assert sw.launches == before + len(rs)
+    assert trace.launched("tile") == before + len(rs)
     st, kw = _strips_inputs(b, device, None)
     got = sw_strips.sw_forward_strips(*st, **kw)
     torch.cuda.synchronize()
@@ -253,11 +253,11 @@ def test_sw_strips_kernel_every_r_equals_plain_version(device, cfg, strip_w):
         want = sw_forward_tiles(*sw_bucket_to_torch(b, device), cfg)
         t, st = _strips_inputs(b, device, strip_w)
         for r in sw_strips.ROWS_PER_THREAD:
-            before = sw_strips.launches
+            before = trace.launched("strips")
             got = sw_strips.sw_forward_strips(*t, cfg=cfg, **st,
                                               _rows_per_thread=r)
             torch.cuda.synchronize()
-            assert sw_strips.launches - before == 1
+            assert trace.launched("strips") - before == 1
             assert torch.equal(got, want), (r, b.sx.shape, st)
 
 
@@ -282,11 +282,11 @@ def test_sw_long_kernel_equals_plain_version(device, cfg, strip_w):
     assert int(want[len(pairs) - 4]) == 900 * cfg.match  # the identical pair
     # every R the build makes
     for r in sw_long.ROWS_PER_THREAD:
-        before = sw_long.launches
+        before = trace.launched("sw_long")
         got = sw_long.sw_forward_long(sx, sy, nx, ny, **kw,
                                       _rows_per_thread=r)
         torch.cuda.synchronize()
-        assert sw_long.launches - before == 1
+        assert trace.launched("sw_long") - before == 1
         assert got.is_cuda and got.dtype == torch.int32
         assert got.shape == (128,)
         assert torch.equal(got, want), r
@@ -318,9 +318,9 @@ def test_sw_long_kernel_seams_at_every_r(device, cfg):
 def test_sw_long_scores_tiles_in_input_order(device):
     pairs = long_sw_pairs(8, n_pairs=130, x_lens=(200, 700), y_max=800,
                           seam=256)
-    before = sw_long.launches
+    before = trace.launched("sw_long")
     got = sw_long.sw_scores_long(pairs, device=device, strip_w=256)
-    assert sw_long.launches - before == 2
+    assert trace.launched("sw_long") - before == 2
     np.testing.assert_array_equal(got, native.sw_scores_native(pairs))
 
 
@@ -361,7 +361,7 @@ def test_sw_strips_kernel_equals_plain_version(device, cfg, strip_w):
     buckets = pack_sw_pairs(pairs)
     big = [b for b in buckets if b.sx.shape[1] >= 128]
     assert len(big) >= 3
-    before = sw_strips.launches
+    before = trace.launched("strips")
     results = []
     for b in buckets:
         tiles = sw_bucket_to_torch(b, device)
@@ -378,7 +378,7 @@ def test_sw_strips_kernel_equals_plain_version(device, cfg, strip_w):
             assert torch.equal(got, sw_strips_forward_tiles(*t, cfg=cfg,
                                                             **st))
         results.append(want.cpu().numpy())
-    assert sw_strips.launches - before == len(big)
+    assert trace.launched("strips") - before == len(big)
     np.testing.assert_array_equal(unpack_scores(buckets, results, len(pairs)),
                                   native.sw_scores_native(pairs, cfg))
 
@@ -408,15 +408,16 @@ def test_engine_strips_on_equals_off(device):
     kernel and the rest through the lane-tile kernel."""
     pairs = strips_sw_pairs(5, n_pairs=400, x_lens=(60, 900))
     n_big = sum(b.sx.shape[1] >= 128 for b in pack_sw_pairs(pairs))
-    sw.launches = sw_strips.launches = 0
+    base = trace.counts()
     on = Engine(EngineConfig(sw_strips=True, strips_min_nxs=128,
                              sw_rotor=False), device=device).sw_scores(pairs)
-    assert (sw.launches, sw_strips.launches) == (
+    assert (trace.launched("tile", base), trace.launched("strips", base)) == (
         len(pack_sw_pairs(pairs)) - n_big, n_big)
-    sw.launches = sw_strips.launches = 0
+    base = trace.counts()
     off = Engine(EngineConfig(sw_strips=False, sw_rotor=False),
                  device=device).sw_scores(pairs)
-    assert sw_strips.launches == 0 and sw.launches == len(pack_sw_pairs(pairs))
+    assert trace.launched("strips", base) == 0 and trace.launched("tile", base) == len(
+        pack_sw_pairs(pairs))
     np.testing.assert_array_equal(on, off)
     np.testing.assert_array_equal(on, native.sw_scores_native(pairs))
 
@@ -439,7 +440,7 @@ def test_sw_rotor_kernel_equals_plain_version(device, cfg, length,
     wrappers."""
     pairs = rotor_sw_pairs(3, length, n_pairs=400)
     buckets = pack_sw_pairs(pairs)
-    before = sw_rotor.launches
+    before = trace.launched("rotor")
     results = []
     for b in buckets:
         prep = _rotor_prep(b, max_slots)
@@ -457,7 +458,7 @@ def test_sw_rotor_kernel_equals_plain_version(device, cfg, length,
         want = sw_forward_tiles(*sw_bucket_to_torch(b, device), cfg)
         assert torch.equal(got[:n], want[:n])
         results.append(got.cpu().numpy())
-    assert sw_rotor.launches - before == 2 * len(buckets)
+    assert trace.launched("rotor") - before == 2 * len(buckets)
     np.testing.assert_array_equal(unpack_scores(buckets, results, len(pairs)),
                                   native.sw_scores_native(pairs, cfg))
 
@@ -491,7 +492,7 @@ def test_sw_rotor_kernel_every_geometry_equals_plain_version(device, cfg,
     geometries, every all-mismatch pair 0."""
     pairs = rotor_sw_pairs(9, length, n_pairs=300)
     n_runs = 0
-    before = sw_rotor.launches
+    before = trace.launched("rotor")
     for b in pack_sw_pairs(pairs):
         prep = _rotor_prep(b, 3)
         x, y = sw_rotor_to_torch(prep, device)
@@ -510,7 +511,7 @@ def test_sw_rotor_kernel_every_geometry_equals_plain_version(device, cfg,
             assert torch.equal(got, plain.view(-1, p8, 128)[:, :p].reshape(
                 -1, 128)), (geo, st)
             n_runs += 2
-    assert n_runs and sw_rotor.launches - before == n_runs
+    assert n_runs and trace.launched("rotor") - before == n_runs
     if length in (63, 71):
         (b,) = pack_sw_pairs(rotor_leak_pairs(5, length))
         prep = _rotor_prep(b, 2)
@@ -533,17 +534,17 @@ def test_sw_rotor_out_of_contract(device):
     prep = _rotor_prep(b, 2)
     x, y = sw_rotor_to_torch(prep, device)
     st = prep[1]
-    before = sw_rotor.launches
+    before = trace.launched("rotor")
     with pytest.raises(ValueError, match="period"):
         sw_rotor.sw_forward_rotor(x, y, **{**st, "period": 168,
                                           "unroll": 24})
     with pytest.raises(ValueError, match="unroll"):
         sw_rotor.sw_forward_rotor(x, y, **{**st, "unroll": 24})
-    assert sw_rotor.launches == before
+    assert trace.launched("rotor") == before
     out = sw_rotor._launch(x, y, st["period"], st["n_slots"], 8, 8,
                            SWConfig(), "test")
     torch.cuda.synchronize()
-    assert sw_rotor.launches == before + 1
+    assert trace.launched("rotor") == before + 1
     assert bool((out[:, :st["n_slots"]] == -1).all())
     assert not bool(out[:, st["n_slots"]:].any())
 
@@ -563,14 +564,15 @@ def test_engine_rotor_on_equals_off(device):
                   and sw_rotor.maybe_prep_rotor(cfg_on, b) is not None
                   for b in buckets)
     assert n_rotor >= 2 and n_strips >= 1
-    sw.launches = sw_strips.launches = sw_rotor.launches = 0
+    base = trace.counts()
     on = Engine(cfg_on, device=device).sw_scores(pairs)
-    assert (sw_rotor.launches, sw_strips.launches, sw.launches) == (
+    assert (trace.launched("rotor", base), trace.launched("strips", base),
+            trace.launched("tile", base)) == (
         n_rotor, n_strips, len(buckets) - n_rotor - n_strips)
-    sw_rotor.launches = 0
+    base = trace.counts()
     off = Engine(EngineConfig(sw_rotor=False, strips_min_nxs=128),
                  device=device).sw_scores(pairs)
-    assert sw_rotor.launches == 0
+    assert trace.launched("rotor", base) == 0
     np.testing.assert_array_equal(on, off)
     np.testing.assert_array_equal(on, native.sw_scores_native(pairs))
 
@@ -594,7 +596,7 @@ def test_sw_stacked_kernel_equals_plain_version(device, cfg, max_x):
     nt, h = b.sx.shape[:2]
     tiles = sw_forward_tiles(*sw_bucket_to_torch(b, device), cfg)
     want = native.sw_scores_native(pairs, cfg)
-    before = sw_stacked.launches
+    before = trace.launched("stacked")
     stacks = (2, 3, 4, 1024 // h)
     for stack in stacks:
         t, st = _stacked(b, stack, device)
@@ -606,7 +608,7 @@ def test_sw_stacked_kernel_equals_plain_version(device, cfg, max_x):
         assert not bool(got[nt:].any())
         np.testing.assert_array_equal(
             unpack_scores([b], [got.cpu().numpy()], len(pairs)), want)
-    assert sw_stacked.launches - before == len(stacks)
+    assert trace.launched("stacked") - before == len(stacks)
 
 
 @pytest.mark.parametrize("cfg", CFGS, ids=["default", "m2x3o5e2", "m3x1o0e2"])
@@ -630,7 +632,7 @@ def test_sw_stacked_kernel_every_r_equals_plain_version(device, cfg, max_x):
     scores 0."""
     (b,) = pack_sw_pairs(stacked_sw_pairs(max_x, max_x))
     h = b.sx.shape[1]
-    n_runs, before = 0, sw_stacked.launches
+    n_runs, before = 0, trace.launched("stacked")
     for stack in sorted({2, 3, 4, min(8, 1024 // h), 1024 // h}):
         t, st = _stacked(b, stack, device)
         want = sw_stacked_forward_tiles(*t, cfg=cfg, **st)
@@ -642,7 +644,7 @@ def test_sw_stacked_kernel_every_r_equals_plain_version(device, cfg, max_x):
             torch.cuda.synchronize()
             assert torch.equal(got, want), (stack, h, r)
             n_runs += 1
-    assert sw_stacked.launches - before == n_runs
+    assert trace.launched("stacked") - before == n_runs
     (b,) = pack_sw_pairs(stacked_ghost_pairs(47))
     t, st = _stacked(b, 2, device)
     for r in sw_stacked.ROWS_PER_THREAD:
@@ -658,19 +660,19 @@ def test_sw_stacked_out_of_contract(device):
     writes -1 to their slots."""
     (b,) = pack_sw_pairs(stacked_sw_pairs(7, 30))
     (x, y, nd), st = _stacked(b, 2, device)
-    before = sw_stacked.launches
+    before = trace.launched("stacked")
     with pytest.raises(ValueError, match="1024"):
         sw_stacked.sw_forward_stacked(x.repeat(1, 17, 1), y, nd, stack=34,
                                       h=32)
     with pytest.raises(ValueError, match="stack"):
         sw_stacked.sw_forward_stacked(x, y, nd, stack=1, h=64)
-    assert sw_stacked.launches == before
+    assert trace.launched("stacked") == before
     h = st["h"]
     short = y[:, : 3 * h].contiguous()  # anchor h < every tile's diagonals
     assert int(nd.min()) > h
     out = sw_stacked._launch(x, short, nd, 2, h, SWConfig())
     torch.cuda.synchronize()
-    assert sw_stacked.launches == before + 1
+    assert trace.launched("stacked") == before + 1
     assert bool((out == -1).all())
 
 
@@ -687,9 +689,10 @@ def test_engine_stacked_route(device, stack):
                     and sw_stacked.maybe_prep_stacked(cfg, b) is not None
                     for b in buckets)
     assert n_stacked == 2
-    sw_stacked.launches = sw_rotor.launches = 0
+    base = trace.counts()
     on = Engine(cfg, device=device).sw_scores(pairs)
-    assert (sw_stacked.launches, sw_rotor.launches) == (n_stacked, 0)
+    assert (trace.launched("stacked", base), trace.launched("rotor", base)) == (
+        n_stacked, 0)
     off = Engine(device=device).sw_scores(pairs)
     np.testing.assert_array_equal(on, off)
     np.testing.assert_array_equal(on, native.sw_scores_native(pairs))
@@ -719,7 +722,7 @@ def test_sw_conveyor_kernel_equals_plain_version(device, cfg, max_slots):
     geometry and at every (G, R, W) the build makes that holds the window
     (the block form among them) == plain conveyor sweep on every row (rows
     P..P8-1 are 0) == native."""
-    before, runs, past_lanes = sw_conveyor.launches, 0, False
+    before, runs, past_lanes = trace.launched("conveyor"), 0, False
     for i, kind in enumerate(CONVEYOR_KINDS):
         pairs = conveyor_sw_pairs(40 + i, kind)
         b, t, st = _conveyor(pairs, max_slots, device)
@@ -740,7 +743,7 @@ def test_sw_conveyor_kernel_equals_plain_version(device, cfg, max_slots):
             sw_conveyor.unpack_conveyor(b, got.cpu().numpy(), len(pairs)),
             native.sw_scores_native(pairs, cfg))
     assert past_lanes
-    assert sw_conveyor.launches - before == runs
+    assert trace.launched("conveyor") - before == runs
 
 
 @pytest.mark.parametrize("x_len", [45, 20])
@@ -795,17 +798,17 @@ def test_sw_conveyor_out_of_contract(device):
     below the window; a launch whose stream is too short for the sweep
     writes -1 to every slot, 0 to the rows past P, and nothing else."""
     b, (s, y), st = _conveyor(conveyor_leak_pairs(34, 45, 45), 4, device)
-    before = sw_conveyor.launches
+    before = trace.launched("conveyor")
     with pytest.raises(ValueError, match="nxs"):
         sw_conveyor.sw_forward_conveyor(s, y, **{**st, "nxs": 1032,
                                                  "period": 1032})
     with pytest.raises(ValueError, match="period"):
         sw_conveyor.sw_forward_conveyor(s, y, **{**st, "period": 40})
-    assert sw_conveyor.launches == before
+    assert trace.launched("conveyor") == before
     out = sw_conveyor._launch(s, y, st["nxs"], st["n_slots"], st["period"],
                               10, SWConfig())
     torch.cuda.synchronize()
-    assert sw_conveyor.launches == before + 1
+    assert trace.launched("conveyor") == before + 1
     blocks = out.view(-1, 8, 128)
     assert bool((blocks[:, :st["n_slots"]] == -1).all())
     assert not bool(blocks[:, st["n_slots"]:].any())
@@ -815,9 +818,9 @@ def test_sw_scores_conveyor_on_the_card(device):
     """The library entry on the card: one launch, scores == the native
     model, == the entry on the CPU."""
     pairs = conveyor_sw_pairs(44, "ragged", n_pairs=700)
-    before = sw_conveyor.launches
+    before = trace.launched("conveyor")
     got = sw_conveyor.sw_scores_conveyor(pairs, max_slots=2, device=device)
-    assert sw_conveyor.launches == before + 1
+    assert trace.launched("conveyor") == before + 1
     np.testing.assert_array_equal(got, native.sw_scores_native(pairs))
     np.testing.assert_array_equal(got, sw_conveyor.sw_scores_conveyor(
         pairs, max_slots=2, device="cpu"))
@@ -859,7 +862,7 @@ def _assert_log10_close(got, want, valid):
 
 
 def _pairhmm_buckets_close(buckets, device, mm_div, period):
-    before = pairhmm.launches
+    before = trace.launched("pairhmm_tile")
     for b in buckets:
         t = phmm_bucket_to_torch(b, device)
         got = pairhmm.pairhmm_forward(*t, rescale_period=period,
@@ -867,7 +870,7 @@ def _pairhmm_buckets_close(buckets, device, mm_div, period):
         torch.cuda.synchronize()
         want = phmm_forward_tiles(*t, period, mm_div, b.bitmask_codes)
         _assert_log10_close(got, want, torch.from_numpy(b.rl > 0).to(device))
-    assert pairhmm.launches - before == len(buckets)
+    assert trace.launched("pairhmm_tile") - before == len(buckets)
 
 
 # Plain results on the card, shared by the R variants of one case.
@@ -891,13 +894,13 @@ def _pairhmm_close_at_r(case, groups, device, mm_div, period, r, bitmask):
                 with pytest.raises(ValueError, match="more than a warp"):
                     pairhmm.tile_geometry(nxs, r)
                 continue
-            before = pairhmm.launches
+            before = trace.launched("pairhmm_tile")
             got = pairhmm.pairhmm_forward(*t, rescale_period=period,
                                           mm_div=mm_div,
                                           bitmask=b.bitmask_codes,
                                           _rows_per_thread=r)
             torch.cuda.synchronize()
-            assert pairhmm.launches == before + 1
+            assert trace.launched("pairhmm_tile") == before + 1
             key = (case, bitmask, i, j, period, mm_div)
             if key not in _PLAIN:
                 _PLAIN[key] = phmm_forward_tiles(*t, period, mm_div,
@@ -981,11 +984,11 @@ def test_pairhmm_long_kernel_close_to_plain_version(device, strip_w, unroll,
     jobs = long_jobs(6, n_jobs=40, read_lens=(300, 900), hap_max=1000)
     arrays, st = pairhmm_long.pack_pairhmm_long(jobs, strip_w=strip_w)
     t = {k: torch.from_numpy(a).to(device) for k, a in arrays.items()}
-    before = pairhmm_long.launches
+    before = trace.launched("pairhmm_long")
     got = pairhmm_long.pairhmm_long_forward(**t, **st, unroll=unroll,
                                             mm_div=mm_div)
     torch.cuda.synchronize()
-    assert pairhmm_long.launches - before == 1
+    assert trace.launched("pairhmm_long") - before == 1
     sweep, anchor, _ = pairhmm_long.long_layout(st["ny_max"], st["strip_w"])
     want = phmm_long_forward(*t.values(), st["k_strips"], st["strip_w"],
                              anchor, sweep, unroll, mm_div)
@@ -1013,11 +1016,11 @@ def test_pairhmm_long_kernel_every_r_close_to_plain_version(device, strip_w,
     sweep, anchor, _ = pairhmm_long.long_layout(st["ny_max"], st["strip_w"])
     valid = torch.from_numpy(arrays["meta"][0] > 0).to(device)
     for unroll, mm_div in ((16, 1.0), (4, 3.0)):
-        before = pairhmm_long.launches
+        before = trace.launched("pairhmm_long")
         got = pairhmm_long.pairhmm_long_forward(
             **t, **st, unroll=unroll, mm_div=mm_div, _rows_per_thread=r)
         torch.cuda.synchronize()
-        assert pairhmm_long.launches - before == 1
+        assert trace.launched("pairhmm_long") - before == 1
         want = phmm_long_forward(*t.values(), st["k_strips"], st["strip_w"],
                                  anchor, sweep, unroll, mm_div)
         _assert_log10_close(got, want, valid)
@@ -1073,7 +1076,7 @@ def test_sw_xstrip_kernel_equals_plain_version(device, cfg, w, U):
         else tuple(torch.from_numpy(s).to(device) for s in a)
         for a in xstrip_inputs(w + U, w, U))
     want = sw_xstrip_block(sxb, slab, hD, hQ, state, w=w, U=U, cfg=cfg)
-    before = xsharded.launches
+    before = trace.launched("xstrip")
     lane_major = _lane_major(state)
     # contiguous, lane-major, and lane-major off 16-byte alignment (the
     # kernel's int4 moves give way to one int at a time, as at w = 25)
@@ -1089,7 +1092,7 @@ def test_sw_xstrip_kernel_equals_plain_version(device, cfg, w, U):
     torch.cuda.synchronize()
     for g, e in zip(st, want[0]):
         assert torch.equal(g, e)
-    assert xsharded.launches - before == 4
+    assert trace.launched("xstrip") - before == 4
     # every R the build makes, whole and on partial windows: the window
     # equals the plain block on the slice (zeros above row g_lo > 0, zero
     # halo out when g_hi < w) and leaves the rows outside bit for bit
@@ -1105,12 +1108,12 @@ def test_sw_xstrip_kernel_equals_plain_version(device, cfg, w, U):
                                    tuple(s[sl] for s in state), w=g_hi - g_lo,
                                    U=U, cfg=cfg)
             st = tuple(s.clone() for s in lane_major)
-            before = xsharded.launches
+            before = trace.launched("xstrip")
             got = xsharded.strip_block(sxb, slab, hD, hQ, st, w=w, U=U,
                                        cfg=cfg, out=st, rows=(g_lo, g_hi),
                                        _rows_per_thread=r)
             torch.cuda.synchronize()
-            assert xsharded.launches - before == 1
+            assert trace.launched("xstrip") - before == 1
             for g, e, s in zip(st, part[0], state):
                 assert torch.equal(g[sl], e), (r, g_lo, g_hi)
                 assert torch.equal(g[:g_lo], s[:g_lo])
@@ -1150,12 +1153,12 @@ def test_sw_xsharded_ring_on_the_card(device, K):
         sy = torch.from_numpy(pk.sy).to(device)
         kw = dict(n_strips=K, strip_w=pk.strip_w, n_diags=pk.n_diags,
                   unroll=unroll, anchor=pk.anchor)
-        before = xsharded.launches
+        before = trace.launched("xstrip")
         got = xsharded.sw_forward_xsharded_ring(sx, sy, **kw)
         plain = xsharded.sw_forward_xsharded_ring(sx, sy, block=sw_xstrip_block,
                                                   **kw)
         torch.cuda.synchronize()
-        assert xsharded.launches - before == K * xsharded.n_blocks(
+        assert trace.launched("xstrip") - before == K * xsharded.n_blocks(
             pk.n_diags, unroll, K), name
         assert torch.equal(got, plain), name
         # windowed to the live rows: only the non-empty windows launch
@@ -1165,11 +1168,11 @@ def test_sw_xsharded_ring_on_the_card(device, K):
             for k in range(K)
             for lo, hi in [xsharded.live_rows(k, b, strip_w=pk.strip_w,
                                               unroll=unroll, ly_max=ly_max)])
-        before = xsharded.launches
+        before = trace.launched("xstrip")
         windowed = xsharded.sw_forward_xsharded_ring(sx, sy, ly_max=ly_max,
                                                      **kw)
         torch.cuda.synchronize()
-        assert xsharded.launches - before == live, name
+        assert trace.launched("xstrip") - before == live, name
         assert torch.equal(windowed, plain), name
         np.testing.assert_array_equal(got.cpu().numpy()[: len(pairs)],
                                       native.sw_scores_native(pairs),
@@ -1206,8 +1209,8 @@ def test_sharded_engine_xshard_on_the_card(device):
                      sy=rng.choice(abc, 100).tobytes())]
     eng = ShardedEngine(make_mesh(1, device="cuda"),
                         EngineConfig(max_device_len=40, xshard_min_len=64))
-    before = xsharded.launches
+    before = trace.launched("xstrip")
     got = eng.sw_scores(pairs)
-    assert xsharded.launches > before
+    assert trace.launched("xstrip") > before
     assert eng.last_stats.xsharded_jobs == 2
     np.testing.assert_array_equal(got, native.sw_scores_native(pairs))

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from genomax_torch import trace
 from genomax_torch.config import MAX_PHMM_ROWS
 from genomax_torch.io.generator import generate_pairhmm_batch
 from genomax_torch.kernels import _build, pairhmm, pairhmm_long
@@ -182,7 +183,8 @@ def test_wrappers_refuse_an_unbuilt_r_before_any_launch(no_build, dev):
     t = [x.to(dev) for x in t]
     lt, st = _long_tile()
     lt = {k: v.to(dev) for k, v in lt.items()}
-    before = (pairhmm.launches, pairhmm_long.launches)
+    before = (trace.counter("launches.pairhmm_tile"),
+              trace.counter("launches.pairhmm_long"))
     with pytest.raises(ValueError, match="the build makes"):
         pairhmm.pairhmm_forward(*t, _rows_per_thread=3)
     with pytest.raises(ValueError, match="more than a warp"):
@@ -194,7 +196,8 @@ def test_wrappers_refuse_an_unbuilt_r_before_any_launch(no_build, dev):
     wide = {k: torch.from_numpy(a).to(dev) for k, a in wide.items()}
     with pytest.raises(ValueError, match="more than a warp"):
         pairhmm_long.pairhmm_long_forward(**wide, **wst, _rows_per_thread=1)
-    assert (pairhmm.launches, pairhmm_long.launches) == before
+    assert (trace.counter("launches.pairhmm_tile"),
+            trace.counter("launches.pairhmm_long")) == before
 
 
 def test_explicit_r_on_the_cpu_takes_the_plain_version(no_build):

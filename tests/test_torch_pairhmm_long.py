@@ -16,6 +16,7 @@ from genomax.io.formats import PairHMMRead
 from genomax.kernels import oracle
 from genomax.kernels import pairhmm_long as jax_long
 
+from genomax_torch import trace
 from genomax_torch.kernels import _build
 from genomax_torch.kernels import pairhmm_long as torch_long
 from _torch_cpu import one_torch_thread  # noqa: F401
@@ -124,8 +125,8 @@ def test_device_tensor_never_takes_plain_version(monkeypatch):
 
     monkeypatch.setattr(_build, "load", fail)
     t, st = _tile()
-    before = torch_long.launches
+    before = trace.counter("launches.pairhmm_long")
     with pytest.raises(_build.BuildError):
         torch_long.pairhmm_long_forward(
             **{k: v.to("meta") for k, v in t.items()}, **st)
-    assert torch_long.launches == before
+    assert trace.counter("launches.pairhmm_long") == before

@@ -29,6 +29,7 @@ from genomax.io.formats import SWPair as JaxSWPair
 from genomax.kernels import oracle
 from genomax.kernels import sw_conveyor as jax_conveyor
 
+from genomax_torch import trace
 from genomax_torch import native
 from genomax_torch.config import SWConfig
 from genomax_torch.io.formats import SWPair
@@ -273,13 +274,13 @@ def test_cuda_branch_raises_on_build_failure(monkeypatch):
     monkeypatch.setattr(_build, "load", fail)
     monkeypatch.setattr(torch_conveyor, "sw_conveyor_forward_tiles", plain)
     (s, y), st = _inputs()
-    before = torch_conveyor.launches
+    before = trace.counter("launches.conveyor")
     # Stand-ins for device tensors on a host without a card.
     with pytest.raises(_build.BuildError):
         torch_conveyor.sw_forward_conveyor(s.to("meta"), y.to("meta"), **st)
     with pytest.raises(_build.BuildError):
         torch_conveyor.sw_scores_conveyor(_case("ragged"), device="meta")
-    assert torch_conveyor.launches == before
+    assert trace.counter("launches.conveyor") == before
 
 
 def test_a_device_that_is_neither_cpu_nor_cuda_raises(monkeypatch):

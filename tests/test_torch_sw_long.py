@@ -16,7 +16,7 @@ from genomax.io.formats import SWPair
 from genomax.kernels import oracle
 from genomax.kernels import sw_long as jax_long
 
-from genomax_torch import native
+from genomax_torch import native, trace
 from genomax_torch.config import SWConfig
 from genomax_torch.kernels import _build
 from genomax_torch.kernels import sw_long as torch_long
@@ -145,9 +145,9 @@ def test_tiles_of_128_in_input_order():
 
 
 def test_cpu_tensors_do_not_count_as_launches():
-    before = torch_long.launches
+    before = trace.counter("launches.sw_long")
     torch_long.sw_scores_long(_seam_pairs()[:2], device="cpu", strip_w=64)
-    assert torch_long.launches == before
+    assert trace.counter("launches.sw_long") == before
 
 
 def _tile(strip_w=64):
