@@ -102,18 +102,28 @@ def load():
             c64, c64, c64, c64,
             i8p, i8p, i8p, i32p, i32p,
         ]
+        lib.gx_pack_phmm_fill_factored.restype = None
+        lib.gx_pack_phmm_fill_factored.argtypes = [
+            u8p, i64p, u8p, u8p, u8p, u8p, u8p, i64p, i64p, c64, i64p, c64,
+            c64, c64, c64, i8p, i8p, i8p, i8p,
+        ]
+        lib.gx_rows_ok.restype = None
+        lib.gx_rows_ok.argtypes = [u8p, i64p, c64, u8p, u8p]
         _lib = lib
         return _lib
 
 
 def _concat_with_offsets(items):
+    """(data, off): the byte strings of ``items`` joined into one uint8
+    array (one zero byte when they are all empty, so that it has an
+    address), item i at data[off[i]:off[i + 1]]."""
     off = np.zeros(len(items) + 1, dtype=np.int64)
-    for i, it in enumerate(items):
-        off[i + 1] = off[i] + len(it)
-    data = np.frombuffer(b"".join(bytes(it) for it in items), dtype=np.uint8)
+    np.cumsum(np.fromiter(map(len, items), np.int64, len(items)),
+              out=off[1:])
+    data = np.frombuffer(b"".join(items), dtype=np.uint8)
     if data.size == 0:
         data = np.zeros(1, dtype=np.uint8)
-    return np.ascontiguousarray(data), off
+    return data, off
 
 
 def sw_scores_native(pairs, cfg=None) -> np.ndarray:

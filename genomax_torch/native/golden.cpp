@@ -264,4 +264,45 @@ void gx_pack_phmm_fill_bytes(
   }
 }
 
+// Factored fill: the unique-row layout of a factored pack (PairHMMPacked
+// rchar_u/qb_u/hap_u), one row per unique read u_r[k] and haplotype
+// u_h[k], bases and haplotype bytes written through code[] (the identity
+// for raw codes, the match-bitmask table for bitmask codes), quality
+// bytes raw. The caller fills the pads (code[] of each pad byte, qb_u
+// zeros) and the extra all-pad row past the last unique row.
+void gx_pack_phmm_fill_factored(
+    const uint8_t* read_data, const int64_t* read_off, const uint8_t* bq,
+    const uint8_t* iq, const uint8_t* dq, const uint8_t* gq,
+    const uint8_t* hap_data, const int64_t* hap_off, const int64_t* u_r,
+    int64_t nru, const int64_t* u_h, int64_t nhu, int64_t nxs, int64_t nds,
+    int64_t anchor, const int8_t* code, int8_t* rchar_u, int8_t* qb_u,
+    int8_t* hap_u) {
+  for (int64_t k = 0; k < nru; ++k) {
+    const int64_t ro = read_off[u_r[k]];
+    const int64_t L = read_off[u_r[k] + 1] - ro;
+    int8_t* rc = rchar_u + k * nxs + 1;
+    for (int64_t i = 0; i < L; ++i) rc[i] = code[read_data[ro + i]];
+    int8_t* qrow = qb_u + k * 4 * nxs + 1;
+    const uint8_t* plane[4] = {bq + ro, iq + ro, dq + ro, gq + ro};
+    for (int p = 0; p < 4; ++p) memcpy(qrow + p * nxs, plane[p], L);
+  }
+  for (int64_t k = 0; k < nhu; ++k) {
+    const int64_t ho = hap_off[u_h[k]];
+    const int64_t H = hap_off[u_h[k] + 1] - ho;
+    int8_t* hp = hap_u + k * nds + anchor - 1;
+    for (int64_t i = 0; i < H; ++i) hp[-i] = code[hap_data[ho + i]];
+  }
+}
+
+// ok_row[k] = 1 when every byte of row k (data[off[k], off[k + 1])) is
+// one that ok[] admits, else 0.
+void gx_rows_ok(const uint8_t* data, const int64_t* off, int64_t n,
+                const uint8_t* ok, uint8_t* ok_row) {
+  for (int64_t k = 0; k < n; ++k) {
+    uint8_t all = 1;
+    for (int64_t i = off[k]; i < off[k + 1]; ++i) all &= ok[data[i]];
+    ok_row[k] = all;
+  }
+}
+
 }  // extern "C"

@@ -45,6 +45,8 @@ _BM_OK = np.zeros(256, bool)
 for _b in (ord("A"), ord("C"), ord("G"), ord("T"), ord("N"), PAD_X,
            PAD_STREAM):
     _BM_OK[_b] = True
+_BM_OK_U8 = _BM_OK.view(np.uint8)  # for gx_rows_ok
+_RAW_CODES = np.arange(256, dtype=np.uint8).view(np.int8)  # byte -> itself
 
 
 def _bitmask_translate(rchar, hap):
@@ -112,6 +114,22 @@ def _reject_bad_read(rd, phred_offset: float) -> None:
             )
 
 
+def _reject_bad_reads(reads, base_off, quals, phred_offset: float) -> None:
+    """``_reject_bad_read`` on every read at once, from the joined fields:
+    the offsets of the four quality strings (``quals``: (data, off) pairs)
+    must be the bases' (``base_off``), and every quality byte must lie in
+    range. On a failure ``_reject_bad_read`` runs read by read, so that
+    the first bad read raises its own message."""
+    ok = all(np.array_equal(off, base_off) for _, off in quals)
+    if ok and base_off[-1]:
+        lo, n = int(phred_offset), base_off[-1]
+        ok = all(int(q[:n].min()) >= lo and int(q[:n].max()) <= 127
+                 for q, _ in quals)
+    if not ok:
+        for rd in reads:
+            _reject_bad_read(rd, phred_offset)
+
+
 # ~x1.41 padding ladder (one octave), anchored so the common 512bp+"\n"
 # case (515 rows) lands on 544 (5.6% padding). Scaled by powers of two.
 _LADDER = (16, 24, 32, 48, 64, 96, 136, 192, 272, 384, 544, 768)
@@ -135,8 +153,10 @@ def _level(x: int) -> int:
 def bucket_levels(lengths) -> np.ndarray:
     """The bucket of each job: the ladder level (``_level``) of its x or
     read length plus 2 rows. The packs group by it, and the engine's SW
-    offload mask asks it which pairs share a bucket."""
-    return np.array([_level(int(n) + 2) for n in lengths])
+    offload mask asks it which pairs share a bucket. ``_level`` runs once
+    per distinct length."""
+    u, inv = np.unique(np.asarray(lengths, np.int64), return_inverse=True)
+    return np.array([_level(int(n) + 2) for n in u], np.int64)[inv]
 
 
 def bucket_rows(max_len: int) -> int:
@@ -491,6 +511,35 @@ def unpack_scores(buckets, results, n_total: int, dtype=np.int32) -> np.ndarray:
     return out
 
 
+def _cross_jobs(n_reads: np.ndarray, n_haps: np.ndarray):
+    """(jobs_r, jobs_h): the read-major cross-product of each batch's reads
+    and haplotypes (batch b has n_reads[b] x n_haps[b] jobs), as indices
+    into the reads and haplotypes of all batches in order."""
+    per_read = np.repeat(n_haps, n_reads)  # the jobs of each read
+    first_h = np.repeat(np.cumsum(n_haps) - n_haps, n_reads)
+    first_job = np.cumsum(per_read) - per_read
+    jobs_r = np.repeat(np.arange(len(per_read)), per_read)
+    jobs_h = (np.arange(int(per_read.sum()))
+              + np.repeat(first_h - first_job, per_read))
+    return jobs_r, jobs_h
+
+
+def _rows_with_codes(lib, data: np.ndarray, off: np.ndarray) -> np.ndarray:
+    """Per row of joined byte strings (row k at data[off[k]:off[k + 1]]):
+    True where every byte has a match-bitmask code (``_BM_OK``)."""
+    ok = np.empty(len(off) - 1, np.uint8)
+    lib.gx_rows_ok(data, off, len(ok), _BM_OK_U8, ok)
+    return ok.view(bool)
+
+
+def _unique_rows(rows: np.ndarray, n: int):
+    """``np.unique(rows, return_inverse=True)`` of indices below n, through
+    a mask of the n rows instead of a sort."""
+    seen = np.zeros(n, bool)
+    seen[rows] = True
+    return np.flatnonzero(seen), (np.cumsum(seen) - 1)[rows]
+
+
 def pack_pairhmm_batches(
     batches,
     phred_offset: float = 33.0,
@@ -501,8 +550,10 @@ def pack_pairhmm_batches(
 ) -> tuple[list[PairHMMPacked], int]:
     """Flatten batches into the global read-major pair list (the reference
     output order, pairHMMmatrix.c:207-258), then bucket and pack the
-    read×haplotype cross-product. The per-job fill (with the phred decode)
-    is the native library's (gx_pack_phmm_fill, gx_pack_phmm_fill_bytes).
+    read×haplotype cross-product, with array work over all jobs and no
+    Python loop over jobs or reads. The fill (with the phred decode) is the
+    native library's: gx_pack_phmm_fill and gx_pack_phmm_fill_bytes per
+    job, gx_pack_phmm_fill_factored per unique read and haplotype.
 
     byte_quals=True skips the phred decode and packs the raw quality
     bytes into PairHMMPacked.qb for expansion on the device (see the
@@ -521,49 +572,41 @@ def pack_pairhmm_batches(
         byte_quals = True
     lib = native.load()
     with trace.span("pack.flatten"):
-        raw_reads = []  # (bases, bq, iq, dq, gq) raw bytes
-        haps = []  # u8 arrays
-        jobs_r = []
-        jobs_h = []
+        reads, haps, n_reads, n_haps = [], [], [], []
         for b in batches:
-            r0 = len(raw_reads)
-            h0 = len(haps)
-            for rd in b.reads:
-                _reject_bad_read(rd, phred_offset)
-                raw_reads.append((rd.bases, rd.base_q, rd.ins_q, rd.del_q,
-                                  rd.gcp_q))
-            for hp in b.haplotypes:
-                haps.append(np.frombuffer(hp, np.uint8))
-            for ri in range(len(b.reads)):
-                for hi in range(len(b.haplotypes)):
-                    jobs_r.append(r0 + ri)
-                    jobs_h.append(h0 + hi)
-
-        jobs_r = np.array(jobs_r, dtype=np.int64)
-        jobs_h = np.array(jobs_h, dtype=np.int64)
+            reads += b.reads
+            haps += b.haplotypes
+            n_reads.append(len(b.reads))
+            n_haps.append(len(b.haplotypes))
+        fields = ([rd.bases for rd in reads], [rd.base_q for rd in reads],
+                  [rd.ins_q for rd in reads], [rd.del_q for rd in reads],
+                  [rd.gcp_q for rd in reads])
+        jobs_r, jobs_h = _cross_jobs(np.array(n_reads, np.int64),
+                                     np.array(n_haps, np.int64))
         n = len(jobs_r)
-        rlen = np.array([len(r[0]) for r in raw_reads],
-                        dtype=np.int64)[jobs_r]
-        hlen = np.array([len(h) for h in haps], dtype=np.int64)[jobs_h]
     with trace.span("pack.concat"):
-        rd_data, rd_off = native._concat_with_offsets(
-            [r[0] for r in raw_reads])
+        (rd_data, rd_off), *quals = map(native._concat_with_offsets, fields)
+        _reject_bad_reads(reads, rd_off, quals, phred_offset)
+        bq_data, iq_data, dq_data, gq_data = (q for q, _ in quals)
         _reject_pad_codes(rd_data[: rd_off[-1]], "read bases")
-        bq_data, _ = native._concat_with_offsets([r[1] for r in raw_reads])
-        iq_data, _ = native._concat_with_offsets([r[2] for r in raw_reads])
-        dq_data, _ = native._concat_with_offsets([r[3] for r in raw_reads])
-        gq_data, _ = native._concat_with_offsets([r[4] for r in raw_reads])
         hp_data, hp_off = native._concat_with_offsets(haps)
         _reject_pad_codes(hp_data[: hp_off[-1]], "haplotype")
+        read_len = np.diff(rd_off)
+        rlen = read_len[jobs_r]
+        hlen = np.diff(hp_off)[jobs_h]
     with trace.span("pack.bucket"):
         # Bucket by the read (row) level only: the haplotype length only
         # sizes the per-bucket stream buffer and each tile's sweep bound
         # (tiles are sorted by diagonal count), so splitting on it would
         # just multiply kernel launches.
-        nxq = bucket_levels(rlen)
+        nxq = bucket_levels(read_len)[jobs_r]
         if job_mask is not None:
             nxq = np.where(np.asarray(job_mask), nxq, -1)
-        levels = sorted(set(nxq.tolist()))
+        levels = np.unique(nxq)
+    if factored and bitmask_codes:
+        with trace.span("pack.translate"):
+            read_ok = _rows_with_codes(lib, rd_data, rd_off)
+            hap_ok = _rows_with_codes(lib, hp_data, hp_off)
 
     out = []
     for lvl in levels:
@@ -587,26 +630,25 @@ def pack_pairhmm_batches(
                 # at the end for padded lanes. Row-major per read; the
                 # device gather transposes back to the (NT, rows, 128) job
                 # tiles.
-                u_r, ridx_l = np.unique(jobs_r[idx], return_inverse=True)
-                u_h, hidx_l = np.unique(jobs_h[idx], return_inverse=True)
+                u_r, ridx_l = _unique_rows(jobs_r[idx], len(reads))
+                u_h, hidx_l = _unique_rows(jobs_h[idx], len(haps))
 
         if factored:
             with trace.span("pack.fill"):
+                # Bitmask codes only where every byte of the bucket's
+                # unique rows has one (the pads always do); the fill
+                # writes the codes.
+                bm = bitmask_codes and bool(read_ok[u_r].all()
+                                            and hap_ok[u_h].all())
+                code = _BM_LUT if bm else _RAW_CODES
                 nru, nhu = len(u_r), len(u_h)
-                rchar_u = _full((nru + 1, nxs), PAD_X, np.int8)
+                rchar_u = _full((nru + 1, nxs), code[PAD_X], np.int8)
                 qb_u = np.zeros((nru + 1, 4, nxs), dtype=np.int8)
-                hap_u = _full((nhu + 1, nds), PAD_STREAM, np.int8)
-                for k, ri in enumerate(u_r):
-                    bases, bq_r, iq_r, dq_r, gq_r = raw_reads[ri]
-                    bases = np.frombuffer(bases, np.uint8)
-                    L = len(bases)
-                    rchar_u[k, 1 : L + 1] = bases
-                    for p, q_raw in enumerate((bq_r, iq_r, dq_r, gq_r)):
-                        qb_u[k, p, 1 : L + 1] = np.frombuffer(q_raw,
-                                                              np.uint8)
-                for k, hi in enumerate(u_h):
-                    h = haps[hi]
-                    hap_u[k, anchor - len(h) : anchor] = h[::-1]
+                hap_u = _full((nhu + 1, nds), code[PAD_STREAM], np.int8)
+                lib.gx_pack_phmm_fill_factored(
+                    rd_data, rd_off, bq_data, iq_data, dq_data, gq_data,
+                    hp_data, hp_off, u_r, nru, u_h, nhu, nxs, nds, anchor,
+                    code, rchar_u, qb_u, hap_u)
                 ridx = np.full(slots, nru, dtype=np.int32)
                 hidx = np.full(slots, nhu, dtype=np.int32)
                 ridx[: len(idx)] = ridx_l
@@ -620,8 +662,6 @@ def pack_pairhmm_batches(
                 meta = np.zeros((nt, 8, LANES), dtype=np.int32)
                 meta[:, 0, :] = rl.reshape(nt, LANES)
                 meta[:, 1, :] = hl.reshape(nt, LANES)
-            with trace.span("pack.translate"):
-                bm = bitmask_codes and _bitmask_translate(rchar_u, hap_u)
             out.append(
                 PairHMMPacked(
                     rchar=None, qr=None, mmv=None, gapm=None, qi=None,

@@ -323,6 +323,116 @@ def test_pack_pairhmm_batches_job_mask_and_raw_codes_equal():
     _assert_packs_equal(ours, theirs)
 
 
+_PHMM_FORMS = {
+    "factored-bitmask": dict(byte_quals=True, factored=True,
+                             bitmask_codes=True),
+    "factored": dict(factored=True),
+    "bytes-bitmask": dict(byte_quals=True, bitmask_codes=True),
+    "bytes": dict(byte_quals=True),
+    "floats": dict()}
+
+
+def _phmm_case(case, mod):
+    """(batches, job_mask) of one pack case, the same bytes whichever
+    module's dataclasses carry them."""
+    batches = _ragged_batches(4, mod)
+    rlen = np.concatenate([np.repeat([len(rd.bases) for rd in b.reads],
+                                     len(b.haplotypes)) for b in batches])
+    if case == "mask-empties-one-thins-another":
+        # no job of the 64-row level; about half of each other level
+        keep = np.random.default_rng(5).random(len(rlen)) < 0.5
+        return batches, keep & (rlen + 2 > 64)
+    if case == "empty-batches":
+        read = batches[0].reads[0]
+        batches.insert(1, mod.PairHMMBatch(reads=[], haplotypes=[b"ACGT"]))
+        batches.insert(3, mod.PairHMMBatch(reads=[read], haplotypes=[]))
+        batches.append(mod.PairHMMBatch(reads=[], haplotypes=[]))
+    elif case == "zero-length-read":
+        batches[1].reads.insert(0, mod.PairHMMRead(b"", b"", b"", b"", b""))
+    elif case == "raw-codes-beside-bitmask":
+        # an X in one read past the 64-row level; the haplotypes, which
+        # every level shares, stay ACGTN
+        rd = next(rd for b in batches for rd in b.reads
+                  if len(rd.bases) + 2 > 64)
+        rd.bases = b"X" + rd.bases[1:]
+    elif case == "10s":
+        batches = mod.parse_pairhmm_file(os.path.join(
+            os.path.dirname(GOLDEN), os.pardir, "gxbench", "data", "10s.in"))
+    return batches, None
+
+
+@pytest.mark.parametrize("form", list(_PHMM_FORMS))
+@pytest.mark.parametrize("case", [
+    "mask-empties-one-thins-another", "empty-batches", "zero-length-read",
+    "raw-codes-beside-bitmask", "10s"])
+def test_pack_pairhmm_batches_cases_equal(case, form):
+    """Every array of every bucket, perm, the gather indices and the code
+    flag, against the JAX package's pack, on the edges of the array-wise
+    flatten, bucketing and unique-row fill."""
+    kw = _PHMM_FORMS[form]
+    ours_in, mask = _phmm_case(case, formats)
+    theirs_in, _ = _phmm_case(case, jax_formats)
+    ours, n = bucketing.pack_pairhmm_batches(ours_in, job_mask=mask, **kw)
+    theirs, m = jax_bucketing.pack_pairhmm_batches(theirs_in, job_mask=mask,
+                                                   **kw)
+    assert n == m
+    _assert_packs_equal(ours, theirs)
+    if case == "mask-empties-one-thins-another":
+        full, _ = bucketing.pack_pairhmm_batches(ours_in, **kw)
+        assert len(ours) == len(full) - 1 and full[0].nxs <= 64
+        assert 0 < sum(b.n_valid for b in ours) < sum(b.n_valid
+                                                      for b in full[1:])
+    if case == "raw-codes-beside-bitmask" and "bitmask_codes" in kw:
+        assert {b.bitmask_codes for b in ours} == {True, False}
+    if case == "10s":
+        assert n == 3550 and len(ours) >= 3
+
+
+def _batches_with_bad_reads(kind, mod):
+    """Good ragged batches with two bad reads of one kind in the middle,
+    the first of them in batch 1; the kinds' messages tell the two
+    apart."""
+    batches = _ragged_batches(6, mod)
+
+    def bad(b, i, **kw):
+        batches[b].reads[i] = dataclasses.replace(batches[b].reads[i], **kw)
+
+    def reads(b, i):
+        return batches[b].reads[i]
+
+    if kind == "short-qual":
+        # one byte short, then one too many: the joined field's length is
+        # right, only the reads' own lengths are not
+        bad(1, 0, ins_q=reads(1, 0).ins_q[:-1])
+        bad(2, 4, ins_q=reads(2, 4).ins_q + b"I")
+    elif kind == "low-qual":
+        bad(1, 0, del_q=b" " + reads(1, 0).del_q[1:])
+        bad(2, 4, base_q=b"\xc8" + reads(2, 4).base_q[1:])
+    elif kind == "pad-code-haplotype":
+        batches[1].haplotypes[0] = b"AC\x01GT"
+        batches[2].haplotypes[1] = b"AC\x00GT"
+    elif kind == "low-qual-after-pad-code-read":
+        # the quality checks come first, whatever batch holds the pad code
+        bad(0, 2, bases=b"\x01" + reads(0, 2).bases[1:])
+        bad(2, 4, base_q=b"!" + reads(2, 4).base_q[1:])
+    return batches
+
+
+@pytest.mark.parametrize("form", ["factored-bitmask", "floats"])
+@pytest.mark.parametrize("kind", ["short-qual", "low-qual",
+                                  "pad-code-haplotype",
+                                  "low-qual-after-pad-code-read"])
+def test_bad_read_in_the_middle_rejection_equal(kind, form):
+    kw = _PHMM_FORMS[form]
+    with pytest.raises(ValueError) as theirs:
+        jax_bucketing.pack_pairhmm_batches(
+            _batches_with_bad_reads(kind, jax_formats), **kw)
+    with pytest.raises(ValueError) as ours:
+        bucketing.pack_pairhmm_batches(
+            _batches_with_bad_reads(kind, formats), **kw)
+    assert str(ours.value) == str(theirs.value)
+
+
 def test_unpack_scores_equal():
     pairs = _ragged_sw_pairs(6, formats.SWPair)
     buckets = bucketing.pack_sw_pairs(pairs)
@@ -437,6 +547,97 @@ def test_native_pairhmm_matches_golden():
     v = native.pairhmm_native(formats.parse_pairhmm_file(PHMM_FILES[1]))
     want = np.loadtxt(os.path.join(GOLDEN, "10s.golden.out"))
     assert np.abs(v - want).max() < 1e-6  # the golden is %f-rounded
+
+
+def _factored_rows_plain(reads, haps, u_r, u_h, nxs, nds, anchor, code):
+    """rchar_u, qb_u, hap_u of a factored pack, built row by row in numpy."""
+    rchar = np.full((len(u_r) + 1, nxs), code[layout.PAD_X], np.int8)
+    qb = np.zeros((len(u_r) + 1, 4, nxs), np.int8)
+    hap = np.full((len(u_h) + 1, nds), code[layout.PAD_STREAM], np.int8)
+    for k, r in enumerate(u_r):
+        bases, *quals = reads[r]
+        rchar[k, 1: len(bases) + 1] = code[np.frombuffer(bases, np.uint8)]
+        for p, q in enumerate(quals):
+            qb[k, p, 1: len(q) + 1] = np.frombuffer(q, np.int8)
+    for k, h in enumerate(u_h):
+        row = code[np.frombuffer(haps[h], np.uint8)[::-1]]
+        hap[k, anchor - len(row): anchor] = row
+    return rchar, qb, hap
+
+
+@pytest.mark.parametrize("codes", ["raw", "bitmask"])
+@pytest.mark.parametrize("anchor", ["smallest", "largest"])
+def test_native_factored_fill_matches_plain(anchor, codes):
+    """gx_pack_phmm_fill_factored against a numpy build of the unique rows:
+    ragged reads (the empty one among them), haplotypes of many lengths,
+    rows taken out of order and some left out, the stream anchor at the
+    longest haplotype and at the last row."""
+    rng = np.random.default_rng(11)
+    abc = np.frombuffer(b"ACGTN", np.uint8)
+    reads = [tuple(rng.choice(abc, n).tobytes() if f == 0 else
+                   (rng.integers(2, 60, n) + 33).astype(np.uint8).tobytes()
+                   for f in range(5))
+             for n in [0, 1, 7, 64, 150, 151, 33, 90]]
+    haps = [rng.choice(abc, int(n)).tobytes() for n in (1, 299, 300, 17, 64)]
+    (rd_data, rd_off), *quals = (
+        native._concat_with_offsets([r[f] for r in reads]) for f in range(5))
+    hp_data, hp_off = native._concat_with_offsets(haps)
+    u_r = np.array([6, 0, 2, 4, 5, 1], np.int64)
+    u_h = np.array([2, 0, 4, 3], np.int64)
+    nxs = bucketing.bucket_rows(151)
+    nds = 300 + (0 if anchor == "smallest" else 37)
+    at = 300 if anchor == "smallest" else nds
+    code = {"raw": bucketing._RAW_CODES, "bitmask": bucketing._BM_LUT}[codes]
+    rchar, qb, hap = _factored_rows_plain(reads, haps, u_r, u_h, nxs, nds, at,
+                                          code)
+    got = (np.full(rchar.shape, code[layout.PAD_X], np.int8),
+           np.zeros(qb.shape, np.int8),
+           np.full(hap.shape, code[layout.PAD_STREAM], np.int8))
+    native.load().gx_pack_phmm_fill_factored(
+        rd_data, rd_off, *(q for q, _ in quals), hp_data, hp_off, u_r,
+        len(u_r), u_h, len(u_h), nxs, nds, at, code, *got)
+    for name, want, have in zip(("rchar_u", "qb_u", "hap_u"),
+                                (rchar, qb, hap), got):
+        np.testing.assert_array_equal(have, want, err_msg=name)
+    # the longest haplotype reaches row 0 at the smallest anchor alone
+    assert (hap[:, 0] == code[layout.PAD_STREAM]).all() != (at == 300)
+
+
+@pytest.mark.parametrize("bad", [None, 0, 3])
+def test_native_rows_ok(bad):
+    """gx_rows_ok flags the rows whose every byte has a match-bitmask code:
+    all but a row with an X (the empty row too)."""
+    rows = [b"ACGT", b"", b"NNACG", b"TTTT", b"GA"]
+    if bad is not None:
+        rows[bad] = rows[bad][:1] + b"X" + rows[bad][2:]
+    data, off = native._concat_with_offsets(rows)
+    got = bucketing._rows_with_codes(native.load(), data, off)
+    assert got.dtype == bool
+    np.testing.assert_array_equal(got, [k != bad for k in range(5)])
+
+
+@pytest.mark.parametrize("items", [
+    [], [b""], [b"", b""], [b"ACGT", b"", b"A\n", b"NN"],
+    [np.frombuffer(b"ACG", np.uint8), b"TT"]],
+    ids=["none", "one-empty", "all-empty", "ragged", "array-item"])
+def test_concat_with_offsets_equal(items):
+    ours = native._concat_with_offsets(items)
+    theirs = jax_native._concat_with_offsets(items)
+    for a, b in zip(ours, theirs):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+
+
+def test_bucket_levels_equal():
+    """Each length's level is the JAX package's _level of it plus 2, in
+    the lengths' order, repeats and the empty list included."""
+    lengths = np.concatenate([np.arange(0, 5000), [100000, 3, 3, 8191]])
+    np.random.default_rng(2).shuffle(lengths)
+    got = bucketing.bucket_levels(lengths)
+    assert got.dtype == np.int64
+    np.testing.assert_array_equal(
+        got, [jax_bucketing._level(int(n) + 2) for n in lengths])
+    assert bucketing.bucket_levels(np.zeros(0, np.int64)).shape == (0,)
 
 
 def test_native_builds_into_the_ports_build_dir():
