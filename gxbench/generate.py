@@ -35,13 +35,21 @@ Kinds:
 ``phmm_file``     the batches of a PairHMM input file under this folder
                   (``file``), in an order drawn from the seed, and the
                   reads of each batch in an order drawn from it too.
+
+Any other kind, a name of lower-case letters, digits and ``_`` that starts
+with a letter, is a file of its own, ``kinds/<kind>.py``, whose
+``make(mix, rng)`` returns an :class:`SWPairs` or a :class:`PHMMRegions`
+(``kinds/__init__.py``). A new shape of traffic is then a new file, and
+the kinds above never change.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import json
 import os
+import re
 
 import numpy as np
 
@@ -111,16 +119,36 @@ def rng_of(seed: int) -> np.random.Generator:
     return np.random.default_rng(int(seed) % (1 << 64))
 
 
+def kind_files() -> list:
+    """The kinds that files of ``kinds/`` define."""
+    return sorted(f[:-3] for f in os.listdir(os.path.join(HERE, "kinds"))
+                  if _KIND.match(f[:-3]) and f.endswith(".py"))
+
+
+def maker(kind):
+    """The function that draws one input set of traffic kind ``kind``: a
+    built-in one, or ``make`` of ``kinds/<kind>.py``."""
+    if kind in _BUILT_IN:
+        return _BUILT_IN[kind]
+    if not (isinstance(kind, str) and _KIND.match(kind)
+            and kind in kind_files()):
+        raise ValueError(f"traffic kind {kind!r}: want one of "
+                         f"{sorted(_BUILT_IN)}, or of the files of kinds/: "
+                         f"{kind_files()}")
+    return importlib.import_module("gxbench.kinds." + kind).make
+
+
 def sets(mix: dict, seed: int, k: int) -> list:
     """k input sets of one call of the mix each, drawn one after another
     from the seed: the same sizes, other bases and order."""
-    kinds = {"sw_pairs": _sw_pairs, "sw_related": _sw_related,
-             "phmm_regions": _phmm_regions, "phmm_file": _phmm_file}
-    if mix.get("kind") not in kinds:
-        raise ValueError(f"traffic kind {mix.get('kind')!r}: want one of "
-                         f"{sorted(kinds)}")
+    make = maker(mix.get("kind"))
     rng = rng_of(seed)
-    return [kinds[mix["kind"]](mix, rng) for _ in range(k)]
+    out = [make(mix, rng) for _ in range(k)]
+    for t in out:
+        if not isinstance(t, (SWPairs, PHMMRegions)):
+            raise TypeError(f"traffic kind {mix['kind']!r} made a "
+                            f"{type(t).__name__}, not SWPairs or PHMMRegions")
+    return out
 
 
 def generate(mix: dict, seed: int):
@@ -135,12 +163,13 @@ def spread(lo: int, hi: int, n: int) -> np.ndarray:
     return lo + np.floor((k + 0.5) * (hi - lo + 1) / n).astype(np.int64)
 
 
-def _split(buf: bytes, lens) -> list:
+def split(buf: bytes, lens) -> list:
+    """buf cut into consecutive pieces of these lengths."""
     ends = np.cumsum(lens)
     return [buf[e - n:e] for e, n in zip(ends.tolist(), list(lens))]
 
 
-def _sw_lengths(mix, rng):
+def sw_lengths(mix, rng):
     n = int(mix["pairs"])
     lx = spread(*mix["x_len"], n)
     # The pairing of x and y lengths is fixed (seed 0), so every seed scores
@@ -151,11 +180,11 @@ def _sw_lengths(mix, rng):
 
 
 def _sw_pairs(mix, rng):
-    lx, ly = _sw_lengths(mix, rng)
+    lx, ly = sw_lengths(mix, rng)
     bases = _ATGC[rng.integers(0, 4, int(lx.sum() + ly.sum()), dtype=np.uint8)]
     buf = bases.tobytes()
-    xs = _split(buf[:int(lx.sum())], lx)
-    ys = _split(buf[int(lx.sum()):], ly)
+    xs = split(buf[:int(lx.sum())], lx)
+    ys = split(buf[int(lx.sum()):], ly)
     return SWPairs(x=xs, y=ys)
 
 
@@ -171,7 +200,7 @@ def _mutated(x, rng, sub_rate, indel_rate):
 
 
 def _sw_related(mix, rng):
-    lx, ly = _sw_lengths(mix, rng)
+    lx, ly = sw_lengths(mix, rng)
     sub, indel = float(mix["sub_rate"]), float(mix["indel_rate"])
     xs, ys = [], []
     for nx, ny in zip(lx.tolist(), ly.tolist()):
@@ -254,3 +283,8 @@ def _phmm_file(mix, rng):
                                  for i in rng.permutation(len(r.reads))],
                           haps=r.haps))
     return PHMMRegions(regions=out)
+
+
+_BUILT_IN = {"sw_pairs": _sw_pairs, "sw_related": _sw_related,
+             "phmm_regions": _phmm_regions, "phmm_file": _phmm_file}
+_KIND = re.compile(r"[a-z][a-z0-9_]*\Z")

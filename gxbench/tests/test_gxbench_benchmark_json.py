@@ -52,6 +52,19 @@ def test_every_cell_reports_enough(w):
     assert "setup_s" in e2e and "gcups" in e2e and spec["per_layer"]
 
 
+# Mix parameters that set a call's lengths.
+LENGTHS = {"pairs", "x_len", "y_extra", "queries", "hits", "len_median",
+           "len_sigma", "len_clip", "regions", "reads", "haps", "read_len",
+           "hap_len"}
+
+
+@pytest.mark.parametrize("w", [w["name"] for w in BENCH["workloads"]])
+def test_no_cell_runs_assumed_lengths(w):
+    """A mix names its unsourced parameters under ``assumed``; a cell runs
+    no mix whose sizes are among them."""
+    assert not LENGTHS & set(harness.cell(w)["mix"].get("assumed", {}))
+
+
 def test_layers_listed_in_perf_md():
     perf = open(os.path.join(harness.ROOT, "PERF.md")).read()
     for m in BENCH["per_layer"]:

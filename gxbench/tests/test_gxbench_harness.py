@@ -12,7 +12,7 @@ import sys
 import numpy as np
 import pytest
 
-from gxbench import harness
+from gxbench import generate, harness
 from genomax_torch.engine.executor import Engine
 
 ROOT = harness.ROOT
@@ -22,8 +22,12 @@ PHMM_MIX = {"kind": "phmm_regions", "regions": 3, "reads": 5, "haps": 2,
             "read_len": 40, "hap_len": 60, "snp_rate": 0.01,
             "error_rate": 0.005, "base_q": [20, 40], "indel_q": [30, 45],
             "gcp_q": 10, "entry": "pairhmm"}
+READS_MIX = {"kind": "sw_reads", "pairs": 24, "x_len": [100, 160],
+             "y_extra": [0, 30], "sub_rate": 0.04, "indel_rate": 0.01,
+             "entry": "sw_scores"}
 CELLS = [("sw-4-8kbp", SW_MIX, "sw_scores"),
-         ("phmm-hc-151x300", PHMM_MIX, "pairhmm")]
+         ("phmm-hc-151x300", PHMM_MIX, "pairhmm"),
+         ("sw-512bp-reads", READS_MIX, "sw_scores")]
 
 
 def _run(cell, mix, traced=False):
@@ -88,6 +92,27 @@ def test_stale_answers_are_not_correct(monkeypatch, cell, mix, entry):
     r = _run(cell, mix)
     assert r["attempted"] >= 2 and not r["correct"]
     assert r["failed"] >= r["attempted"] * (harness.SETS - 1) // harness.SETS
+
+
+# 40 pairs of the protein mix, a kind that a file of gxbench/kinds/ defines.
+PROT_MIX = dict(generate.load_mix("prot-search-64x300"), queries=1, hits=40)
+
+
+@pytest.mark.parametrize("fault", [None, _altered],
+                         ids=["sound", "answer_altered"])
+def test_file_kind_reaches_engine_and_judgement(monkeypatch, fault):
+    """A kind from a file runs through set-up, the window and the
+    judgement on ``sw-gotoh-ref``: the engine scores amino-acid bytes
+    (its kernels compare bytes) as the reference does, and one answer
+    altered where it is produced fails the run."""
+    if fault:
+        real = Engine.sw_scores
+        monkeypatch.setattr(Engine, "sw_scores", lambda self, inputs: fault(
+            np.asarray(real(self, inputs))))
+    r = _run("sw-512bp-reads", PROT_MIX)
+    assert r["attempted"] >= 1
+    assert r["correct"] is (fault is None)
+    assert (r["checks"]["score_mismatches"]["value"] == 0) is (fault is None)
 
 
 def test_failing_call_is_not_correct(monkeypatch):
