@@ -4,10 +4,11 @@ CUDA.
 Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only matrix    # phases 1 and 40 alone
 
 Phases (one line each; any failure exits non-zero). They run in the
 order 1, 2, 19, 21, 24, 27, 3, 4, 5, 33, 22, 23, 25, 26, 28, 29, 20,
-7-18, 38, 39, 30-32, 34-37, 6:
+7-18, 38, 39, 40, 30-32, 34-37, 6:
   1. build      nvcc-builds the nine kernels (csrc/sw_tile.cu,
                 csrc/sw_long.cu, csrc/sw_strips.cu, csrc/sw_rotor.cu,
                 csrc/sw_stacked.cu, csrc/sw_conveyor.cu, csrc/sw_xstrip.cu,
@@ -22,8 +23,9 @@ order 1, 2, 19, 21, 24, 27, 3, 4, 5, 33, 22, 23, 25, 26, 28, 29, 20,
                 2-16 and 17-32 warps),
                 csrc/sw_rotor.cu (every G and C), csrc/sw_stacked.cu
                 (R = 2-16) and csrc/sw_conveyor.cu (every G and R, and
-                the block form) (cuobjdump -sass), which SW_OPS_PER_CELL
-                must not pass,
+                the block form) (cuobjdump -sass), the matrix builds of
+                the first four too (their table's shared load counted
+                with the cell), which SW_OPS_PER_CELL must not pass,
                 and of fp32
                 flops a cell (FFMA 2) along one step of
                 csrc/pairhmm_tile.cu's (the warp form at every R, the
@@ -363,6 +365,21 @@ order 1, 2, 19, 21, 24, 27, 3, 4, 5, 33, 22, 23, 25, 26, 28, 29, 20,
                 block form), within 1e-4 of each other, 4 sampled within
                 1e-4 of the native fp64 model, the fallback counts; one
                 sw_long and one pairhmm_long tile of them timed by slope
+ 40. matrix     the matrix builds (kMat) of sw_strips, sw_tile, sw_rotor
+                and sw_long through their wrappers under BLOSUM62 with
+                gaps 11/1 and the engine's code table, at the shapes of
+                gxbench's protein cell (matrix_phase): two rounds of the
+                CUDASW++ query set (144-5,478 residues) against subjects
+                of its lengths, the strips buckets (x 144-1,000, y to
+                5,478) on strips and, with sw_strips off, on the lane
+                tile, the sw_long tiles of pairs past 1,022 residues (one
+                planted to score 34,100, past int16's range), and
+                25,000 peptide pairs of 56-68 residues on the rotor; each
+                == the native model, exact, its launches counted from just
+                before the run, its kernel ms by slope beside its bound
+                and the equality build's ms on the same buckets; the
+                engine on every pair == native, its cells.<route>
+                counters summing to the pairs' cells
 
 Then one JSON line describing each kernel, the card line, and, last,
 {"ok": true, "device": {...}}. Without a CUDA device, or outside the
@@ -420,6 +437,12 @@ ROTOR_CHECK_LENS = (7, 39, 47, 63, 79, 135)
 ROTOR_MAIN_SLOTS = (2, 4, 8, 16)
 # Rotor main path: bench.py's short-pair point, 25,000 x 64bp + '\n'.
 RT_PAIRS, RT_LEN = 25000, 64
+# Phase 40: the CUDASW++ 2.0 query set's lengths (20 Swiss-Prot entries;
+# gxbench's prot-cudasw-20x320 cell), the rounds of subjects at those
+# lengths, and the rotor's peptide pairs.
+PROT_LENS = (144, 189, 222, 375, 464, 567, 657, 729, 850, 1000, 1500, 2005,
+             2504, 3005, 3564, 4061, 4548, 4743, 5147, 5478)
+MAT_ROUNDS, MAT_ROTOR_PAIRS = 2, 25000
 # Phase 36: the soak's seed (the CLI default) and the fewest rounds with
 # which it launches strips, the rotor, the lane tile, sw_long and the
 # PairHMM tile (rounds 0, 0, 1, 0 and 2: the routing is the host's, the
@@ -716,7 +739,7 @@ def sass_phmm_flops(lib, kernel):
     return out
 
 
-def sass_cell_ops(lib, kernel, dpx_per_cell):
+def sass_cell_ops(lib, kernel, dpx_per_cell, lookup=False):
     """{R: (integer arithmetic instructions a cell, cells a step)} of
     `kernel` in the library `lib`, read with cuobjdump -sass (the CUDA
     toolkit's, else the one Triton carries); {(first, second): ...} where
@@ -733,14 +756,13 @@ def sass_cell_ops(lib, kernel, dpx_per_cell):
     jumps past the cell block, the back edge followed round to the cell
     block again. Along that path it counts the opcodes of SW_CELL_OPCODES
     (the loop's own counters and tests among them) and the cells (DPX
-    add-max instructions / dpx_per_cell)."""
+    add-max instructions / dpx_per_cell). ``lookup``: the kernel's last
+    template argument is its matrix flag, and in an instance where it is
+    set the count takes the code table's shared loads (LDS) too."""
     import collections
     import re
 
     funcs = sass_functions(lib)
-
-    def arith(o):
-        return o.split(".")[0] in SW_CELL_OPCODES or o in SW_CELL_OPCODES
 
     out = {}
     for name, ins in funcs.items():
@@ -749,6 +771,11 @@ def sass_cell_ops(lib, kernel, dpx_per_cell):
             continue
         args = [int(v) for v in re.findall(r"L[ib](\d+)E", m.group(1))]
         inst = args[0] if len(args) == 1 else tuple(args)
+        ops = SW_CELL_OPCODES + (("LDS",) if lookup and args[-1] else ())
+
+        def arith(o, ops=ops):
+            return o.split(".")[0] in ops or o in ops
+
         index = {a: n for n, (a, _, _, _) in enumerate(ins)}
         heads = {t for a, _, t, _ in ins if t is not None and t <= a}
         found = []
@@ -1818,6 +1845,182 @@ def deep_phase(int32_ops):
     return out
 
 
+def matrix_phase(int32_ops):
+    """Phase 40: the matrix builds (kMat) of sw_strips, sw_tile, sw_rotor
+    and sw_long, each called through its wrapper with BLOSUM62 (gaps
+    11/1) and the engine's code table, at the protein cell's shapes:
+    MAT_ROUNDS rounds of the CUDASW++ query set against subjects of the
+    same 20 lengths, round 0 the queries themselves (PROT_LENS). The
+    pairs whose x is at most 1,000 residues are packed into the strips
+    buckets (x 144-1,000, y to 5,478); the strips route and, with
+    sw_strips off, the lane tile score them; the pairs with both sides
+    past 1,022 residues make the sw_long tiles (1,100-5,478 residues),
+    with a planted pair whose score, 34,100, passes int16's range; the
+    rotor, which the cell never reaches, scores MAT_ROTOR_PAIRS peptides
+    of 56-64 residues against 56-68. Each route's scores == the native
+    model's (golden.cpp, the same table) on the same pairs, exact; its
+    launches counted from a snapshot of the counters taken just before
+    the checked run; its kernel ms by slope beside the bound and beside
+    the equality build's ms on the same bucket (the same codes, scored
+    by equal or not: the lookup's cost). Then the engine on every pair:
+    == native, its cells.<route> counters summing to the pairs' cells.
+    Returns {build: {...}} for the kernels' JSON line."""
+    import numpy as np
+    import torch
+
+    from genomax_torch import native, trace
+    from genomax_torch.config import EngineConfig, SWConfig
+    from genomax_torch.engine.executor import Engine
+    from genomax_torch.io.formats import SWPair
+    from genomax_torch.kernels import sw_long
+    from genomax_torch.pack import pack_sw_pairs, unpack_scores
+
+    mat = SWConfig(matrix="BLOSUM62", gap_open=-11, gap_extend=-1)
+    eq = SWConfig(match=1, mismatch=-1, gap_open=-11, gap_extend=-1)
+    rng = np.random.default_rng(SEED + 40)
+    aa = np.frombuffer(b"ARNDCQEGHILKMFPSTWYV", np.uint8)
+    every = np.frombuffer(b"ARNDCQEGHILKMFPSTWYVBZX*", np.uint8)
+
+    def residues(n, abc=aa):
+        return abc[rng.integers(0, len(abc), n)].tobytes()
+
+    def relative(q, n):
+        """n residues holding q with 30% of it substituted, in random
+        flanks: a homologue, so that the best path runs the pair's
+        length."""
+        m = np.frombuffer(q, np.uint8).copy()[:n]
+        sub = rng.random(len(m)) < 0.3
+        m[sub] = aa[rng.integers(0, 20, int(sub.sum()))]
+        left = int(rng.integers(0, n - len(m) + 1))
+        return (residues(left) + m.tobytes()
+                + residues(n - len(m) - left))
+
+    queries = [residues(n) for n in PROT_LENS]
+    pairs = []
+    for r in range(MAT_ROUNDS):
+        subjects = (queries if r == 0 else
+                    [relative(queries[i], n) if i % 2 else
+                     residues(n, every) for i, n in enumerate(PROT_LENS)])
+        for q in queries:
+            for s in subjects:
+                pairs.append(SWPair(sx=min(q, s, key=len),
+                                    sy=s if len(q) <= len(s) else q))
+    strip_pairs = [p for p in pairs if len(p.sx) <= 1000]
+    # and a path past int16's range among the long tiles: 3,100
+    # tryptophans against themselves, 34,100
+    long_pairs = [p for p in pairs if len(p.sx) > 1022] + [
+        SWPair(sx=b"W" * 3100, sy=b"W" * 3100)]
+    lx = np.array([len(p.sx) for p in strip_pairs])
+    ly = np.array([len(p.sy) for p in strip_pairs])
+    k = rng.integers(56, 65, MAT_ROTOR_PAIRS)
+    rotor_pairs = []
+    for n in k:
+        x = residues(int(n))
+        rotor_pairs.append(SWPair(sx=x, sy=relative(x, int(n) + int(
+            rng.integers(0, 5)))))
+
+    def cells(ps):
+        return sum(len(p.sx) * len(p.sy) for p in ps)
+
+    out = {}
+
+    def bucket_route(label, route, ps, ecfg):
+        """One route's matrix build on ``ps``'s buckets: exact against the
+        native model, launches, kernel ms by slope, bound, and the
+        equality build's ms on the same buckets."""
+        eng = Engine(ecfg, mat, device="cuda")
+        eng_eq = Engine(ecfg, eq, device="cuda")
+        buckets = pack_sw_pairs(ps, stream_band=True, codes=eng._codes)
+        preps = [eng._sw_prep(b) for b in buckets]
+        check(all(r == route for r, _ in preps),
+              f"phase 40 {label}: routes {[r for r, _ in preps]}")
+        launch0 = trace.counts()
+        res = [launch().cpu().numpy() for _, launch in preps]
+        torch.cuda.synchronize()
+        n_launch = trace.launched(route, launch0)
+        got = unpack_scores(buckets, res, len(ps))
+        want = native_sw(native, ps, mat)
+        bad = int((got != want).sum())
+        check(bad == 0 and n_launch == len(buckets),
+              f"phase 40 {label}: {bad} of {len(ps)} scores != native, "
+              f"{n_launch} launches for {len(buckets)} buckets")
+        eq_preps = [eng_eq._sw_prep(b) for b in buckets]
+        check(all(r == route for r, _ in eq_preps),
+              f"phase 40 {label}: equality routes {[r for r, _ in eq_preps]}")
+        ms = [slope_ms(launch, torch) for _, launch in preps]
+        eq_ms = [slope_ms(launch, torch) for _, launch in eq_preps]
+        n = cells(ps)
+        bound = bound_ms(0, n * SW_OPS_PER_CELL, int32_ops)
+        out[route] = {"pairs": len(ps), "buckets": [
+            list(b.sx.shape) for b in buckets], "launches": n_launch,
+            "mismatches": bad, "ms": sum(ms), "equality_ms": sum(eq_ms),
+            "bound_ms": bound[0], "cells": n,
+            "max_score": int(want.max())}
+        print(f"phase 40 {label} (matrix build): {len(ps)} pairs in "
+              f"{len(buckets)} buckets of rows "
+              f"{[b.sx.shape[1] for b in buckets]}, == native (max score "
+              f"{int(want.max())}), {n_launch} launches; kernel ms "
+              f"{sum(ms):.3f} (by bucket {[round(v, 3) for v in ms]}), "
+              f"equality build on the same buckets {sum(eq_ms):.3f} "
+              f"({100 * sum(eq_ms) / sum(ms):.1f}% of its time); bound "
+              f"{bound[0]:.4f} ms ({100 * bound[0] / sum(ms):.1f}%); "
+              f"{n / sum(ms) / 1e6:.1f} GCUPS")
+
+    t0 = time.perf_counter()
+    bucket_route(f"strips, x {lx.min()}-{lx.max()}, y to {ly.max()}",
+                 "strips", strip_pairs, EngineConfig())
+    bucket_route("lane tile (sw_strips off), the same pairs", "tile",
+                 strip_pairs, EngineConfig(sw_strips=False))
+    bucket_route(f"rotor, {MAT_ROTOR_PAIRS} peptides of 56-64", "rotor",
+                 rotor_pairs, EngineConfig())
+
+    # sw_long: the engine's table, the tiles in input order
+    eng = Engine(EngineConfig(), mat, device="cuda")
+    tl = list(sw_long.tile_launches(long_pairs, mat, device="cuda",
+                                    table=eng._sub_table))
+    launch0 = trace.counts()
+    got = np.concatenate([f().cpu().numpy()[:n] for _, n, f in tl])
+    n_launch = trace.launched("sw_long", launch0)
+    want = native_sw(native, long_pairs, mat)
+    bad = int((got != want).sum())
+    check(bad == 0 and n_launch == len(tl) and want.max() == 34100,
+          f"phase 40 sw_long: {bad} of {len(long_pairs)} scores != native, "
+          f"{n_launch} launches for {len(tl)} tiles, max {want.max()}")
+    tl_eq = list(sw_long.tile_launches(long_pairs, eq, device="cuda"))
+    ms = slope_ms(lambda: [f() for _, _, f in tl], torch, k=5)
+    eq_ms = slope_ms(lambda: [f() for _, _, f in tl_eq], torch, k=5)
+    n = cells(long_pairs)
+    bound = bound_ms(0, n * SW_OPS_PER_CELL, int32_ops)
+    out["sw_long"] = {"pairs": len(long_pairs), "tiles": len(tl),
+                      "launches": n_launch, "mismatches": bad, "ms": ms,
+                      "equality_ms": eq_ms, "bound_ms": bound[0],
+                      "cells": n, "max_score": int(want.max())}
+    print(f"phase 40 sw_long (matrix build): {len(long_pairs)} pairs of "
+          f"{min(len(p.sx) for p in long_pairs)}-"
+          f"{max(len(p.sy) for p in long_pairs)} residues in {len(tl)} "
+          f"tiles, == native (max score {int(want.max())}), {n_launch} "
+          f"launches; kernel ms {ms:.3f}, equality build on the same tiles "
+          f"{eq_ms:.3f} ({100 * eq_ms / ms:.1f}% of its time); bound "
+          f"{bound[0]:.4f} ms ({100 * bound[0] / ms:.1f}%); "
+          f"{n / ms / 1e6:.1f} GCUPS")
+
+    # the engine on every pair: routes and counters
+    every_pair = pairs + rotor_pairs
+    c0 = trace.counts()
+    scores = eng.sw_scores(every_pair)
+    counted = {k[6:]: v - c0.get(k, 0) for k, v in trace.counts().items()
+               if k.startswith("cells.") and v != c0.get(k, 0)}
+    want = native_sw(native, every_pair, mat)
+    check(np.array_equal(scores, want) and sum(counted.values())
+          == cells(every_pair),
+          f"phase 40 engine: {int((scores != want).sum())} scores != "
+          f"native; cells {counted}, want {cells(every_pair)}")
+    print(f"phase 40 engine: {len(every_pair)} pairs == native, cells by "
+          f"route {counted} (sum {cells(every_pair)}); "
+          f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def ladder_phase(sw512, sw64, headline):
     """Phase 37: the SW transfer ladder (pack/nibble.py) on the card.
     ``sw512`` is phase 4's (pairs, scores), ``sw64`` phase 22's,
@@ -1979,7 +2182,10 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="On-card smoke run of "
                                  "genomax_torch (see the module docstring).")
-    ap.parse_args(argv)
+    ap.add_argument("--only", choices=("matrix",),
+                    help="run phase 1 and then only this phase: 'matrix' "
+                    "is phase 40")
+    args = ap.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -2052,22 +2258,29 @@ def main(argv=None) -> int:
     with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
         list(pool.map(sass_text, [path for path, _ in builds]))
     # the DPX cell of the seven kernels that take it, instance by instance
-    # (sw_tile's keys (R, form), sw_rotor's (G, C), sw_conveyor's (G, R,
-    # block form)); a step holds a whole number of R cells (C for the
-    # rotor)
+    # (sw_long's and sw_strips' keys (R, matrix), sw_tile's (R, form,
+    # matrix), sw_rotor's (G, C, matrix), sw_conveyor's (G, R, block
+    # form)); a step holds a whole number of R cells (C for the rotor).
+    # A matrix instance's cell counts the table's shared load (LDS) too:
+    # it takes the place of the equality form's compare and select.
     sass_ops = {}
+    mats = (0, 1)
     for name, kernel, dpx, want, per, label in (
-            ("sw_long", "sw_long_kernel", 2, sw_long.ROWS_PER_THREAD, None,
-             "R"),
+            ("sw_long", "sw_long_kernel", 2,
+             [(r, m) for r in sw_long.ROWS_PER_THREAD for m in mats], 0,
+             "(R, matrix)"),
             ("sw_xstrip", "sw_xstrip_kernel", 3, xsharded.ROWS_PER_THREAD,
              None, "R"),
-            ("sw_strips", "sw_strips_kernel", 2, sw_strips.ROWS_PER_THREAD,
-             None, "R"),
+            ("sw_strips", "sw_strips_kernel", 2,
+             [(r, m) for r in sw_strips.ROWS_PER_THREAD for m in mats], 0,
+             "(R, matrix)"),
             ("sw_tile", "sw_tile_kernel", 2,
-             [(r, f) for r in sw.ROWS_PER_THREAD for f in (0, 1, 2)], 0,
-             "(R, form: warp / block of 2-16 / 17-32 warps)"),
-            ("sw_rotor", "sw_rotor_kernel", 2, sw_rotor.GEOMETRIES, 1,
-             "(G, C)"),
+             [(r, f, m) for r in sw.ROWS_PER_THREAD for f in (0, 1, 2)
+              for m in mats], 0,
+             "(R, form: warp / block of 2-16 / 17-32 warps, matrix)"),
+            ("sw_rotor", "sw_rotor_kernel", 2,
+             [(g, c, m) for g, c in sw_rotor.GEOMETRIES for m in mats], 1,
+             "(G, C, matrix)"),
             ("sw_stacked", "sw_stacked_kernel", 2,
              sw_stacked.ROWS_PER_THREAD, None, "R"),
             ("sw_conveyor", "sw_conveyor_kernel", 3,
@@ -2075,7 +2288,9 @@ def main(argv=None) -> int:
                      for g, r, w in sw_conveyor.GEOMETRIES}), 1,
              "(G, R, block form)")):
         path = builds[names.index(name)][0]
-        sass_ops[name] = sass_cell_ops(path, kernel, dpx)
+        sass_ops[name] = sass_cell_ops(
+            path, kernel, dpx,
+            lookup=name in ("sw_long", "sw_strips", "sw_tile", "sw_rotor"))
         check(sorted(sass_ops[name]) == sorted(want),
               f"{name}: SASS instances {sorted(sass_ops[name])}")
         check(all(c % (k if per is None else k[per]) == 0
@@ -2127,6 +2342,12 @@ def main(argv=None) -> int:
     check(PHMM_FLOPS_PER_CELL <= fewest,
           f"PHMM_FLOPS_PER_CELL {PHMM_FLOPS_PER_CELL}: a PairHMM step takes "
           f"{fewest} a cell")
+    if args.only == "matrix":
+        print(json.dumps({"matrix": matrix_phase(int32_ops)}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     # 2. kernel vs plain version on the card
     pairs = ragged_pairs(1)
@@ -3805,6 +4026,11 @@ def main(argv=None) -> int:
     ph_err = max(ph_err, deep["ph_err"])
     print(f"phase 39 took {time.perf_counter() - t0:.1f} s")
 
+    # 40. the matrix builds at the protein cell's shapes
+    t0 = time.perf_counter()
+    mat = matrix_phase(int32_ops)
+    print(f"phase 40 took {time.perf_counter() - t0:.1f} s")
+
     # 30. the cross-device strip kernel vs its plain version, then the
     # K-strip ring, each strip's halo handed to the next, on the card
     xs_err, t0 = 0, time.perf_counter()
@@ -4190,18 +4416,19 @@ def main(argv=None) -> int:
                   "plain_ms": dr_plain_ms, "bound_ms": dr_bound[0],
                   "bound_by": dr_bound[1]},
               past_1024_rows=tall["sw_tile"],
-              past_4096_rows=deep["sw_tile"]),
+              past_4096_rows=deep["sw_tile"], matrix=mat["tile"]),
         entry("sw_strips", "sw_strips.cu", "genomax/kernels/sw_strips.py:68",
               strips_launches, strips_err, strips_ms, strips_plain_ms,
               strips_bound, rows_per_thread=strips_r,
               ms_by_r=strips_ms_by_r, past_1024_rows=tall["sw_strips"],
-              past_4096_rows=deep["sw_strips"]),
+              past_4096_rows=deep["sw_strips"], matrix=mat["strips"]),
         entry("sw_rotor", "sw_rotor.cu", "genomax/kernels/sw_rotor.py:141",
               rotor_launches, rotor_err, rotor_ms, rotor_plain_ms,
               rotor_bound, geometry=dataclasses.asdict(rotor_geo),
               ms_by_geometry=rotor_ms_by_geo,
               ms_by_slots={str(k): list(v)
-                           for k, v in rotor_ms_by_slots.items()}),
+                           for k, v in rotor_ms_by_slots.items()},
+              matrix=mat["rotor"]),
         entry("sw_stacked", "sw_stacked.cu",
               "genomax/kernels/sw_stacked.py:63", stacked_launches[4],
               stacked_err, stacked_ms, stacked_plain_ms, stacked_bound,
@@ -4216,7 +4443,7 @@ def main(argv=None) -> int:
               tall_ms_by_geometry=tall_ms_by_geo),
         entry("sw_long", "sw_long.cu", "genomax/kernels/sw_long.py:126",
               lp_launches, sl_err, sl_kernel_ms, sl_plain_ms, sl_bound,
-              past_4096_rows=deep["sw_long"]),
+              past_4096_rows=deep["sw_long"], matrix=mat["sw_long"]),
         entry("sw_xstrip", "sw_xstrip.cu", "genomax/dist/xsharded.py:72",
               xs_launches, xs_err, xs_kernel_ms, xs_plain_ms, xs_bound),
         entry("pairhmm_tile", "pairhmm_tile.cu",

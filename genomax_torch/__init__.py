@@ -7,6 +7,8 @@ same module name, held equal to the original by the tests:
 
     layout.py           tile-layout constants shared by packs and kernels
     config.py           SWConfig, PairHMMConfig; EngineConfig (explicit device)
+    scoring.py          substitution matrices (BLOSUM62): residue codes and
+                        the code table the SW kernels look cells up in
     io/                 input formats, phred decode, seeded generators
     native/             golden.cpp: exact SW and fp64 PairHMM models and the
                         packers' fill loops, built by g++ at first use

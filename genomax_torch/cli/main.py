@@ -118,12 +118,17 @@ def _profiled(args, eng):
 
 def cmd_sw(args) -> int:
     from genomax_torch.config import SWConfig
-    from genomax_torch.io.formats import parse_sw_file
+    from genomax_torch.io.formats import SWPair, parse_sw_file
 
     eng = _build_engine(args, sw_cfg=SWConfig(
         match=args.match, mismatch=args.mismatch, gap_open=args.gap_open,
-        gap_extend=args.gap_extend))
+        gap_extend=args.gap_extend, matrix=args.matrix))
     pairs = parse_sw_file(args.input)
+    if args.matrix:
+        # A line's newline is part of the sequence only for the reference's
+        # byte-equality scoring; under a matrix it is no residue.
+        pairs = [SWPair(sx=p.sx.rstrip(b"\r\n"), sy=p.sy.rstrip(b"\r\n"))
+                 for p in pairs]
     t0 = time.time()
     with _profiled(args, eng):
         scores = (eng.sw_scores_stream(pairs, args.chunk) if args.chunk
@@ -345,6 +350,10 @@ def main(argv=None) -> int:
     p.add_argument("--mismatch", type=int, default=-1)
     p.add_argument("--gap-open", type=int, default=-3)
     p.add_argument("--gap-extend", type=int, default=-1)
+    p.add_argument("--matrix", choices=["BLOSUM62"],
+                   help="score residue pairs from this substitution matrix "
+                        "(match and mismatch unused; protein search is "
+                        "--matrix BLOSUM62 --gap-open -11 --gap-extend -1)")
     p.add_argument("--stats", action="store_true",
                    help="print JSON run stats to stderr")
     _add_engine_args(p)

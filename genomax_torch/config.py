@@ -49,22 +49,52 @@ class SWConfig:
     The defaults are the reference's (antidiagonalSmithWaterman.c:40-43).
     The gap model is g(k) = open + k*extend, so opening a gap costs
     open + extend = -4.
+
+    ``matrix``, the port's one field past the JAX package's, names a
+    substitution matrix of ``genomax_torch.scoring`` ("BLOSUM62"): a cell
+    then scores the table's entry of its two residues, and ``match`` and
+    ``mismatch`` are not read. None (the default) scores equal bytes
+    ``match`` and others ``mismatch``. BLAST's "gap existence 11,
+    extension 1" is gap_open=-11, gap_extend=-1 here: a gap of one residue
+    costs 12.
     """
 
     match: int = 1
     mismatch: int = -1
     gap_open: int = -3
     gap_extend: int = -1
+    matrix: str | None = None
 
     def validate(self) -> "SWConfig":
         """The kernels let pad cells decay instead of masking them, which
         (like local alignment itself) needs penalties to be penalties:
         mismatch and gap_extend strictly negative, gap_open non-positive,
-        match positive."""
+        match positive. Under a matrix, match and mismatch stay at their
+        defaults (they are not read, so a value there would be ignored
+        silently) and the matrix is one ``scoring.MATRICES`` holds."""
+        if self.matrix is not None:
+            from genomax_torch.scoring import MATRICES
+
+            if self.matrix not in MATRICES:
+                raise ValueError(f"unsupported SW matrix {self.matrix!r}: "
+                                 f"want one of {sorted(MATRICES)}")
+            if (self.match, self.mismatch) != (1, -1):
+                raise ValueError(
+                    f"unsupported SW scoring {self}: under a matrix, match "
+                    "and mismatch are not read; leave them at 1 and -1")
+            if not (self.gap_open <= 0 and self.gap_extend < 0):
+                raise ValueError(
+                    f"unsupported SW scoring {self}: need gap_open <= 0, "
+                    "gap_extend < 0")
+            return self
         if not (self.match > 0 and self.mismatch < 0
                 and self.gap_open <= 0 and self.gap_extend < 0):
+            # The JAX package's message, whose config has no matrix field.
+            shown = (f"SWConfig(match={self.match}, mismatch={self.mismatch}"
+                     f", gap_open={self.gap_open}, gap_extend="
+                     f"{self.gap_extend})")
             raise ValueError(
-                f"unsupported SW scoring {self}: need match > 0, "
+                f"unsupported SW scoring {shown}: need match > 0, "
                 f"mismatch < 0, gap_open <= 0, gap_extend < 0"
             )
         return self

@@ -1,8 +1,9 @@
 // One cell of the Smith-Waterman (Gotoh, score only) recurrence, shared by
 // the SW kernels of this directory in Hopper's DPX form: `sw_cell_dpx` by
 // sw_long.cu, sw_rotor.cu and, through sw_rows.cuh's step, sw_tile.cu,
-// sw_strips.cu and sw_stacked.cu; `sw_cell_dpx_preopen` by sw_xstrip.cu
-// and sw_conveyor.cu.
+// sw_strips.cu and sw_stacked.cu; `sw_cell_dpx_sub`, its form under a
+// substitution matrix, by the first four's matrix instantiations;
+// `sw_cell_dpx_preopen` by sw_xstrip.cu and sw_conveyor.cu.
 //
 // Cell (p, j) of pair x, y:
 //   P = max(D(p, j-1) + open + extend, P(p, j-1) + extend)    gap along y
@@ -37,6 +38,44 @@ __device__ __forceinline__ int sw_cell_dpx(int d_left, int p_left, int d_up,
   p = __viaddmax_s32(d_left, s.oge, p_left + s.ge);
   q = __viaddmax_s32(d_up, s.oge, q_up + s.ge);
   return __vimax3_s32_relu(p, q, d_diag + (same ? s.match : s.mismatch));
+}
+
+// The cell under a substitution matrix (genomax_torch/scoring.py): the
+// caller passes the table's entry of its x and y codes in place of
+// `same`. The matrix instantiations of sw_long.cu, sw_rotor.cu and,
+// through sw_rows.cuh, sw_tile.cu and sw_strips.cu call it; the equality
+// instantiations keep `sw_cell_dpx`, so their code is unchanged.
+__device__ __forceinline__ int sw_cell_dpx_sub(int d_left, int p_left,
+                                               int d_up, int q_up, int d_diag,
+                                               int sub, const SwScoring& s,
+                                               int& p, int& q) {
+  p = __viaddmax_s32(d_left, s.oge, p_left + s.ge);
+  q = __viaddmax_s32(d_up, s.oge, q_up + s.ge);
+  return __vimax3_s32_relu(p, q, d_diag + sub);
+}
+
+// The code table in shared memory (scoring.code_table): the score of x
+// code x against y code y at kSubStride * x + y, kSubEntries int32 in
+// all. A matrix kernel keeps its x codes premultiplied by kSubStride
+// (`sw_x_code`), so a cell's lookup is one add and one shared load. The
+// stride is 33, so the lanes of a warp, each at its own (x, y), spread
+// over the 32 banks by x + y. y code kSubDead scores -inf against any x.
+constexpr int kSubStride = 33;
+constexpr int kSubCodes = 32;
+constexpr int kSubEntries = kSubCodes * kSubStride;
+constexpr int kSubDead = kSubCodes - 1;
+
+template <bool kMat>
+__device__ __forceinline__ int sw_x_code(int code) {
+  return kMat ? code * kSubStride : code;
+}
+
+// Every thread of the block copies its share of the table from device
+// memory; the caller puts a __syncthreads after it, before any thread
+// leaves the kernel.
+__device__ __forceinline__ void sw_load_table(int* dst,
+                                              const int* __restrict__ src) {
+  for (int i = threadIdx.x; i < kSubEntries; i += blockDim.x) dst[i] = src[i];
 }
 
 // The form of the cross-device strip and conveyor kernels (sw_xstrip.cu,

@@ -75,12 +75,14 @@ constexpr int kMaxWarps = 32;
 constexpr int kNeg = kSwNeg;       // -inf of P and Q (sw_cell.cuh)
 constexpr unsigned kFull = 0xffffffffu;
 
-template <int R>
+// kMat: the matrix instantiation, its code table in static shared memory
+// (sw_cell.cuh), x codes premultiplied by kSubStride.
+template <int R, bool kMat>
 __global__ void __launch_bounds__(kMaxRows / R)
 sw_long_kernel(const int8_t* __restrict__ sx, const int8_t* __restrict__ sy,
                const int32_t* __restrict__ nx, const int32_t* __restrict__ ny,
                int2* halo, int32_t* __restrict__ out, int n_rows, int anchor,
-               int nh, SwScoring sc) {
+               int nh, SwScoring sc, const int32_t* __restrict__ table) {
   __shared__ int32_t seam[2][3][kMaxWarps];  // D, Q, code of each warp's
                                              // last row, by step parity
   __shared__ int2 hin[2][kChunk];      // halo entries of the row above row 0
@@ -99,6 +101,12 @@ sw_long_kernel(const int8_t* __restrict__ sx, const int8_t* __restrict__ sy,
 
   int best = 0;
   if (t == 0) block_best = 0;
+  const int* tab = nullptr;
+  if constexpr (kMat) {
+    __shared__ int32_t tab_s[kSubEntries];
+    sw_load_table(tab_s, table);
+    tab = tab_s;  // the first sub-strip's barriers come before a lookup
+  }
 
   // Sub-strip s has a live row iff s*H <= lx. The bounds are the same for
   // every thread of the block.
@@ -108,8 +116,8 @@ sw_long_kernel(const int8_t* __restrict__ sx, const int8_t* __restrict__ sy,
     int xc[R];
 #pragma unroll
     for (int i = 0; i < R; ++i) {
-      xc[i] = pf + i < n_rows ? sx[static_cast<size_t>(pf + i) * kLanes + l]
-                              : 1;
+      xc[i] = sw_x_code<kMat>(
+          pf + i < n_rows ? sx[static_cast<size_t>(pf + i) * kLanes + l] : 1);
     }
     const int d_start = row0 + 1;                   // row0's cell j = 1
     const int d_end = min(row0 + H - 1, lx) + ly;   // last live diagonal
@@ -174,8 +182,14 @@ sw_long_kernel(const int8_t* __restrict__ sx, const int8_t* __restrict__ sy,
       const bool fast = d >= fast_lo && d <= fast_hi;
       auto cell = [&](int i, int ud, int uq, int yc) {
         int pn, qn;
-        const int dn = sw_cell_dpx(D[i], P[i], ud, uq, U2[i], yc == xc[i],
-                                   sc, pn, qn);
+        int dn;
+        if constexpr (kMat) {
+          dn = sw_cell_dpx_sub(D[i], P[i], ud, uq, U2[i], tab[xc[i] + yc],
+                               sc, pn, qn);
+        } else {
+          dn = sw_cell_dpx(D[i], P[i], ud, uq, U2[i], yc == xc[i], sc, pn,
+                           qn);
+        }
         const int p = pf + i, j = d - p;
         const bool live =
             fast || (static_cast<unsigned>(p - 1) < static_cast<unsigned>(lx)
@@ -238,15 +252,15 @@ sw_long_kernel(const int8_t* __restrict__ sx, const int8_t* __restrict__ sy,
   if (t == 0) out[l] = block_best;
 }
 
-template <int R>
+template <int R, bool kMat>
 int launch(const void* sx, const void* sy, const void* nx, const void* ny,
            void* halo, void* out, int n_rows, int threads, int anchor, int nh,
-           SwScoring sc, cudaStream_t stream) {
-  sw_long_kernel<R><<<kLanes, threads, 0, stream>>>(
+           SwScoring sc, const void* table, cudaStream_t stream) {
+  sw_long_kernel<R, kMat><<<kLanes, threads, 0, stream>>>(
       static_cast<const int8_t*>(sx), static_cast<const int8_t*>(sy),
       static_cast<const int32_t*>(nx), static_cast<const int32_t*>(ny),
       static_cast<int2*>(halo), static_cast<int32_t*>(out), n_rows, anchor,
-      nh, sc);
+      nh, sc, static_cast<const int32_t*>(table));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -258,24 +272,28 @@ int launch(const void* sx, const void* sy, const void* nx, const void* ny,
 // max(ny) - 1) and `out`, and checks shapes: sx (n_rows, 128), sy rows
 // covering anchor - max(ny) + 1 .. anchor - 1, 1 <= nx <= n_rows; and
 // picks `threads` (a multiple of 32, at most 4096 / R) and R
-// (`rows_per_thread`: 4, 8, 16).
+// (`rows_per_thread`: 4, 8, 16). `table` null scores by match and
+// mismatch; else it is the code table on the device (kSubEntries int32)
+// and match and mismatch are not read.
 extern "C" int sw_long_launch(const void* sx, const void* sy, const void* nx,
                               const void* ny, void* halo, void* out,
                               int n_rows, int rows_per_thread, int threads,
                               int anchor, int nh, int match, int mismatch,
-                              int gap_open, int gap_extend, void* stream) {
+                              int gap_open, int gap_extend, const void* table,
+                              void* stream) {
   const SwScoring sc{match, mismatch, gap_open + gap_extend, gap_extend};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (rows_per_thread) {
-    case 4:
-      return launch<4>(sx, sy, nx, ny, halo, out, n_rows, threads, anchor, nh,
-                       sc, s);
-    case 8:
-      return launch<8>(sx, sy, nx, ny, halo, out, n_rows, threads, anchor, nh,
-                       sc, s);
-    case 16:
-      return launch<16>(sx, sy, nx, ny, halo, out, n_rows, threads, anchor,
-                        nh, sc, s);
+#define GENOMAX_LONG_CASE(r)                                                 \
+  case r:                                                                    \
+    return table ? launch<r, true>(sx, sy, nx, ny, halo, out, n_rows,        \
+                                   threads, anchor, nh, sc, table, s)        \
+                 : launch<r, false>(sx, sy, nx, ny, halo, out, n_rows,       \
+                                    threads, anchor, nh, sc, table, s);
+    GENOMAX_LONG_CASE(4)
+    GENOMAX_LONG_CASE(8)
+    GENOMAX_LONG_CASE(16)
+#undef GENOMAX_LONG_CASE
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -8,7 +8,7 @@
 // (pads 0); out (NT, out_rows, 128) int32, row q of a tile the score of
 // queue slot q (q < P), the largest D of that pair's matrix. Each lane of
 // a tile is one queue of P pairs with period T; the pads mismatch
-// everything, so the kernel needs no lengths: a pair's cells outside its
+// everything (under a matrix, score at most 0: scoring.py), so the kernel needs no lengths: a pair's cells outside its
 // matrix never exceed its real maximum and never feed a real cell.
 //
 // Design: G queues a warp (G = 1, 2, 4), each a segment of L = 32 / G
@@ -84,18 +84,22 @@ constexpr unsigned kFull = 0xffffffffu;
 // J in the lane that holds the wrapping column (`mine`; J < 0 where no
 // live column wraps, d mod T == 0), taken by predicate, no branch; then
 // the running best. The x and y codes of entry d - 1 come in `w`.
-template <int C, int J>
+// kMat: the matrix instantiation: X holds x codes times kSubStride
+// (sw_x_code), a cell scores tab[X + Y] (sw_cell_dpx_sub), and a dead
+// column's Y is kSubDead, -inf against any x.
+template <int C, int J, bool kMat>
 __device__ __forceinline__ void rotor_step(
     int (&D)[C], int (&Pg)[C], int (&Q)[C], int (&X)[C], int (&Y)[C],
     int (&U2)[C], int (&mx)[(C + 1) / 2], int (&hv)[(C + 1) / 2],
-    const SwScoring (&cs)[C], int w, int sl, int L, bool mine, int n_live) {
+    const SwScoring (&cs)[C], int w, int sl, int L, bool mine, int n_live,
+    const int* tab) {
   int dL = __shfl_up_sync(kFull, D[C - 1], 1, L);
   int pL = __shfl_up_sync(kFull, Pg[C - 1], 1, L);
   int xL = __shfl_up_sync(kFull, X[C - 1], 1, L);
   if (sl == 0) {  // column 0: the left boundary and the x stream
     dL = 0;
     pL = kNeg;
-    xL = w & 0xff;
+    xL = sw_x_code<kMat>(w & 0xff);
   }
   // Right to left, so that column j-1 still holds the step before.
 #pragma unroll
@@ -104,8 +108,13 @@ __device__ __forceinline__ void rotor_step(
     const int pl = j ? Pg[j - 1] : pL;
     const int xl = j ? X[j - 1] : xL;
     int pn, qn;
-    const int dn =
-        sw_cell_dpx(dl, pl, D[j], Q[j], U2[j], xl == Y[j], cs[j], pn, qn);
+    int dn;
+    if constexpr (kMat) {
+      dn = sw_cell_dpx_sub(dl, pl, D[j], Q[j], U2[j], tab[xl + Y[j]], cs[j],
+                           pn, qn);
+    } else {
+      dn = sw_cell_dpx(dl, pl, D[j], Q[j], U2[j], xl == Y[j], cs[j], pn, qn);
+    }
     U2[j] = dl;
     X[j] = xl;
     D[j] = dn;
@@ -130,18 +139,25 @@ __device__ __forceinline__ void rotor_step(
   if (C % 2) mx[(C + 1) / 2 - 1] = max(mx[(C + 1) / 2 - 1], D[C - 1]);
 }
 
-template <int G, int C>
+template <int G, int C, bool kMat>
 __global__ void __launch_bounds__(kWarp * kMaxWarpsPerBlock)
 sw_rotor_kernel(const int8_t* __restrict__ xrev,
                 const int8_t* __restrict__ ybuf, int32_t* __restrict__ out,
                 int nt, int nb, int ny, int T, int P, int A, int out_rows,
-                SwScoring sc) {
+                SwScoring sc, const int32_t* __restrict__ table) {
   constexpr int L = kWarp / G;  // lanes a queue
   constexpr int NG = (C + 1) / 2;  // column pairs a lane
   static_assert(C >= 1 && C <= kMaxCols, "C columns a lane");
   const int lane = threadIdx.x % kWarp;
   const int sl = lane % L;  // the lane's place in its queue's segment
   const int warp = blockIdx.x * (blockDim.x / kWarp) + threadIdx.x / kWarp;
+  const int* tab = nullptr;
+  if constexpr (kMat) {
+    __shared__ int32_t tab_s[kSubEntries];
+    sw_load_table(tab_s, table);
+    __syncthreads();
+    tab = tab_s;
+  }
   if (warp * G >= nt * kLanes) return;  // the whole warp: 128 % G == 0
   const int queue = warp * G + lane / L;
   const int t = queue / kLanes;
@@ -171,8 +187,8 @@ sw_rotor_kernel(const int8_t* __restrict__ xrev,
     D[j] = 0;
     Pg[j] = kNeg;
     Q[j] = kNeg;
-    X[j] = 1;  // PAD_X: the cells before pair 0 stay 0
-    Y[j] = 0;
+    X[j] = sw_x_code<kMat>(1);  // PAD_X: the cells before pair 0 stay 0
+    Y[j] = kMat && j >= n_live ? kSubDead : 0;
     U2[j] = 0;
     cs[j] = j < n_live ? sc : dead;
   }
@@ -211,16 +227,16 @@ sw_rotor_kernel(const int8_t* __restrict__ xrev,
   for (int m = 0; m <= P; ++m) {
     const int d0 = m * T;
     if (m > 0)
-      rotor_step<C, -1>(D, Pg, Q, X, Y, U2, mx, hv, cs, word(d0), sl, L,
-                        false, n_live);
+      rotor_step<C, -1, kMat>(D, Pg, Q, X, Y, U2, mx, hv, cs, word(d0), sl,
+                              L, false, n_live, tab);
     for (int k = 0; k * C < T - 1; ++k) {
       const bool mine = sl == k;
       const int e0 = 1 + k * C;
 #define GENOMAX_ROTOR_STEP(j)                                             \
   if (j < C && e0 + j < T)                                                \
-    rotor_step<C, (j < C ? j : -1)>(D, Pg, Q, X, Y, U2, mx, hv, cs,       \
-                                    word(d0 + e0 + j), sl, L, mine,       \
-                                    n_live);
+    rotor_step<C, (j < C ? j : -1), kMat>(D, Pg, Q, X, Y, U2, mx, hv, cs, \
+                                          word(d0 + e0 + j), sl, L, mine, \
+                                          n_live, tab);
       GENOMAX_ROTOR_STEP(0)
       GENOMAX_ROTOR_STEP(1)
       GENOMAX_ROTOR_STEP(2)
@@ -250,11 +266,20 @@ sw_rotor_kernel(const int8_t* __restrict__ xrev,
 template <int G, int C>
 int launch_geo(const void* xrev, const void* ybuf, void* out, int nt, int nb,
                int ny, int T, int P, int A, int out_rows, int wpb,
-               SwScoring sc, cudaStream_t stream) {
+               SwScoring sc, const void* table, cudaStream_t stream) {
   const int warps = nt * kLanes / G;
-  sw_rotor_kernel<G, C><<<(warps + wpb - 1) / wpb, kWarp * wpb, 0, stream>>>(
-      static_cast<const int8_t*>(xrev), static_cast<const int8_t*>(ybuf),
-      static_cast<int32_t*>(out), nt, nb, ny, T, P, A, out_rows, sc);
+  const int blocks = (warps + wpb - 1) / wpb;
+  const int8_t* x = static_cast<const int8_t*>(xrev);
+  const int8_t* y = static_cast<const int8_t*>(ybuf);
+  int32_t* o = static_cast<int32_t*>(out);
+  if (table) {
+    sw_rotor_kernel<G, C, true><<<blocks, kWarp * wpb, 0, stream>>>(
+        x, y, o, nt, nb, ny, T, P, A, out_rows, sc,
+        static_cast<const int32_t*>(table));
+  } else {
+    sw_rotor_kernel<G, C, false><<<blocks, kWarp * wpb, 0, stream>>>(
+        x, y, o, nt, nb, ny, T, P, A, out_rows, sc, nullptr);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -268,12 +293,15 @@ int launch_geo(const void* xrev, const void* ybuf, void* out, int nt, int nb,
 // it wants them zero) and checks the contract: xrev (nt, nb, 128), ybuf
 // (nt, ny, 128); 8 <= T <= 160 and T - 1 <= (32 / G) * C; 1 <= P <=
 // out_rows; (P+1)T <= A < nb; (P+1)T <= ny. A launch past the contract
-// scores -1 in each slot of its queues.
+// scores -1 in each slot of its queues. `table` null scores by match and
+// mismatch; else it is the code table on the device (kSubEntries int32)
+// and match and mismatch are not read.
 extern "C" int sw_rotor_launch(const void* xrev, const void* ybuf, void* out,
                                int nt, int nb, int ny, int T, int P, int A,
                                int out_rows, int queues_per_warp, int cols,
                                int warps_per_block, int match, int mismatch,
-                               int gap_open, int gap_extend, void* stream) {
+                               int gap_open, int gap_extend,
+                               const void* table, void* stream) {
   if (warps_per_block < 1 || warps_per_block > kMaxWarpsPerBlock)
     return static_cast<int>(cudaErrorInvalidValue);
   if (nt <= 0) return 0;
@@ -282,7 +310,7 @@ extern "C" int sw_rotor_launch(const void* xrev, const void* ybuf, void* out,
 #define GENOMAX_ROTOR_CASE(g, c)                                           \
   if (queues_per_warp == g && cols == c)                                   \
     return launch_geo<g, c>(xrev, ybuf, out, nt, nb, ny, T, P, A, out_rows, \
-                            warps_per_block, sc, s);
+                            warps_per_block, sc, table, s);
   GENOMAX_ROTOR_CASE(1, 1)
   GENOMAX_ROTOR_CASE(1, 2)
   GENOMAX_ROTOR_CASE(1, 3)

@@ -31,9 +31,14 @@ constexpr unsigned kSwFullMask = 0xffffffffu;
 // (the lane tile, whose pads decay).
 constexpr int kSwNoEnd = 0x7fffffff;
 
-template <int R>
+// kMat: the matrix instantiation. X holds each row's x code times
+// kSubStride (sw_x_code), `tab` the code table in shared memory, and a
+// cell scores tab[X + y] through sw_cell_dpx_sub; the equality
+// instantiation reads neither and is the code it was.
+template <int R, bool kMat = false>
 struct SwRows {
   int D[R], P[R], Q[R], Y[R], U2[R], X[R];
+  const int* tab;
 
   // Diagonal row0 of a sub-strip: every cell is boundary or above it.
   __device__ __forceinline__ void reset() {
@@ -59,8 +64,13 @@ struct SwRows {
       const int uq = i ? Q[i - 1] : aQ;
       const int yc = i ? Y[i - 1] : aY;
       int pn, qn;
-      const int dn = sw_cell_dpx(D[i], P[i], ud, uq, U2[i], yc == X[i], sc,
-                                 pn, qn);
+      int dn;
+      if constexpr (kMat) {
+        dn = sw_cell_dpx_sub(D[i], P[i], ud, uq, U2[i], tab[X[i] + yc], sc,
+                             pn, qn);
+      } else {
+        dn = sw_cell_dpx(D[i], P[i], ud, uq, U2[i], yc == X[i], sc, pn, qn);
+      }
       U2[i] = ud;
       Y[i] = yc;
       if (kMasked) {

@@ -96,21 +96,32 @@ __host__ __device__ size_t strips_pair_bytes(int ring) {
          ((static_cast<size_t>(ring) + 15) / 16) * 16;
 }
 
-template <int R>
+// kMat: the matrix instantiation (sw_rows.cuh), its code table the first
+// kSubEntries int32 of the shared memory, the pairs' regions after it.
+template <int R, bool kMat>
 __global__ void __launch_bounds__(kMaxPairs * 32)
 sw_strips_kernel(const int8_t* __restrict__ sx, const int8_t* __restrict__ sy,
                  const int32_t* __restrict__ nx,
                  const int32_t* __restrict__ ny, int32_t* __restrict__ out,
                  int n_slots, int n_rows, int nds, int anchor, int ring,
-                 SwScoring sc) {
+                 SwScoring sc, const int32_t* __restrict__ table) {
   constexpr int H = 32 * R;
   extern __shared__ int4 smem4[];  // 16-byte aligned
   const int lane = threadIdx.x & 31;
   const int wp = threadIdx.x >> 5;
   const int slot = blockIdx.x * (blockDim.x >> 5) + wp;
+  char* pairs_smem = reinterpret_cast<char*>(smem4);
+  SwRows<R, kMat> rows;
+  if constexpr (kMat) {
+    int* const tab = reinterpret_cast<int*>(smem4);
+    sw_load_table(tab, table);
+    __syncthreads();
+    rows.tab = tab;
+    pairs_smem += kSubEntries * sizeof(int);
+  }
   if (slot >= n_slots) return;  // the whole warp: no barrier follows
   int2* const seam = reinterpret_cast<int2*>(
-      reinterpret_cast<char*>(smem4) + wp * strips_pair_bytes(ring));
+      pairs_smem + wp * strips_pair_bytes(ring));
   int8_t* const ycode = reinterpret_cast<int8_t*>(seam + ring);
 
   const int t = slot / kLanes;
@@ -132,15 +143,14 @@ sw_strips_kernel(const int8_t* __restrict__ sx, const int8_t* __restrict__ sy,
   __syncwarp();
 
   int best = 0;
-  SwRows<R> rows;
   // Sub-strip s holds rows [row0, row0 + H), row0 = 1 + s*H; it has a
   // live row iff row0 <= len x. The bounds are the same for every lane.
   for (int row0 = 1; ly > 0 && row0 <= lx; row0 += H) {
     const int pf = row0 + lane * R;  // this lane's first row
 #pragma unroll
     for (int i = 0; i < R; ++i)
-      rows.X[i] = pf + i < n_rows ? xs[static_cast<size_t>(pf + i) * kLanes]
-                                  : kPadX;
+      rows.X[i] = sw_x_code<kMat>(
+          pf + i < n_rows ? xs[static_cast<size_t>(pf + i) * kLanes] : kPadX);
     rows.reset();
     const int p_last = row0 + H - 1;  // the sub-strip's last row
     const bool last_live = p_last <= lx;
@@ -200,23 +210,25 @@ sw_strips_kernel(const int8_t* __restrict__ sx, const int8_t* __restrict__ sy,
   if (lane == 0) out[slot] = best;
 }
 
-template <int R>
+template <int R, bool kMat>
 int launch(const void* sx, const void* sy, const void* nx, const void* ny,
            void* out, int nt, int n_rows, int pairs, int nds, int anchor,
-           int ring, SwScoring sc, cudaStream_t stream) {
+           int ring, SwScoring sc, const void* table, cudaStream_t stream) {
   const int n_slots = nt * kLanes;
-  const size_t smem = pairs * strips_pair_bytes(ring);
+  const size_t smem = pairs * strips_pair_bytes(ring) +
+                      (kMat ? kSubEntries * sizeof(int) : 0);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        sw_strips_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        sw_strips_kernel<R, kMat>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  sw_strips_kernel<R><<<(n_slots + pairs - 1) / pairs, pairs * 32, smem,
-                        stream>>>(
+  sw_strips_kernel<R, kMat><<<(n_slots + pairs - 1) / pairs, pairs * 32,
+                              smem, stream>>>(
       static_cast<const int8_t*>(sx), static_cast<const int8_t*>(sy),
       static_cast<const int32_t*>(nx), static_cast<const int32_t*>(ny),
-      static_cast<int32_t*>(out), n_slots, n_rows, nds, anchor, ring, sc);
+      static_cast<int32_t*>(out), n_slots, n_rows, nds, anchor, ring, sc,
+      static_cast<const int32_t*>(table));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -229,22 +241,28 @@ int launch(const void* sx, const void* sy, const void* nx, const void* ny,
 // `out` (nt * 128 int32) and checks shapes: sx (nt, n_rows, 128), sy (nt,
 // nds, 128), nx, ny (nt*128); ring >= every ny; every nx <= n_rows;
 // ny <= anchor < nds; and picks R (`rows_per_thread`) and `pairs`.
+// `table` null scores by match and mismatch; else it is the code table
+// on the device (kSubEntries int32), match and mismatch are not read,
+// and a block takes kSubEntries * 4 bytes more shared memory.
 extern "C" int sw_strips_launch(const void* sx, const void* sy,
                                 const void* nx, const void* ny, void* out,
                                 int nt, int n_rows, int rows_per_thread,
                                 int pairs, int nds, int anchor, int ring,
                                 int match, int mismatch, int gap_open,
-                                int gap_extend, void* stream) {
+                                int gap_extend, const void* table,
+                                void* stream) {
   if (nt <= 0) return 0;
   if (pairs < 1 || pairs > kMaxPairs)
     return static_cast<int>(cudaErrorInvalidValue);
   const SwScoring sc{match, mismatch, gap_open + gap_extend, gap_extend};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (rows_per_thread) {
-#define GENOMAX_STRIPS_CASE(r)                                             \
-  case r:                                                                  \
-    return launch<r>(sx, sy, nx, ny, out, nt, n_rows, pairs, nds, anchor, \
-                     ring, sc, s);
+#define GENOMAX_STRIPS_CASE(r)                                              \
+  case r:                                                                   \
+    return table ? launch<r, true>(sx, sy, nx, ny, out, nt, n_rows, pairs,  \
+                                   nds, anchor, ring, sc, table, s)         \
+                 : launch<r, false>(sx, sy, nx, ny, out, nt, n_rows, pairs, \
+                                    nds, anchor, ring, sc, table, s);
     GENOMAX_STRIPS_CASE(2)
     GENOMAX_STRIPS_CASE(3)
     GENOMAX_STRIPS_CASE(4)

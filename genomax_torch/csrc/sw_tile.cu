@@ -30,8 +30,9 @@
 //    threads holds a thread to 64 registers, which the smaller blocks'
 //    bound of 512 (128 registers) does not impose on them.
 // A tile's pairs sweep its diagonals 2 .. ndiag - 1. Rows past a pair's
-// length and columns past its y hold pad codes that mismatch everything,
-// so those cells never exceed the pair's real maximum; the kernel needs
+// length and columns past its y hold pad codes that mismatch everything
+// (under a matrix, score at most 0 against anything: scoring.py), so
+// those cells never exceed the pair's real maximum; the kernel needs
 // no per-pair length. Only j >= 1 is masked (the first-row boundary), and
 // a warp takes the unmasked step once its last row's j >= 1, for the whole
 // warp at once (one warp a pair: a masked loop, then an unmasked one).
@@ -63,14 +64,15 @@ constexpr int kPadX = 1;           // the pack's x pad code
 
 // kForm 0: blockDim.x / 32 pairs a block, one warp each. kForm 1 and 2:
 // one pair a block of blockDim.x / 32 warps, at most 16 (kForm 1) or 32
-// (kForm 2), the launch bound of the instance.
-template <int R, int kForm>
+// (kForm 2), the launch bound of the instance. kMat: the matrix
+// instantiation (sw_rows.cuh), its code table in static shared memory.
+template <int R, int kForm, bool kMat>
 __global__ void __launch_bounds__(kForm == 2 ? kMaxWarps * 32
                                              : kMaxWarps * 32 / 2)
 sw_tile_kernel(const int8_t* __restrict__ sx, const int8_t* __restrict__ sy,
                const int32_t* __restrict__ ndiag_tile,
                int32_t* __restrict__ out, int n_slots, int nxs, int nds,
-               SwScoring sc) {
+               SwScoring sc, const int32_t* __restrict__ table) {
   constexpr int H = 32 * R;
   constexpr bool kBlock = kForm != 0;
   __shared__ int32_t seam[2][3][kMaxWarps];  // D, Q, code of each warp's
@@ -79,6 +81,13 @@ sw_tile_kernel(const int8_t* __restrict__ sx, const int8_t* __restrict__ sy,
   const int lane = threadIdx.x & 31;
   const int wp = threadIdx.x >> 5;
   const int slot = kBlock ? blockIdx.x : blockIdx.x * (blockDim.x >> 5) + wp;
+  SwRows<R, kMat> rows;
+  if constexpr (kMat) {
+    __shared__ int32_t tab[kSubEntries];
+    sw_load_table(tab, table);
+    __syncthreads();
+    rows.tab = tab;
+  }
   if (!kBlock && slot >= n_slots) return;  // the whole warp
   const int gw = kBlock ? wp : 0;          // the warp's group in its pair
   const int t = slot / kLanes;
@@ -88,13 +97,12 @@ sw_tile_kernel(const int8_t* __restrict__ sx, const int8_t* __restrict__ sy,
   const int8_t* const ys = sy + static_cast<size_t>(t) * nds * kLanes + l;
   const int8_t* const xs = sx + static_cast<size_t>(t) * nxs * kLanes + l;
 
-  SwRows<R> rows;
   const int row0 = 1 + gw * H;
   const int pf = row0 + lane * R;  // this lane's first row
 #pragma unroll
   for (int i = 0; i < R; ++i)
-    rows.X[i] = pf + i < nxs ? xs[static_cast<size_t>(pf + i) * kLanes]
-                             : kPadX;
+    rows.X[i] = sw_x_code<kMat>(
+        pf + i < nxs ? xs[static_cast<size_t>(pf + i) * kLanes] : kPadX);
   rows.reset();
   // Stream code of column j (row 1's cell j is on diagonal j + 1).
   auto code = [&](int j) {
@@ -188,24 +196,26 @@ sw_tile_kernel(const int8_t* __restrict__ sx, const int8_t* __restrict__ sy,
   if (threadIdx.x == 0) out[slot] = block_best;
 }
 
-template <int R>
+template <int R, bool kMat>
 int launch(const void* sx, const void* sy, const void* ndiag_tile, void* out,
            int nt, int nxs, int nds, int warps, int pairs, SwScoring sc,
-           cudaStream_t stream) {
+           const void* table, cudaStream_t stream) {
   const int n_slots = nt * kLanes;
   const int8_t* x = static_cast<const int8_t*>(sx);
   const int8_t* y = static_cast<const int8_t*>(sy);
   const int32_t* nd = static_cast<const int32_t*>(ndiag_tile);
   int32_t* o = static_cast<int32_t*>(out);
+  const int32_t* tab = static_cast<const int32_t*>(table);
   if (warps == 1) {
-    sw_tile_kernel<R, 0><<<(n_slots + pairs - 1) / pairs, pairs * 32, 0,
-                           stream>>>(x, y, nd, o, n_slots, nxs, nds, sc);
+    sw_tile_kernel<R, 0, kMat><<<(n_slots + pairs - 1) / pairs, pairs * 32,
+                                 0, stream>>>(x, y, nd, o, n_slots, nxs, nds,
+                                              sc, tab);
   } else if (warps <= kMaxWarps / 2) {
-    sw_tile_kernel<R, 1><<<n_slots, warps * 32, 0, stream>>>(
-        x, y, nd, o, n_slots, nxs, nds, sc);
+    sw_tile_kernel<R, 1, kMat><<<n_slots, warps * 32, 0, stream>>>(
+        x, y, nd, o, n_slots, nxs, nds, sc, tab);
   } else {
-    sw_tile_kernel<R, 2><<<n_slots, warps * 32, 0, stream>>>(
-        x, y, nd, o, n_slots, nxs, nds, sc);
+    sw_tile_kernel<R, 2, kMat><<<n_slots, warps * 32, 0, stream>>>(
+        x, y, nd, o, n_slots, nxs, nds, sc, tab);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -218,12 +228,15 @@ int launch(const void* sx, const void* sy, const void* ndiag_tile, void* out,
 // nds > nxs, and A = nds - nxs >= every ndiag_tile[t]; and picks R
 // (`rows_per_thread`), the warps a pair (1, or 2 <= W <= 32 with W * 32 *
 // R >= nxs - 1: up to 8,193 rows at R = 8) and, for one warp a pair, the
-// pairs a block (1-16).
+// pairs a block (1-16). `table` null scores by match and mismatch; else
+// it is the code table on the device (kSubEntries int32) and match and
+// mismatch are not read.
 extern "C" int sw_tile_launch(const void* sx, const void* sy,
                               const void* ndiag_tile, void* out, int nt,
                               int nxs, int nds, int rows_per_thread,
                               int warps, int pairs, int match, int mismatch,
-                              int gap_open, int gap_extend, void* stream) {
+                              int gap_open, int gap_extend, const void* table,
+                              void* stream) {
   if (nt <= 0) return 0;
   if (warps < 1 || warps > kMaxWarps || pairs < 1 ||
       pairs > kMaxWarps / 2 || warps * 32 * rows_per_thread < nxs - 1)
@@ -231,10 +244,12 @@ extern "C" int sw_tile_launch(const void* sx, const void* sy,
   const SwScoring sc{match, mismatch, gap_open + gap_extend, gap_extend};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (rows_per_thread) {
-#define GENOMAX_TILE_CASE(r)                                                \
-  case r:                                                                   \
-    return launch<r>(sx, sy, ndiag_tile, out, nt, nxs, nds, warps, pairs, \
-                     sc, s);
+#define GENOMAX_TILE_CASE(r)                                                 \
+  case r:                                                                    \
+    return table ? launch<r, true>(sx, sy, ndiag_tile, out, nt, nxs, nds,    \
+                                   warps, pairs, sc, table, s)               \
+                 : launch<r, false>(sx, sy, ndiag_tile, out, nt, nxs, nds,   \
+                                    warps, pairs, sc, table, s);
     GENOMAX_TILE_CASE(2)
     GENOMAX_TILE_CASE(3)
     GENOMAX_TILE_CASE(4)

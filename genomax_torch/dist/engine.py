@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from genomax_torch import scoring, trace
 from genomax_torch.config import EngineConfig, PairHMMConfig, SWConfig
 from genomax_torch.dist.sharded import (pairhmm_forward_sharded,
                                         sw_forward_sharded)
@@ -36,6 +37,8 @@ class ShardedEngine(Engine):
     def __init__(self, mesh, cfg: EngineConfig = EngineConfig(),
                  sw_cfg: SWConfig = SWConfig(),
                  phmm_cfg: PairHMMConfig = PairHMMConfig()):
+        scoring.refuse(sw_cfg, "ShardedEngine (its tile-sharded buckets "
+                       "and the cross-device sw_xstrip path)")
         super().__init__(cfg, sw_cfg, phmm_cfg, device=mesh.device)
         self.mesh = mesh
 
@@ -59,6 +62,8 @@ class ShardedEngine(Engine):
                         dtype=np.int64)
         rest = off.copy()
         if len(xidx):
+            trace.count("cells.xstrip", sum(
+                len(pairs[i].sx) * len(pairs[i].sy) for i in xidx))
             try:
                 for s in range(0, len(xidx), LANES):
                     tile = xidx[s: s + LANES]

@@ -34,7 +34,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from genomax_torch import trace
+from genomax_torch import scoring, trace
 from genomax_torch.config import SWConfig
 from genomax_torch.kernels import _build
 from genomax_torch.kernels.wavefront import sw_xstrip_block
@@ -417,7 +417,9 @@ def sw_scores_xsharded(pairs, *, mesh, unroll: int = 16,
                        cfg: SWConfig = SWConfig()) -> np.ndarray:
     """Scores of up to 128 SWPair jobs through the cross-device wavefront
     on ``mesh``: every rank packs the tile, copies its strip of x and the
-    stream to its device, and runs ``sw_forward_xsharded``."""
+    stream to its device, and runs ``sw_forward_xsharded``. It refuses a
+    substitution matrix."""
+    scoring.refuse(cfg, "sw_xstrip")
     pk = pack_sw_xsharded(pairs, mesh.size, unroll=unroll)
     w, k = pk.strip_w, mesh.rank
     sx, sy = trace.to_device(mesh.device, pk.sx[k * w: (k + 1) * w], pk.sy)

@@ -37,7 +37,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from genomax_torch import native, trace
+from genomax_torch import native, scoring, trace
 from genomax_torch.config import (MAX_KERNEL_ROWS, MAX_PHMM_ROWS,
                                   EngineConfig, PairHMMConfig, SWConfig)
 from genomax_torch.io.formats import (PairHMMBatch, parse_pairhmm_file,
@@ -56,7 +56,7 @@ from genomax_torch.pack import (pack_pairhmm_batches, pack_sw_pairs,
                                 phmm_bucket_to_torch, sw_bucket_to_torch,
                                 sw_rotor_to_torch, sw_stacked_to_torch,
                                 sw_strips_to_torch, unpack_scores)
-from genomax_torch.pack.bucketing import bucket_levels, bucket_rows
+from genomax_torch.pack.bucketing import bucket_levels, bucket_rows, sw_sides
 
 
 class EngineError(RuntimeError):
@@ -128,6 +128,26 @@ def phmm_bucket_stats(stats, buckets):
         )
 
 
+def _sw_cells(b) -> int:
+    """The real DP cells of an SW bucket's pairs: sum of len(x) * len(y)
+    (an empty slot's nx and ny are 1)."""
+    return int(((b.nx - 1).astype(np.int64) * (b.ny - 1)).sum())
+
+
+def _pair_cells(pairs) -> int:
+    return sum(len(p.sx) * len(p.sy) for p in pairs)
+
+
+def _residue_error(e: scoring.ResidueError, index, n: int) -> EngineError:
+    """The engine's error for a byte outside the matrix's alphabet, naming
+    the byte and the pair by its index in the call (``index`` maps the
+    batch's to it)."""
+    k = int(index[e.index]) if index is not None else e.index
+    return EngineError("encode", 0, (n,), scoring.ResidueError(
+        f"byte {bytes([e.byte])!r} ({e.byte}) of pair {k} is not a residue "
+        "of the substitution matrix", k, e.byte))
+
+
 def _shape(b):
     """The tile shape an error names: sx of an SW bucket, rchar (or the
     factored rchar_u) of a PairHMM bucket."""
@@ -188,6 +208,18 @@ class Engine:
         self.sw_cfg = sw_cfg.validate()
         self.phmm_cfg = phmm_cfg
         self.last_stats: RunStats | None = None
+        # Under a substitution matrix: its name, the residue codes the
+        # packs encode by, and its code table on the engine's device,
+        # copied once.
+        self._matrix = scoring.matrix_of(sw_cfg)
+        if self._matrix is not None and cfg.sw_stack >= 2:
+            raise ValueError(
+                f"sw_stack={cfg.sw_stack}: the stacked route (sw_stacked) "
+                f"does not score a substitution matrix ({self._matrix}); "
+                "leave sw_stack below 2")
+        self._codes = (None if self._matrix is None
+                       else scoring.code_lut(self._matrix))
+        self._sub_table = scoring.device_table(sw_cfg, self.device)
 
     # -- Smith-Waterman ----------------------------------------------------
 
@@ -214,27 +246,32 @@ class Engine:
         kernel's rows come back in bucket tile order (the stack's pad tiles
         last, past n_valid), so unpack_scores needs no change. The engine
         and the sweep (``bench/sweep.py``) share it."""
-        prep = maybe_prep_strips(self.cfg, b)
+        tab = self._sub_table
+        prep = maybe_prep_strips(self.cfg, b, self._matrix is not None)
         if prep is not None:
             (_, _, _, nyt), statics = prep
             t, ny_max = sw_strips_to_torch(prep, b, self.device), int(nyt.max())
             return "strips", lambda: sw_forward_strips(
-                *t, ny_max=ny_max, cfg=self.sw_cfg, **statics)
+                *t, ny_max=ny_max, cfg=self.sw_cfg, table=tab, **statics)
         prep = maybe_prep_rotor(self.cfg, b)
         if prep is not None:
             t = sw_rotor_to_torch(prep, self.device)
             return "rotor", lambda: sw_forward_rotor_bucket(
-                *t, cfg=self.sw_cfg, **prep[1])
+                *t, cfg=self.sw_cfg, table=tab, **prep[1])
         prep = maybe_prep_stacked(self.cfg, b)
         if prep is not None:
             t = sw_stacked_to_torch(prep, self.device)
             return "stacked", lambda: sw_forward_stacked(
                 *t, cfg=self.sw_cfg, **prep[1])
         t = sw_bucket_to_torch(b, self.device)
-        return "tile", lambda: sw_forward(*t, self.sw_cfg)
+        return "tile", lambda: sw_forward(*t, self.sw_cfg, table=tab)
 
     def _sw_bucket(self, b):
-        return self._sw_prep(b)[1]()
+        """Bucket b scored on its route; its real cells counted under
+        ``cells.<route>``."""
+        route, launch = self._sw_prep(b)
+        trace.count("cells." + route, _sw_cells(b))
+        return launch()
 
     @trace.traced("plan")
     def _sw_offload_mask(self, pairs):
@@ -246,8 +283,8 @@ class Engine:
         on the bucket the pack makes of the pair's x level), so that the
         lane tile is never handed a bucket it cannot hold."""
         L, D = self.cfg.max_device_len, self.cfg.max_device_diags
-        lx = np.fromiter((len(p.sx) for p in pairs), np.int64, len(pairs))
-        ly = np.fromiter((len(p.sy) for p in pairs), np.int64, len(pairs))
+        _, lx = sw_sides(pairs, "sx")
+        _, ly = sw_sides(pairs, "sy")
         m = (lx + 2 > L) | (lx + ly + 1 > D)
         tall = ~m & (lx + 2 > MAX_KERNEL_ROWS)
         if tall.any():
@@ -255,19 +292,25 @@ class Engine:
             for v in np.unique(level[tall]):
                 b = ~m & (level == v)
                 nxs = bucket_rows(int(lx[b].max()))
-                if not takes(self.cfg, nxs, int(ly[b].max()) + 1):
+                if not takes(self.cfg, nxs, int(ly[b].max()) + 1,
+                             self._matrix is not None):
                     m |= tall & (level == v)
         return m if m.any() else None
 
     @trace.traced("call")
     def sw_scores(self, pairs) -> np.ndarray:
-        """Scores for SWPair jobs, in input order."""
+        """Scores for SWPair jobs, in input order. Under a substitution
+        matrix a byte outside its alphabet raises :class:`EngineError`
+        (stage "encode") naming the byte and the pair."""
         stats = RunStats(n_jobs=len(pairs))
         off = self._sw_offload_mask(pairs)
         with trace.timed("pack") as t:
-            buckets = pack_sw_pairs(pairs,
-                                    job_mask=None if off is None else ~off,
-                                    stream_band=self._stream_band())
+            try:
+                buckets = pack_sw_pairs(
+                    pairs, job_mask=None if off is None else ~off,
+                    stream_band=self._stream_band(), codes=self._codes)
+            except scoring.ResidueError as e:
+                raise _residue_error(e, None, len(pairs)) from e
         stats.pack_s = t.seconds
         stats.buckets = len(buckets)
         sw_bucket_stats(stats, buckets)
@@ -305,15 +348,24 @@ class Engine:
         dev_ok = self._sw_long_ok(pairs, idx)
         if dev_ok.any():
             didx = idx[dev_ok]
+            long_pairs = [pairs[i] for i in didx]
+            trace.count("cells.sw_long", _pair_cells(long_pairs))
+            kw = {} if self._matrix is None else {"table": self._sub_table}
             try:
-                out[didx] = sw_scores_long([pairs[i] for i in didx],
-                                           self.sw_cfg, device=self.device)
+                out[didx] = sw_scores_long(long_pairs, self.sw_cfg,
+                                           device=self.device, **kw)
+            except scoring.ResidueError as e:
+                raise _residue_error(e, didx, len(pairs)) from e
             except Exception as e:
                 raise EngineError("sw_long", 0, (len(didx),), e) from e
         nat = idx[~dev_ok]
         if len(nat):
-            out[nat] = native.sw_scores_native([pairs[i] for i in nat],
-                                               self.sw_cfg)
+            nat_pairs = [pairs[i] for i in nat]
+            trace.count("cells.native", _pair_cells(nat_pairs))
+            try:
+                out[nat] = native.sw_scores_native(nat_pairs, self.sw_cfg)
+            except scoring.ResidueError as e:
+                raise _residue_error(e, nat, len(pairs)) from e
 
     def sw_scores_file(self, path: str) -> np.ndarray:
         return self.sw_scores(parse_sw_file(path))
@@ -453,9 +505,12 @@ class Engine:
     @trace.traced("call")
     def sw_scores_stream(self, pairs, chunk_pairs: int = 65536) -> np.ndarray:
         """``sw_scores`` over chunks, the next chunk packed in a worker
-        thread while this one runs (``engine/stream.py``)."""
+        thread while this one runs (``engine/stream.py``). It does not
+        score a substitution matrix: such a config raises before any
+        work."""
         from genomax_torch.engine.stream import sw_scores_stream
 
+        scoring.refuse(self.sw_cfg, "sw_scores_stream")
         return sw_scores_stream(self, pairs, chunk_pairs)
 
     @trace.traced("call")

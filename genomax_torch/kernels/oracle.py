@@ -17,8 +17,11 @@ Semantics sources:
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 
+from genomax_torch import scoring
 from genomax_torch.config import PairHMMConfig, SWConfig
 from genomax_torch.io.phred import phred_to_error_prob
 
@@ -35,8 +38,23 @@ def _sat_add(a: np.ndarray, b: int) -> np.ndarray:
     return np.where(a == NEG_INF_I32, NEG_INF_I32, a + b)
 
 
+@functools.lru_cache(maxsize=None)
+def _byte_table(name: str) -> np.ndarray:
+    """(256, 256) int64 scores of residue bytes under matrix ``name``,
+    from its letters (not the kernels' codes); the bytes outside its
+    alphabet, which ``sw_score`` refuses, score 0."""
+    alphabet, scores = scoring.matrix(name)
+    t = np.zeros((256, 256), np.int64)
+    a = np.frombuffer(alphabet, np.uint8)
+    t[a[:, None], a[None, :]] = scores
+    return t
+
+
 def sw_score(sx: bytes, sy: bytes, cfg: SWConfig = SWConfig()) -> int:
-    """Affine-gap local alignment score of one pair (sx = columns).
+    """Affine-gap local alignment score of one pair (sx = columns). Under
+    ``cfg.matrix`` a cell scores the matrix's entry of its two residues
+    (a byte outside the alphabet raises ValueError), else ``match`` for
+    equal bytes and ``mismatch`` for others.
 
     Row i of the (len(sy)+1, len(sx)+1) matrix is index i of each
     diagonal's arrays; diagonal d holds the cells (i, d - i)."""
@@ -44,6 +62,16 @@ def sw_score(sx: bytes, sy: bytes, cfg: SWConfig = SWConfig()) -> int:
     x = np.frombuffer(sx, np.uint8)
     y = np.frombuffer(sy, np.uint8)
     og_e, ge = cfg.gap_open + cfg.gap_extend, cfg.gap_extend
+    table = None
+    name = scoring.matrix_of(cfg)
+    if name is not None:
+        table = _byte_table(name)
+        alpha = np.frombuffer(scoring.matrix(name)[0], np.uint8)
+        for s in (x, y):
+            bad = s[~np.isin(s, alpha)]
+            if len(bad):
+                raise ValueError(f"byte {bytes(bad[:1])!r} is not a residue "
+                                 f"of {name}")
     # (P, Q, D) of diagonals d, d-1 and D of d-2; entries off a diagonal
     # are never read. Diagonal 0 is the (0,0) cell, which takes the
     # row-boundary values (the reference's order): P=-inf, Q=0, D=0.
@@ -63,8 +91,11 @@ def sw_score(sx: bytes, sy: bytes, cfg: SWConfig = SWConfig()) -> int:
             P[i] = np.maximum(_sat_add(D1[up], og_e), _sat_add(P1[up], ge))
             Q[i] = np.maximum(_sat_add(D1[i], og_e), _sat_add(Q1[i], ge))
             # y[i-1] against x[j-1], j = d - i
-            sub = np.where(y[lo - 1: hi] == x[d - hi - 1: d - lo][::-1],
-                           cfg.match, cfg.mismatch)
+            yv, xv = y[lo - 1: hi], x[d - hi - 1: d - lo][::-1]
+            if table is None:
+                sub = np.where(yv == xv, cfg.match, cfg.mismatch)
+            else:
+                sub = table[xv, yv]
             D[i] = np.maximum(np.maximum(P[i], Q[i]),
                               np.maximum(D2[up] + sub, 0))
             best = max(best, int(D[i].max()))

@@ -17,7 +17,7 @@ import dataclasses
 
 import torch
 
-from genomax_torch import trace
+from genomax_torch import scoring, trace
 from genomax_torch.config import SWConfig
 from genomax_torch.kernels import _build
 from genomax_torch.kernels.wavefront import sw_forward_tiles
@@ -37,7 +37,8 @@ MAX_WARPS = 32
 # weights of tile_geometry's cost.
 STEP_CELLS, BARRIER_CELLS = 2, 1
 
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
+             + [ctypes.c_void_p] * 2)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,14 +91,18 @@ def tile_geometry(nxs: int, r: int | None = None) -> TileGeometry:
 
 def sw_forward(sx: torch.Tensor, sy: torch.Tensor, ndiag_tile: torch.Tensor,
                cfg: SWConfig = SWConfig(), *,
+               table: torch.Tensor | None = None,
                _rows_per_thread: int | None = None) -> torch.Tensor:
     """Scores of a packed SW bucket.
 
     sx: (NT, NXs, 128) int8 sublane-fixed codes; sy: (NT, NDs, 128) int8
     reversed diagonal stream with anchor NDs - NXs >= every tile's
     diagonal count (the pack guarantees it); ndiag_tile: (NT,) int32.
-    Returns (NT, 128) int32, slot-major, on the inputs' device.
-    ``_rows_per_thread`` picks the kernel's R among those the build makes
+    Returns (NT, 128) int32, slot-major, on the inputs' device. Under
+    ``cfg.matrix`` the codes are ``scoring``'s and ``table`` the code
+    table on the device (``scoring.device_table``; copied per call where
+    None). ``_rows_per_thread`` picks the kernel's R among those the build
+    makes
     (``tile_geometry``'s choice when None), for its tests and timing.
     """
     if _rows_per_thread not in (None, *ROWS_PER_THREAD):
@@ -105,11 +110,12 @@ def sw_forward(sx: torch.Tensor, sy: torch.Tensor, ndiag_tile: torch.Tensor,
                          f"makes {ROWS_PER_THREAD}")
     if sx.device.type == "cpu":
         return sw_forward_tiles(sx, sy, ndiag_tile, cfg)
-    return _launch(sx, sy, ndiag_tile, cfg, _rows_per_thread)
+    return _launch(sx, sy, ndiag_tile, cfg, _rows_per_thread,
+                   scoring.device_table(cfg, sx.device, table))
 
 
 @trace.traced("launch")
-def _launch(sx, sy, ndiag_tile, cfg: SWConfig, r) -> torch.Tensor:
+def _launch(sx, sy, ndiag_tile, cfg: SWConfig, r, table) -> torch.Tensor:
     launch = _build.load("sw_tile", "sw_tile_launch", _ARGTYPES)
     nt, nxs, lanes = sx.shape
     if not (sx.is_cuda and sy.device == sx.device
@@ -141,7 +147,7 @@ def _launch(sx, sy, ndiag_tile, cfg: SWConfig, r) -> torch.Tensor:
             sx.data_ptr(), sy.data_ptr(), ndiag_tile.data_ptr(),
             out.data_ptr(), nt, nxs, sy.shape[1], geo.rows_per_thread,
             geo.warps, geo.pairs, cfg.match, cfg.mismatch, cfg.gap_open,
-            cfg.gap_extend, stream)
+            cfg.gap_extend, scoring.table_ptr(table), stream)
     if err != 0:
         raise RuntimeError(f"sw_tile launch failed: cudaError {err}")
     trace.count("launches.tile")

@@ -25,7 +25,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from genomax_torch import trace
+from genomax_torch import scoring, trace
 from genomax_torch.config import MAX_CONVEYOR_ROWS, SWConfig
 from genomax_torch.kernels import _build
 from genomax_torch.kernels.wavefront import sw_conveyor_forward_tiles
@@ -225,8 +225,13 @@ def geometry(nxs: int, n_queues: int, queues_per_warp: int | None = None,
 def sw_scores_conveyor(pairs, cfg: SWConfig = SWConfig(), idx=None,
                        max_slots: int = 64, *, device) -> np.ndarray:
     """Scores for short SWPair jobs through the conveyor kernel on
-    ``device`` (the plain version where it is the CPU)."""
+    ``device`` (the plain version where it is the CPU). It refuses a
+    substitution matrix."""
+    scoring.refuse(cfg, "sw_conveyor")
     b = pack_sw_conveyor(pairs, idx, max_slots)
+    trace.count("cells.conveyor", sum(
+        len(p.sx) * len(p.sy)
+        for p in (pairs if idx is None else [pairs[i] for i in idx])))
     res = sw_forward_conveyor(
         *trace.to_device(device, b.sched, b.sy),
         nxs=b.nxs, n_slots=b.n_slots, period=b.period, a0=b.a0, cfg=cfg)
@@ -280,7 +285,8 @@ def sw_forward_conveyor(sched: torch.Tensor, sy: torch.Tensor, *, nxs: int,
     ``_geometry`` picks the kernel's (G, R, W) among those the build makes
     (``geometry``'s choice when None), for its tests and timing; one the
     build does not make, or that cannot hold the window, raises on every
-    device."""
+    device. It refuses a substitution matrix."""
+    scoring.refuse(cfg, "sw_conveyor")
     _check("sw_forward_conveyor", sched, sy, nxs, n_slots, period, a0)
     if _geometry is not None:
         geometry(nxs, 1, *_geometry)

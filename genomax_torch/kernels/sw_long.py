@@ -23,7 +23,7 @@ import functools
 import numpy as np
 import torch
 
-from genomax_torch import trace
+from genomax_torch import native, scoring, trace
 from genomax_torch.config import SWConfig
 from genomax_torch.kernels import _build
 from genomax_torch.kernels.wavefront import sw_long_forward
@@ -42,7 +42,8 @@ LONG_R = 8
 MAX_ROWS = 4096
 WARP = 32
 
-_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
+             + [ctypes.c_void_p] * 2)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,9 +114,13 @@ class SWLongPacked:
     n_valid: int
 
 
-def pack_sw_long(pairs, strip_w: int = STRIP_W) -> SWLongPacked:
+def pack_sw_long(pairs, strip_w: int = STRIP_W,
+                 codes: np.ndarray | None = None) -> SWLongPacked:
     """Pack up to 128 long pairs for the strip kernel: the arrays of
-    genomax.kernels.sw_long.pack_sw_long at the same strip_w."""
+    genomax.kernels.sw_long.pack_sw_long at the same strip_w. ``codes``
+    (``scoring.code_lut``, under a matrix) encodes the residues first, in
+    a ``pack.encode`` span, and raises ``scoring.ResidueError`` naming
+    the pair of the tile."""
     if not 0 < len(pairs) <= LANES:
         raise ValueError(f"{len(pairs)} pairs: a tile takes 1 to {LANES}")
     w = _round_up(strip_w, SUB_Q)
@@ -128,12 +133,19 @@ def pack_sw_long(pairs, strip_w: int = STRIP_W) -> SWLongPacked:
     sy = _full((ndt, LANES), PAD_STREAM, np.int8)
     nx = np.ones(LANES, np.int32)
     ny = np.ones(LANES, np.int32)
+    if codes is not None:
+        with trace.span("pack.encode"):
+            xs = _encoded([p.sx for p in pairs], codes)
+            ys = _encoded([p.sy for p in pairs], codes)
+    else:
+        xs = [np.frombuffer(p.sx, np.uint8) for p in pairs]
+        ys = [np.frombuffer(p.sy, np.uint8) for p in pairs]
     for lane, p in enumerate(pairs):
-        _reject_pad_codes(np.frombuffer(p.sx, np.uint8), "sx")
-        _reject_pad_codes(np.frombuffer(p.sy, np.uint8), "sy")
-        sx[1 : len(p.sx) + 1, lane] = np.frombuffer(p.sx, np.uint8)
-        sy[anchor - len(p.sy) : anchor, lane] = (
-            np.frombuffer(p.sy, np.uint8)[::-1])
+        if codes is None:
+            _reject_pad_codes(xs[lane], "sx")
+            _reject_pad_codes(ys[lane], "sy")
+        sx[1 : len(p.sx) + 1, lane] = xs[lane]
+        sy[anchor - len(p.sy) : anchor, lane] = ys[lane][::-1]
         nx[lane] = len(p.sx) + 1
         ny[lane] = len(p.sy) + 1
     return SWLongPacked(
@@ -142,9 +154,17 @@ def pack_sw_long(pairs, strip_w: int = STRIP_W) -> SWLongPacked:
     )
 
 
+def _encoded(seqs, codes):
+    """The codes of each sequence, one native pass over them all."""
+    data, off = native._concat_with_offsets(seqs)
+    enc = native.encode(data, off, codes, "pair")
+    return [enc[a:b] for a, b in zip(off[:-1], off[1:])]
+
+
 def sw_forward_long(sx: torch.Tensor, sy: torch.Tensor, nx: torch.Tensor,
                     ny: torch.Tensor, *, k_strips: int, strip_w: int,
                     ny_max: int, cfg: SWConfig = SWConfig(),
+                    table: torch.Tensor | None = None,
                     _rows_per_thread: int = LONG_R) -> torch.Tensor:
     """(128,) int32 scores of one packed tile of long pairs, on the
     inputs' device, the kernel's sub-strips as ``geometry`` gives them.
@@ -155,7 +175,9 @@ def sw_forward_long(sx: torch.Tensor, sy: torch.Tensor, nx: torch.Tensor,
     anchored at ``_layout(ny_max, strip_w)``'s anchor, NDt its ndt.
     nx, ny: (128,) int32 matrix dimensions of each pair
     (``SWLongPacked.nx/ny``): a pair sweeps only its own strips and
-    diagonals.
+    diagonals. Under ``cfg.matrix`` the codes are ``scoring``'s and
+    ``table`` the code table on the device (``scoring.device_table``;
+    copied per call where None).
     """
     if strip_w < SUB_Q or strip_w % SUB_Q:
         raise ValueError(f"sw_forward_long: strip_w={strip_w} must be a "
@@ -181,12 +203,13 @@ def sw_forward_long(sx: torch.Tensor, sy: torch.Tensor, nx: torch.Tensor,
     geo = geometry(kw, ny_max, _rows_per_thread)
     if sx.device.type == "cpu":
         return sw_long_forward(sx, sy, nx, ny, k_strips, strip_w, anchor, cfg)
-    return _launch(sx, sy, nx, ny, kw, anchor, geo, _rows_per_thread, cfg)
+    return _launch(sx, sy, nx, ny, kw, anchor, geo, _rows_per_thread, cfg,
+                   scoring.device_table(cfg, sx.device, table))
 
 
 @trace.traced("launch")
 def _launch(sx, sy, nx, ny, n_rows, anchor, geo: Geometry, r,
-            cfg: SWConfig) -> torch.Tensor:
+            cfg: SWConfig, table) -> torch.Tensor:
     launch = _build.load("sw_long", "sw_long_launch", _ARGTYPES)
     tensors = (sx, sy, nx, ny)
     if not sx.is_cuda:
@@ -204,7 +227,7 @@ def _launch(sx, sy, nx, ny, n_rows, anchor, geo: Geometry, r,
         err = launch(*(t.data_ptr() for t in tensors), halo.data_ptr(),
                      out.data_ptr(), n_rows, r, geo.threads, anchor, nh,
                      cfg.match, cfg.mismatch, cfg.gap_open, cfg.gap_extend,
-                     stream)
+                     scoring.table_ptr(table), stream)
     if err != 0:
         raise RuntimeError(f"sw_long launch failed: cudaError {err}")
     trace.count("launches.sw_long")
@@ -217,29 +240,42 @@ def tile_to_torch(b: SWLongPacked, device):
 
 
 def tile_launches(pairs, cfg: SWConfig = SWConfig(), *, device,
-                  strip_w: int = STRIP_W):
+                  strip_w: int = STRIP_W, table: torch.Tensor | None = None):
     """Yield (base, n, launch) for each tile of 128 pairs in input order,
     packed on the host and copied to ``device`` as it is reached;
     ``launch()`` is the kernel call alone, returning the tile's (128,)
     scores, the first n of them its pairs'. ``sw_scores_long`` and the
-    sweep (``bench/sweep.py``) share it."""
+    sweep (``bench/sweep.py``) share it. Under ``cfg.matrix`` each tile's
+    residues are encoded in its pack (a ``scoring.ResidueError`` names
+    the pair's index in ``pairs``), and ``table`` is as in
+    ``sw_forward_long``."""
     device = torch.device(device)
+    name = scoring.matrix_of(cfg)
+    codes = None if name is None else scoring.code_lut(name)
+    table = scoring.device_table(cfg, device, table)
     for base in range(0, len(pairs), LANES):
         with trace.span("pack.fill"):
-            b = pack_sw_long(pairs[base : base + LANES], strip_w)
+            try:
+                b = pack_sw_long(pairs[base : base + LANES], strip_w, codes)
+            except scoring.ResidueError as e:
+                raise scoring.ResidueError(
+                    f"byte {bytes([e.byte])!r} ({e.byte}) of pair "
+                    f"{base + e.index} is not a residue of {name}",
+                    base + e.index, e.byte) from None
         t = tile_to_torch(b, device)
         yield base, b.n_valid, functools.partial(
             sw_forward_long, *t, k_strips=b.n_strips, strip_w=b.strip_w,
-            ny_max=b.ny_max, cfg=cfg)
+            ny_max=b.ny_max, cfg=cfg, table=table)
 
 
 def sw_scores_long(pairs, cfg: SWConfig = SWConfig(), *, device,
-                   strip_w: int = STRIP_W) -> np.ndarray:
+                   strip_w: int = STRIP_W,
+                   table: torch.Tensor | None = None) -> np.ndarray:
     """Scores of SWPair jobs of any length, in order: tiles of 128 in input
     order, packed on the host, copied to ``device`` and scored there, each
     launched as soon as it is packed, all before the first copy back."""
     pending = [(base, n, launch()) for base, n, launch in tile_launches(
-        pairs, cfg, device=device, strip_w=strip_w)]
+        pairs, cfg, device=device, strip_w=strip_w, table=table)]
     out = np.zeros(len(pairs), np.int32)
     for base, n, r in pending:
         out[base : base + n] = trace.to_host(r)[:n]

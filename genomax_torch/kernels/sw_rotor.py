@@ -25,7 +25,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from genomax_torch import trace
+from genomax_torch import scoring, trace
 from genomax_torch.config import MAX_ROTOR_PERIOD, SWConfig
 from genomax_torch.kernels import _build
 from genomax_torch.kernels.wavefront import sw_rotor_forward_tiles
@@ -54,7 +54,7 @@ MAX_WARPS_PER_BLOCK = 4
 STEP_CELLS, LATENCY_CELLS = 3, 10
 
 _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 14
-             + [ctypes.c_void_p])
+             + [ctypes.c_void_p] * 2)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -327,6 +327,7 @@ def _check(name, xrev, ybuf, period, n_slots, anchor, unroll):
 def sw_forward_rotor(xrev: torch.Tensor, ybuf: torch.Tensor, *, period: int,
                      n_slots: int, anchor: int, unroll: int = 8,
                      cfg: SWConfig = SWConfig(),
+                     table: torch.Tensor | None = None,
                      _geometry: tuple[int, int] | None = None
                      ) -> torch.Tensor:
     """(NT * P8, 128) int32 scores, P8 = round_up(P, 8), on the inputs'
@@ -335,7 +336,10 @@ def sw_forward_rotor(xrev: torch.Tensor, ybuf: torch.Tensor, *, period: int,
 
     xrev (NT, NB, 128) and ybuf (NT, NY, 128) int8 as ``pack_sw_rotor``
     and ``prep_bucket_rotor`` lay them out. ``unroll`` sets only the
-    buffers' slack (NB, NY) and must divide ``period``. ``_geometry``
+    buffers' slack (NB, NY) and must divide ``period``. Under
+    ``cfg.matrix`` the codes are ``scoring``'s and ``table`` the code
+    table on the device (``scoring.device_table``; copied per call where
+    None). ``_geometry``
     picks the kernel's (G, C) among those the build makes (``geometry``'s
     choice when None), for its tests and timing; one the build does not
     make, or that cannot hold the period, raises on every device."""
@@ -347,20 +351,23 @@ def sw_forward_rotor(xrev: torch.Tensor, ybuf: torch.Tensor, *, period: int,
                                       unroll=unroll, cfg=cfg)
     p8 = _round_up(n_slots, 8)
     return _launch(xrev, ybuf, period, n_slots, anchor, p8, cfg,
-                   "sw_forward_rotor", _geometry).reshape(-1, LANES)
+                   "sw_forward_rotor", _geometry,
+                   scoring.device_table(cfg, xrev.device, table)
+                   ).reshape(-1, LANES)
 
 
 def sw_forward_rotor_bucket(xrev: torch.Tensor, ybuf: torch.Tensor, *,
                             period: int, n_slots: int, anchor: int,
                             unroll: int = 8,
                             cfg: SWConfig = SWConfig(),
+                            table: torch.Tensor | None = None,
                             _geometry: tuple[int, int] | None = None
                             ) -> torch.Tensor:
     """The engine's wrapper: (NT * P, 128) int32 scores in bucket tile
     order (``prep_bucket_rotor``): the P8 -> P row compaction of
     ``sw_forward_pallas_rotor_bucket``. Rows past the bucket's live tiles
     are pad queues that ``unpack_scores`` never reads. On the card the
-    kernel writes this order directly. ``_geometry`` as in
+    kernel writes this order directly. ``table`` and ``_geometry`` as in
     ``sw_forward_rotor``."""
     _check("sw_forward_rotor_bucket", xrev, ybuf, period, n_slots, anchor,
            unroll)
@@ -372,7 +379,9 @@ def sw_forward_rotor_bucket(xrev: torch.Tensor, ybuf: torch.Tensor, *,
         p8 = _round_up(n_slots, 8)
         return out.view(-1, p8, LANES)[:, :n_slots].reshape(-1, LANES)
     return _launch(xrev, ybuf, period, n_slots, anchor, n_slots, cfg,
-                   "sw_forward_rotor_bucket", _geometry).reshape(-1, LANES)
+                   "sw_forward_rotor_bucket", _geometry,
+                   scoring.device_table(cfg, xrev.device, table)
+                   ).reshape(-1, LANES)
 
 
 def _check_geometry(period, geo):
@@ -384,7 +393,7 @@ def _check_geometry(period, geo):
 
 @trace.traced("launch")
 def _launch(xrev, ybuf, period, n_slots, anchor, out_rows, cfg: SWConfig,
-            name, geo=None) -> torch.Tensor:
+            name, geo=None, table=None) -> torch.Tensor:
     """Launch csrc/sw_rotor.cu at ``geometry``'s choice, or at (G, C) =
     ``geo``: out_rows rows a tile, slot q in row q and rows n_slots..
     zero."""
@@ -405,7 +414,7 @@ def _launch(xrev, ybuf, period, n_slots, anchor, out_rows, cfg: SWConfig,
                      xrev.shape[1], ybuf.shape[1], period, n_slots, anchor,
                      out_rows, g.queues_per_warp, g.cols, g.warps_per_block,
                      cfg.match, cfg.mismatch, cfg.gap_open, cfg.gap_extend,
-                     stream)
+                     scoring.table_ptr(table), stream)
     if err != 0:
         raise RuntimeError(f"sw_rotor launch failed: cudaError {err}")
     trace.count("launches.rotor")

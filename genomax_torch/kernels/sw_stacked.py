@@ -30,7 +30,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from genomax_torch import trace
+from genomax_torch import scoring, trace
 from genomax_torch.config import MAX_STACK_ROWS, SWConfig
 from genomax_torch.kernels import _build
 from genomax_torch.kernels.wavefront import sw_stacked_forward_tiles
@@ -152,7 +152,8 @@ def run_bucket_stacked(bucket, stack: int, cfg: SWConfig = SWConfig(), *,
                        device) -> torch.Tensor:
     """One SWPacked bucket through the stacked kernel on ``device`` (the
     plain version where it is the CPU): the (NT'*stack, 128) scores, not
-    synchronized."""
+    synchronized. It refuses a substitution matrix."""
+    scoring.refuse(cfg, "sw_stacked")
     prep = prep_bucket_stacked(bucket, stack)
     if prep is None:
         raise ValueError(f"bucket of {bucket.sx.shape[0]} tiles and y up to "
@@ -176,7 +177,9 @@ def sw_forward_stacked(sx: torch.Tensor, sy: torch.Tensor, ndt: torch.Tensor,
     (stack*h), which the kernel keeps. ``_rows_per_thread`` picks the
     kernel's R among those the build makes (``geometry``'s choice when
     None), for its tests and timing; one the build does not make, or at
-    which a region passes a warp, raises on every device."""
+    which a region passes a warp, raises on every device. It refuses a
+    substitution matrix."""
+    scoring.refuse(cfg, "sw_stacked")
     if stack < 2 or h < 1 or stack * h > MAX_STACK_ROWS:
         raise ValueError(f"sw_forward_stacked: stack={stack} regions of "
                          f"h={h} rows; want stack >= 2, h >= 1 and stack*h "

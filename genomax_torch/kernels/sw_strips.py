@@ -24,7 +24,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from genomax_torch import trace
+from genomax_torch import scoring, trace
 from genomax_torch.config import SWConfig
 from genomax_torch.kernels import _build
 from genomax_torch.kernels.wavefront import sw_strips_forward_tiles
@@ -51,14 +51,24 @@ SM_BLOCKS, SM_WARPS = 32, 64
 STEP_CELLS, MASKED_CELL = 1.0, 0.6
 
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 11
-             + [ctypes.c_void_p])
+             + [ctypes.c_void_p] * 2)
+# Shared memory of a block's code table under a matrix (sw_cell.cuh's
+# kSubEntries int32), before its pairs' regions.
+TABLE_BYTES = 4 * scoring.CODES * scoring.STRIDE
 
 
 def smem_bytes(ny_max: int) -> int:
     """Shared memory of one pair of csrc/sw_strips.cu (strips_pair_bytes
     there): the seam ring of ny_max (D, Q) int32 entries and ny_max y
-    codes, rounded to 16 bytes. A block of P pairs takes P times this."""
+    codes, rounded to 16 bytes. A block of P pairs takes P times this,
+    and under a matrix TABLE_BYTES more (``block_bytes``)."""
     return 8 * ny_max + _round_up(ny_max, 16)
+
+
+def block_bytes(pairs: int, ny_max: int, matrix: bool = False) -> int:
+    """Shared memory of a block of ``pairs`` pairs: theirs, and the code
+    table's under a matrix."""
+    return pairs * smem_bytes(ny_max) + (TABLE_BYTES if matrix else 0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,35 +104,38 @@ def _cost(n_rows: int, ny_max: int, r: int) -> float:
     return steps * (r + STEP_CELLS) + masked * r * MASKED_CELL
 
 
-def geometry(n_rows: int, ny_max: int, r: int | None = None) -> Geometry:
+def geometry(n_rows: int, ny_max: int, r: int | None = None,
+             matrix: bool = False) -> Geometry:
     """The kernel's geometry on a bucket of n_rows (K*W) rows whose longest
     y needs ny_max ring entries. r None picks, of the R the build makes,
     the one whose longest pair costs least (``_cost``); the smallest R on
     a tie. Pairs a block: of 1 to
     PAIRS_PER_BLOCK, the count with which an SM's shared memory holds the
     most warps; the largest on a tie. Raises where one pair passes
-    MAX_SMEM_BYTES."""
+    MAX_SMEM_BYTES. ``matrix``: the blocks hold the code table too."""
     if r is not None and r not in ROWS_PER_THREAD:
         raise ValueError(f"rows_per_thread={r}: the build makes "
                          f"{ROWS_PER_THREAD}")
     if n_rows < 1 or ny_max < 1:
         raise ValueError(f"n_rows={n_rows}, ny_max={ny_max}: want both "
                          "positive")
-    per_pair = smem_bytes(ny_max)
-    if per_pair > MAX_SMEM_BYTES:
-        raise ValueError(f"ny_max={ny_max} needs {per_pair} bytes of shared "
+    if block_bytes(1, ny_max, matrix) > MAX_SMEM_BYTES:
+        raise ValueError(f"ny_max={ny_max} needs "
+                         f"{block_bytes(1, ny_max, matrix)} bytes of shared "
                          f"memory a pair, past {MAX_SMEM_BYTES}")
     if r is None:
         r = min(ROWS_PER_THREAD, key=lambda r: (_cost(n_rows, ny_max, r), r))
 
     def resident_warps(p):
-        blocks = SM_SMEM_BYTES // (p * per_pair + BLOCK_RESERVED_BYTES)
+        blocks = SM_SMEM_BYTES // (block_bytes(p, ny_max, matrix)
+                                   + BLOCK_RESERVED_BYTES)
         return min(SM_WARPS, p * min(SM_BLOCKS, blocks))
 
     pairs = max((p for p in range(1, PAIRS_PER_BLOCK + 1)
-                 if p * per_pair <= MAX_SMEM_BYTES),
+                 if block_bytes(p, ny_max, matrix) <= MAX_SMEM_BYTES),
                 key=lambda p: (resident_warps(p), p))
-    return Geometry(rows_per_thread=r, pairs=pairs, smem=pairs * per_pair)
+    return Geometry(rows_per_thread=r, pairs=pairs,
+                    smem=block_bytes(pairs, ny_max, matrix))
 
 
 def pick_strip_w(nxs: int, nyt: int) -> int | None:
@@ -139,7 +152,8 @@ def pick_strip_w(nxs: int, nyt: int) -> int | None:
     return nxs if nxs > WARP + 1 else None
 
 
-def prep_bucket_strips(bucket, strip_w: int | None = None):
+def prep_bucket_strips(bucket, strip_w: int | None = None,
+                       matrix: bool = False):
     """Host prep of one SWPacked bucket for the strips kernel:
     ((sx, sy, ndiag_tile, nyt), dict(k_strips, strip_w, anchor)), the
     arrays and statics of ``genomax.kernels.sw_strips.prep_bucket_strips``
@@ -151,9 +165,9 @@ def prep_bucket_strips(bucket, strip_w: int | None = None):
     strip_w None picks it (``pick_strip_w``). Returns None where the
     kernel cannot take the bucket: a bucket of at most 33 rows, or one
     pair's shared memory past MAX_SMEM_BYTES (a longest y of about 25,800
-    bases). Raises for strip_w outside [1, NXs]: an oversized strip's
-    first row reads past the stream in the plain strip sweep (the JAX prep
-    raises the same way)."""
+    bases; with the code table's under ``matrix``). Raises for strip_w
+    outside [1, NXs]: an oversized strip's first row reads past the stream
+    in the plain strip sweep (the JAX prep raises the same way)."""
     nxs = bucket.sx.shape[1]
     nds = bucket.sy.shape[1]
     anchor = nds - nxs
@@ -168,7 +182,7 @@ def prep_bucket_strips(bucket, strip_w: int | None = None):
             "first row reads stream rows up to anchor + strip_w - 1, and "
             "the stream holds anchor + NXs rows, so an oversized strip "
             "reads past it")
-    if smem_bytes(int(nyt.max())) > MAX_SMEM_BYTES:
+    if block_bytes(1, int(nyt.max()), matrix) > MAX_SMEM_BYTES:
         return None
     k = -(-nxs // strip_w)
     sx = bucket.sx
@@ -180,32 +194,33 @@ def prep_bucket_strips(bucket, strip_w: int | None = None):
     return arrays, dict(k_strips=k, strip_w=strip_w, anchor=anchor)
 
 
-def takes(cfg, nxs: int, ny_max: int) -> bool:
+def takes(cfg, nxs: int, ny_max: int, matrix: bool = False) -> bool:
     """Whether the strips route takes a bucket of nxs rows whose longest y
     needs ny_max ring entries: cfg.sw_strips, at least cfg.strips_min_nxs
     rows, a strip width (``pick_strip_w``) and one pair's shared memory
-    within MAX_SMEM_BYTES. ``maybe_prep_strips`` routes by it, and the
-    engine's offload mask asks it of the buckets past the lane tile's
-    tallest."""
+    (with the code table's under ``matrix``) within MAX_SMEM_BYTES.
+    ``maybe_prep_strips`` routes by it, and the engine's offload mask asks
+    it of the buckets past the lane tile's tallest."""
     return bool(cfg.sw_strips and nxs >= cfg.strips_min_nxs
                 and pick_strip_w(nxs, ny_max) is not None
-                and smem_bytes(ny_max) <= MAX_SMEM_BYTES)
+                and block_bytes(1, ny_max, matrix) <= MAX_SMEM_BYTES)
 
 
-def maybe_prep_strips(cfg, bucket):
+def maybe_prep_strips(cfg, bucket, matrix: bool = False):
     """The routing predicate of the strips kernel (``takes``). Returns the
     prep, or None. The JAX predicate's two other gates (a stream past
     stream_vmem_rows, a VMEM footprint past STRIPS_VMEM_BUDGET) are the
     TPU's capacity; the shared-memory limit of the prep takes their
     place."""
-    if not takes(cfg, bucket.sx.shape[1], int(bucket.ny.max())):
+    if not takes(cfg, bucket.sx.shape[1], int(bucket.ny.max()), matrix):
         return None
-    return prep_bucket_strips(bucket)
+    return prep_bucket_strips(bucket, matrix=matrix)
 
 
 def sw_forward_strips(sx: torch.Tensor, sy: torch.Tensor, nx: torch.Tensor,
                       ny: torch.Tensor, *, k_strips: int, strip_w: int,
                       anchor: int, ny_max: int, cfg: SWConfig = SWConfig(),
+                      table: torch.Tensor | None = None,
                       _rows_per_thread: int | None = None) -> torch.Tensor:
     """(NT, 128) int32 scores of a bucket prepared by
     ``prep_bucket_strips``, slot-major, on the inputs' device.
@@ -213,7 +228,9 @@ def sw_forward_strips(sx: torch.Tensor, sy: torch.Tensor, nx: torch.Tensor,
     sx: (NT, K*W, 128) int8; sy: (NT, NDs, 128) int8 with y[j-1] at row
     anchor - j; nx, ny: (NT*128,) int32 matrix dimensions of each slot
     (``SWPacked.nx/ny``); ny_max: at least every ny (the largest of the
-    prep's nyt), the size of the kernel's seam ring.
+    prep's nyt), the size of the kernel's seam ring. Under ``cfg.matrix``
+    the codes are ``scoring``'s and ``table`` the code table on the device
+    (``scoring.device_table``; copied per call where None).
     ``_rows_per_thread`` picks the kernel's R among those the build makes
     (``geometry``'s choice when None), for its tests and timing.
     """
@@ -241,7 +258,8 @@ def sw_forward_strips(sx: torch.Tensor, sy: torch.Tensor, nx: torch.Tensor,
         raise ValueError(f"sw_forward_strips: want 1 <= ny_max={ny_max} <= "
                          f"anchor={anchor} and anchor + strip_w={strip_w} "
                          f"<= NDs={nds}")
-    geo = geometry(k_strips * strip_w, ny_max, _rows_per_thread)
+    geo = geometry(k_strips * strip_w, ny_max, _rows_per_thread,
+                   scoring.matrix_of(cfg) is not None)
     if sx.device.type == "cpu":
         if nt and int(ny.max()) > ny_max:
             raise ValueError(f"sw_forward_strips: ny up to {int(ny.max())} "
@@ -250,12 +268,12 @@ def sw_forward_strips(sx: torch.Tensor, sy: torch.Tensor, nx: torch.Tensor,
                                        strip_w=strip_w, anchor=anchor,
                                        cfg=cfg)
     return _launch(sx, sy, nx, ny, k_strips * strip_w, anchor, ny_max, geo,
-                   cfg)
+                   cfg, scoring.device_table(cfg, sx.device, table))
 
 
 @trace.traced("launch")
 def _launch(sx, sy, nx, ny, n_rows, anchor, ny_max, geo: Geometry,
-            cfg: SWConfig) -> torch.Tensor:
+            cfg: SWConfig, table) -> torch.Tensor:
     launch = _build.load("sw_strips", "sw_strips_launch", _ARGTYPES)
     if not sx.is_cuda:
         raise ValueError(f"sw_forward_strips: device {sx.device} is neither "
@@ -271,7 +289,7 @@ def _launch(sx, sy, nx, ny, n_rows, anchor, ny_max, geo: Geometry,
                      ny.data_ptr(), out.data_ptr(), nt, n_rows,
                      geo.rows_per_thread, geo.pairs, sy.shape[1], anchor,
                      ny_max, cfg.match, cfg.mismatch, cfg.gap_open,
-                     cfg.gap_extend, stream)
+                     cfg.gap_extend, scoring.table_ptr(table), stream)
     if err != 0:
         raise RuntimeError(f"sw_strips launch failed: cudaError {err}")
     trace.count("launches.strips")

@@ -18,7 +18,10 @@ the JAX formulation as it is, so the two can be read side by side:
   * the reversed diagonal stream, anchored at A = NDs - NXs: the window of
     diagonal d is rows [A-d, A-d+NXs), and its row s holds sy[d-1-s];
   * the mask-free recurrence: pads (x 1, stream 0) mismatch everything,
-    so cells outside a pair's matrix decay and never feed a real cell;
+    so cells outside a pair's matrix decay and never feed a real cell
+    (under ``SWConfig.matrix`` a cell scores the code table's entry of its
+    x and y codes, gathered, and a pad's entries are at most 0, which
+    gives the same decay: ``genomax_torch/scoring.py``);
   * the -KILL pins on the boundary rows, which make the circular
     ``torch.roll`` of the carried diagonals act as the first-column
     boundary (D = 0, Q = 0 at row 0);
@@ -33,6 +36,7 @@ from __future__ import annotations
 
 import torch
 
+from genomax_torch import scoring
 from genomax_torch.config import SWConfig
 from genomax_torch.layout import PAD_STREAM, PAD_X
 
@@ -48,6 +52,16 @@ PHMM_RESCALE_LOG10 = 80 * 0.30102999566398120  # log10(2**80)
 PHMM_INIT_LOG10 = 120 * 0.30102999566398120
 _N_CODE = ord("N")
 _N_BITMASK = 15  # 'N' in the pack's match-bitmask codes
+
+
+def sub_table(cfg: SWConfig, device) -> torch.Tensor | None:
+    """The code table of ``cfg.matrix`` (``scoring.code_table``) as a flat
+    int32 tensor on ``device``, entry STRIDE * x + y; None under equality
+    scoring."""
+    name = scoring.matrix_of(cfg)
+    if name is None:
+        return None
+    return torch.from_numpy(scoring.code_table(name).copy()).to(device)
 
 
 def sw_make_consts(sxb: torch.Tensor, cfg: SWConfig,
@@ -99,13 +113,19 @@ def sw_sweep(sx: torch.Tensor, window, n_diags: int, cfg: SWConfig,
     ``sw_make_consts`` (``region_h`` for stacked tiles). Returns the
     running max of D, (NXs, L)."""
     subm, subx, gev, ogev = sw_make_consts(sx, cfg, region_h)
+    tab = sub_table(cfg, sx.device)
+    if tab is not None:  # the bottom-row pins of subm, on the gathered entry
+        kill, xoff = subm == -KILL, sx * scoring.STRIDE
     z = torch.zeros_like(sx)
     p1, d1, d1s, q1s, d2s, mx = z, z, z, z, z, z
     for d in range(n_diags):
         syw = window(d)
         pn = torch.maximum(d1, p1 + cfg.gap_extend)
         qn = torch.maximum(d1s, q1s + gev)
-        sub = torch.where(syw == sx, subm, subx)
+        if tab is None:
+            sub = torch.where(syw == sx, subm, subx)
+        else:
+            sub = torch.where(kill, -KILL, tab[xoff + syw])
         dn = torch.maximum(torch.maximum(pn, qn) + ogev,
                            torch.clamp_min(d2s + sub, 0))
         mx = torch.maximum(mx, dn)
@@ -209,6 +229,7 @@ def sw_long_forward(sx: torch.Tensor, sy: torch.Tensor, nx: torch.Tensor,
     ly = (ny[:lanes].to(torch.int32) - 1).view(1, lanes)
     lx_max, ly_max = int(lx.max()), int(ly.max())
     oge, ge = cfg.gap_open + cfg.gap_extend, cfg.gap_extend
+    tab = sub_table(cfg, dev)
     best = torch.zeros((w, lanes), dtype=torch.int32, device=dev)
     nh = k_strips * w + ly_max + 1
     halo_d = torch.zeros((nh, lanes), dtype=torch.int32, device=dev)
@@ -240,7 +261,10 @@ def sw_long_forward(sx: torch.Tensor, sy: torch.Tensor, nx: torch.Tensor,
             yw = sy[anchor - d + row0: anchor - d + row0 + w]
             pn = torch.maximum(d1 + oge, p1 + ge)
             qn = torch.maximum(up_d + oge, up_q + ge)
-            sub = torch.where(yw == xs, cfg.match, cfg.mismatch)
+            if tab is None:
+                sub = torch.where(yw == xs, cfg.match, cfg.mismatch)
+            else:
+                sub = tab[xs * scoring.STRIDE + yw]
             dn = torch.maximum(torch.maximum(pn, qn),
                                torch.clamp_min(up2 + sub, 0))
             dn = torch.where(live, dn, zero)
@@ -329,6 +353,7 @@ def sw_rotor_forward_tiles(xrev: torch.Tensor, ybuf: torch.Tensor, *,
 
     subm, subx = pinned(cfg.match), pinned(cfg.mismatch)
     ogev, gevP, kT1 = pinned(og_e), pinned(ge), pinned(0)
+    tab = sub_table(cfg, xrev.device)
     syb = z.clone()
     P1 = D1 = D2 = Dv = Qv = mx = harv = z
     for blk in range((P + 1) * T // unroll + 1):
@@ -343,7 +368,11 @@ def sw_rotor_forward_tiles(xrev: torch.Tensor, ybuf: torch.Tensor, *,
             xw = xf[A - d + 1: A - d + 1 + T]
             Pn = torch.maximum(D1 + kT1, P1 + gevP)
             Qn = torch.where(wrap, 0, torch.maximum(Dv, Qv + ge))
-            sub = torch.where(xw == syb, subm, subx)
+            if tab is None:
+                sub = torch.where(xw == syb, subm, subx)
+            else:
+                sub = torch.where(ii == T - 1, -KILL,
+                                  tab[xw * scoring.STRIDE + syb])
             Dn = torch.maximum(torch.maximum(Pn, Qn) + ogev,
                                torch.clamp_min(D2 + sub, 0))
             Dn = torch.where(wrap, 0, Dn)

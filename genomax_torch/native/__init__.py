@@ -14,12 +14,14 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import itertools
 import os
 import subprocess
 import threading
 
 import numpy as np
 
+from genomax_torch import scoring
 from genomax_torch.config import SWConfig
 from genomax_torch.io.phred import phred_to_error_prob
 
@@ -80,6 +82,12 @@ def load():
         lib.gx_sw_scores_batch.argtypes = [
             u8p, i64p, u8p, i64p, c64, c32, c32, c32, c32, i32p,
         ]
+        lib.gx_sw_scores_batch_matrix.restype = None
+        lib.gx_sw_scores_batch_matrix.argtypes = [
+            u8p, i64p, u8p, i64p, c64, i32p, c32, c32, c32, i32p,
+        ]
+        lib.gx_encode.restype = c64
+        lib.gx_encode.argtypes = [u8p, c64, u8p, u8p]
         lib.gx_pairhmm_batch.restype = None
         lib.gx_pairhmm_batch.argtypes = [
             u8p, i64p, f64p, f64p, f64p, f64p, u8p, i64p, i64p, i64p,
@@ -113,26 +121,63 @@ def load():
         return _lib
 
 
-def _concat_with_offsets(items):
+def _concat_with_offsets(items, lengths=None, keep=None):
     """(data, off): the byte strings of ``items`` joined into one uint8
     array (one zero byte when they are all empty, so that it has an
-    address), item i at data[off[i]:off[i + 1]]."""
+    address), item i at data[off[i]:off[i + 1]]. ``lengths``: their
+    lengths where the caller has them; ``keep`` (bool, len(items)): the
+    items where it is False are left out, as empty slices."""
     off = np.zeros(len(items) + 1, dtype=np.int64)
-    np.cumsum(np.fromiter(map(len, items), np.int64, len(items)),
-              out=off[1:])
-    data = np.frombuffer(b"".join(items), dtype=np.uint8)
+    if lengths is None:
+        lengths = np.fromiter(map(len, items), np.int64, len(items))
+    if keep is None:
+        np.cumsum(lengths, out=off[1:])
+        joined = b"".join(items)
+    else:
+        np.cumsum(np.where(keep, lengths, 0), out=off[1:])
+        joined = b"".join(itertools.compress(items, keep))
+    data = np.frombuffer(joined, dtype=np.uint8)
     if data.size == 0:
         data = np.zeros(1, dtype=np.uint8)
     return data, off
 
 
+def encode(data: np.ndarray, off: np.ndarray, lut: np.ndarray,
+           what: str) -> np.ndarray:
+    """The codes of the residues ``data`` (sequence k at data[off[k]:
+    off[k + 1]]) through ``lut`` (``scoring.code_lut``), in one native
+    pass; raises ``scoring.ResidueError`` naming the first byte outside
+    the alphabet and its sequence, ``what`` k."""
+    n = int(off[-1])
+    out = np.empty(max(n, 1), np.uint8)
+    bad = load().gx_encode(data, n, lut, out) if n else -1
+    if bad >= 0:
+        k = int(np.searchsorted(off, bad, side="right")) - 1
+        b = int(data[bad])
+        raise scoring.ResidueError(f"byte {bytes([b])!r} ({b}) of {what} {k} "
+                                   "is not a residue of the matrix",
+                                   index=k, byte=b)
+    return out
+
+
 def sw_scores_native(pairs, cfg=None) -> np.ndarray:
-    """Batch SW scores through the native golden model (exact int32)."""
+    """Batch SW scores through the native golden model (exact int32).
+    Under ``cfg.matrix`` the residues are encoded (``encode``) and scored
+    by the matrix's code table."""
     cfg = cfg or SWConfig()
     lib = load()
     sx_data, sx_off = _concat_with_offsets([p.sx for p in pairs])
     sy_data, sy_off = _concat_with_offsets([p.sy for p in pairs])
     out = np.zeros(len(pairs), dtype=np.int32)
+    name = scoring.matrix_of(cfg)
+    if name is not None:
+        lut = scoring.code_lut(name)
+        lib.gx_sw_scores_batch_matrix(
+            encode(sx_data, sx_off, lut, "pair"), sx_off,
+            encode(sy_data, sy_off, lut, "pair"), sy_off, len(pairs),
+            scoring.code_table(name), scoring.STRIDE, cfg.gap_open,
+            cfg.gap_extend, out)
+        return out
     lib.gx_sw_scores_batch(
         sx_data, sx_off, sy_data, sy_off, len(pairs),
         cfg.match, cfg.mismatch, cfg.gap_open, cfg.gap_extend, out,

@@ -84,6 +84,78 @@ void gx_sw_scores_batch(const uint8_t* sx_data, const int64_t* sx_off,
   }
 }
 
+// The same score under a substitution matrix: sx and sy hold residue
+// codes (genomax_torch/scoring.py), and a cell scores
+// table[stride * sx[j-1] + sy[i-1]] in place of match / mismatch.
+int32_t gx_sw_score_matrix(const uint8_t* sx, int32_t sx_len,
+                           const uint8_t* sy, int32_t sy_len,
+                           const int32_t* table, int32_t stride,
+                           int32_t gap_open, int32_t gap_extend) {
+  const int32_t nx = sx_len + 1;
+  const int64_t og_e = gap_open + gap_extend;
+
+  std::vector<int64_t> P0(nx), Q0(nx), D0(nx), P1(nx), Q1(nx), D1(nx);
+  for (int32_t j = 0; j < nx; ++j) {
+    P0[j] = kNegInf;
+    Q0[j] = 0;
+    D0[j] = 0;
+  }
+  int64_t best = 0;
+  for (int32_t i = 1; i <= sy_len; ++i) {
+    P1[0] = 0;
+    Q1[0] = kNegInf;
+    D1[0] = 0;
+    const int32_t cy = sy[i - 1];
+    for (int32_t j = 1; j < nx; ++j) {
+      const int64_t p = std::max(sat_add(D0[j], og_e), sat_add(P0[j], gap_extend));
+      const int64_t q = std::max(sat_add(D1[j - 1], og_e), sat_add(Q1[j - 1], gap_extend));
+      const int64_t sub = table[stride * sx[j - 1] + cy];
+      const int64_t d = std::max({p, q, D0[j - 1] + sub, int64_t{0}});
+      P1[j] = p;
+      Q1[j] = q;
+      D1[j] = d;
+      if (d > best) best = d;
+    }
+    P0.swap(P1);
+    Q0.swap(Q1);
+    D0.swap(D1);
+  }
+  return static_cast<int32_t>(best);
+}
+
+void gx_sw_scores_batch_matrix(const uint8_t* sx_data, const int64_t* sx_off,
+                               const uint8_t* sy_data, const int64_t* sy_off,
+                               int64_t n_pairs, const int32_t* table,
+                               int32_t stride, int32_t gap_open,
+                               int32_t gap_extend, int32_t* out) {
+  for (int64_t k = 0; k < n_pairs; ++k) {
+    out[k] = gx_sw_score_matrix(
+        sx_data + sx_off[k], static_cast<int32_t>(sx_off[k + 1] - sx_off[k]),
+        sy_data + sy_off[k], static_cast<int32_t>(sy_off[k + 1] - sy_off[k]),
+        table, stride, gap_open, gap_extend);
+  }
+}
+
+// Residue bytes to codes through a 256-entry table in which 0 marks a byte
+// outside the alphabet: out[i] = lut[in[i]]. Returns the index of the
+// first byte outside it, or -1.
+int64_t gx_encode(const uint8_t* __restrict in, int64_t n,
+                  const uint8_t* __restrict lut, uint8_t* __restrict out) {
+  // The minimum of the codes is 0 iff a byte lies outside the alphabet;
+  // no branch in the loop.
+  uint8_t least = 255;
+  for (int64_t i = 0; i < n; ++i) {
+    const uint8_t c = lut[in[i]];
+    out[i] = c;
+    least = c < least ? c : least;
+  }
+  const bool any_bad = least == 0;
+  if (!any_bad) return -1;
+  for (int64_t i = 0; i < n; ++i)
+    if (out[i] == 0) return i;
+  return -1;
+}
+
 // PairHMM forward log10 likelihood, fp64, DBL_MAX/16 scaling.
 // Quality arrays are pre-decoded error probabilities (len rl).
 // mm_div: mismatch-emission divisor — 1.0 reproduces the reference's

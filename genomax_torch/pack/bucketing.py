@@ -24,6 +24,7 @@ reference host loop.
 from __future__ import annotations
 
 import dataclasses
+import operator
 
 import numpy as np
 
@@ -387,8 +388,16 @@ def pad_tiles_to(bucket, multiple: int):
     return type(bucket)(**kw)
 
 
-def pack_sw_pairs(pairs, job_mask=None,
-                  stream_band=False) -> list[SWPacked]:
+def sw_sides(pairs, side: str):
+    """(seqs, lengths) of one side ("sx" or "sy") of SWPair jobs: the list
+    of its byte strings and their lengths (int64), each in one pass that
+    runs no Python a pair."""
+    seqs = list(map(operator.attrgetter(side), pairs))
+    return seqs, np.fromiter(map(len, seqs), np.int64, len(seqs))
+
+
+def pack_sw_pairs(pairs, job_mask=None, stream_band=False,
+                  codes: np.ndarray | None = None) -> list[SWPacked]:
     """Bucket and pack SWPair jobs. Sequences are raw bytes (the '\\n'
     quirk is preserved upstream by the parser: a trailing newline byte is
     part of the sequence). ``job_mask`` (bool, len(pairs)): pack only the
@@ -402,32 +411,38 @@ def pack_sw_pairs(pairs, job_mask=None,
     bucket; a callable is a predicate of the bucket's nxs
     (``Engine._stream_band``'s carve-out for the stacked re-pack).
 
+    ``codes`` (``scoring.code_lut``, under a substitution matrix): the
+    residues are encoded to the matrix's codes after the concat, in a
+    ``pack.encode`` span, and a byte outside the alphabet raises
+    ``scoring.ResidueError`` naming it and its pair; the packs hold the
+    codes. None packs the bytes as they are.
+
     The per-pair fill loop is the native library's (gx_pack_sw_fill)."""
     lib = native.load()
     n = len(pairs)
     with trace.span("pack.flatten"):
-        sx_len = np.array([len(p.sx) for p in pairs], dtype=np.int64)
-        sy_len = np.array([len(p.sy) for p in pairs], dtype=np.int64)
+        xs, sx_len = sw_sides(pairs, "sx")
+        ys, sy_len = sw_sides(pairs, "sy")
     with trace.span("pack.concat"):
         # Masked-out pairs contribute empty slices: the fill never reads
         # their bytes, so they are not copied.
-        keep = (
-            (lambda i: True) if job_mask is None
-            else (lambda i, m=np.asarray(job_mask): bool(m[i]))
-        )
-        sx_data, sx_off = native._concat_with_offsets(
-            [p.sx if keep(i) else b"" for i, p in enumerate(pairs)])
-        sy_data, sy_off = native._concat_with_offsets(
-            [p.sy if keep(i) else b"" for i, p in enumerate(pairs)])
-        _reject_pad_codes(sx_data[: sx_off[-1]], "sx")
-        _reject_pad_codes(sy_data[: sy_off[-1]], "sy")
+        keep = None if job_mask is None else np.asarray(job_mask, bool)
+        sx_data, sx_off = native._concat_with_offsets(xs, sx_len, keep)
+        sy_data, sy_off = native._concat_with_offsets(ys, sy_len, keep)
+        if codes is None:
+            _reject_pad_codes(sx_data[: sx_off[-1]], "sx")
+            _reject_pad_codes(sy_data[: sy_off[-1]], "sy")
+    if codes is not None:
+        with trace.span("pack.encode"):
+            sx_data = native.encode(sx_data, sx_off, codes, "pair")
+            sy_data = native.encode(sy_data, sy_off, codes, "pair")
     with trace.span("pack.bucket"):
         # Bucket by the x (row) level only; see pack_pairhmm_batches.
         nxq = bucket_levels(sx_len)
         if job_mask is not None:
             nxq = np.where(np.asarray(job_mask), nxq, -1)
             n = int(np.asarray(job_mask).sum())
-        levels = sorted(set(nxq.tolist()))
+        levels = np.unique(nxq).tolist()
 
     out = []
     for lvl in levels:
